@@ -1,0 +1,131 @@
+"""Plain PyTorch versions of the BDI-KV kernels (the port's oracles).
+
+Ported from ``repro/kernels/ref.py`` and ``repro/core/bdi_value.py``.
+The CUDA kernels must match these: the row codec bit for bit, decode
+attention within an f32 tolerance.  The CPU tests hold these against the
+JAX functions; ``chip_smoke.py`` holds the kernels against these on the
+card.  Kernel wrappers (:mod:`.ops`) run them only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+QMAX = 127.0
+
+
+class CompressedKVPages(NamedTuple):
+    """B+Delta (single-base) compressed KV page pool.
+
+    Field order is the JAX package's: ``faults.page_checksums`` hashes
+    the leaves in this order.
+    """
+    kd: torch.Tensor   # int8 [P, KVH, page, D]
+    kb: torch.Tensor   # f32  [P, KVH, page]
+    ks: torch.Tensor   # f32  [P, KVH, page]
+    vd: torch.Tensor   # int8 [P, KVH, page, D]
+    vb: torch.Tensor   # f32  [P, KVH, page]
+    vs: torch.Tensor   # f32  [P, KVH, page]
+
+
+def _pow2_scale(maxres: torch.Tensor, qmax: float) -> torch.Tensor:
+    """Smallest power of two s with maxres/s <= qmax, from the exponent
+    bits of ``maxres / qmax`` (rounded up when the mantissa is nonzero);
+    1.0 where maxres is 0.
+
+    ``2^e`` is built from its bits, not with ``exp2``: e = -127 (a ratio
+    that underflowed to 0) is the subnormal 2^-127, which PyTorch's CUDA
+    ``exp2`` does not return, and e = 128 is inf.  So the plain version
+    gives the same bits on every device, and the kernel mirrors it.  The
+    divisor is a tensor on purpose: PyTorch's CUDA division by a Python
+    scalar multiplies by its reciprocal, which can land one ULP off the
+    true quotient and move ``e`` at exact powers of two.
+    """
+    ratio = (maxres / torch.full_like(maxres, qmax)).to(torch.float32)
+    bits = ratio.view(torch.int32)
+    e = ((bits >> 23) & 0xFF) - 127              # floor(log2(ratio))
+    e = e + ((bits & 0x7FFFFF) != 0).to(torch.int32)
+    s = torch.where(e >= -126, (e + 127) << 23,
+                    torch.full_like(e, 1 << 22)).view(torch.float32)
+    return torch.where(maxres > 0, s, torch.ones_like(s))
+
+
+def compress_rows(x: torch.Tensor):
+    """Single-base row codec, f32 [..., D] -> (deltas i8 [..., D], base
+    f32 [...], scale f32 [...]).  Base is the row's first element; deltas
+    are ``clip(round_half_even(r / scale), -127, 127)``."""
+    x = x.to(torch.float32)
+    base = x[..., 0].contiguous()
+    r = x - base[..., None]
+    scale = _pow2_scale(r.abs().amax(dim=-1), QMAX)
+    d = torch.clamp(torch.round(r / scale[..., None]), -QMAX, QMAX)
+    return d.to(torch.int8), base, scale
+
+
+def compress_kv_pages(k: torch.Tensor, v: torch.Tensor) -> CompressedKVPages:
+    """k, v: f32 [P, KVH, page, D] -> single-base compressed pages."""
+    return CompressedKVPages(*compress_rows(k), *compress_rows(v))
+
+
+def dequant_pages(d: torch.Tensor, b: torch.Tensor,
+                  s: torch.Tensor) -> torch.Tensor:
+    return d.to(torch.float32) * s[..., None] + b[..., None]
+
+
+def _gather_dequant(pages: CompressedKVPages, page_table: torch.Tensor):
+    """Gather pages through the table first, then dequantize only those:
+    [B, PMAX] -> k, v f32 [B, KVH, PMAX * page, D]."""
+    b_, pmax = page_table.shape
+    _, kvh, page, d = pages.kd.shape
+    pt = page_table.long()
+
+    def one(dd, bb, ss):
+        x = dequant_pages(dd[pt], bb[pt], ss[pt])       # [B, PMAX, KVH, pg, D]
+        return x.movedim(2, 1).reshape(b_, kvh, pmax * page, d)
+
+    return (one(pages.kd, pages.kb, pages.ks),
+            one(pages.vd, pages.vb, pages.vs))
+
+
+def _softmax_attend(q, kg, vg, valid):
+    d = q.shape[-1]
+    scores = torch.einsum("bhgd,bhtd->bhgt", q, kg) / math.sqrt(d)
+    scores = scores.masked_fill(~valid[:, None, None, :], -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgt,bhtd->bhgd", w, vg)
+
+
+def paged_attention_ref(q: torch.Tensor, pages: CompressedKVPages,
+                        page_table: torch.Tensor,
+                        lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention over compressed pages only.
+
+    q f32 [B, KVH, G, D]; page_table i32 [B, PMAX]; lengths i32 [B].
+    Returns f32 [B, KVH, G, D].
+    """
+    kg, vg = _gather_dequant(pages, page_table)
+    pos = torch.arange(kg.shape[2], device=q.device)
+    return _softmax_attend(q, kg, vg, pos[None, :] < lengths[:, None])
+
+
+def paged_attention_tail_ref(q: torch.Tensor, pages: CompressedKVPages,
+                             page_table: torch.Tensor, lengths: torch.Tensor,
+                             tail_k: torch.Tensor, tail_v: torch.Tensor,
+                             tail_len: torch.Tensor) -> torch.Tensor:
+    """Decode attention over [compressed pages + f32 tail].
+
+    q f32 [B, KVH, G, D]; tail_k/tail_v f32 [B, KVH, page, D]; tail_len
+    i32 [B] counts valid tail slots; lengths i32 [B] counts page tokens.
+    """
+    kg, vg = _gather_dequant(pages, page_table)
+    kg = torch.cat([kg, tail_k.to(torch.float32)], dim=2)
+    vg = torch.cat([vg, tail_v.to(torch.float32)], dim=2)
+    page = tail_k.shape[2]
+    pos = torch.arange(kg.shape[2] - page, device=q.device)
+    slot = torch.arange(page, device=q.device)
+    valid = torch.cat([pos[None, :] < lengths[:, None],
+                       slot[None, :] < tail_len[:, None]], dim=1)
+    return _softmax_attend(q, kg, vg, valid)

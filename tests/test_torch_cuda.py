@@ -1,0 +1,115 @@
+"""The port's CUDA kernels vs their plain versions, on the card.
+
+Every test here needs an NVIDIA Hopper card and nvcc: they carry the
+``cuda`` marker and skip without a card.  On the machine with the card
+(which has no jax, so this file imports none):
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: the row codec is bit-exact; decode attention is within
+rtol 1e-4 / atol 1e-4 (f32 sums over up to ~1000 keys in another order,
+and q scaled before the dot instead of after it).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_arch
+from repro_torch.kernels import bdi_compress, ops, paged_attention, ref
+from repro_torch.models.params import to_device
+from repro_torch.models.transformer import init_params
+from repro_torch.serving.engine import PagedKVEngine
+from repro_torch.serving.parity import GreedyParity, engine_logits
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA Hopper card and nvcc (run on the chip)")
+    from repro_torch.kernels._device import resolve_device
+    return resolve_device("cuda")
+
+
+def _rows(n: int, d: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((n, d)) * 2.0).astype(np.float32)
+    x[0] = 0.0                                   # all zero
+    x[1] = 3.25                                  # constant
+    x[2, :6] = [0.0, 100.0, 2.5, -3.5, 0.5, -126.5]   # .5 quotients
+    x[3, 1:] = 1e-40                             # subnormal ratio
+    x[4, 1:] = 0.0
+    x[4, 1] = 1.4e-45                            # ratio 0: 2^-127
+    x[5, 1::2], x[5, 2::2] = 1e38, -1e38         # huge, finite
+    x[6] = np.linspace(-5e5, 5e5, d)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("n,d", [(4096, 128), (520, 16), (77, 64)])
+def test_bdi_compress_kv_bit_exact(dev, n, d):
+    x = _rows(n, d, n).to(dev)
+    for got, want in zip(bdi_compress.bdi_compress_kv(x),
+                         ref.compress_rows(x)):
+        assert torch.equal(got, want)
+
+
+def _attn_args(dev, seed, bsz, kvh, g, d, page, pmax, pool, lengths,
+               tail_len):
+    gen = torch.Generator().manual_seed(seed)
+    k, v = torch.randn((2, pool, kvh, page, d), generator=gen)
+    pages = ref.compress_kv_pages(k, v)
+    pt = (torch.randperm(pool - 1, generator=gen)[:bsz * pmax] + 1)
+    tk, tv = torch.randn((2, bsz, kvh, page, d), generator=gen)
+    args = (torch.randn((bsz, kvh, g, d), generator=gen),
+            ref.CompressedKVPages(*(t.contiguous() for t in pages)),
+            pt.view(bsz, pmax).to(torch.int32),
+            torch.tensor(lengths, dtype=torch.int32), tk, tv,
+            torch.tensor(tail_len, dtype=torch.int32))
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor)
+                 else ref.CompressedKVPages(*(t.to(dev) for t in a))
+                 for a in args)
+
+
+@pytest.mark.parametrize("case", [
+    dict(seed=1, bsz=3, kvh=2, g=2, d=16, page=8, pmax=4, pool=16,
+         lengths=[16, 0, 29], tail_len=[3, 1, 8]),
+    dict(seed=2, bsz=8, kvh=4, g=8, d=128, page=16, pmax=64, pool=600,
+         lengths=[1024, 0, 517, 1000, 16, 33, 700, 1023],
+         tail_len=[1, 16, 7, 3, 16, 1, 9, 12]),
+])
+def test_paged_attention_tail_matches_plain(dev, case):
+    args = _attn_args(dev, **case)
+    before = dict(ops.LAUNCHES)
+    got = ops.paged_attention_tail(*args)
+    assert ops.LAUNCHES["paged_attention_tail"] == \
+        before["paged_attention_tail"] + 1
+    torch.testing.assert_close(got, ref.paged_attention_tail_ref(*args),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        got, paged_attention.paged_attention_tail(*args), rtol=0, atol=0)
+
+
+def test_engine_cuda_matches_cpu(dev):
+    """The engine on the card (kernels) vs on the CPU (plain versions):
+    host decisions equal, greedy tokens equal up to reported bf16 ties,
+    and both kernels launched."""
+    cfg = get_arch("yi-6b").reduced(n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = {i: [1 + (i * 7 + j * 5) % 250 for j in range(9 + 13 * i)]
+               for i in range(6)}
+    engs = [PagedKVEngine(cfg, to_device(params, d), page_size=8,
+                          n_pool_pages=256, max_batch=8, device=d)
+            for d in (dev, "cpu")]
+    ops.reset_launches()
+    for e in engs:
+        e.add_requests(prompts)
+    parity = GreedyParity()
+    for step in range(20):
+        want, got = engs[1].decode_batch(), engs[0].decode_batch()
+        parity.check(step, want, got, engine_logits(engs[0]),
+                     engine_logits(engs[1]))
+    assert engs[0].stats == engs[1].stats
+    assert torch.equal(engs[0]._page_table().cpu(), engs[1]._page_table())
+    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES

@@ -1,0 +1,214 @@
+"""The port's kernel layer vs the JAX package, on the CPU.
+
+* The plain BDI row codec (``repro_torch.kernels.ref.compress_kv_pages``)
+  is bit-exact with ``repro.kernels.ref.compress_kv_pages`` and with the
+  Pallas kernel in interpret mode (``repro.kernels.ops``), and so are
+  ``page_nbytes`` and ``page_checksums``.
+* The plain decode attention is within f32 tolerance of the JAX oracle
+  and the Pallas kernel (rtol 1e-5, atol 2e-5: the same f32 math summed
+  in another order; the JAX package's own kernel test uses these).
+* The CUDA kernels vs the plain versions: ``tests/test_torch_cuda.py``.
+
+XLA's CPU backend flushes subnormals to zero and its ``exp2`` is a few
+ULPs off for integer exponents beyond about +-12, so the JAX oracle's
+scale is no exact power of two there.  Those extreme rows are held
+against an exact numpy construction of the codec instead.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import codecs as jax_codecs
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.serving import faults as jax_faults
+from repro_torch import codecs
+from repro_torch.kernels import ops, ref
+from repro_torch.serving import faults
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _kv(seed, pool, kvh, page, d):
+    rng = np.random.default_rng(seed)
+    k = (rng.standard_normal((pool, kvh, page, d)) * 2.0).astype(np.float32)
+    v = (rng.standard_normal((pool, kvh, page, d)) * 2.0).astype(np.float32)
+    # degenerate rows (maxres == 0): all-zero and constant
+    k[0, 0, 0] = 0.0
+    v[0, 0, 1] = 3.25
+    # exact .5 quotients at scale 1 (round half to even decides them)
+    k[-1, -1, -1, :6] = [0.0, 100.0, 2.5, -3.5, 0.5, -126.5]
+    # residual ratio exactly a power of two, and a wide but normal range
+    v[-1, -1, -1, :2] = [0.0, 127.0]
+    k[-1, 0, 0] = np.linspace(-3000.0, 3000.0, d)
+    return k, v
+
+
+@pytest.mark.parametrize("pool,kvh,page,d", [(5, 2, 8, 64), (12, 4, 16, 32),
+                                             (3, 1, 8, 128)])
+def test_compress_kv_pages_bit_exact_with_jax(pool, kvh, page, d):
+    k, v = _kv(pool * d, pool, kvh, page, d)
+    got = ref.compress_kv_pages(_t(k), _t(v))
+    for want in (jax_ref.compress_kv_pages(jnp.asarray(k), jnp.asarray(v)),
+                 jax_ops.compress_kv_pages(jnp.asarray(k), jnp.asarray(v),
+                                           interpret=True)):
+        for name, g, w in zip(got._fields, got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                          err_msg=name)
+    # the wrapper picks the plain version for CPU tensors
+    for g, w in zip(ops.compress_kv_pages(_t(k), _t(v)), got):
+        assert torch.equal(g, w)
+
+
+def _numpy_codec(x: np.ndarray):
+    """The codec in numpy float32, the scale built exactly (np.ldexp),
+    subnormals kept: the oracle for rows XLA's CPU backend mangles."""
+    base = x[:, 0]
+    r = (x - base[:, None]).astype(np.float32)
+    maxres = np.abs(r).max(axis=1)
+    ratio = (maxres / np.float32(127.0)).astype(np.float32)
+    bits = ratio.view(np.int32)
+    e = ((bits >> 23) & 0xFF) - 127 + ((bits & 0x7FFFFF) != 0)
+    scale = np.where(maxres > 0, np.ldexp(np.float64(1.0), e),
+                     1.0).astype(np.float32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        d = np.clip(np.rint(r / scale[:, None]), -127, 127)
+    return d.astype(np.int8), base, scale
+
+
+def test_compress_extreme_rows_match_exact_codec():
+    d = 32
+    x = np.zeros((6, d), np.float32)
+    x[0, 1:] = 1e-40                     # subnormal maxres and ratio
+    x[0, 2] = -3e-39
+    x[1, 1] = 1.4e-45                    # ratio 0 with maxres > 0: 2^-127
+    x[2, 1::2], x[2, 2::2] = 1e38, -1e38   # huge, finite
+    x[3, 1] = 127.0 * 2.0 ** -20         # ratio exactly 2^-20
+    x[4] = np.linspace(-5e5, 5e5, d)     # e = 13
+    x[5, 0], x[5, 1:] = -7.0, np.linspace(0, 1e-3, d - 1)
+    got = ref.compress_rows(_t(x))
+    for g, w in zip(got, _numpy_codec(x)):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_pow2_scale_is_exact_for_every_exponent():
+    # ratios 2^e * 1.5 (rounded up to 2^(e+1)) and exact 2^e over the
+    # whole float32 range, subnormal ratios included
+    e = np.arange(-149, 128)
+    ratio = np.concatenate([np.ldexp(1.5, e[e < 127]), np.ldexp(1.0, e)])
+    ratio = ratio[ratio < np.finfo(np.float32).max / 127]
+    maxres = ratio.astype(np.float32) * np.float32(127.0)
+    want = _numpy_codec(np.stack([np.zeros_like(maxres), maxres], 1))[2]
+    np.testing.assert_array_equal(ref._pow2_scale(_t(maxres), 127.0).numpy(),
+                                  want)
+
+
+def test_pow2_scale_matches_jax_in_exact_range():
+    # scales 2^-12 .. 2^12, where XLA's CPU exp2 is exact, rounded up
+    # (x1.3) or hit exactly, plus maxres == 0
+    e = np.arange(-12, 12)
+    maxres = np.concatenate([[0.0], 127.0 * np.ldexp(1.0, e) * 1.3,
+                             127.0 * np.ldexp(1.0, e + 1)]).astype(np.float32)
+    from repro.core.bdi_value import _pow2_scale as jax_pow2
+    np.testing.assert_array_equal(
+        ref._pow2_scale(_t(maxres), 127.0).numpy(),
+        np.asarray(jax_pow2(jnp.asarray(maxres), 127.0)))
+
+
+@pytest.mark.parametrize("with_zero_rows", [False, True])
+def test_page_nbytes_and_checksums_bit_equal(with_zero_rows):
+    k, v = _kv(11, 6, 2, 8, 16)
+    if with_zero_rows:
+        k[1] = 0.0                       # whole zero pages: metadata only
+        v[2, 1] = 0.0
+    jpages = jax_ref.compress_kv_pages(jnp.asarray(k), jnp.asarray(v))
+    tpages = ref.CompressedKVPages(*[_t(a) for a in jpages])
+    np.testing.assert_array_equal(
+        codecs.BDI.page_nbytes(tpages).numpy(),
+        np.asarray(jax_codecs.BDI.page_nbytes(jpages)))
+    np.testing.assert_array_equal(
+        faults.page_checksums(tpages).numpy(),
+        np.asarray(jax_faults.page_checksums(jpages)).astype(np.int64))
+    # and on pages the port compressed itself
+    own = ref.compress_kv_pages(_t(k), _t(v))
+    np.testing.assert_array_equal(faults.page_checksums(own).numpy(),
+                                  faults.page_checksums(tpages).numpy())
+
+
+def test_dequant_pages_matches_jax():
+    k, v = _kv(5, 4, 2, 8, 16)
+    p = jax_ref.compress_kv_pages(jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_array_equal(
+        ref.dequant_pages(_t(p.kd), _t(p.kb), _t(p.ks)).numpy(),
+        np.asarray(jax_ref.dequant_pages(p.kd, p.kb, p.ks)))
+
+
+def _attn_case(seed, bsz, kvh, g, d, page, pmax, pool, lengths, tail_len,
+               scrambled):
+    rng = np.random.default_rng(seed)
+    k, v = (rng.standard_normal((2, pool, kvh, page, d))
+            .astype(np.float32))
+    pages = jax_ref.compress_kv_pages(jnp.asarray(k), jnp.asarray(v))
+    q = rng.standard_normal((bsz, kvh, g, d)).astype(np.float32)
+    if scrambled:
+        pt = rng.permutation(np.arange(1, pool))[:bsz * pmax]
+    else:
+        pt = rng.integers(0, pool, bsz * pmax)
+    pt = pt.reshape(bsz, pmax).astype(np.int32)
+    tk, tv = rng.standard_normal((2, bsz, kvh, page, d)).astype(np.float32)
+    return (q, pages, pt, np.asarray(lengths, np.int32), tk, tv,
+            np.asarray(tail_len, np.int32))
+
+
+ATTN_CASES = {
+    # tests/test_serving_batched.py:261, incl. a zero-page sequence
+    "serving": dict(seed=7, bsz=3, kvh=2, g=4, d=16, page=8, pmax=4,
+                    pool=12, lengths=[16, 0, 32], tail_len=[3, 1, 8],
+                    scrambled=False),
+    # scrambled page table, ragged and empty rows, yi-6b's G and D
+    "scrambled": dict(seed=8, bsz=4, kvh=2, g=8, d=128, page=16, pmax=5,
+                      pool=24, lengths=[80, 0, 37, 1], tail_len=[1, 16, 5, 9],
+                      scrambled=True),
+}
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_paged_attention_tail_matches_jax(case):
+    q, pages, pt, lengths, tk, tv, tlen = _attn_case(**ATTN_CASES[case])
+    jargs = (jnp.asarray(q), pages, jnp.asarray(pt), jnp.asarray(lengths),
+             jnp.asarray(tk), jnp.asarray(tv), jnp.asarray(tlen))
+    targs = (_t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
+             _t(lengths), _t(tk), _t(tv), _t(tlen))
+    got = ops.paged_attention_tail(*targs).numpy()
+    np.testing.assert_array_equal(got,
+                                  ref.paged_attention_tail_ref(*targs).numpy())
+    for want in (jax_ref.paged_attention_tail_ref(*jargs),
+                 jax_ops.paged_attention_tail(*jargs)):   # interpret mode
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=2e-5)
+
+
+def test_paged_attention_matches_jax():
+    q, pages, pt, lengths, _, _, _ = _attn_case(**ATTN_CASES["scrambled"])
+    lengths = np.maximum(lengths, 1)          # no tail: keep a valid key
+    got = ref.paged_attention_ref(
+        _t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
+        _t(lengths)).numpy()
+    want = jax_ref.paged_attention_ref(jnp.asarray(q), pages,
+                                       jnp.asarray(pt), jnp.asarray(lengths))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=2e-5)
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    from repro_torch.kernels import bdi_compress, paged_attention
+    with pytest.raises(ValueError):
+        bdi_compress.bdi_compress_kv(torch.zeros(4, 8))
+    q, pages, pt, lengths, tk, tv, tlen = _attn_case(**ATTN_CASES["serving"])
+    with pytest.raises(ValueError):
+        paged_attention.paged_attention_tail(
+            _t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
+            _t(lengths), _t(tk), _t(tv), _t(tlen))

@@ -7,20 +7,35 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      process per source, all started together);
   2. ``bdi_compress_kv``: kernel vs plain PyTorch version on the card at
      the main path's publish shape plus edge rows — bit-exact;
+  2b. ``gbdi_compress_kv``: kernel vs plain version at 512 pages x 64
+     rows x 128 plus edge pages — every output bit-equal;
+  2c. ``gbdi_decompress_kv``: kernel vs plain version on 2b's encodings
+     — bit-equal;
   3. ``paged_attention_tail``: kernel vs plain version at yi-6b decode
      shapes, scrambled page table, ragged and zero lengths — within an
      f32 tolerance; ``F.scaled_dot_product_attention`` over K/V
      dequantised beforehand is timed as a yardstick only;
   4. serve yi-6b at full width (random bf16 weights from a seed) through
-     ``PagedKVEngine.add_requests`` / ``decode_batch``: 8 ragged prompts
-     of 300-512 tokens, 64 decode steps; both kernels must have launched;
+     ``PagedKVEngine.add_requests`` / ``decode_batch`` under ``bdi``: 8
+     ragged prompts of 300-512 tokens, 64 decode steps; the row codec and
+     the attention kernel must have launched;
+  4b. the same workload under ``gbdi``: both GBDI kernels launched, the
+     attention kernel not (decode gathers and decompresses);
+  4c. ``adaptive``: 8 prompts of 100-200 tokens, 32 decode steps, the
+     pool sized from the requests; the row codec and both GBDI kernels
+     launched; prints the member mix of the published pages;
   5. cross-device parity at small depth: the same prompts through the
      engine on ``cuda`` (kernels) and ``cpu`` (plain versions) — greedy
-     tokens equal up to reported bf16 ties, ``stats`` exactly equal.
+     tokens equal up to reported bf16 ties, host state exactly equal;
+  5b. the same under ``zero``, ``raw``, ``fpc``, ``gbdi`` and ``adaptive``
+     (gbdi and adaptive also at full width, 2 layers); byte counts of
+     fpc and adaptive, which read exact bits, within 8 per page (stats)
+     and 64 per request.
 
-Prints a ``{"kernels": [...]}`` JSON line, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with
-no result line, when CUDA is missing or any phase fails.
+Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Exits non-zero, with no result line, when CUDA is missing or any phase
+fails.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 """
@@ -69,6 +84,19 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bits(t):
+    """Bit pattern of a tensor for equality (a NaN compares too)."""
+    import torch
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def max_abs_err(got, want) -> float:
+    """Largest |got - want| over finite differences (the codecs are held
+    bit-equal first; inf - inf and NaN - NaN count as 0)."""
+    return max(float((a.float() - b.float()).nan_to_num(0.0, 0.0, 0.0)
+                     .abs().max()) for a, b in zip(got, want))
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -139,6 +167,69 @@ def phase_compress(dev, cfg, page: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 2b, 2c: the GBDI page codec
+# ---------------------------------------------------------------------------
+
+def phase_gbdi(dev, cfg, page: int) -> list[dict]:
+    import torch
+    from repro_torch.kernels import gbdi_codec as G
+    d, rows = cfg.head_dim, cfg.n_kv_heads * page
+    # the main path's largest publish: one prefill chunk of 8 rows x 2
+    # pages, every layer (512 pages); decode gathers as many (8 x 64)
+    pages = cfg.n_layers * 16
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((pages * rows, d), generator=g, device=dev) * 2.0
+    edge = G.edge_pages(rows, d)
+    x = torch.cat([x] + [p.to(dev) for p in edge.values()]).contiguous()
+    got = G.gbdi_compress_kv(x, rows)
+    want = G.gbdi_compress_kv_ref(x, rows)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("deltas", "bases", "bid", "scale", "width"),
+                          got, want):
+        if not torch.equal(bits(a), bits(b)):
+            bad = (bits(a) != bits(b)).nonzero()[:5].tolist()
+            raise AssertionError(f"gbdi_compress_kv {name} differ from the "
+                                 f"plain version at {bad}")
+    err_c = max_abs_err(got, want)
+    out = G.gbdi_decompress_kv(*got[:4], rows)
+    out_ref = G.gbdi_decompress_kv_ref(*got[:4], rows)
+    torch.cuda.synchronize()
+    if not torch.equal(bits(out), bits(out_ref)):
+        bad = (bits(out) != bits(out_ref)).nonzero()[:5].tolist()
+        raise AssertionError(f"gbdi_decompress_kv differs from the plain "
+                             f"version at {bad}")
+    err_d = max_abs_err([out], [out_ref])
+    n = pages * rows
+    xm = x[:n].contiguous()
+    enc = [got[0][:n], got[1][:pages], got[2][:n], got[3][:n]]
+    ms_c = cuda_time_ms(lambda: G.gbdi_compress_kv(xm, rows))
+    plain_c = cuda_time_ms(lambda: G.gbdi_compress_kv_ref(xm, rows))
+    ms_d = cuda_time_ms(lambda: G.gbdi_decompress_kv(*enc, rows))
+    plain_d = cuda_time_ms(lambda: G.gbdi_decompress_kv_ref(*enc, rows))
+    # compress: read x once; write deltas, 6 bytes of row metadata and 16
+    # of bases a page; ~8 operations an element (2 sub, abs, max, div,
+    # round, 2 clamp).  decompress: the reverse bytes, a mul and an add.
+    b_c, by_c = bound(n * d * 4 + n * d + 6 * n + 16 * pages, 8.0 * n * d)
+    b_d, by_d = bound(n * d + 5 * n + 16 * pages + n * d * 4, 2.0 * n * d)
+    log(f"gbdi_compress_kv: {pages} pages x {rows} rows x {d} + "
+        f"{len(edge)} edge pages ({', '.join(edge)}) bit-equal; kernel "
+        f"{ms_c:.4f} ms, plain {plain_c:.4f} ms, bound {b_c:.5f} ms ({by_c})")
+    log(f"gbdi_decompress_kv: the same encodings bit-equal; kernel "
+        f"{ms_d:.4f} ms, plain {plain_d:.4f} ms, bound {b_d:.5f} ms ({by_d})")
+    common = {"route": "cuda", "library_ms": None}
+    return [dict(common, name="gbdi_compress_kv",
+                 source="src/repro_torch/csrc/gbdi_compress_kv.cu",
+                 replaces="src/repro/kernels/gbdi_codec.py:177",
+                 max_abs_err=err_c, ms=ms_c, plain_ms=plain_c, bound_ms=b_c,
+                 bound_by=by_c),
+            dict(common, name="gbdi_decompress_kv",
+                 source="src/repro_torch/csrc/gbdi_decompress_kv.cu",
+                 replaces="src/repro/kernels/gbdi_codec.py:215",
+                 max_abs_err=err_d, ms=ms_d, plain_ms=plain_d, bound_ms=b_d,
+                 bound_by=by_d)]
+
+
+# ---------------------------------------------------------------------------
 # phase 3: decode attention
 # ---------------------------------------------------------------------------
 
@@ -205,7 +296,7 @@ def phase_attention(dev, cfg, page: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: serve yi-6b at full width
+# phases 4, 4b, 4c: serve yi-6b at full width
 # ---------------------------------------------------------------------------
 
 def ragged_prompts(n: int, lo: int, hi: int, vocab: int, seed: int):
@@ -216,30 +307,32 @@ def ragged_prompts(n: int, lo: int, hi: int, vocab: int, seed: int):
             for i, ln in enumerate(lens)}
 
 
-def phase_serve(dev, cfg, page: int) -> dict:
+def pool_for(cfg, prompts: dict, steps: int, page: int) -> int:
+    """Pool pages so the requests never preempt (+1: id 0 is padding)."""
+    return 1 + cfg.n_layers * sum(-(-(len(p) + steps) // page)
+                                  for p in prompts.values())
+
+
+def phase_serve(dev, cfg, params, page: int, *, codec: str, prompts: dict,
+                gen: int, n_pool: int, need: tuple[str, ...],
+                forbid: tuple[str, ...] = ()) -> dict:
+    """Serve ``prompts`` for ``gen`` decode steps under ``codec``; the
+    kernels in ``need`` must have launched in this run, those in
+    ``forbid`` not."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import PagedKVEngine
-    t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    log(f"yi-6b params: {n_params / 1e9:.3f} B on {dev} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    prompts = ragged_prompts(8, 300, 512, cfg.vocab, seed=1)
     # warm-up on a small engine (cuBLAS heuristics, allocator), not timed
     warm = PagedKVEngine(cfg, params, page_size=page, n_pool_pages=257,
-                         max_batch=8, device=dev)
+                         max_batch=8, codec=codec, device=dev)
     warm.add_requests({0: prompts[0][:40], 1: prompts[1][:20]})
     for _ in range(17):
         warm.decode_batch()
     del warm
     torch.cuda.empty_cache()
 
-    eng = PagedKVEngine(cfg, params, page_size=page, n_pool_pages=10240,
-                        max_batch=8, device=dev)
+    eng = PagedKVEngine(cfg, params, page_size=page, n_pool_pages=n_pool,
+                        max_batch=8, codec=codec, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     torch.cuda.synchronize()
@@ -248,17 +341,20 @@ def phase_serve(dev, cfg, page: int) -> dict:
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     launches_prefill = dict(ops.LAUNCHES)
-    gen = 64
     t0 = time.perf_counter()
     for _ in range(gen):
         eng.decode_batch()
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
+    for name in need:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched serving "
+                                 f"{codec}: {launches}")
+    for name in forbid:
+        if launches[name]:
+            raise AssertionError(f"kernel {name} launched serving {codec}: "
+                                 f"{launches}")
     # the output is right by the engine's own accounting
     want_pages = cfg.n_layers * sum((len(p) - 1 + gen) // page
                                     for p in prompts.values())
@@ -272,17 +368,23 @@ def phase_serve(dev, cfg, page: int) -> dict:
             raise AssertionError(f"sid {sid}: bad output {out[:8]}...")
     logits = eng.last_logits.float()
     if not torch.isfinite(logits).all():
-        raise AssertionError("non-finite logits at full width")
+        raise AssertionError(f"non-finite logits at full width ({codec})")
+    names = getattr(eng.codec, "member_names", (eng.codec.name,))
+    pids = [p for s in eng.seqs.values() for lp in s.pages for p in lp]
+    tags = eng.page_codec_id[pids].tolist()
     n_prompt = sum(len(p) for p in prompts.values())
-    res = {"prompt_tokens": n_prompt, "prompt_lens":
+    res = {"codec": codec, "prompt_tokens": n_prompt, "prompt_lens":
            [len(p) for p in prompts.values()], "decode_steps": gen,
+           "n_pool_pages": n_pool,
            "prefill_s": t_prefill, "prefill_tok_s": n_prompt / t_prefill,
            "decode_s": t_decode, "decode_tok_s": 8 * gen / t_decode,
            "decode_ms_per_step": 1e3 * t_decode / gen,
            "kv_compression_ratio": eng.compression_ratio(), "stats": st,
+           "page_codec_mix": {names[t]: tags.count(t)
+                              for t in sorted(set(tags))},
            "launches": launches, "launches_prefill": launches_prefill,
            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
-    log(f"serve: {json.dumps(res)}")
+    log(f"serve {codec}: {json.dumps(res)}")
     del eng
     torch.cuda.empty_cache()
     return res
@@ -297,10 +399,39 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: cross-device parity at small depth
+# phases 5, 5b: cross-device parity at small depth
 # ---------------------------------------------------------------------------
 
-def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int) -> dict:
+def _host_state(eng) -> dict:
+    return {"stats": dict(eng.stats), "pmax": eng._pmax,
+            "page_table": eng._page_table().cpu().tolist(),
+            "free": list(eng.free), "codec_ids": eng.page_codec_id.tolist(),
+            "request_bytes": {k: list(v)
+                              for k, v in sorted(eng.request_bytes.items())}}
+
+
+def _assert_same_host_state(gpu, cpu) -> None:
+    """Exactly equal, but for byte counts of a codec whose sizes read
+    exact bits: 8 bytes a page (stats) and 64 a request."""
+    a, b = _host_state(gpu), _host_state(cpu)
+    if not gpu.codec.ulp_stable_sizes:
+        ab, bb = a["stats"].pop("bytes_compressed"), \
+            b["stats"].pop("bytes_compressed")
+        if abs(ab - bb) > 8 * max(a["stats"]["pages_compressed"], 1):
+            raise AssertionError(f"bytes_compressed {ab} vs {bb}")
+        ra, rb = a.pop("request_bytes"), b.pop("request_bytes")
+        if ra.keys() != rb.keys() or any(
+                ra[k][0] != rb[k][0] or abs(ra[k][1] - rb[k][1]) > 64
+                for k in ra):
+            raise AssertionError(f"request_bytes {ra} vs {rb}")
+    for key in a:
+        if a[key] != b[key]:
+            raise AssertionError(f"{gpu.codec.name}: {key} differs across "
+                                 f"devices: {a[key]} vs {b[key]}")
+
+
+def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int,
+                 codec: str = "bdi") -> dict:
     import torch
     from repro_torch.models.params import to_device
     from repro_torch.models.transformer import init_params
@@ -308,31 +439,27 @@ def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int) -> dict:
     from repro_torch.serving.parity import GreedyParity, engine_logits
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     prompts = ragged_prompts(8, lo, hi, cfg.vocab, seed=4)
-    n_pool = 1 + cfg.n_layers * sum(-(-(len(p) + steps) // page)
-                                    for p in prompts.values())
-    engs = {d: PagedKVEngine(cfg, to_device(params, torch.device(d)),
-                             page_size=page, n_pool_pages=n_pool,
-                             max_batch=8, device=d)
-            for d in (dev, torch.device("cpu"))}
-    gpu, cpu = engs[dev], engs[torch.device("cpu")]
-    for e in engs.values():
+    n_pool = pool_for(cfg, prompts, steps, page)
+    gpu, cpu = (PagedKVEngine(cfg, to_device(params, torch.device(d)),
+                              page_size=page, n_pool_pages=n_pool,
+                              max_batch=8, codec=codec, device=d)
+                for d in (dev, "cpu"))
+    for e in (gpu, cpu):
         e.add_requests(prompts)
-    if gpu.stats != cpu.stats:
-        raise AssertionError(f"prefill stats differ: {gpu.stats} vs "
-                             f"{cpu.stats}")
+    _assert_same_host_state(gpu, cpu)
     parity = GreedyParity()
     for step in range(steps):
         want, got = cpu.decode_batch(), gpu.decode_batch()
         parity.check(step, want, got, engine_logits(gpu),
                      engine_logits(cpu))
-    if gpu.stats != cpu.stats or gpu._pmax != cpu._pmax:
-        raise AssertionError(f"stats differ: {gpu.stats} vs {cpu.stats}")
-    if not torch.equal(gpu._page_table().cpu(), cpu._page_table()):
-        raise AssertionError("page tables differ across devices")
-    res = {"config": cfg.name, "d_model": cfg.d_model, "steps": steps,
-           "tokens_equal": parity.compared,
+    _assert_same_host_state(gpu, cpu)
+    res = {"codec": codec, "config": cfg.name, "d_model": cfg.d_model,
+           "steps": steps, "tokens_equal": parity.compared,
+           "bytes_compressed": [gpu.stats["bytes_compressed"],
+                                cpu.stats["bytes_compressed"]],
            "ties": [vars(t) for t in parity.ties]}
-    log(f"parity {cfg.name} d_model={cfg.d_model}: {json.dumps(res)}")
+    log(f"parity {codec} {cfg.name} d_model={cfg.d_model}: "
+        f"{json.dumps(res)}")
     return res
 
 
@@ -366,17 +493,71 @@ def main() -> int:
         if "registers" in line or "smem" in line or "spill" in line:
             log(f"  {line.strip()}")
 
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving._tree import tree_leaves
     cfg = get_arch("yi-6b")
     page = 16
-    kernels = [phase_compress(dev, cfg, page), phase_attention(dev, cfg, page)]
-    serve = phase_serve(dev, cfg, page)
-    for k in kernels:
-        k["launches"] = serve["launches"][k["name"]]
-    phase_parity(dev, cfg.reduced(n_layers=2), page, 20, 140, 24)
+
+    def phase_done(name: str) -> None:
+        nonlocal t0
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+
+    phase_done("1 build")
+    kernels = [phase_compress(dev, cfg, page)]
+    phase_done("2 bdi_compress_kv")
+    kernels += phase_gbdi(dev, cfg, page)
+    phase_done("2b/2c gbdi_compress_kv, gbdi_decompress_kv")
+    kernels.append(phase_attention(dev, cfg, page))
+    phase_done("3 paged_attention_tail")
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    log(f"yi-6b params: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f}"
+        f" B on {dev}")
+    from repro_torch import codecs
+    per_pid = {name: sum(t.numel() * t.element_size() for t in tree_leaves(
+        codecs.get(name).init_pools(1, 1, cfg.n_kv_heads, page,
+                                    cfg.head_dim, "cpu")))
+               for name in codecs.available()}
+    log(f"pool bytes per (layer, pid) at yi-6b widths: {json.dumps(per_pid)}")
+    long = ragged_prompts(8, 300, 512, cfg.vocab, seed=1)
+    bdi = phase_serve(dev, cfg, params, page, codec="bdi", prompts=long,
+                      gen=64, n_pool=10240,
+                      need=("bdi_compress_kv", "paged_attention_tail"))
+    phase_done("4 serve bdi")
+    gbdi = phase_serve(dev, cfg, params, page, codec="gbdi", prompts=long,
+                       gen=64, n_pool=10240,
+                       need=("gbdi_compress_kv", "gbdi_decompress_kv"),
+                       forbid=("paged_attention_tail",))
+    phase_done("4b serve gbdi")
+    short = ragged_prompts(8, 100, 200, cfg.vocab, seed=5)
+    phase_serve(dev, cfg, params, page, codec="adaptive", prompts=short,
+                gen=32, n_pool=pool_for(cfg, short, 32, page),
+                need=("bdi_compress_kv", "gbdi_compress_kv",
+                      "gbdi_decompress_kv"),
+                forbid=("paged_attention_tail",))
+    phase_done("4c serve adaptive")
+    del params
+    torch.cuda.empty_cache()
+    served = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
+              "gbdi_compress_kv": gbdi, "gbdi_decompress_kv": gbdi}
+    for k in kernels:       # launches of the serve phase that ran it
+        k["launches"] = served[k["name"]]["launches"][k["name"]]
+
+    tiny = cfg.reduced(n_layers=2)
     wide = cfg.reduced(n_layers=2, d_model=cfg.d_model, n_heads=cfg.n_heads,
                        n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
                        vocab=cfg.vocab)
+    phase_parity(dev, tiny, page, 20, 140, 24)
     phase_parity(dev, wide, page, 20, 140, 24)
+    phase_done("5 parity bdi")
+    for codec in ("zero", "raw", "fpc", "gbdi", "adaptive"):
+        phase_parity(dev, tiny, page, 20, 140, 24, codec)
+    for codec in ("gbdi", "adaptive"):
+        phase_parity(dev, wide, page, 20, 140, 24, codec)
+    phase_done("5b parity zero/raw/fpc/gbdi/adaptive")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

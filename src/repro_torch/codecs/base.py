@@ -15,10 +15,18 @@ The serving engine touches compressed KV pages only through a codec:
     canonical-prefix contract is defined against
     (``serving/prefix_cache.py``);
   * ``paged_attention_tail`` — decode attention over [compressed pages +
-    f32 tail], read in compressed form.
+    f32 tail], read in compressed form, for a codec with
+    ``has_fused_kernels`` (bdi); the engine decodes every other codec
+    through its gather-then-decompress attention;
+  * ``page_tags``            — per-page member ids of a composite codec.
+
+A ``lossless`` codec (roundtrip == identity, bit for bit) lets prefill
+skip the canonical roundtrip.  Which kernels run is decided by the
+tensors' device (:mod:`repro_torch.kernels.ops`), never by a flag; the
+flags match the JAX codecs' so either package reads the same codec.
 
 Codecs register one singleton under a short name; ``REPRO_CODEC`` picks
-the default.  Only ``bdi`` is registered so far.
+the default.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from __future__ import annotations
 import os
 
 import torch
+
+from repro_torch.serving._tree import tree_leaves
 
 
 class PageCodec:
@@ -37,6 +47,18 @@ class PageCodec:
     """
 
     name: str = "?"
+    #: roundtrip == identity bit for bit: prefill attends the exact
+    #: scratch and the canonical view shrinks to zero length
+    lossless: bool = False
+    #: ships a fused decode-attention kernel (``paged_attention_tail``)
+    has_fused_kernels: bool = False
+    #: ships a page-fill kernel but no fused attention (gbdi, adaptive)
+    has_fused_fill: bool = False
+    #: ``page_nbytes`` is invariant to sub-ULP noise in the KV input;
+    #: False where sizes read exact bit patterns (fpc, adaptive), so two
+    #: engines whose decode-tail K/V agree to the token, not the bit, may
+    #: report a few bytes apart per page
+    ulp_stable_sizes: bool = True
 
     def init_pools(self, n_layers: int, n_pages: int, kvh: int, page: int,
                    dh: int, device: torch.device):
@@ -48,7 +70,8 @@ class PageCodec:
         raise NotImplementedError
 
     def decompress_pages(self, pages) -> tuple[torch.Tensor, torch.Tensor]:
-        """Compressed pages -> (k, v) f32 [..., KVH, page, D]."""
+        """Compressed pages -> (k, v) f32 [..., KVH, page, D]; any
+        leading dims (decode gathers [S, PMAX]-leading pages)."""
         raise NotImplementedError
 
     def page_nbytes(self, pages) -> torch.Tensor:
@@ -59,6 +82,13 @@ class PageCodec:
                              tail_k, tail_v, tail_len) -> torch.Tensor:
         """Decode attention over [compressed pages + f32 tail]."""
         raise NotImplementedError
+
+    def page_tags(self, pages) -> torch.Tensor:
+        """Per-page codec-id tags, i32 [n]: 0 for a single codec; a
+        composite returns each page's member id."""
+        first = tree_leaves(pages)[0]
+        return torch.zeros(first.shape[0], dtype=torch.int32,
+                           device=first.device)
 
     def canonical_roundtrip(self, k: torch.Tensor, v: torch.Tensor
                             ) -> tuple[torch.Tensor, torch.Tensor]:

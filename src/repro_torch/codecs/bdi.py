@@ -23,6 +23,7 @@ from .base import PageCodec, register
 
 class BDICodec(PageCodec):
     name = "bdi"
+    has_fused_kernels = True       # row codec + decode attention in CUDA
 
     def init_pools(self, n_layers, n_pages, kvh, page, dh, device):
         shp = (n_layers, n_pages, kvh, page)

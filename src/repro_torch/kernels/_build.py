@@ -9,7 +9,8 @@ is reused.  Nothing is built at import: :func:`load` runs at the first
 kernel launch.  A failed build raises with the compiler's output.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` and, on purpose, no
-``--use_fast_math`` (the BDI codec needs IEEE division and subnormals).
+``--use_fast_math`` (the BDI and GBDI codecs need IEEE division and
+subnormals).
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ _SIGNATURES = {
                          _P], ctypes.c_int),
     "paged_attention_tail": ([_P] * 13 + [ctypes.c_int] * 6 + [_P],
                              ctypes.c_int),
+    "gbdi_compress_kv": ([_P] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int, _P], ctypes.c_int),
+    "gbdi_decompress_kv": ([_P] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                       ctypes.c_int, _P], ctypes.c_int),
 }
 
 
@@ -120,3 +125,16 @@ def check(err: int, name: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def check_tensor(t, name: str, dtype, shape: tuple[int, ...],
+                 device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape``
+    on ``device``: what a C entry point takes as a raw pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, want {device}")
+    if t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

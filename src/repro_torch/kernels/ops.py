@@ -12,9 +12,10 @@ from __future__ import annotations
 
 import torch
 
-from . import bdi_compress, paged_attention, ref
+from . import bdi_compress, gbdi_codec, paged_attention, ref
 
-LAUNCHES = {"bdi_compress_kv": 0, "paged_attention_tail": 0}
+LAUNCHES = {"bdi_compress_kv": 0, "paged_attention_tail": 0,
+            "gbdi_compress_kv": 0, "gbdi_decompress_kv": 0}
 
 
 def reset_launches() -> None:
@@ -64,3 +65,48 @@ def paged_attention_tail(q: torch.Tensor, pages: ref.CompressedKVPages,
                                                tail_k, tail_v, tail_len)
     LAUNCHES["paged_attention_tail"] += 1
     return out
+
+
+def gbdi_compress_kv_pages(k: torch.Tensor,
+                           v: torch.Tensor) -> ref.GBDIKVPages:
+    """k, v f32 [P, KVH, page, D] -> GBDI pages (one page = KVH * page
+    rows).  On CUDA: one compressor launch each for K and V, bit-exact
+    with the plain version, which runs for CPU tensors."""
+    p, kvh, page, d = k.shape
+    cuda = _on_cuda(k)
+
+    def enc(x):
+        rows = x.to(torch.float32).reshape(-1, d)
+        if cuda:
+            out = gbdi_codec.gbdi_compress_kv(rows.contiguous(), kvh * page)
+            LAUNCHES["gbdi_compress_kv"] += 1
+        else:
+            out = gbdi_codec.gbdi_compress_kv_ref(rows, kvh * page)
+        dd, bases, bid, sc, wid = out
+        return (dd.view(p, kvh, page, d), bases, bid.view(p, kvh, page),
+                sc.view(p, kvh, page), wid.view(p, kvh, page))
+
+    return ref.GBDIKVPages(*enc(k), *enc(v))
+
+
+def gbdi_decompress_kv_pages(pages: ref.GBDIKVPages
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """GBDI pages, leaves leading [P] -> f32 K, V [P, KVH, page, D].  On
+    CUDA: one decompressor launch per side; the plain version for CPU
+    tensors."""
+    p, kvh, page, d = pages.kd.shape
+    cuda = _on_cuda(pages.kd)
+
+    def dec(dd, bases, bid, sc):
+        args = (dd.reshape(-1, d).contiguous(), bases.contiguous(),
+                bid.reshape(-1).contiguous(), sc.reshape(-1).contiguous(),
+                kvh * page)
+        if cuda:
+            out = gbdi_codec.gbdi_decompress_kv(*args)
+            LAUNCHES["gbdi_decompress_kv"] += 1
+        else:
+            out = gbdi_codec.gbdi_decompress_kv_ref(*args)
+        return out.view(p, kvh, page, d)
+
+    return (dec(pages.kd, pages.kbs, pages.kbid, pages.ksc),
+            dec(pages.vd, pages.vbs, pages.vbid, pages.vsc))

@@ -20,17 +20,6 @@ from .ref import paged_attention_tail_ref  # noqa: F401
 _MAX_GD = 2048      # the kernel keeps G*D / 128 accumulators per thread
 
 
-def _want(t: torch.Tensor, name: str, dtype: torch.dtype,
-          shape: tuple[int, ...], device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, q on {device}")
-    if t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def paged_attention_tail(q: torch.Tensor, pages: CompressedKVPages,
                          page_table: torch.Tensor, lengths: torch.Tensor,
                          tail_k: torch.Tensor, tail_v: torch.Tensor,
@@ -54,17 +43,18 @@ def paged_attention_tail(q: torch.Tensor, pages: CompressedKVPages,
     if g * d > _MAX_GD:
         raise ValueError(f"G*D = {g * d} exceeds the kernel's {_MAX_GD}")
     f32, i32 = torch.float32, torch.int32
-    _want(q, "q", f32, (b, kvh, g, d), dev)
+    want = _build.check_tensor
+    want(q, "q", f32, (b, kvh, g, d), dev)
     for name in ("kd", "vd"):
-        _want(getattr(pages, name), name, torch.int8,
-              (n_pages, kvh, page, d), dev)
+        want(getattr(pages, name), name, torch.int8,
+             (n_pages, kvh, page, d), dev)
     for name in ("kb", "ks", "vb", "vs"):
-        _want(getattr(pages, name), name, f32, (n_pages, kvh, page), dev)
-    _want(page_table, "page_table", i32, (b, pmax), dev)
-    _want(lengths, "lengths", i32, (b,), dev)
-    _want(tail_k, "tail_k", f32, (b, kvh, page, d), dev)
-    _want(tail_v, "tail_v", f32, (b, kvh, page, d), dev)
-    _want(tail_len, "tail_len", i32, (b,), dev)
+        want(getattr(pages, name), name, f32, (n_pages, kvh, page), dev)
+    want(page_table, "page_table", i32, (b, pmax), dev)
+    want(lengths, "lengths", i32, (b,), dev)
+    want(tail_k, "tail_k", f32, (b, kvh, page, d), dev)
+    want(tail_v, "tail_v", f32, (b, kvh, page, d), dev)
+    want(tail_len, "tail_len", i32, (b,), dev)
     out = torch.empty((b, kvh, g, d), dtype=f32, device=dev)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the BDI-KV kernels (the port's oracles).
+"""Plain PyTorch versions of the port's kernels (the port's oracles).
 
-Ported from ``repro/kernels/ref.py`` and ``repro/core/bdi_value.py``.
-The CUDA kernels must match these: the row codec bit for bit, decode
-attention within an f32 tolerance.  The CPU tests hold these against the
+Ported from ``repro/kernels/ref.py``, ``repro/core/bdi_value.py`` and
+the jnp half of ``repro/kernels/gbdi_codec.py``.  The CUDA kernels must
+match these: the BDI row codec and the GBDI page codec bit for bit,
+decode attention within an f32 tolerance.  The CPU tests hold these against the
 JAX functions; ``chip_smoke.py`` holds the kernels against these on the
 card.  Kernel wrappers (:mod:`.ops`) run them only for CPU tensors.
 """
@@ -90,7 +91,9 @@ def _gather_dequant(pages: CompressedKVPages, page_table: torch.Tensor):
             one(pages.vd, pages.vb, pages.vs))
 
 
-def _softmax_attend(q, kg, vg, valid):
+def softmax_attend(q, kg, vg, valid):
+    """Dense decode attention: q f32 [B, KVH, G, D] over keys/values
+    [B, KVH, T, D] where ``valid`` [B, T]."""
     d = q.shape[-1]
     scores = torch.einsum("bhgd,bhtd->bhgt", q, kg) / math.sqrt(d)
     scores = scores.masked_fill(~valid[:, None, None, :], -math.inf)
@@ -108,7 +111,7 @@ def paged_attention_ref(q: torch.Tensor, pages: CompressedKVPages,
     """
     kg, vg = _gather_dequant(pages, page_table)
     pos = torch.arange(kg.shape[2], device=q.device)
-    return _softmax_attend(q, kg, vg, pos[None, :] < lengths[:, None])
+    return softmax_attend(q, kg, vg, pos[None, :] < lengths[:, None])
 
 
 def paged_attention_tail_ref(q: torch.Tensor, pages: CompressedKVPages,
@@ -128,4 +131,82 @@ def paged_attention_tail_ref(q: torch.Tensor, pages: CompressedKVPages,
     slot = torch.arange(page, device=q.device)
     valid = torch.cat([pos[None, :] < lengths[:, None],
                        slot[None, :] < tail_len[:, None]], dim=1)
-    return _softmax_attend(q, kg, vg, valid)
+    return softmax_attend(q, kg, vg, valid)
+
+
+# ---------------------------------------------------------------------------
+# GBDI: multi-base B+Delta pages (repro/kernels/gbdi_codec.py:47-148)
+# ---------------------------------------------------------------------------
+
+K_BASES = 4
+Q4MAX = 7.0      # signed 4-bit delta range of width class 1
+
+
+class GBDIKVPages(NamedTuple):
+    """Multi-base compressed KV pages (pool: leading [L, P]; fresh: [n]).
+
+    Per side: int8 deltas [..., KVH, page, D], f32 bases [..., K_BASES],
+    int8 base id, f32 scale and int8 width tag [..., KVH, page] (0 zero
+    run, 1 four-bit, 2 eight-bit).  Field order is the JAX package's.
+    """
+    kd: torch.Tensor
+    kbs: torch.Tensor
+    kbid: torch.Tensor
+    ksc: torch.Tensor
+    kwid: torch.Tensor
+    vd: torch.Tensor
+    vbs: torch.Tensor
+    vbid: torch.Tensor
+    vsc: torch.Tensor
+    vwid: torch.Tensor
+
+
+def encode_pages_ref(x: torch.Tensor):
+    """Rows [n, R, D] f32, one page per leading index -> (deltas i8
+    [n, R, D], bases f32 [n, K], base id i8 [n, R], scale f32 [n, R],
+    width i8 [n, R]).
+
+    Bases lie on the dyadic lattice ``amin + span * {0, 1/4, 1/2, 1}``
+    over the rows' first elements (multiplying by a power of two is
+    exact, so the kernel's separate multiply and add give these bits);
+    each row takes the first nearest base (strict ``<`` chain); a row
+    whose max residual fits 4 bits at the page's pow2 scale keeps that
+    scale, else takes its own.  Reductions propagate NaN (a span that
+    overflows to inf makes base 0 ``amin + inf * 0``, a NaN).
+    """
+    x = x.to(torch.float32)
+    anchors = x[..., 0]                                   # [n, R]
+    amin = anchors.amin(dim=-1, keepdim=True)
+    amax = anchors.amax(dim=-1, keepdim=True)
+    frac = torch.tensor([0.0, 0.25, 0.5, 1.0], device=x.device)
+    bases = amin + (amax - amin) * frac                   # [n, K]
+    dist = (anchors[..., None] - bases[:, None, :]).abs()  # [n, R, K]
+    best = dist[..., 0]
+    bid = torch.zeros_like(anchors, dtype=torch.int32)
+    for j in range(1, K_BASES):
+        better = dist[..., j] < best
+        bid = torch.where(better, j, bid)
+        best = torch.where(better, dist[..., j], best)
+    base_row = torch.gather(bases, 1, bid.long())         # [n, R]
+    r = x - base_row[..., None]
+    maxr_row = r.abs().amax(dim=-1)                       # [n, R]
+    ps = _pow2_scale(maxr_row.amax(dim=-1, keepdim=True), QMAX)
+    fits4 = maxr_row <= Q4MAX * ps
+    scale = torch.where(fits4, ps, _pow2_scale(maxr_row, QMAX))
+    d = torch.clamp(torch.round(r / scale[..., None]), -QMAX, QMAX)
+    nonzero = (d != 0).any(dim=-1)                        # NaN counts
+    wid = torch.where(nonzero, torch.where(fits4, 1, 2), 0)
+    return (d.to(torch.int8), bases, bid.to(torch.int8), scale,
+            wid.to(torch.int8))
+
+
+def decode_pages_ref(d: torch.Tensor, bases: torch.Tensor,
+                     bid: torch.Tensor, sc: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`encode_pages_ref`: d i8 [n, R, D], bases f32
+    [n, K], bid i8 [n, R], sc f32 [n, R] -> f32 [n, R, D].  A base id
+    outside 0..K-1 reads base 0.0, as the JAX where-chain does."""
+    base_row = torch.zeros_like(sc)
+    for j in range(K_BASES):
+        base_row = torch.where(bid == j, bases[:, j:j + 1], base_row)
+    return d.to(torch.float32) * sc[..., None] + base_row[..., None]
+

@@ -1,15 +1,18 @@
 """Where the time goes: profile the serve workload on the card.
 
-Builds yi-6b at full width with random weights from a seed (as
-``chip_smoke.py`` phase 4: 8 prompts of 300-512 tokens, page 16), warms
-up on a small engine, then records with ``torch.profiler`` (1) the whole
-chunked prefill of the 8 prompts and (2) a window of decode steps.  For
-each it prints one JSON line: host wall time, device busy time (the sum
-of kernel times), the device's idle share, and device time by kernel
-name, largest first.
+Builds yi-6b at full width with random weights from a seed, under one
+page codec, on one of ``chip_smoke.py``'s serve workloads (``long``:
+phases 4 and 4b, 8 prompts of 300-512 tokens; ``short``: phase 4c, 8
+prompts of 100-200 tokens), page 16, the pool sized so nothing is
+preempted; warms up on a small engine, then records with
+``torch.profiler`` (1) the whole chunked prefill of the 8 prompts and
+(2) a window of decode steps.  For each it prints one JSON line: host
+wall time, device busy time (the sum of kernel times), the device's
+idle share, and device time by kernel name, largest first.
 
 Usage (on the card):
-  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--steps 8]
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve [--steps 8] \
+      [--codec bdi|zero|raw|gbdi|fpc|adaptive] [--workload long|short]
 """
 
 from __future__ import annotations
@@ -21,15 +24,21 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch import codecs
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels._device import resolve_device
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import PagedKVEngine
 
 
-def _prompts(vocab: int) -> dict[int, list[int]]:
-    g = torch.Generator().manual_seed(1)
-    lens = torch.randint(300, 513, (8,), generator=g).tolist()
+# name: (shortest prompt, longest prompt, seed), as in chip_smoke.py
+WORKLOADS = {"long": (300, 512, 1), "short": (100, 200, 5)}
+
+
+def _prompts(vocab: int, lo: int, hi: int,
+             seed: int) -> dict[int, list[int]]:
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(lo, hi + 1, (8,), generator=g).tolist()
     return {i: torch.randint(1, vocab, (n,), generator=g).tolist()
             for i, n in enumerate(lens)}
 
@@ -56,20 +65,25 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=8,
                     help="decode steps in the recorded window")
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--codec", default="bdi", choices=codecs.available())
+    ap.add_argument("--workload", default="long", choices=sorted(WORKLOADS))
     args = ap.parse_args()
     dev = resolve_device("cuda")
     cfg = get_arch("yi-6b")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
-    prompts = _prompts(cfg.vocab)
+    prompts = _prompts(cfg.vocab, *WORKLOADS[args.workload])
     warm = PagedKVEngine(cfg, params, page_size=16, n_pool_pages=257,
-                         max_batch=8, device=dev)
+                         max_batch=8, codec=args.codec, device=dev)
     warm.add_requests({0: prompts[0][:40], 1: prompts[1][:20]})
     for _ in range(17):
         warm.decode_batch()
     del warm
-    eng = PagedKVEngine(cfg, params, page_size=16, n_pool_pages=10240,
-                        max_batch=8, device=dev)
+    steps = 4 + args.steps
+    n_pool = 1 + cfg.n_layers * sum(-(-(len(p) + steps) // 16)
+                                    for p in prompts.values())
+    eng = PagedKVEngine(cfg, params, page_size=16, n_pool_pages=n_pool,
+                        max_batch=8, codec=args.codec, device=dev)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
@@ -77,7 +91,8 @@ def main() -> None:
         eng.add_requests(prompts)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(json.dumps({"phase": "prefill", "tokens": sum(map(len,
+    print(json.dumps({"codec": args.codec, "workload": args.workload,
+                      "phase": "prefill", "tokens": sum(map(len,
                       prompts.values())), **_summary(prof, wall, args.top)}))
     for _ in range(4):
         eng.decode_batch()
@@ -88,7 +103,8 @@ def main() -> None:
             eng.decode_batch()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(json.dumps({"phase": "decode", "steps": args.steps,
+    print(json.dumps({"codec": args.codec, "workload": args.workload,
+                      "phase": "decode", "steps": args.steps,
                       **_summary(prof, wall, args.top)}))
 
 

@@ -3,9 +3,11 @@
 Greedy decoding of a dense-GQA model over a KV cache stored in
 compressed pages:
 
-  * KV pages are stored compressed through a :class:`PageCodec` (``bdi``:
-    int8 deltas + per-row base and power-of-two scale), in device pools
-    with leaves ``[L, P, KVH, page, D]`` — the JAX package's layout;
+  * KV pages are stored compressed through a :class:`PageCodec` (any
+    registered one: ``bdi``, ``zero``, ``raw``, ``gbdi``, ``fpc``,
+    ``adaptive``), in device pools whose leaves lead with ``[L, P]`` —
+    the JAX package's layouts; a per-page codec tag (``page_codec_id``)
+    records the member an ``adaptive`` page chose;
   * page tables map each sequence's page slots to pool ids (LCP
     addressing), padded to a power-of-two ``PMAX``;
   * when the pool is full, CAMP preempts the least valuable sequence
@@ -15,10 +17,14 @@ Prefill is chunked and batched: every admitted prompt advances
 ``prefill_chunk`` tokens per step through all layers, writing exact f32
 K/V into a scratch and attending under the canonical-prefix contract
 (``serving/prefix_cache.py``).  Every page a chunk completes is
-compressed and scattered into the pools (the row-codec kernel on the
-card); the final partial page goes to the decode tail buffers.  Decode
-advances every active sequence one token per step; its attention reads
-the pools in compressed form (the paged-attention kernel on the card).
+compressed and scattered into the pools (the codec's kernels on the
+card); the final partial page goes to the decode tail buffers.  A
+lossless codec skips the canonical roundtrip: its prefill attends the
+exact scratch.  Decode advances every active sequence one token per
+step; a codec with a fused attention kernel (``has_fused_kernels``:
+bdi) reads the pools in compressed form, every other codec goes through
+:func:`_attend_ref`, which gathers the pages, decompresses them and
+attends densely.
 
 Where the JAX engine donates buffers to a jit, this engine updates the
 same tensors in place (slice assignment / ``index_put_``), and says so
@@ -28,8 +34,7 @@ step for step: the free list, CAMP victims, ``PMAX`` doubling, cohort
 row and scratch rounding, and the publish order.
 
 Not ported yet: the prefix cache, fault injection and integrity checks,
-the host/disk tier, telemetry and the observatory, and the lossless-codec
-branch of prefill.
+the host/disk tier, telemetry and the observatory.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ import torch
 from repro_torch import codecs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels._device import resolve_device
+from repro_torch.kernels.ref import softmax_attend
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.params import layer, to_device
 from repro_torch.serving import faults as F
+from repro_torch.serving._tree import tree_leaves, tree_map
 from repro_torch.serving.prefix_cache import (canonical_update,
                                               prefix_chunk_attention)
 
@@ -70,7 +77,8 @@ class _Cohort:
     offset ``roff`` by up to ``prefill_chunk`` tokens.  ``toks`` is the
     host-side zero-padded prompt buffer; ``kscr/vscr`` the exact f32 K/V
     scratch and ``kcan/vcan`` its canonical view, all [L, nrows, tmax, K,
-    D] on the device; ``pub[i]`` counts pages already published for
+    D] on the device (the canonical view zero-length, T = 0, for a
+    lossless codec); ``pub[i]`` counts pages already published for
     ``seqs[i]``; ``done_sids`` the members whose prefill completed.
     """
     seqs: list[Sequence]
@@ -89,6 +97,28 @@ class _Cohort:
 # ---------------------------------------------------------------------------
 # device steps
 # ---------------------------------------------------------------------------
+
+def _attend_ref(codec: codecs.PageCodec, q, pools_l, pt, page_len, tk, tv,
+                tail_len):
+    """Gather-then-decompress decode attention over pages + tail.
+
+    q f32 [S, K, G, D]; pools_l the codec's one-layer pool tree (leaves
+    leading [P]); pt i32 [S, PMAX]; tk/tv f32 [S, K, page, D].  Gathers
+    the compressed pages first, so only [S, PMAX] pages decompress (on
+    the card through the codec's kernels), then attends densely.
+    """
+    s, kvh, _, d = q.shape
+    pmax, page = pt.shape[1], tk.shape[2]
+    ptl = pt.long()
+    kg, vg = codec.decompress_pages(tree_map(lambda a: a[ptl], pools_l))
+    kg = torch.cat([kg.movedim(2, 1).reshape(s, kvh, pmax * page, d), tk], 2)
+    vg = torch.cat([vg.movedim(2, 1).reshape(s, kvh, pmax * page, d), tv], 2)
+    dev = q.device
+    valid = torch.cat(
+        [torch.arange(pmax * page, device=dev)[None, :] < page_len[:, None],
+         torch.arange(page, device=dev)[None, :] < tail_len[:, None]], dim=1)
+    return softmax_attend(q, kg, vg, valid)
+
 
 def _decode_core(layers: list[dict], params: dict, pools, tk, tv,
                  page_table, page_cnt, last_tok, pos, tail_len, active, *,
@@ -114,6 +144,9 @@ def _decode_core(layers: list[dict], params: dict, pools, tk, tv,
                 & active[:, None])
     sel = slot_hot[:, None, :, None]                         # [S, 1, page, 1]
     lens_tail = tail_len + 1
+    # the codec's fused kernel reads compressed pages; others decompress
+    attend = (codec.paged_attention_tail if codec.has_fused_kernels
+              else lambda *a: _attend_ref(codec, *a))
     for li, bp in enumerate(layers):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         q = L.apply_rope(L.linear(bp["attn"]["wq"], h), cos_b, sin_b)
@@ -124,9 +157,9 @@ def _decode_core(layers: list[dict], params: dict, pools, tk, tv,
         tv[li] = torch.where(sel, v_new[:, 0].float()[:, :, None, :], tv[li])
         hq = q.shape[2]
         qg = q[:, 0].reshape(s, kvh, hq // kvh, dh).float()
-        pools_l = pools._make(leaf[li] for leaf in pools)
-        ctx = codec.paged_attention_tail(qg, pools_l, page_table[li],
-                                         page_len, tk[li], tv[li], lens_tail)
+        pools_l = tree_map(lambda a: a[li], pools)
+        ctx = attend(qg, pools_l, page_table[li], page_len, tk[li], tv[li],
+                     lens_tail)
         x = x + A._proj_out(bp["attn"], ctx.reshape(s, 1, hq, dh).to(x.dtype))
         x = x + L.mlp(bp["ffn"], L.rmsnorm(bp["ln2"], x, cfg.norm_eps))
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -143,7 +176,9 @@ def _prefill_core(layers: list[dict], params: dict, tokens, kscr, vscr,
     tokens i32 [R, C] (zero-padded rows); offs i64 [R] each row's chunk
     start.  kscr/vscr f32 [L, R, Tmax, K, D] exact scratch and kcan/vcan
     its canonical view are updated in place (the JAX step donates them).
-    Attention follows the canonical-prefix contract.  The last layer's
+    Attention follows the canonical-prefix contract; a lossless codec
+    skips the roundtrip and attends the exact scratch (``identity``),
+    leaving kcan/vcan (zero-length) alone.  The last layer's
     attention output and MLP feed nothing — only its K/V is kept — so
     they are skipped, with its canonical view, which only a later
     layer-L attention would read.
@@ -165,13 +200,14 @@ def _prefill_core(layers: list[dict], params: dict, tokens, kscr, vscr,
         vscr[li][rows, qpos] = v.float()
         if li == last:
             break
-        canonical_update(kscr[li], vscr[li], kcan[li], vcan[li], offs, page,
-                         c + page, codec)
+        if not codec.lossless:
+            canonical_update(kscr[li], vscr[li], kcan[li], vcan[li], offs,
+                             page, c + page, codec)
         q = L.apply_rope(L.linear(bp["attn"]["wq"], h), cos_b, sin_b)
         hq = q.shape[2]
         qg = q.reshape(r, c, kvh, hq // kvh, dh).float()
         ctx = prefix_chunk_attention(qg, qpos, kscr[li], vscr[li], kcan[li],
-                                     vcan[li], page)
+                                     vcan[li], page, identity=codec.lossless)
         x = x + A._proj_out(bp["attn"],
                             ctx.reshape(r, c, hq, dh).to(x.dtype))
         x = x + L.mlp(bp["ffn"], L.rmsnorm(bp["ln2"], x, cfg.norm_eps))
@@ -191,11 +227,12 @@ def _publish_blocks(pools, k_blocks, v_blocks, layer_idx, pids, *,
                     codec: codecs.PageCodec):
     """Compress [n, K, page, D] KV blocks and scatter them into the pools
     in place (``index_put_``; the JAX step donates the pools).  Returns
-    the per-page compressed byte counts [n] and checksums [n]."""
+    the per-page compressed byte counts [n], checksums [n] and codec
+    tags [n]."""
     pg = codec.compress_kv_pages(k_blocks, v_blocks)
-    for pool, new in zip(pools, pg):
+    for pool, new in zip(tree_leaves(pools), tree_leaves(pg)):
         pool.index_put_((layer_idx, pids), new)
-    return codec.page_nbytes(pg), F.page_checksums(pg)
+    return codec.page_nbytes(pg), F.page_checksums(pg), codec.page_tags(pg)
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +288,13 @@ class PagedKVEngine:
         self.page_bytes = np.zeros(n_pool_pages, np.int64)
         # publish-time page checksums (faults.page_checksums)
         self.page_checksum = np.zeros(n_pool_pages, np.uint32)
+        # per-page codec tags: 0 for a single codec, the winning member
+        # id under ``adaptive``
+        self.page_codec_id = np.zeros(n_pool_pages, np.int32)
         self.seqs: dict[int, Sequence] = {}
+        # cumulative published [raw, compressed] bytes per request
+        # (survives release)
+        self.request_bytes: dict[int, list[int]] = {}
         self._free_slots = list(range(max_batch - 1, -1, -1))
         self._pmax = 8
         self._pt_dev: torch.Tensor | None = None
@@ -305,15 +348,21 @@ class PagedKVEngine:
         self._stats["preemptions"] += 1
 
     def _record_publish(self, seq: Sequence, pids: list[int],
-                        nbytes: np.ndarray, csums: np.ndarray) -> None:
+                        nbytes: np.ndarray, csums: np.ndarray,
+                        tags: np.ndarray) -> None:
         """Attach freshly published pages (one per layer) to a sequence."""
         for li, pid in enumerate(pids):
             self.page_bytes[pid] = int(nbytes[li])
             self.page_checksum[pid] = csums[li]
+            self.page_codec_id[pid] = int(tags[li])
             seq.pages[li].append(pid)
+        raw = self.page_raw_bytes() * len(pids)
         self._stats["pages_compressed"] += len(pids)
-        self._stats["bytes_raw"] += self.page_raw_bytes() * len(pids)
+        self._stats["bytes_raw"] += raw
         self._stats["bytes_compressed"] += int(nbytes.sum())
+        rb = self.request_bytes.setdefault(seq.sid, [0, 0])
+        rb[0] += raw
+        rb[1] += int(nbytes.sum())
         self._pt_dirty = True
 
     # -- page table ----------------------------------------------------------
@@ -417,13 +466,16 @@ class PagedKVEngine:
         for s in seqs:
             toks[row[s.sid], :len(s.tokens)] = s.tokens
 
-        def scratch():
-            return torch.zeros((lyr, nrows, tmax, kvh, dh),
+        def scratch(t):
+            return torch.zeros((lyr, nrows, t, kvh, dh),
                                dtype=torch.float32, device=self.device)
 
-        self._cohort = _Cohort(seqs=seqs, row=row, toks=toks, kscr=scratch(),
-                               vscr=scratch(), kcan=scratch(),
-                               vcan=scratch(), maxrel=maxstored,
+        # a lossless codec's prefill never reads the canonical view
+        can_t = 0 if self.codec.lossless else tmax
+        self._cohort = _Cohort(seqs=seqs, row=row, toks=toks,
+                               kscr=scratch(tmax), vscr=scratch(tmax),
+                               kcan=scratch(can_t), vcan=scratch(can_t),
+                               maxrel=maxstored,
                                pub=[0] * len(seqs), done_sids=set())
         return cached
 
@@ -505,16 +557,18 @@ class PagedKVEngine:
         pids = self._reserve_pages(lyr * m)
         layer_idx = torch.from_numpy(np.repeat(np.arange(lyr), m)).to(
             self.device)
-        nbytes, csums = _publish_blocks(
+        nbytes, csums, tags = _publish_blocks(
             self.pools, k_blocks, v_blocks, layer_idx,
             torch.tensor(pids, device=self.device), codec=self.codec)
-        host = torch.stack([nbytes.to(torch.int64), csums]).cpu().numpy()
-        nbytes, csums = host[0], host[1].astype(np.uint32)  # 1 sync/publish
+        host = torch.stack([nbytes.to(torch.int64), csums,
+                            tags.to(torch.int64)]).cpu().numpy()  # 1 sync
+        nbytes, csums, tags = host[0], host[1].astype(np.uint32), host[2]
         for j, seq in enumerate(seqs):
             if seq.preempted:      # victim of our own reservation
                 self.free.extend(pids[j::m])
                 continue
-            self._record_publish(seq, pids[j::m], nbytes[j::m], csums[j::m])
+            self._record_publish(seq, pids[j::m], nbytes[j::m], csums[j::m],
+                                 tags[j::m])
 
     # -- decode --------------------------------------------------------------
 

@@ -14,6 +14,8 @@ import enum
 
 import torch
 
+from repro_torch.serving._tree import tree_leaves
+
 
 class FinishReason(str, enum.Enum):
     """Terminal request outcomes (str-valued: ``== "eos"`` still works)."""
@@ -46,12 +48,13 @@ def _mul_mix(x: torch.Tensor) -> torch.Tensor:
 def page_checksums(pg) -> torch.Tensor:
     """Position-weighted byte sum per page, wrapping uint32.
 
-    ``pg`` is a NamedTuple of page leaves leading with the page axis
-    ``[n, ...]``; leaves hash in field order, bytes little-endian (as
-    JAX's ``bitcast_convert_type`` lays them out).  Returns int64 ``[n]``
+    ``pg`` is a (possibly nested) NamedTuple of page leaves leading with
+    the page axis ``[n, ...]``; leaves hash in ``jax.tree.leaves`` order
+    (depth first, field order), bytes little-endian (as JAX's
+    ``bitcast_convert_type`` lays them out).  Returns int64 ``[n]``
     holding the uint32 values.
     """
-    leaves = [lf for lf in pg if lf.numel()]
+    leaves = [lf for lf in tree_leaves(pg) if lf.numel()]
     n = leaves[0].shape[0]
     dev = leaves[0].device
     acc = torch.zeros(n, dtype=torch.int64, device=dev)

@@ -1,6 +1,7 @@
 """Canonical-prefix attention.
 
-Port of ``repro/serving/prefix_cache.py:84-186``.
+Port of ``repro/serving/prefix_cache.py:84-186``, the lossless-codec
+``identity`` path included.
 
 Cross-request page sharing is only sound if a page's content is a pure
 function of the token prefix it covers.  The engine guarantees this with
@@ -67,7 +68,8 @@ def canonical_update(kscr: torch.Tensor, vscr: torch.Tensor,
 def prefix_chunk_attention(q: torch.Tensor, qpos: torch.Tensor,
                            kscr: torch.Tensor, vscr: torch.Tensor,
                            kcan: torch.Tensor, vcan: torch.Tensor,
-                           page: int) -> torch.Tensor:
+                           page: int, *, identity: bool = False
+                           ) -> torch.Tensor:
     """Causal chunk attention under the canonical-prefix contract.
 
     q f32 [R, C, K, G, D]; qpos [R, C] absolute positions; kscr/vscr the
@@ -76,17 +78,26 @@ def prefix_chunk_attention(q: torch.Tensor, qpos: torch.Tensor,
     for keys inside its own page (``kpos <= qpos``); the rest is masked
     and contributes exact zeros, so scratch padding is invisible.
     Returns f32 [R, C, K, G, D].
+
+    ``identity=True`` is the lossless-codec path: canonical == exact, so
+    one causal mask over the exact scratch replaces the two regions and
+    the second einsum pair goes (kcan/vcan are not read; the engine
+    passes a zero-length view).
     """
     d = q.shape[-1]
     t = kscr.shape[1]
     kpos = torch.arange(t, device=q.device)
     scale = 1.0 / math.sqrt(d)
+    s_e = torch.einsum("rckgd,rtkd->rckgt", q, kscr) * scale
+    if identity:
+        m = (kpos[None, None, :] <= qpos[:, :, None])[:, :, None, None, :]
+        w = torch.softmax(torch.where(m, s_e, -math.inf), dim=-1)
+        return torch.einsum("rckgt,rtkd->rckgd", torch.where(m, w, 0.0), vscr)
     kpage = kpos // page                                # [T]
     qpage = qpos // page                                # [R, C]
     m_can = (kpage[None, None, :] < qpage[:, :, None])[:, :, None, None, :]
     m_own = ((kpage[None, None, :] == qpage[:, :, None])
              & (kpos[None, None, :] <= qpos[:, :, None]))[:, :, None, None, :]
-    s_e = torch.einsum("rckgd,rtkd->rckgt", q, kscr) * scale
     s_c = torch.einsum("rckgd,rtkd->rckgt", q, kcan) * scale
     sc = torch.where(m_can, s_c, torch.where(m_own, s_e, -math.inf))
     w = torch.softmax(sc, dim=-1)

@@ -6,7 +6,9 @@ Every test here needs an NVIDIA Hopper card and nvcc: they carry the
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the row codec is bit-exact; decode attention is within
+Tolerances: the BDI row codec and the GBDI page codec are bit-exact
+(float outputs compared as int32 bit patterns, so a NaN base compares
+too); decode attention is within
 rtol 1e-4 / atol 1e-4 (f32 sums over up to ~1000 keys in another order,
 and q scaled before the dot instead of after it).
 """
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_arch
-from repro_torch.kernels import bdi_compress, ops, paged_attention, ref
+from repro_torch.kernels import (bdi_compress, gbdi_codec, ops,
+                                 paged_attention, ref)
 from repro_torch.models.params import to_device
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import PagedKVEngine
@@ -55,6 +58,37 @@ def test_bdi_compress_kv_bit_exact(dev, n, d):
         assert torch.equal(got, want)
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("rows,d,pages", [(64, 128, 300), (16, 16, 7),
+                                          (24, 36, 5)])
+def test_gbdi_kernels_bit_exact(dev, rows, d, pages):
+    gen = torch.Generator().manual_seed(rows + d)
+    x = torch.randn((pages, rows, d), generator=gen) * 2.0
+    edge = torch.stack(list(gbdi_codec.edge_pages(rows, d).values()))
+    x = torch.cat([x, edge]).reshape(-1, d).to(dev)
+    got = gbdi_codec.gbdi_compress_kv(x, rows)
+    want = gbdi_codec.gbdi_compress_kv_ref(x, rows)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    out = gbdi_codec.gbdi_decompress_kv(*got[:4], rows)
+    assert torch.equal(_bits(out),
+                       _bits(gbdi_codec.gbdi_decompress_kv_ref(*got[:4],
+                                                               rows)))
+
+
+def test_gbdi_wrappers_count_launches(dev):
+    k, v = torch.randn((2, 5, 4, 16, 128), device=dev)
+    before = dict(ops.LAUNCHES)
+    pages = ops.gbdi_compress_kv_pages(k, v)
+    ops.gbdi_decompress_kv_pages(pages)
+    assert ops.LAUNCHES["gbdi_compress_kv"] == before["gbdi_compress_kv"] + 2
+    assert ops.LAUNCHES["gbdi_decompress_kv"] == \
+        before["gbdi_decompress_kv"] + 2
+
+
 def _attn_args(dev, seed, bsz, kvh, g, d, page, pmax, pool, lengths,
                tail_len):
     gen = torch.Generator().manual_seed(seed)
@@ -91,16 +125,18 @@ def test_paged_attention_tail_matches_plain(dev, case):
         got, paged_attention.paged_attention_tail(*args), rtol=0, atol=0)
 
 
-def test_engine_cuda_matches_cpu(dev):
+@pytest.mark.parametrize("codec", ["bdi", "gbdi", "adaptive"])
+def test_engine_cuda_matches_cpu(dev, codec):
     """The engine on the card (kernels) vs on the CPU (plain versions):
     host decisions equal, greedy tokens equal up to reported bf16 ties,
-    and both kernels launched."""
+    and the codec's kernels launched."""
     cfg = get_arch("yi-6b").reduced(n_layers=2)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     prompts = {i: [1 + (i * 7 + j * 5) % 250 for j in range(9 + 13 * i)]
                for i in range(6)}
     engs = [PagedKVEngine(cfg, to_device(params, d), page_size=8,
-                          n_pool_pages=256, max_batch=8, device=d)
+                          n_pool_pages=256, max_batch=8, codec=codec,
+                          device=d)
             for d in (dev, "cpu")]
     ops.reset_launches()
     for e in engs:
@@ -110,6 +146,17 @@ def test_engine_cuda_matches_cpu(dev):
         want, got = engs[1].decode_batch(), engs[0].decode_batch()
         parity.check(step, want, got, engine_logits(engs[0]),
                      engine_logits(engs[1]))
-    assert engs[0].stats == engs[1].stats
+    st = [dict(e.stats) for e in engs]
+    if not engs[0].codec.ulp_stable_sizes:      # sizes read exact bits
+        b = [s.pop("bytes_compressed") for s in st]
+        assert abs(b[0] - b[1]) <= 8 * st[0]["pages_compressed"]
+    assert st[0] == st[1]
     assert torch.equal(engs[0]._page_table().cpu(), engs[1]._page_table())
-    assert all(n > 0 for n in ops.LAUNCHES.values()), ops.LAUNCHES
+    assert (engs[0].page_codec_id == engs[1].page_codec_id).all()
+    want = {"bdi": ("bdi_compress_kv", "paged_attention_tail"),
+            "gbdi": ("gbdi_compress_kv", "gbdi_decompress_kv"),
+            "adaptive": ("bdi_compress_kv", "gbdi_compress_kv",
+                         "gbdi_decompress_kv")}[codec]
+    assert all(ops.LAUNCHES[k] > 0 for k in want), ops.LAUNCHES
+    if codec != "bdi":
+        assert ops.LAUNCHES["paged_attention_tail"] == 0, ops.LAUNCHES

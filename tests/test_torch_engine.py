@@ -2,10 +2,21 @@
 
 Both engines run the same JAX-initialised weights (carried bit-exactly
 through ``repro_torch.models.params.from_numpy``) on the workloads of
-``tests/test_serving_batched.py``.  Host decisions must match exactly:
-``stats``, ``pool_used_pages()``, ``_pmax``, every sequence's pages,
-tail length and preemption, and the padded page tables.  Greedy tokens
-must match up to reported bf16 ties (``serving/parity.py``).
+``tests/test_serving_batched.py``, under the default ``bdi`` codec and,
+for a subset, under each other page codec.  Host decisions must match
+exactly: ``stats``, ``pool_used_pages()``, the free list, ``_pmax``,
+every sequence's pages, tail length and preemption, the padded page
+tables, ``page_codec_id`` and ``request_bytes``.  Greedy tokens must
+match up to reported bf16 ties (``serving/parity.py``).
+
+Byte counts follow the codec's ``ulp_stable_sizes`` (the JAX suite's
+rule, ``tests/test_codecs.py:201-210`` and ``tests/conftest.py``): for
+fpc and adaptive, whose sizes read exact bit patterns, decode-tail K/V
+is pinned to the token and not the bit across two engines, so
+``bytes_compressed`` may differ by 8 bytes per page and a request's
+compressed bytes by 64; raw bytes and every other counter stay exact.
+The preempting workload's victim is the finished sequence (CAMP value
+-1), so it does not depend on byte counts.
 
 The JAX side runs in a subprocess with
 ``XLA_FLAGS=--xla_allow_excess_precision=false``.  XLA's default lets a
@@ -47,6 +58,10 @@ REPO = Path(__file__).resolve().parents[1]
 def _host_state(eng) -> dict:
     return {"stats": {k: int(v) for k, v in eng.stats.items()},
             "pool_used": eng.pool_used_pages(), "pmax": eng._pmax,
+            "free": [int(p) for p in eng.free],
+            "codec_ids": [int(t) for t in eng.page_codec_id],
+            "request_bytes": {str(sid): [int(b) for b in rb] for sid, rb
+                              in sorted(eng.request_bytes.items())},
             "seqs": {str(sid): [[list(lp) for lp in s.pages], s.tail_len,
                                 s.preempted]
                      for sid, s in sorted(eng.seqs.items())},
@@ -168,6 +183,14 @@ WORKLOADS = {
 }
 
 
+# workloads run again under each other codec (the bdi runs are above)
+CODEC_WORKLOADS = {
+    c: ("decode_batch", "chunked_prefill_batched_admission")
+    + (("camp_preemption_mid_decode",) if c in ("gbdi", "adaptive") else ())
+    for c in ("zero", "raw", "fpc", "gbdi", "adaptive")}
+CODEC_CASES = [f"{c}-{w}" for c, ws in CODEC_WORKLOADS.items() for w in ws]
+
+
 def _jax_params():
     import jax
     from repro.configs.registry import get_arch as jax_arch
@@ -182,14 +205,19 @@ def jax_traces_main(path: str) -> None:
     from repro.serving.engine import PagedKVEngine as JaxEngine
     cfg, params = _jax_params()
 
-    def make(n_pool_pages, max_batch):
-        return JaxEngine(cfg, params, page_size=PAGE,
-                         n_pool_pages=n_pool_pages, max_batch=max_batch)
+    def maker(codec):
+        def make(n_pool_pages, max_batch):
+            return JaxEngine(cfg, params, page_size=PAGE,
+                             n_pool_pages=n_pool_pages, max_batch=max_batch,
+                             codec=codec)
+        return make
 
+    cases = [(name, "bdi", name) for name in WORKLOADS]
+    cases += [(case, *case.split("-", 1)) for case in CODEC_CASES]
     out = {}
-    for name, w in WORKLOADS.items():
-        tr = w(make)
-        out[name] = {"steps": tr.steps, "states": tr.states}
+    for key, codec, name in cases:
+        tr = WORKLOADS[name](maker(codec))
+        out[key] = {"steps": tr.steps, "states": tr.states}
     Path(path).write_text(json.dumps(out))
 
 
@@ -217,20 +245,36 @@ def port_model():
     return cfg, from_numpy(jax.tree.map(np.asarray, jparams))
 
 
-@pytest.mark.parametrize("name", list(WORKLOADS))
-def test_engine_matches_jax_engine(name, jax_traces, port_model):
+def _assert_state_equal(got: dict, want: dict, codec) -> None:
+    """Host state exactly equal; byte counts by ``ulp_stable_sizes``."""
+    if codec.ulp_stable_sizes or "stats" not in got:
+        assert got == want
+        return
+    got, want = dict(got), dict(want)
+    gs, ws = dict(got.pop("stats")), dict(want.pop("stats"))
+    gb, wb = gs.pop("bytes_compressed"), ws.pop("bytes_compressed")
+    assert gs == ws
+    assert abs(gb - wb) <= 8 * max(gs["pages_compressed"], 1), (gb, wb)
+    grb, wrb = got.pop("request_bytes"), want.pop("request_bytes")
+    assert grb.keys() == wrb.keys()
+    for sid, (raw, comp) in grb.items():
+        assert raw == wrb[sid][0], sid
+        assert abs(comp - wrb[sid][1]) <= 64, (sid, comp, wrb[sid][1])
+    assert got == want
+
+
+def _check_against_jax(name: str, codec: str, want: dict, port_model):
     cfg, params = port_model
 
     def make(n_pool_pages, max_batch):
         return PagedKVEngine(cfg, params, page_size=PAGE,
                              n_pool_pages=n_pool_pages, max_batch=max_batch,
-                             device="cpu")
+                             codec=codec, device="cpu")
 
     got = WORKLOADS[name](make)
-    want = jax_traces[name]
     assert len(got.states) == len(want["states"])   # same preemption step
     for a, b in zip(got.states, want["states"]):
-        assert a == b
+        _assert_state_equal(a, b, got.eng.codec)
     assert len(got.steps) == len(want["steps"])
     parity = GreedyParity()
     for step, (w, g) in enumerate(zip(want["steps"], got.steps)):
@@ -238,8 +282,19 @@ def test_engine_matches_jax_engine(name, jax_traces, port_model):
         parity.check(step, {int(k): v for k, v in w.items()},
                      {int(k): v for k, v in g.items()}, rows.__getitem__)
     for tie in parity.ties:                    # legitimate; show them
-        print(f"{name}: bf16 tie {tie}")
+        print(f"{codec} {name}: bf16 tie {tie}")
     assert parity.compared > 0
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_engine_matches_jax_engine(name, jax_traces, port_model):
+    _check_against_jax(name, "bdi", jax_traces[name], port_model)
+
+
+@pytest.mark.parametrize("case", CODEC_CASES)
+def test_engine_matches_jax_engine_under_codec(case, jax_traces, port_model):
+    codec, name = case.split("-", 1)
+    _check_against_jax(name, codec, jax_traces[case], port_model)
 
 
 def test_generate_paged_smoke_on_cpu():
@@ -254,6 +309,18 @@ def test_generate_paged_smoke_on_cpu():
     assert out["stats"]["pages_compressed"] == 2 * 2 * cfg.n_layers
     assert out["kv_compression_ratio"] > 1.0
     assert out["tok_per_s"] > 0
+
+
+def test_generate_gbdi_on_cpu():
+    """The serve CLI under the gbdi codec end to end on the CPU."""
+    out = generate("yi-6b", paged=True, smoke=True, batch=2, prompt_len=11,
+                   gen=9, codec="gbdi", device="cpu")
+    cfg = get_arch("yi-6b").reduced()
+    assert out["codec"] == "gbdi" and out["stats"]["preemptions"] == 0
+    assert [len(t) for t in out["tokens"]] == [9, 9]
+    assert out["stats"]["pages_compressed"] == 2 * 2 * cfg.n_layers
+    assert out["kv_compression_ratio"] > 1.0
+    assert sorted(out["request_bytes"]) == [0, 1]
 
 
 def test_engine_runs_are_deterministic(port_model):

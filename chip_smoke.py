@@ -11,10 +11,17 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      rows x 128 plus edge pages — every output bit-equal;
   2c. ``gbdi_decompress_kv``: kernel vs plain version on 2b's encodings
      — bit-equal;
+  2d. ``bdi_compress`` (the two-base tile codec): kernel vs plain
+     version on one yi-6b layer's MLP up-projection, [4096 x 11008] f32
+     in 128-wide tiles (352,256 tiles), plus sparse-cluster and edge
+     tiles, and rows of 256 and 512 — every output bit-equal;
+  2e. ``bdi_decompress`` on 2d's encodings — bit-equal;
   3. ``paged_attention_tail``: kernel vs plain version at yi-6b decode
      shapes, scrambled page table, ragged and zero lengths — within an
      f32 tolerance; ``F.scaled_dot_product_attention`` over K/V
      dequantised beforehand is timed as a yardstick only;
+  3b. ``paged_attention`` (no tail), called through ``ops`` at phase 3's
+     shapes — within the same tolerance, NaN rows (length 0) equal;
   4. serve yi-6b at full width (random bf16 weights from a seed) through
      ``PagedKVEngine.add_requests`` / ``decode_batch`` under ``bdi``: 8
      ragged prompts of 300-512 tokens, 64 decode steps; the row codec and
@@ -30,7 +37,13 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
   5b. the same under ``zero``, ``raw``, ``fpc``, ``gbdi`` and ``adaptive``
      (gbdi and adaptive also at full width, 2 layers); byte counts of
      fpc and adaptive, which read exact bits, within 8 per page (stats)
-     and 64 per request.
+     and 64 per request;
+  6. the tile path end to end: ``ops.roundtrip_tensor`` over every
+     parameter leaf of full-width yi-6b (phase 4's weights, stacked
+     leaves a layer at a time), |x - x_hat| <= scale/2 per tile, the
+     tile-class mix, compression ratio, GB/s and peak memory; then the
+     quickstart twin (``repro_torch.launch.quickstart``) on the card;
+     both tile kernels must have launched.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -233,23 +246,48 @@ def phase_gbdi(dev, cfg, page: int) -> list[dict]:
 # phase 3: decode attention
 # ---------------------------------------------------------------------------
 
-def phase_attention(dev, cfg, page: int) -> dict:
+ATTN_B, ATTN_PMAX, ATTN_POOL = 8, 64, 600
+ATTN_LENGTHS = [1024, 0, 517, 1000, 16, 33, 700, 1023]
+
+
+def attn_inputs(dev, cfg, page: int, seed: int):
+    """yi-6b decode shapes: B 8, PMAX 64, a scrambled page table into a
+    pool of 600 BDI pages, ragged lengths with a 0."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import (
-        paged_attention_tail, paged_attention_tail_ref)
-    from repro_torch.kernels.ref import compress_kv_pages, dequant_pages
-    b, kvh, d = 8, cfg.n_kv_heads, cfg.head_dim
-    g_, pmax, n_pages = cfg.n_heads // kvh, 64, 600
-    gen = torch.Generator(device=dev).manual_seed(3)
+    from repro_torch.kernels.ref import compress_kv_pages
+    b, kvh, d = ATTN_B, cfg.n_kv_heads, cfg.head_dim
+    g_, pmax, n_pages = cfg.n_heads // kvh, ATTN_PMAX, ATTN_POOL
+    gen = torch.Generator(device=dev).manual_seed(seed)
     k = torch.randn((n_pages, kvh, page, d), generator=gen, device=dev)
     v = torch.randn((n_pages, kvh, page, d), generator=gen, device=dev)
     pages = compress_kv_pages(k, v)
     q = torch.randn((b, kvh, g_, d), generator=gen, device=dev)
     perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
     pt = perm[:b * pmax].view(b, pmax).to(torch.int32).contiguous()
-    lengths = torch.tensor([1024, 0, 517, 1000, 16, 33, 700, 1023],
-                           dtype=torch.int32, device=dev)
+    lengths = torch.tensor(ATTN_LENGTHS, dtype=torch.int32, device=dev)
+    return gen, q, pages, pt, lengths
+
+
+def gathered_kv(pages, pt):
+    """K/V dequantised and gathered through the table, [B, KVH, T, D]:
+    what ``scaled_dot_product_attention`` is handed as a yardstick."""
+    from repro_torch.kernels.ref import dequant_pages
+    b, pmax = pt.shape
+    _, kvh, page, d = pages.kd.shape
+    kd = dequant_pages(pages.kd, pages.kb, pages.ks)[pt.long()]
+    vd = dequant_pages(pages.vd, pages.vb, pages.vs)[pt.long()]
+    return (kd.movedim(2, 1).reshape(b, kvh, pmax * page, d),
+            vd.movedim(2, 1).reshape(b, kvh, pmax * page, d))
+
+
+def phase_attention(dev, cfg, page: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_tail, paged_attention_tail_ref)
+    gen, q, pages, pt, lengths = attn_inputs(dev, cfg, page, 3)
+    b, kvh, g_, d = q.shape
+    pmax = pt.shape[1]
     tail_len = torch.tensor([1, 16, 7, 3, 16, 1, 9, 12], dtype=torch.int32,
                             device=dev)
     tk = torch.randn((b, kvh, page, d), generator=gen, device=dev)
@@ -265,10 +303,8 @@ def phase_attention(dev, cfg, page: int) -> dict:
     ms = cuda_time_ms(lambda: paged_attention_tail(*args))
     plain_ms = cuda_time_ms(lambda: paged_attention_tail_ref(*args))
     # library yardstick: SDPA over K/V dequantised and gathered beforehand
-    kd = dequant_pages(pages.kd, pages.kb, pages.ks)[pt.long()]
-    vd = dequant_pages(pages.vd, pages.vb, pages.vs)[pt.long()]
-    kg = torch.cat([kd.movedim(2, 1).reshape(b, kvh, pmax * page, d), tk], 2)
-    vg = torch.cat([vd.movedim(2, 1).reshape(b, kvh, pmax * page, d), tv], 2)
+    kg, vg = gathered_kv(pages, pt)
+    kg, vg = torch.cat([kg, tk], 2), torch.cat([vg, tv], 2)
     pos = torch.arange(pmax * page + page, device=dev)
     mask = torch.where(pos[None, :] < pmax * page,
                        pos[None, :] < lengths[:, None],
@@ -293,6 +329,209 @@ def phase_attention(dev, cfg, page: int) -> dict:
             "replaces": "src/repro/kernels/paged_attention.py:211",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": library_ms}
+
+
+def phase_attention_pages(dev, cfg, page: int) -> dict:
+    """3b: decode attention over pages only, driven through ``ops``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref)
+    _, q, pages, pt, lengths = attn_inputs(dev, cfg, page, 6)
+    b, kvh, g_, d = q.shape
+    args = (q, pages, pt, lengths)
+    ops.reset_launches()
+    got = ops.paged_attention(*args)
+    launches = ops.LAUNCHES["paged_attention"]
+    want = paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    empty = lengths == 0
+    if not (torch.allclose(got, want, atol=ATTN_ATOL, rtol=ATTN_RTOL,
+                           equal_nan=True) and got[empty].isnan().all()
+            and not got[~empty].isnan().any()):
+        raise AssertionError("paged_attention differs from the plain "
+                             "version (or NaN rows differ)")
+    err = float((got - want)[~empty].abs().max())
+    ms = cuda_time_ms(lambda: paged_attention(*args))
+    plain_ms = cuda_time_ms(lambda: paged_attention_ref(*args))
+    kg, vg = gathered_kv(pages, pt)
+    pos = torch.arange(kg.shape[2], device=dev)
+    mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
+    lib_out = F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+    lib_err = float((lib_out - want)[~empty].abs().max())
+    library_ms = cuda_time_ms(
+        lambda: F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask))
+    keys = int(lengths.sum())
+    nbytes = (q.numel() * 4 * 2 + keys * kvh * (2 * d + 16)
+              + 4 * int(((lengths + page - 1) // page).sum()) + 4 * b)
+    bms, by = bound(nbytes, 4.0 * g_ * d * kvh * keys)
+    log(f"paged_attention: B={b} KVH={kvh} G={g_} D={d} page={page} "
+        f"PMAX={pt.shape[1]}, lengths {ATTN_LENGTHS}; max abs err {err:.3e} "
+        f"(tol {ATTN_ATOL} + {ATTN_RTOL}*|ref|), NaN rows equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms "
+        f"(err {lib_err:.3e}), bound {bms:.4f} ms ({by}); {launches} "
+        f"launch through ops")
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_attention_tail.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:153",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# phases 2d, 2e: the tile codec
+# ---------------------------------------------------------------------------
+
+def cluster_tiles(n: int, t: int, gen, dev):
+    """The sparse-cluster kind: half the elements near 50, half near 0."""
+    import torch
+    big = 50.0 + torch.randn((n, t), generator=gen, device=dev)
+    x = torch.where(torch.rand((n, t), generator=gen, device=dev) < 0.5,
+                    big, torch.randn((n, t), generator=gen, device=dev)
+                    * 1e-2)
+    x[:, 0] = big[:, 0]
+    return x
+
+
+def phase_tile_codec(dev, cfg) -> list[dict]:
+    import torch
+    from repro_torch.kernels.bdi_compress import (bdi_compress,
+                                                  bdi_compress_ref,
+                                                  edge_tiles)
+    from repro_torch.kernels.bdi_decompress import (bdi_decompress,
+                                                    bdi_decompress_ref)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    # one layer's MLP up-projection in 128-wide tiles: the size of a
+    # gradient bucket or a moment leaf of that layer
+    n = cfg.d_model * cfg.d_ff // 128
+    xm = torch.randn((n, 128), generator=gen, device=dev) * 0.02
+    checked = 0
+    for t, rows in ((128, n), (256, 4096), (512, 4096)):
+        edge = torch.cat(list(edge_tiles(t).values())).to(dev)
+        base = xm if t == 128 else torch.randn((rows, t), generator=gen,
+                                               device=dev) * 3.0
+        x = torch.cat([base, cluster_tiles(4096, t, gen, dev), edge])
+        got = bdi_compress(x.contiguous())
+        want = bdi_compress_ref(x)
+        torch.cuda.synchronize()
+        for name, a, b in zip(got._fields, got, want):
+            if not torch.equal(bits(a), bits(b)):
+                bad = (bits(a) != bits(b)).nonzero()[:5].tolist()
+                raise AssertionError(f"bdi_compress (T={t}) {name} differs "
+                                     f"from the plain version at {bad}")
+        out, out_ref = bdi_decompress(got), bdi_decompress_ref(got)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(out), bits(out_ref)):
+            bad = (bits(out) != bits(out_ref)).nonzero()[:5].tolist()
+            raise AssertionError(f"bdi_decompress (T={t}) differs from the "
+                                 f"plain version at {bad}")
+        if t == 128:
+            err_c, err_d = max_abs_err(got, want), max_abs_err([out],
+                                                               [out_ref])
+        checked += x.shape[0]
+    enc = bdi_compress(xm)
+    ms_c = cuda_time_ms(lambda: bdi_compress(xm))
+    plain_c = cuda_time_ms(lambda: bdi_compress_ref(xm))
+    ms_d = cuda_time_ms(lambda: bdi_decompress(enc))
+    plain_d = cuda_time_ms(lambda: bdi_decompress_ref(enc))
+    t = xm.shape[1]
+    # compress: read x once; write deltas, the mask and 12 bytes a tile;
+    # ~12 operations an element (sub, 2 abs, compare, select, 2 max, div,
+    # round, 2 clamp, pack).  decompress: the reverse bytes; 2 mul, add.
+    b_c, by_c = bound(n * t * 4 + n * t + n * t // 8 + 12 * n, 12.0 * n * t)
+    b_d, by_d = bound(n * t + n * t // 8 + 8 * n + n * t * 4, 3.0 * n * t)
+    log(f"bdi_compress: {n} tiles x {t} (one yi-6b MLP up-projection, "
+        f"{n * t * 4 / 1e6:.0f} MB) + 4096 sparse-cluster + edge tiles, and "
+        f"rows of 256 and 512 ({checked} tiles) bit-equal; kernel "
+        f"{ms_c:.4f} ms, plain {plain_c:.4f} ms, bound {b_c:.4f} ms ({by_c})"
+        f"; {ms_c * 1e3:.1f} us a call, {ms_c * 1e6 / (n * t):.4f} ns an "
+        f"element")
+    log(f"bdi_decompress: the same encodings bit-equal; kernel {ms_d:.4f} "
+        f"ms, plain {plain_d:.4f} ms, bound {b_d:.4f} ms ({by_d}); "
+        f"{ms_d * 1e3:.1f} us a call, {ms_d * 1e6 / (n * t):.4f} ns an "
+        f"element")
+    common = {"route": "cuda", "library_ms": None}
+    return [dict(common, name="bdi_compress",
+                 source="src/repro_torch/csrc/bdi_compress_tile.cu",
+                 replaces="src/repro/kernels/bdi_compress.py:151",
+                 max_abs_err=err_c, ms=ms_c, plain_ms=plain_c, bound_ms=b_c,
+                 bound_by=by_c),
+            dict(common, name="bdi_decompress",
+                 source="src/repro_torch/csrc/bdi_decompress_tile.cu",
+                 replaces="src/repro/kernels/bdi_decompress.py:55",
+                 max_abs_err=err_d, ms=ms_d, plain_ms=plain_d, bound_ms=b_d,
+                 bound_by=by_d)]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the tile path end to end
+# ---------------------------------------------------------------------------
+
+def param_slices(params: dict):
+    """Every parameter leaf; stacked block leaves one layer at a time."""
+    for key, sub in params.items():
+        for leaf in _leaves(sub) if isinstance(sub, dict) else [sub]:
+            if key == "blocks":
+                yield from leaf.unbind(0)
+            else:
+                yield leaf
+
+
+def phase_tile_path(dev, params: dict) -> dict:
+    import torch
+    from repro_torch.core import bdi_value as bv
+    from repro_torch.kernels import ops
+    from repro_torch.launch import quickstart
+    slices = list(param_slices(params))
+    nbytes = sum(x.numel() * x.element_size() for x in slices)
+    ops.roundtrip_tensor(slices[0])                  # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for x in slices:
+        ops.roundtrip_tensor(x)
+    torch.cuda.synchronize()
+    t_rt = time.perf_counter() - t0
+    mix = torch.zeros(3, dtype=torch.int64, device=dev)
+    size = torch.zeros((), dtype=torch.int64, device=dev)
+    n_tiles = 0
+    for x in slices:
+        tiles, n = bv.fold_to_tiles(x)
+        p = ops.compress(tiles)
+        out = ops.decompress(p)
+        if not bool(((tiles.float() - out).abs() <= 0.5 * p.scale).all()):
+            raise AssertionError(f"a tile of a {tuple(x.shape)} leaf is off "
+                                 "by more than scale/2")
+        xhat = ops.roundtrip_tensor(x)
+        if not torch.equal(xhat, bv.unfold_from_tiles(out, n, x.shape)
+                           .to(x.dtype)):
+            raise AssertionError("roundtrip_tensor differs from compress + "
+                                 "decompress")
+        mix += torch.bincount(p.enc[:, 0].long(), minlength=3)[:3]
+        size += bv.tile_size_bytes(p.enc[:, 0], tiles.shape[1], 2).sum()
+        n_tiles += tiles.shape[0]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    qs = quickstart.main(dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("bdi_compress",
+                                             "bdi_decompress")}
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched on the tile "
+                                 f"path: {dict(ops.LAUNCHES)}")
+    mix = mix.tolist()
+    res = {"leaves": len(slices), "params": sum(x.numel() for x in slices),
+           "tiles": n_tiles, "param_bytes": nbytes,
+           "roundtrip_s": t_rt, "roundtrip_gb_s": nbytes / t_rt / 1e9,
+           "tile_mix": {"zero": mix[0], "rep": mix[1], "d8": mix[2]},
+           "compression_ratio_bf16": n_tiles * 128 * 2 / int(size),
+           "peak_mem_gb": peak, "launches": launches,
+           "quickstart": {k: v for k, v in qs.items() if k != "ec"}}
+    log(f"tile path: {json.dumps(res)}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -508,8 +747,12 @@ def main() -> int:
     phase_done("2 bdi_compress_kv")
     kernels += phase_gbdi(dev, cfg, page)
     phase_done("2b/2c gbdi_compress_kv, gbdi_decompress_kv")
+    kernels += phase_tile_codec(dev, cfg)
+    phase_done("2d/2e bdi_compress, bdi_decompress")
     kernels.append(phase_attention(dev, cfg, page))
     phase_done("3 paged_attention_tail")
+    kernels.append(phase_attention_pages(dev, cfg, page))
+    phase_done("3b paged_attention")
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
@@ -539,12 +782,19 @@ def main() -> int:
                       "gbdi_decompress_kv"),
                 forbid=("paged_attention_tail",))
     phase_done("4c serve adaptive")
+    tile = phase_tile_path(dev, params)
+    phase_done("6 tile path (every yi-6b leaf, quickstart)")
     del params
     torch.cuda.empty_cache()
-    served = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
-              "gbdi_compress_kv": gbdi, "gbdi_decompress_kv": gbdi}
-    for k in kernels:       # launches of the serve phase that ran it
-        k["launches"] = served[k["name"]]["launches"][k["name"]]
+    # launches of the path that ran each kernel (3b set its own)
+    path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
+            "gbdi_compress_kv": gbdi, "gbdi_decompress_kv": gbdi,
+            "bdi_compress": tile, "bdi_decompress": tile}
+    for k in kernels:
+        if k["name"] in path:
+            k["launches"] = path[k["name"]]["launches"][k["name"]]
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']}: no launch on its path")
 
     tiny = cfg.reduced(n_layers=2)
     wide = cfg.reduced(n_layers=2, d_model=cfg.d_model, n_heads=cfg.n_heads,

@@ -28,19 +28,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pow2_scale.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-
-__device__ __forceinline__ float pow2_scale(float maxres) {
-  if (!(maxres > 0.0f)) return 1.0f;
-  const int bits = __float_as_int(__fdiv_rn(maxres, 127.0f));
-  int e = ((bits >> 23) & 0xFF) - 127;            // floor(log2(ratio))
-  e += (bits & 0x7FFFFF) != 0;                    // ceil unless a power of 2
-  if (e >= 128) return __int_as_float(0x7F800000);        // exp2(128) = inf
-  if (e >= -126) return __int_as_float((e + 127) << 23);  // normal 2^e
-  return __int_as_float(1 << 22);                          // 2^-127
-}
 
 __global__ void bdi_compress_kv_kernel(const float* __restrict__ x,
                                        int8_t* __restrict__ deltas,

@@ -41,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pow2_scale.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -70,16 +72,6 @@ __device__ __forceinline__ float warp_min(float m) {
     m = nan_min(m, o);
   }
   return m;
-}
-
-__device__ __forceinline__ float pow2_scale(float maxres) {
-  if (!(maxres > 0.0f)) return 1.0f;              // 0 and NaN
-  const int bits = __float_as_int(__fdiv_rn(maxres, 127.0f));
-  int e = ((bits >> 23) & 0xFF) - 127;            // floor(log2(ratio))
-  e += (bits & 0x7FFFFF) != 0;                    // ceil unless a power of 2
-  if (e >= 128) return __int_as_float(0x7F800000);        // inf
-  if (e >= -126) return __int_as_float((e + 127) << 23);  // normal 2^e
-  return __int_as_float(1 << 22);                          // 2^-127
 }
 
 __global__ void __launch_bounds__(kThreads) gbdi_compress_kv_kernel(

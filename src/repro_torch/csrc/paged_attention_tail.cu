@@ -1,16 +1,22 @@
-// Decode attention over BDI-compressed KV pages plus an f32 tail, for
-// Hopper (sm_90a).
+// Decode attention over BDI-compressed KV pages, with or without an f32
+// tail, for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel src/repro/kernels/paged_attention.py:211
-// `_paged_attention_tail` (body :95 `_paged_attn_tail_kernel`, online
-// softmax :37 `_accumulate`).  For each (sequence b, kv head h) it
+// Replaces two Pallas kernels of src/repro/kernels/paged_attention.py
+// that share one body here (the tail step runs when tail_len is given):
+// `_paged_attention_tail` (:211, body :95 `_paged_attn_tail_kernel`)
+// through the entry point `paged_attention_tail`, and `_paged_attention`
+// (:153, body :64 `_paged_attn_kernel`) through `paged_attention`, which
+// has no tail step.  Online softmax: :37 `_accumulate`.  For each
+// (sequence b, kv head h) it
 // attends the G query heads of that group, q f32 [B, KVH, G, D] scaled by
 // 1/sqrt(D), over the int8 pages the page table [B, PMAX] names
 // (kd/vd i8 [P, KVH, page, D], kb/ks/vb/vs f32 [P, KVH, page], dequant
 // d*s + b fused in, `lengths[b]` valid tokens), then over the sequence's
-// f32 tail block [B, KVH, page, D] (`tail_len[b]` valid slots).  The
-// softmax is online in f32, with the Pallas kernel's guards so that a
-// block with no valid token never makes a NaN.
+// f32 tail block [B, KVH, page, D] (`tail_len[b]` valid slots) if there
+// is one.  The softmax is online in f32, with the Pallas kernel's guards
+// so that a block with no valid token never makes a NaN; the output is
+// acc / l after the last step, so a sequence with no valid key at all
+// gives 0/0 = NaN, as the Pallas kernel and the plain version do.
 //
 // Bound on the H100: memory.  Per launch it must read
 // B*KVH*(len + tail)*(2*D + 16) bytes of pages and tails; the arithmetic
@@ -35,7 +41,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kMaxAcc = 16;  // outputs per thread: needs G*D <= 2048
 
-__global__ void __launch_bounds__(kThreads) paged_attention_tail_kernel(
+__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const float* __restrict__ q, const int8_t* __restrict__ kd,
     const float* __restrict__ kb, const float* __restrict__ ks,
     const int8_t* __restrict__ vd, const float* __restrict__ vb,
@@ -72,10 +78,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_tail_kernel(
 
   const int len = lengths[b];
   const int npages = min((len + page - 1) / page, pmax);
-  const int tlen = tail_len[b];
+  const bool has_tail = tail_len != nullptr;
+  const int tlen = has_tail ? tail_len[b] : 0;
 
-  for (int p = 0; p <= npages; ++p) {  // p == npages is the tail step
-    const bool tail = (p == npages);
+  for (int p = 0; p < npages + has_tail; ++p) {  // p == npages: the tail
+    const bool tail = has_tail && p == npages;
     const int nvalid = tail ? tlen : min(page, len - p * page);
     __syncthreads();  // the previous step is done with k_s, v_s, p_s, a_s
     if (!tail) {
@@ -176,12 +183,12 @@ extern "C" int paged_attention_tail(
       sizeof(float) * (static_cast<size_t>(g) * d + page * (d + 1) +
                        page * d + g * page + 3 * g);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(paged_attention_tail_kernel,
+    cudaFuncSetAttribute(paged_attention_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
-  paged_attention_tail_kernel<<<batch * kvh, kThreads, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  paged_attention_kernel<<<batch * kvh, kThreads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const int8_t*>(kd),
       static_cast<const float*>(kb), static_cast<const float*>(ks),
       static_cast<const int8_t*>(vd), static_cast<const float*>(vb),
@@ -190,4 +197,17 @@ extern "C" int paged_attention_tail(
       static_cast<const float*>(tail_v), static_cast<const int*>(tail_len),
       static_cast<float*>(out), kvh, g, d, page, pmax);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same without a tail (the kernel skips the tail step when tail_len
+// is null).
+extern "C" int paged_attention(const void* q, const void* kd, const void* kb,
+                               const void* ks, const void* vd, const void* vb,
+                               const void* vs, const void* page_table,
+                               const void* lengths, void* out, int batch,
+                               int kvh, int g, int d, int page, int pmax,
+                               void* stream) {
+  return paged_attention_tail(q, kd, kb, ks, vd, vb, vs, page_table, lengths,
+                              nullptr, nullptr, nullptr, out, batch, kvh, g, d,
+                              page, pmax, stream);
 }

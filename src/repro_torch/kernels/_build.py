@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` compiles with its own ``nvcc`` process (all started
-together) and the objects link into one shared library with a plain C
-interface, loaded with ``ctypes``.  The library lives under
-``build/repro_torch/<hash>/`` at the repository root, keyed by a hash of
-the sources and flags, so a changed source rebuilds and an unchanged one
-is reused.  Nothing is built at import: :func:`load` runs at the first
+together; they include the ``*.cuh`` headers beside them) and the
+objects link into one shared library with a plain C interface, loaded
+with ``ctypes``.  The library lives under ``build/repro_torch/<hash>/``
+at the repository root, keyed by a hash of the sources, headers and
+flags, so a changed file rebuilds and an unchanged tree is reused.
+Nothing is built at import: :func:`load` runs at the first
 kernel launch.  A failed build raises with the compiler's output.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` and, on purpose, no
@@ -41,6 +42,11 @@ _SIGNATURES = {
                                      ctypes.c_int, _P], ctypes.c_int),
     "gbdi_decompress_kv": ([_P] * 5 + [ctypes.c_longlong, ctypes.c_int,
                                        ctypes.c_int, _P], ctypes.c_int),
+    "bdi_compress": ([_P] * 6 + [ctypes.c_longlong, ctypes.c_int, _P],
+                     ctypes.c_int),
+    "bdi_decompress": ([_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P],
+                       ctypes.c_int),
+    "paged_attention": ([_P] * 10 + [ctypes.c_int] * 6 + [_P], ctypes.c_int),
 }
 
 
@@ -61,7 +67,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(SOURCES_DIR.glob("*.cu*")):      # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / LIB_NAME

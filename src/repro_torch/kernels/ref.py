@@ -1,11 +1,17 @@
 """Plain PyTorch versions of the port's kernels (the port's oracles).
 
-Ported from ``repro/kernels/ref.py``, ``repro/core/bdi_value.py`` and
-the jnp half of ``repro/kernels/gbdi_codec.py``.  The CUDA kernels must
-match these: the BDI row codec and the GBDI page codec bit for bit,
-decode attention within an f32 tolerance.  The CPU tests hold these against the
-JAX functions; ``chip_smoke.py`` holds the kernels against these on the
-card.  Kernel wrappers (:mod:`.ops`) run them only for CPU tensors.
+Ported from ``repro/kernels/ref.py`` and the jnp half of
+``repro/kernels/gbdi_codec.py``.  The CUDA kernels must match these: the
+BDI tile, row and GBDI page codecs bit for bit, decode attention within
+an f32 tolerance.  The CPU tests hold these against the JAX functions;
+``chip_smoke.py`` holds the kernels against these on the card.  Kernel
+wrappers (:mod:`.ops`) run them only for CPU tensors.
+
+The tile codec's mask is packed in bit planes (element j's bit is bit
+``j // (T//8)`` of byte ``j % (T//8)``), the layout the TPU kernel
+unpacks without a lane-crossing reshape; it is not
+:func:`repro_torch.core.bdi_value.pack_mask`'s byte layout, which LCP
+pages use.
 """
 
 from __future__ import annotations
@@ -15,8 +21,66 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core import bdi_value as bv
+from repro_torch.core.bdi_value import _pow2_scale
+
 QMAX = 127.0
 
+
+# ---------------------------------------------------------------------------
+# Tile codec: two bases, bit-plane packed mask (repro/kernels/ref.py:21-68)
+# ---------------------------------------------------------------------------
+
+def pack_mask_bitplane(mask: torch.Tensor) -> torch.Tensor:
+    """bool [..., T] -> uint8 [..., T//8]; element j -> byte j % W, bit
+    j // W, with W = T // 8."""
+    t = mask.shape[-1]
+    if t % 8:
+        raise ValueError(f"mask length {t} is not a multiple of 8")
+    m = mask.reshape(*mask.shape[:-1], 8, t // 8).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=mask.device)
+    weights = (torch.ones_like(shifts) << shifts)[:, None]
+    return (m * weights).sum(dim=-2).to(torch.uint8)
+
+
+def unpack_mask_bitplane(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., W] -> bool [..., 8 * W]."""
+    w = packed.shape[-1]
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None, :] >> shifts[:, None]) & 1
+    return bits.reshape(*packed.shape[:-1], 8 * w) > 0
+
+
+class PackedTiles(NamedTuple):
+    """Compressed tiles as the tile kernels read and write them."""
+    deltas: torch.Tensor   # int8 [N, T]
+    base: torch.Tensor     # f32 [N, 1]
+    scale: torch.Tensor    # f32 [N, 1]
+    maskp: torch.Tensor    # uint8 [N, T//8], bit-plane packed
+    enc: torch.Tensor      # int32 [N, 1]: ENC_ZERO, ENC_REP or ENC_D8
+
+
+def compress_ref(x: torch.Tensor) -> PackedTiles:
+    """Plain version of the tile compressor: f32 tiles [N, T], T % 8 ==
+    0 -> :class:`PackedTiles` (``bdi_value.compress_tiles`` with int8
+    deltas)."""
+    c = bv.compress_tiles(x, delta_dtype=torch.int8)
+    return PackedTiles(c.deltas, c.base[:, None], c.scale[:, None],
+                       pack_mask_bitplane(c.mask),
+                       c.enc.to(torch.int32)[:, None])
+
+
+def decompress_ref(p: PackedTiles) -> torch.Tensor:
+    """Plain version of the tile decompressor -> f32 [N, T]: the masked
+    FMA ``d * scale + mask * base``, the mask term a product as in JAX
+    (it differs from a select on a base of +-inf or NaN)."""
+    mask = unpack_mask_bitplane(p.maskp).to(torch.float32)
+    return p.deltas.to(torch.float32) * p.scale + mask * p.base
+
+
+# ---------------------------------------------------------------------------
+# Single-base KV pages and decode attention
+# ---------------------------------------------------------------------------
 
 class CompressedKVPages(NamedTuple):
     """B+Delta (single-base) compressed KV page pool.
@@ -30,28 +94,6 @@ class CompressedKVPages(NamedTuple):
     vd: torch.Tensor   # int8 [P, KVH, page, D]
     vb: torch.Tensor   # f32  [P, KVH, page]
     vs: torch.Tensor   # f32  [P, KVH, page]
-
-
-def _pow2_scale(maxres: torch.Tensor, qmax: float) -> torch.Tensor:
-    """Smallest power of two s with maxres/s <= qmax, from the exponent
-    bits of ``maxres / qmax`` (rounded up when the mantissa is nonzero);
-    1.0 where maxres is 0.
-
-    ``2^e`` is built from its bits, not with ``exp2``: e = -127 (a ratio
-    that underflowed to 0) is the subnormal 2^-127, which PyTorch's CUDA
-    ``exp2`` does not return, and e = 128 is inf.  So the plain version
-    gives the same bits on every device, and the kernel mirrors it.  The
-    divisor is a tensor on purpose: PyTorch's CUDA division by a Python
-    scalar multiplies by its reciprocal, which can land one ULP off the
-    true quotient and move ``e`` at exact powers of two.
-    """
-    ratio = (maxres / torch.full_like(maxres, qmax)).to(torch.float32)
-    bits = ratio.view(torch.int32)
-    e = ((bits >> 23) & 0xFF) - 127              # floor(log2(ratio))
-    e = e + ((bits & 0x7FFFFF) != 0).to(torch.int32)
-    s = torch.where(e >= -126, (e + 127) << 23,
-                    torch.full_like(e, 1 << 22)).view(torch.float32)
-    return torch.where(maxres > 0, s, torch.ones_like(s))
 
 
 def compress_rows(x: torch.Tensor):

@@ -6,11 +6,12 @@ Every test here needs an NVIDIA Hopper card and nvcc: they carry the
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: the BDI row codec and the GBDI page codec are bit-exact
-(float outputs compared as int32 bit patterns, so a NaN base compares
-too); decode attention is within
+Tolerances: the BDI row and tile codecs and the GBDI page codec are
+bit-exact (float outputs compared as int32 bit patterns, so a NaN base
+compares too); decode attention, with or without the tail, is within
 rtol 1e-4 / atol 1e-4 (f32 sums over up to ~1000 keys in another order,
-and q scaled before the dot instead of after it).
+and q scaled before the dot instead of after it), NaN where a sequence
+has no token, as in the plain version.
 """
 
 import numpy as np
@@ -18,8 +19,8 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_arch
-from repro_torch.kernels import (bdi_compress, gbdi_codec, ops,
-                                 paged_attention, ref)
+from repro_torch.kernels import (bdi_compress, bdi_decompress, gbdi_codec,
+                                 ops, paged_attention, ref)
 from repro_torch.models.params import to_device
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import PagedKVEngine
@@ -89,6 +90,38 @@ def test_gbdi_wrappers_count_launches(dev):
         before["gbdi_decompress_kv"] + 2
 
 
+@pytest.mark.parametrize("n,t", [(4096, 128), (77, 8), (300, 256),
+                                 (129, 512), (40, 1024)])
+def test_bdi_tile_kernels_bit_exact(dev, n, t):
+    gen = torch.Generator().manual_seed(n + t)
+    x = torch.randn((n, t), generator=gen) * 3.0
+    big = 50.0 + torch.randn((n, t), generator=gen)
+    cluster = torch.where(torch.rand((n, t), generator=gen) < 0.5, big,
+                          torch.randn((n, t), generator=gen) * 1e-2)
+    cluster[:, 0] = big[:, 0]
+    edge = torch.cat(list(bdi_compress.edge_tiles(t).values()))
+    x = torch.cat([x, cluster, edge]).to(dev)
+    before = dict(ops.LAUNCHES)
+    got = ops.compress(x)
+    want = ref.compress_ref(x)
+    for name, a, b in zip(got._fields, got, want):
+        assert torch.equal(_bits(a), _bits(b)), name
+    out = ops.decompress(got)
+    assert torch.equal(_bits(out), _bits(ref.decompress_ref(got)))
+    assert torch.equal(_bits(out),
+                       _bits(bdi_decompress.bdi_decompress(got)))
+    assert ops.LAUNCHES["bdi_compress"] == before["bdi_compress"] + 1
+    assert ops.LAUNCHES["bdi_decompress"] == before["bdi_decompress"] + 1
+
+
+def test_roundtrip_tensor_on_card_matches_cpu(dev):
+    x = torch.randn((3, 1000, 7), generator=torch.Generator().manual_seed(0))
+    for dtype in (torch.float32, torch.bfloat16):
+        got = ops.roundtrip_tensor(x.to(dtype).to(dev))
+        assert torch.equal(_bits(got.float().cpu()),
+                           _bits(ops.roundtrip_tensor(x.to(dtype)).float()))
+
+
 def _attn_args(dev, seed, bsz, kvh, g, d, page, pmax, pool, lengths,
                tail_len):
     gen = torch.Generator().manual_seed(seed)
@@ -123,6 +156,25 @@ def test_paged_attention_tail_matches_plain(dev, case):
                                rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(
         got, paged_attention.paged_attention_tail(*args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", [
+    dict(seed=3, bsz=3, kvh=2, g=2, d=16, page=8, pmax=4, pool=16,
+         lengths=[16, 0, 29], tail_len=[0, 0, 0]),
+    dict(seed=4, bsz=8, kvh=4, g=8, d=128, page=16, pmax=64, pool=600,
+         lengths=[1024, 0, 517, 1000, 16, 33, 700, 1023],
+         tail_len=[0] * 8),
+])
+def test_paged_attention_matches_plain(dev, case):
+    q, pages, pt, lengths, _, _, _ = _attn_args(dev, **case)
+    before = dict(ops.LAUNCHES)
+    got = ops.paged_attention(q, pages, pt, lengths)
+    assert ops.LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+    want = ref.paged_attention_ref(q, pages, pt, lengths)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+    empty = lengths == 0
+    assert got[empty].isnan().all() and not got[~empty].isnan().any()
 
 
 @pytest.mark.parametrize("codec", ["bdi", "gbdi", "adaptive"])

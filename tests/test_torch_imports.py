@@ -23,6 +23,7 @@ def _modules() -> list[str]:
 def test_import_loads_neither_jax_nor_repro():
     mods = _modules()
     assert "repro_torch.serving.engine" in mods
+    assert "repro_torch.launch.quickstart" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -62,4 +63,7 @@ def test_entry_points_raise_without_cuda():
         PagedKVEngine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate("yi-6b", paged=True, smoke=True)
+    from repro_torch.launch import quickstart
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        quickstart.main()
     PagedKVEngine(cfg, params, device="cpu")        # explicit CPU is fine

@@ -4,9 +4,11 @@
   is bit-exact with ``repro.kernels.ref.compress_kv_pages`` and with the
   Pallas kernel in interpret mode (``repro.kernels.ops``), and so are
   ``page_nbytes`` and ``page_checksums``.
-* The plain decode attention is within f32 tolerance of the JAX oracle
-  and the Pallas kernel (rtol 1e-5, atol 2e-5: the same f32 math summed
-  in another order; the JAX package's own kernel test uses these).
+* The plain decode attention, with and without the tail, is within f32
+  tolerance of the JAX oracle and the Pallas kernel (rtol 1e-5 or 2e-5,
+  atol 2e-5: the same f32 math summed in another order; the JAX
+  package's own kernel tests use these), NaN where a sequence has no
+  token, as in JAX.
 * The CUDA kernels vs the plain versions: ``tests/test_torch_cuda.py``.
 
 XLA's CPU backend flushes subnormals to zero and its ``exp2`` is a few
@@ -15,6 +17,7 @@ scale is no exact power of two there.  Those extreme rows are held
 against an exact numpy construction of the codec instead.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -203,6 +206,73 @@ def test_paged_attention_matches_jax():
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=2e-5)
 
 
+def _paged_case(seed, bsz, kvh, g, d, page, pmax, lengths=None):
+    """tests/test_kernels.py's paged-attention cases from a numpy seed:
+    each sequence owns a disjoint slab of pages (page 0 unused)."""
+    rng = np.random.default_rng(seed)
+    n_pages = bsz * pmax + 1
+    k, v = rng.standard_normal((2, n_pages, kvh, page, d)).astype(np.float32)
+    pages = jax_ref.compress_kv_pages(jnp.asarray(k), jnp.asarray(v))
+    q = rng.standard_normal((bsz, kvh, g, d)).astype(np.float32)
+    pt = (np.arange(bsz * pmax).reshape(bsz, pmax) + 1).astype(np.int32)
+    if lengths is None:
+        lengths = rng.integers(1, pmax * page + 1, bsz)
+    return q, pages, pt, np.asarray(lengths, np.int32)
+
+
+def _both(q, pages, pt, lengths):
+    return ((_t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
+             _t(lengths)),
+            (jnp.asarray(q), pages, jnp.asarray(pt), jnp.asarray(lengths)))
+
+
+PAGED_CASES = {
+    # tests/test_kernels.py:144-160: ragged lengths, then full ones
+    "b2_h2_g2_d128": dict(seed=0, bsz=2, kvh=2, g=2, d=128, page=8, pmax=4),
+    "b1_h1_g1_d128": dict(seed=1, bsz=1, kvh=1, g=1, d=128, page=16, pmax=2),
+    "b3_h4_g2_d64": dict(seed=2, bsz=3, kvh=4, g=2, d=64, page=8, pmax=3),
+    "b2_h1_g8_d128": dict(seed=3, bsz=2, kvh=1, g=8, d=128, page=8, pmax=5),
+    "full_lengths": dict(seed=4, bsz=2, kvh=2, g=2, d=128, page=8, pmax=4,
+                         lengths=[32, 32]),
+    # a sequence with no token: NaN (0/0) in JAX, the kernel and here
+    "zero_length": dict(seed=5, bsz=3, kvh=4, g=2, d=64, page=8, pmax=3,
+                        lengths=[17, 0, 24]),
+}
+# (cases share shapes where they can: each new shape costs an interpret
+# compile of the Pallas kernel)
+_jax_paged_attention_ref = jax.jit(jax_ref.paged_attention_ref)
+
+
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_paged_attention_ref_matches_pallas_kernel(case):
+    targs, jargs = _both(*_paged_case(**PAGED_CASES[case]))
+    got = ops.paged_attention(*targs).numpy()      # CPU: the plain version
+    np.testing.assert_array_equal(got, ref.paged_attention_ref(*targs))
+    for want in (_jax_paged_attention_ref(*jargs),
+                 jax_ops.paged_attention(*jargs)):      # interpret mode
+        np.testing.assert_allclose(got, np.asarray(want), rtol=2e-5,
+                                   atol=2e-5, equal_nan=True)
+    empty = targs[3].numpy() == 0
+    assert np.isnan(got[empty]).all() and not np.isnan(got[~empty]).any()
+
+
+def test_paged_attention_ignores_pages_past_length():
+    """tests/test_kernels.py:162: pages after the last valid token,
+    scrambled, change nothing."""
+    q, pages, pt, _ = _paged_case(42, 1, 1, 1, 128, 16, 2)
+    lengths = np.array([9], np.int32)
+    scram = pages._replace(vd=pages.vd.at[pt[0, 1]:].set(127),
+                           kd=pages.kd.at[pt[0, 1]:].set(127))
+    outs = []
+    for p in (pages, scram):
+        targs, jargs = _both(q, p, pt, lengths)
+        outs.append(ops.paged_attention(*targs).numpy())
+        np.testing.assert_allclose(outs[-1],
+                                   np.asarray(jax_ops.paged_attention(*jargs)),
+                                   rtol=2e-5, atol=2e-5)
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
 def test_cuda_launchers_refuse_cpu_tensors():
     from repro_torch.kernels import bdi_compress, paged_attention
     with pytest.raises(ValueError):
@@ -212,3 +282,7 @@ def test_cuda_launchers_refuse_cpu_tensors():
         paged_attention.paged_attention_tail(
             _t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
             _t(lengths), _t(tk), _t(tv), _t(tlen))
+    with pytest.raises(ValueError):
+        paged_attention.paged_attention(
+            _t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
+            _t(lengths))

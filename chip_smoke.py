@@ -22,6 +22,9 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      dequantised beforehand is timed as a yardstick only;
   3b. ``paged_attention`` (no tail), called through ``ops`` at phase 3's
      shapes — within the same tolerance, NaN rows (length 0) equal;
+  3c. ``paged_attention_tail`` at long context (PMAX 256, up to 4096
+     tokens) against its plain version, timed over a rotation of pools
+     that together exceed the L2, so that each call reads cold pages;
   4. serve yi-6b at full width (random bf16 weights from a seed) through
      ``PagedKVEngine.add_requests`` / ``decode_batch`` under ``bdi``: 8
      ragged prompts of 300-512 tokens, 64 decode steps; the row codec and
@@ -378,6 +381,87 @@ def phase_attention_pages(dev, cfg, page: int) -> dict:
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": library_ms}
+
+
+LONG_PMAX, LONG_POOL, LONG_SETS = 256, 2049, 4
+LONG_LENGTHS = [4096, 4000, 3500, 4095, 2048, 3333, 4081, 17]
+
+
+def phase_attention_long(dev, cfg, page: int) -> dict:
+    """3c: ``paged_attention_tail`` at long context (B 8, PMAX 256, up to
+    4096 tokens, a tail as in phase 3), timed over a rotation of
+    LONG_SETS independent pools and tables (2049 pages, ~36 MB each), so
+    that each call finds its pages cold in the 50 MB L2, as a serving
+    step does across its layers."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_tail, paged_attention_tail_ref)
+    from repro_torch.kernels.ref import compress_kv_pages
+    b, kvh, d = ATTN_B, cfg.n_kv_heads, cfg.head_dim
+    g_, pmax = cfg.n_heads // kvh, LONG_PMAX
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lengths = torch.tensor(LONG_LENGTHS, dtype=torch.int32, device=dev)
+    tail_len = torch.tensor([1, 16, 7, 3, 16, 1, 9, 12], dtype=torch.int32,
+                            device=dev)
+    q = torch.randn((b, kvh, g_, d), generator=gen, device=dev)
+    tk = torch.randn((b, kvh, page, d), generator=gen, device=dev)
+    tv = torch.randn((b, kvh, page, d), generator=gen, device=dev)
+    pos = torch.arange(pmax * page + page, device=dev)
+    mask = torch.where(pos[None, :] < pmax * page,
+                       pos[None, :] < lengths[:, None],
+                       pos[None, :] - pmax * page < tail_len[:, None])
+    mask = mask[:, None, None, :]
+    sets, gathered, err, lib_err = [], [], 0.0, 0.0
+    for _ in range(LONG_SETS):
+        k = torch.randn((LONG_POOL, kvh, page, d), generator=gen, device=dev)
+        v = torch.randn((LONG_POOL, kvh, page, d), generator=gen, device=dev)
+        pages = compress_kv_pages(k, v)
+        del k, v
+        perm = torch.randperm(LONG_POOL - 1, generator=gen, device=dev) + 1
+        pt = perm[:b * pmax].view(b, pmax).to(torch.int32).contiguous()
+        args = (q, pages, pt, lengths, tk, tv, tail_len)
+        got = paged_attention_tail(*args)
+        want = paged_attention_tail_ref(*args)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, atol=ATTN_ATOL, rtol=ATTN_RTOL):
+            raise AssertionError(
+                f"paged_attention_tail at long context differs from the "
+                f"plain version: max abs err {(got - want).abs().max()}")
+        err = max(err, float((got - want).abs().max()))
+        kg, vg = gathered_kv(pages, pt)
+        kg, vg = torch.cat([kg, tk], 2), torch.cat([vg, tv], 2)
+        lib_out = F.scaled_dot_product_attention(q, kg, vg, attn_mask=mask)
+        lib_err = max(lib_err, float((lib_out - want).abs().max()))
+        sets.append(args)
+        gathered.append((kg, vg))
+    pool_mb = sum(t.numel() * t.element_size() for t in sets[0][1]) / 1e6
+
+    def rotate(fn, inputs):
+        it = iter(range(1 << 30))
+        return lambda: fn(*inputs[next(it) % LONG_SETS])
+
+    ms = cuda_time_ms(rotate(paged_attention_tail, sets))
+    plain_ms = cuda_time_ms(rotate(paged_attention_tail_ref, sets))
+    library_ms = cuda_time_ms(rotate(
+        lambda kg, vg: F.scaled_dot_product_attention(q, kg, vg,
+                                                      attn_mask=mask),
+        gathered))
+    keys = int(lengths.sum() + tail_len.sum())
+    nbytes = (q.numel() * 4 * 2 + int(lengths.sum()) * kvh * (2 * d + 16)
+              + int(tail_len.sum()) * kvh * 2 * d * 4
+              + 4 * int(((lengths + page - 1) // page).sum()) + 8 * b)
+    bms, by = bound(nbytes, 4.0 * g_ * d * kvh * keys)
+    log(f"paged_attention_tail long context: B={b} KVH={kvh} G={g_} D={d} "
+        f"page={page} PMAX={pmax}, lengths {LONG_LENGTHS}, tail as phase 3; "
+        f"timed over a rotation of {LONG_SETS} pools and tables of "
+        f"{LONG_POOL} pages ({pool_mb:.1f} MB each, cold in the 50 MB L2); "
+        f"max abs err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, sdpa {library_ms:.4f} ms (err {lib_err:.3e}), bound "
+        f"{bms:.4f} ms ({by}, {nbytes / 1e6:.2f} MB); kernel/bound "
+        f"{ms / bms:.2f}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bms, "max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -753,6 +837,8 @@ def main() -> int:
     phase_done("3 paged_attention_tail")
     kernels.append(phase_attention_pages(dev, cfg, page))
     phase_done("3b paged_attention")
+    phase_attention_long(dev, cfg, page)
+    phase_done("3c paged_attention_tail at long context")
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)

@@ -36,7 +36,7 @@ _SIGNATURES = {
     # name: (argtypes, restype); see the extern "C" functions in csrc/
     "bdi_compress_kv": ([_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                          _P], ctypes.c_int),
-    "paged_attention_tail": ([_P] * 13 + [ctypes.c_int] * 6 + [_P],
+    "paged_attention_tail": ([_P] * 14 + [ctypes.c_int] * 7 + [_P],
                              ctypes.c_int),
     "gbdi_compress_kv": ([_P] * 6 + [ctypes.c_longlong, ctypes.c_int,
                                      ctypes.c_int, _P], ctypes.c_int),
@@ -46,7 +46,7 @@ _SIGNATURES = {
                      ctypes.c_int),
     "bdi_decompress": ([_P] * 5 + [ctypes.c_longlong, ctypes.c_int, _P],
                        ctypes.c_int),
-    "paged_attention": ([_P] * 10 + [ctypes.c_int] * 6 + [_P], ctypes.c_int),
+    "paged_attention": ([_P] * 11 + [ctypes.c_int] * 7 + [_P], ctypes.c_int),
 }
 
 

@@ -5,7 +5,17 @@ One kernel body (``csrc/paged_attention_tail.cu``) replaces the Pallas
 kernels ``repro/kernels/paged_attention.py:211``
 ``_paged_attention_tail`` (entry point :func:`paged_attention_tail`)
 and ``:153`` ``_paged_attention`` (:func:`paged_attention`, no tail).
-Their plain PyTorch versions are :func:`paged_attention_tail_ref` and
+It splits the pages (flash-decoding): one block per (sequence, kv head)
+and split of ``SPLIT_PAGES`` page-table entries, the tail a split of its
+own, each writing its unnormalised softmax state to a scratch buffer
+``[B*KVH, n_split, G, D+2]`` that this module allocates; a combine pass
+in the same C call merges the splits in index order, so the result is
+the same bits at every launch.  The split count comes from PMAX, not
+from ``lengths`` (that would sync with the host).  The launch is bound
+by the bytes it reads, ``B*KVH*(len + tail)*(2D + 16)``.  It takes D in
+``HEAD_DIMS``, a page of 4, 8, 12 or 16 rows and G*D up to ``MAX_GD``;
+``_check`` raises ``ValueError`` for any other shape.  Their plain
+PyTorch versions are :func:`paged_attention_tail_ref` and
 :func:`paged_attention_ref`; they agree within an f32 tolerance (sums
 in another order, q scaled before rather than after the dot).  Callers
 reach either through :mod:`repro_torch.kernels.ops`.
@@ -19,7 +29,16 @@ from . import _build
 from .ref import CompressedKVPages
 from .ref import paged_attention_ref, paged_attention_tail_ref  # noqa: F401
 
-_MAX_GD = 2048      # the kernel keeps G*D / 128 accumulators per thread
+SPLIT_PAGES = 4          # page-table entries a split takes (a warp each)
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_PAGE = 16            # and a multiple of 4 (P.V takes 4 keys a step)
+MAX_SPLITS = 6000        # the combine keeps 8 bytes a split in shared memory
+MAX_GD = 1024            # a lane keeps G*D / 128 x 4 accumulators
+
+
+def n_split(pmax: int, tail: bool) -> int:
+    """Splits of one (sequence, kv head): ceil(PMAX / 4), plus the tail."""
+    return -(-pmax // SPLIT_PAGES) + int(tail)
 
 
 def _check(q: torch.Tensor, pages: CompressedKVPages,
@@ -33,14 +52,22 @@ def _check(q: torch.Tensor, pages: CompressedKVPages,
     b, kvh, g, d = q.shape
     n_pages, _, page, _ = pages.kd.shape
     pmax = page_table.shape[-1]
-    if g * d > _MAX_GD:
-        raise ValueError(f"G*D = {g * d} exceeds the kernel's {_MAX_GD}")
+    if (d not in HEAD_DIMS or page % 4 or not 4 <= page <= MAX_PAGE
+            or g < 1 or g * d > MAX_GD):
+        raise ValueError(
+            f"{name} takes D in {HEAD_DIMS}, page a multiple of 4 up to "
+            f"{MAX_PAGE} and G*D up to {MAX_GD}; got G={g} D={d} "
+            f"page={page}")
+    if n_split(pmax, True) > MAX_SPLITS:
+        raise ValueError(f"PMAX = {pmax} gives more than {MAX_SPLITS} "
+                         f"splits")
     f32, i32 = torch.float32, torch.int32
     want = _build.check_tensor
     want(q, "q", f32, (b, kvh, g, d), dev)
     for field in ("kd", "vd"):
         want(getattr(pages, field), field, torch.int8,
              (n_pages, kvh, page, d), dev)
+        _aligned(getattr(pages, field), field)
     for field in ("kb", "ks", "vb", "vs"):
         want(getattr(pages, field), field, f32, (n_pages, kvh, page), dev)
     want(page_table, "page_table", i32, (b, pmax), dev)
@@ -48,10 +75,20 @@ def _check(q: torch.Tensor, pages: CompressedKVPages,
     return b, kvh, g, d, page, pmax
 
 
+def _aligned(t: torch.Tensor, name: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
+
+
 def _page_ptrs(q, pages: CompressedKVPages, page_table, lengths):
     return (q.data_ptr(), pages.kd.data_ptr(), pages.kb.data_ptr(),
             pages.ks.data_ptr(), pages.vd.data_ptr(), pages.vb.data_ptr(),
             pages.vs.data_ptr(), page_table.data_ptr(), lengths.data_ptr())
+
+
+def _scratch(b, kvh, g, d, splits, dev) -> torch.Tensor:
+    return torch.empty((b * kvh, splits, g, d + 2), dtype=torch.float32,
+                       device=dev)
 
 
 def paged_attention_tail(q: torch.Tensor, pages: CompressedKVPages,
@@ -73,13 +110,18 @@ def paged_attention_tail(q: torch.Tensor, pages: CompressedKVPages,
     want(tail_k, "tail_k", torch.float32, (b, kvh, page, d), dev)
     want(tail_v, "tail_v", torch.float32, (b, kvh, page, d), dev)
     want(tail_len, "tail_len", torch.int32, (b,), dev)
+    _aligned(tail_k, "tail_k")
+    _aligned(tail_v, "tail_v")
+    splits = n_split(pmax, True)
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=dev)
+    scratch = _scratch(b, kvh, g, d, splits, dev)
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     _build.check(lib.paged_attention_tail(
         *_page_ptrs(q, pages, page_table, lengths), tail_k.data_ptr(),
-        tail_v.data_ptr(), tail_len.data_ptr(), out.data_ptr(), b, kvh, g,
-        d, page, pmax, stream), "paged_attention_tail")
+        tail_v.data_ptr(), tail_len.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), b, kvh, g, d, page, pmax, splits, stream),
+        "paged_attention_tail")
     return out
 
 
@@ -92,10 +134,13 @@ def paged_attention(q: torch.Tensor, pages: CompressedKVPages,
     """
     b, kvh, g, d, page, pmax = _check(q, pages, page_table, lengths,
                                       "paged_attention")
+    splits = n_split(pmax, False)
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
+    scratch = _scratch(b, kvh, g, d, splits, q.device)
     lib = _build.load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(lib.paged_attention(
-        *_page_ptrs(q, pages, page_table, lengths), out.data_ptr(), b, kvh,
-        g, d, page, pmax, stream), "paged_attention")
+        *_page_ptrs(q, pages, page_table, lengths), out.data_ptr(),
+        scratch.data_ptr(), b, kvh, g, d, page, pmax, splits, stream),
+        "paged_attention")
     return out

@@ -9,9 +9,10 @@ Every test here needs an NVIDIA Hopper card and nvcc: they carry the
 Tolerances: the BDI row and tile codecs and the GBDI page codec are
 bit-exact (float outputs compared as int32 bit patterns, so a NaN base
 compares too); decode attention, with or without the tail, is within
-rtol 1e-4 / atol 1e-4 (f32 sums over up to ~1000 keys in another order,
+rtol 1e-4 / atol 1e-4 (f32 sums over up to ~4100 keys in another order,
 and q scaled before the dot instead of after it), NaN where a sequence
-has no token, as in the plain version.
+has no token, as in the plain version, and the same bits at every
+launch.
 """
 
 import numpy as np
@@ -139,13 +140,38 @@ def _attn_args(dev, seed, bsz, kvh, g, d, page, pmax, pool, lengths,
                  for a in args)
 
 
-@pytest.mark.parametrize("case", [
+# Decode attention cases: the small config and yi-6b's decode shape,
+# then lengths at a split edge (64 and 128 tokens at page 16 are 4 and 8
+# pages, one split of 4 table entries each) and one past it (65), a
+# row with only a tail (a prompt shorter than a page), every row empty,
+# a long context (PMAX 256, up to 4096 tokens), D 32 / 64, a G the
+# kernel is not specialised for (5) and G 1 at D 16 with pages of 4.
+ATTN_CASES = [
     dict(seed=1, bsz=3, kvh=2, g=2, d=16, page=8, pmax=4, pool=16,
          lengths=[16, 0, 29], tail_len=[3, 1, 8]),
     dict(seed=2, bsz=8, kvh=4, g=8, d=128, page=16, pmax=64, pool=600,
          lengths=[1024, 0, 517, 1000, 16, 33, 700, 1023],
          tail_len=[1, 16, 7, 3, 16, 1, 9, 12]),
-])
+    dict(seed=5, bsz=5, kvh=2, g=8, d=128, page=16, pmax=16, pool=96,
+         lengths=[64, 128, 65, 256, 63], tail_len=[1, 16, 0, 5, 2]),
+    dict(seed=6, bsz=3, kvh=4, g=8, d=64, page=16, pmax=4, pool=16,
+         lengths=[0, 0, 20], tail_len=[5, 16, 3]),
+    dict(seed=7, bsz=2, kvh=2, g=4, d=32, page=16, pmax=4, pool=12,
+         lengths=[0, 0], tail_len=[0, 0]),
+    dict(seed=8, bsz=4, kvh=2, g=8, d=128, page=16, pmax=256, pool=1100,
+         lengths=[4096, 4000, 17, 4095], tail_len=[3, 0, 16, 8]),
+    dict(seed=9, bsz=2, kvh=2, g=5, d=64, page=16, pmax=8, pool=24,
+         lengths=[100, 37], tail_len=[4, 0]),
+    dict(seed=10, bsz=2, kvh=3, g=1, d=16, page=4, pmax=8, pool=20,
+         lengths=[30, 5], tail_len=[2, 4]),
+]
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
 def test_paged_attention_tail_matches_plain(dev, case):
     args = _attn_args(dev, **case)
     before = dict(ops.LAUNCHES)
@@ -153,18 +179,14 @@ def test_paged_attention_tail_matches_plain(dev, case):
     assert ops.LAUNCHES["paged_attention_tail"] == \
         before["paged_attention_tail"] + 1
     torch.testing.assert_close(got, ref.paged_attention_tail_ref(*args),
-                               rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(
-        got, paged_attention.paged_attention_tail(*args), rtol=0, atol=0)
+                               rtol=1e-4, atol=1e-4, equal_nan=True)
+    empty = (args[3] == 0) & (args[6] == 0)
+    assert got[empty].isnan().all() and not got[~empty].isnan().any()
+    # two launches on the same inputs give the same bits
+    assert _same_bits(got, paged_attention.paged_attention_tail(*args))
 
 
-@pytest.mark.parametrize("case", [
-    dict(seed=3, bsz=3, kvh=2, g=2, d=16, page=8, pmax=4, pool=16,
-         lengths=[16, 0, 29], tail_len=[0, 0, 0]),
-    dict(seed=4, bsz=8, kvh=4, g=8, d=128, page=16, pmax=64, pool=600,
-         lengths=[1024, 0, 517, 1000, 16, 33, 700, 1023],
-         tail_len=[0] * 8),
-])
+@pytest.mark.parametrize("case", ATTN_CASES)
 def test_paged_attention_matches_plain(dev, case):
     q, pages, pt, lengths, _, _, _ = _attn_args(dev, **case)
     before = dict(ops.LAUNCHES)
@@ -175,6 +197,21 @@ def test_paged_attention_matches_plain(dev, case):
                                equal_nan=True)
     empty = lengths == 0
     assert got[empty].isnan().all() and not got[~empty].isnan().any()
+    assert _same_bits(got, paged_attention.paged_attention(q, pages, pt,
+                                                           lengths))
+
+
+def test_paged_attention_refuses_shapes_it_does_not_take(dev):
+    args = _attn_args(dev, **ATTN_CASES[0])
+    q, pages = args[0], args[1]
+    for bad_q in (q[..., :8].contiguous(),            # D 8
+                  q.repeat(1, 1, 33, 1)):             # G 66, D 16: G*D 1056
+        with pytest.raises(ValueError):
+            paged_attention.paged_attention(bad_q, pages, *args[2:4])
+    big = ref.CompressedKVPages(*(t.repeat_interleave(4, dim=2)
+                                  for t in pages))   # page 32
+    with pytest.raises(ValueError):
+        paged_attention.paged_attention(q, big, *args[2:4])
 
 
 @pytest.mark.parametrize("codec", ["bdi", "gbdi", "adaptive"])

@@ -8,13 +8,18 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
   2. ``bdi_compress_kv``: kernel vs plain PyTorch version on the card at
      the main path's publish shape plus edge rows — bit-exact;
   2b. ``gbdi_compress_kv``: kernel vs plain version at 512 pages x 64
-     rows x 128 plus edge pages — every output bit-equal;
+     rows x 128 plus edge pages — every output bit-equal; then at a
+     decode-size publish (yi-6b: 32 layers x 8 pages) and at gemma3-27b's
+     page (256 rows x 168, one prefill chunk of its 62 layers), and the
+     generic instance at 2b's shape (input 4 bytes off a 16-byte
+     boundary), each bit-equal and timed;
   2c. ``gbdi_decompress_kv``: kernel vs plain version on 2b's encodings
      — bit-equal;
   2d. ``bdi_compress`` (the two-base tile codec): kernel vs plain
      version on one yi-6b layer's MLP up-projection, [4096 x 11008] f32
      in 128-wide tiles (352,256 tiles), plus sparse-cluster and edge
-     tiles, and rows of 256 and 512 — every output bit-equal;
+     tiles, and rows of 256 and 512 — every output bit-equal; the generic
+     instance (one warp a tile, IEEE division) timed at the same shape;
   2e. ``bdi_decompress`` on 2d's encodings — bit-equal;
   3. ``paged_attention_tail``: kernel vs plain version at yi-6b decode
      shapes, scrambled page table, ragged and zero lengths — within an
@@ -25,6 +30,9 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
   3c. ``paged_attention_tail`` at long context (PMAX 256, up to 4096
      tokens) against its plain version, timed over a rotation of pools
      that together exceed the L2, so that each call reads cold pages;
+  3d. ``paged_attention_tail`` at gemma3-27b's head (KVH 16, G 2, D 168:
+     the generic-D instance) with pages of 16 and of 32 rows, phase 3's
+     lengths, against its plain version, timed beside SDPA;
   4. serve yi-6b at full width (random bf16 weights from a seed) through
      ``PagedKVEngine.add_requests`` / ``decode_batch`` under ``bdi``: 8
      ragged prompts of 300-512 tokens, 64 decode steps; the row codec and
@@ -41,6 +49,10 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      (gbdi and adaptive also at full width, 2 layers); byte counts of
      fpc and adaptive, which read exact bits, within 8 per page (stats)
      and 64 per request;
+  5c. ``gemma3-27b`` at full width and 2 layers under ``bdi`` (D 168,
+     G 2: the attention kernel's generic instance), cuda vs cpu greedy
+     parity, with shorter prompts and fewer steps than phase 5 (its CPU
+     engine reads 7.4 GB of bf16 weights a step);
   6. the tile path end to end: ``ops.roundtrip_tensor`` over every
      parameter leaf of full-width yi-6b (phase 4's weights, stacked
      leaves a layer at a time), |x - x_hat| <= scale/2 per tile, the
@@ -80,6 +92,41 @@ def smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(build_log: str) -> list[str]:
+    """One line per kernel instance from nvcc's ``-Xptxas -v`` output:
+    its name with template arguments, registers, spills and shared
+    memory."""
+    import re
+    out, name, spill = [], "?", ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            sym, name = m.group(1), m.group(1)
+            # the <length><name> piece that names the kernel
+            hits = [(d.end(), d.end() + int(sym[k:d.end()]))
+                    for d in re.finditer(r"\d+", sym)
+                    for k in range(d.start(), d.end())]
+            for a, b in hits:
+                if sym[a:b].endswith("_kernel"):
+                    name = sym[a:b]
+                    args = re.match(r"I((?:Li\d+E)+)E", sym[b:])
+                    if args:
+                        name += "<" + ",".join(
+                            re.findall(r"Li(\d+)E", args.group(1))) + ">"
+                    break
+            spill = ""
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f", spills {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {m.group(1)} registers{spill}"
+                       + (f", {smem.group(1)} B static smem" if smem else ""))
+    return out
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -232,6 +279,21 @@ def phase_gbdi(dev, cfg, page: int) -> list[dict]:
         f"{ms_c:.4f} ms, plain {plain_c:.4f} ms, bound {b_c:.5f} ms ({by_c})")
     log(f"gbdi_decompress_kv: the same encodings bit-equal; kernel "
         f"{ms_d:.4f} ms, plain {plain_d:.4f} ms, bound {b_d:.5f} ms ({by_d})")
+    # generic instance at the same shape: the same rows 4 bytes off a
+    # 16-byte boundary (the launcher then takes the generic body)
+    shifted = torch.empty(n * d + 1, device=dev)[1:].view(n, d)
+    shifted.copy_(xm)
+    if not all(torch.equal(bits(a), bits(b)) for a, b in
+               zip(G.gbdi_compress_kv(shifted, rows),
+                   G.gbdi_compress_kv(xm, rows))):
+        raise AssertionError("gbdi_compress_kv: generic and staged "
+                             "instances differ")
+    ms_gen = cuda_time_ms(lambda: G.gbdi_compress_kv(shifted, rows))
+    log(f"gbdi_compress_kv generic instance (one warp a row, x from global "
+        f"memory) at the same shape: {ms_gen:.5f} ms, bit-equal to the "
+        f"staged one")
+    del shifted
+    gbdi_shapes(dev)
     common = {"route": "cuda", "library_ms": None}
     return [dict(common, name="gbdi_compress_kv",
                  source="src/repro_torch/csrc/gbdi_compress_kv.cu",
@@ -243,6 +305,37 @@ def phase_gbdi(dev, cfg, page: int) -> list[dict]:
                  replaces="src/repro/kernels/gbdi_codec.py:215",
                  max_abs_err=err_d, ms=ms_d, plain_ms=plain_d, bound_ms=b_d,
                  bound_by=by_d)]
+
+
+def gbdi_shapes(dev) -> None:
+    """2b at a decode-size publish (yi-6b: 32 layers x 8 pages of 4 x 16
+    rows x 128) and at gemma3-27b's page (16 x 16 rows x 168, one prefill
+    chunk of its 62 layers), each with the edge pages: bit-equal, and the
+    kernel timed against its byte bound."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import gbdi_codec as G
+    for arch, pages_per_layer in (("yi-6b", 8), ("gemma3-27b", 16)):
+        cfg = get_arch(arch)
+        d, rows = cfg.head_dim, cfg.n_kv_heads * 16
+        pages = cfg.n_layers * pages_per_layer
+        g = torch.Generator(device=dev).manual_seed(pages)
+        xm = torch.randn((pages * rows, d), generator=g, device=dev) * 2.0
+        edge = G.edge_pages(rows, d)
+        x = torch.cat([xm] + [p.to(dev) for p in edge.values()])
+        for name, a, b in zip(("deltas", "bases", "bid", "scale", "width"),
+                              G.gbdi_compress_kv(x, rows),
+                              G.gbdi_compress_kv_ref(x, rows)):
+            if not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"gbdi_compress_kv ({arch}) {name} "
+                                     "differ from the plain version")
+        n = pages * rows
+        ms = cuda_time_ms(lambda: G.gbdi_compress_kv(xm, rows))
+        bms, by = bound(n * d * 4 + n * d + 6 * n + 16 * pages, 8.0 * n * d)
+        log(f"gbdi_compress_kv at {arch}: {pages} pages x {rows} rows x {d} "
+            f"+ {len(edge)} edge pages bit-equal; kernel {ms:.5f} ms, bound "
+            f"{bms:.5f} ms ({by}), kernel/bound {ms / bms:.2f}")
+        del x, xm
 
 
 # ---------------------------------------------------------------------------
@@ -517,6 +610,16 @@ def phase_tile_codec(dev, cfg) -> list[dict]:
         checked += x.shape[0]
     enc = bdi_compress(xm)
     ms_c = cuda_time_ms(lambda: bdi_compress(xm))
+    # the generic instance (one warp a tile) at the same shape: the tiles 4
+    # bytes off a 16-byte boundary, which the 128 instance does not take
+    shifted = torch.empty(xm.numel() + 1, device=dev)[1:].view(xm.shape)
+    shifted.copy_(xm)
+    if not all(torch.equal(bits(a), bits(b))
+               for a, b in zip(bdi_compress(shifted), enc)):
+        raise AssertionError("bdi_compress: generic and 128 instances "
+                             "differ")
+    ms_gen = cuda_time_ms(lambda: bdi_compress(shifted))
+    del shifted
     plain_c = cuda_time_ms(lambda: bdi_compress_ref(xm))
     ms_d = cuda_time_ms(lambda: bdi_decompress(enc))
     plain_d = cuda_time_ms(lambda: bdi_decompress_ref(enc))
@@ -531,7 +634,7 @@ def phase_tile_codec(dev, cfg) -> list[dict]:
         f"rows of 256 and 512 ({checked} tiles) bit-equal; kernel "
         f"{ms_c:.4f} ms, plain {plain_c:.4f} ms, bound {b_c:.4f} ms ({by_c})"
         f"; {ms_c * 1e3:.1f} us a call, {ms_c * 1e6 / (n * t):.4f} ns an "
-        f"element")
+        f"element; generic instance (one warp a tile) {ms_gen:.4f} ms")
     log(f"bdi_decompress: the same encodings bit-equal; kernel {ms_d:.4f} "
         f"ms, plain {plain_d:.4f} ms, bound {b_d:.4f} ms ({by_d}); "
         f"{ms_d * 1e3:.1f} us a call, {ms_d * 1e6 / (n * t):.4f} ns an "
@@ -754,13 +857,17 @@ def _assert_same_host_state(gpu, cpu) -> None:
 
 
 def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int,
-                 codec: str = "bdi") -> dict:
+                 codec: str = "bdi", init_on: str = "cpu") -> dict:
+    """Greedy parity of the engine on ``dev`` and on the CPU; the weights
+    come from a seeded generator on ``init_on`` (the card for a model whose
+    CPU init would take long)."""
     import torch
     from repro_torch.models.params import to_device
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import PagedKVEngine
     from repro_torch.serving.parity import GreedyParity, engine_logits
-    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = init_params(cfg, torch.Generator(device=init_on).manual_seed(0),
+                         init_on)
     prompts = ragged_prompts(8, lo, hi, cfg.vocab, seed=4)
     n_pool = pool_for(cfg, prompts, steps, page)
     gpu, cpu = (PagedKVEngine(cfg, to_device(params, torch.device(d)),
@@ -812,9 +919,8 @@ def main() -> int:
     path, build_log = _build.build()
     _build.load()
     log(f"built {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  {line.strip()}")
+    for line in ptxas_report(build_log):
+        log(f"  {line}")
 
     from repro_torch.models.transformer import init_params
     from repro_torch.serving._tree import tree_leaves
@@ -839,6 +945,10 @@ def main() -> int:
     phase_done("3b paged_attention")
     phase_attention_long(dev, cfg, page)
     phase_done("3c paged_attention_tail at long context")
+    for gpage in (16, 32):
+        phase_attention(dev, get_arch("gemma3-27b"), gpage)
+    phase_done("3d paged_attention_tail at gemma3-27b's D 168, pages 16 "
+               "and 32")
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
@@ -894,6 +1004,14 @@ def main() -> int:
     for codec in ("gbdi", "adaptive"):
         phase_parity(dev, wide, page, 20, 140, 24, codec)
     phase_done("5b parity zero/raw/fpc/gbdi/adaptive")
+    gemma = get_arch("gemma3-27b")
+    gemma_wide = gemma.reduced(n_layers=2, d_model=5376, n_heads=32,
+                               n_kv_heads=16, d_ff=21504, vocab=262144)
+    log("5c: gemma3-27b at full width, 2 layers: 8 prompts of 16-48 tokens "
+        "and 8 decode steps (phase 5: 20-140 and 24), weights made on the "
+        "card, so that the CPU engine stays within the time limit")
+    phase_parity(dev, gemma_wide, page, 16, 48, 8, init_on=dev.type)
+    phase_done("5c parity bdi gemma3-27b")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

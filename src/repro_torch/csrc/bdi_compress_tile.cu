@@ -16,18 +16,31 @@
 // `compress_ref`), so: the residual is one rounded subtraction and the
 // comparison is on it as it is -- for x = 3e38 and base = -3e38 it is
 // +inf, and the element keeps the zero base; the scale comes from
-// pow2_scale.cuh (bit-built 2^e); divisions are __fdiv_rn, rounding is
-// rintf (half to even); no --use_fast_math.  Inputs are finite (the
-// contract): then no residual chosen is inf and no NaN arises.
+// pow2_scale.cuh (bit-built 2^e); rounding is half to even; no
+// --use_fast_math.  Inputs are finite (the contract): then no residual
+// chosen is inf and no NaN arises.
 //
 // Bound on the H100: memory.  Per tile it reads 4T bytes and writes
-// T + T/8 + 12; a few operations per element.  Design: one warp per
-// tile, lanes striding the tile so each load is coalesced; the maxima
-// are warp shuffle reductions (max is exact, so order does not matter)
-// and REP a warp vote; the second pass re-reads the tile from L1 and
-// stages the mask bits as bytes in shared memory, from which each lane
-// packs whole bytes of the bit planes.  Vectorised loads and several
-// tiles per warp are later work.
+// T + T/8 + 12.  Two instances, chosen by the launcher:
+//
+//   T = 128 (the tile path's only length, core/bdi_value.py TILE), x
+//     16-byte aligned: a warp takes 4 consecutive tiles and issues their
+//     loads first, one 16-byte load a lane a tile (lane L holds elements
+//     4L..4L+3), so 2 KB a warp are in flight and the values stay in
+//     registers: one read, no second pass.  The max residual is a
+//     shuffle reduction, ZERO and REP are votes.  r / s is r times the
+//     exact reciprocal 2^-e (pow2_recip: the same bits, as both round
+//     r * 2^-e once), rounded half to even by adding 1.5 * 2^23, whose
+//     low byte is then the int8 delta; a lane stores its 4 deltas as one
+//     word (128 coalesced bytes a tile).  The bit-plane mask comes from
+//     four ballots, no shared memory: with W = 16, byte b holds bit
+//     4p + b/4 of ballot (b % 4) as its bit p, so lanes 0-3 each gather
+//     four bytes and store them as one word.
+//   any other T (a multiple of 8 up to 1024): one warp a tile, lanes
+//     striding it with 4-byte loads, the maxima shuffle reductions, a
+//     second pass over the tile (from L1) with IEEE division, the mask
+//     bits staged a byte an element in shared memory and packed from
+//     there.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -39,7 +52,91 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kMaxTile = 1024;
+constexpr int kTilesPerWarp = 4;     // T = 128: tiles whose loads go first
 constexpr int kZero = 0, kRep = 1, kD8 = 2;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Bits 0, 4, ..., 28 of x gathered into bits 0..7.
+__device__ __forceinline__ unsigned every_fourth_bit(unsigned x) {
+  x &= 0x11111111u;
+  x = (x | (x >> 3)) & 0x03030303u;
+  x = (x | (x >> 6)) & 0x000F000Fu;
+  return (x | (x >> 12)) & 0xFFu;
+}
+
+// The int8 delta of residual r at reciprocal scale inv, in the low byte:
+// clip(r * inv) + 1.5 * 2^23 rounds half to even at unit precision and
+// leaves the integer's two's complement in the low mantissa bits.
+__device__ __forceinline__ unsigned delta_byte(float r, float inv) {
+  const float q = fminf(fmaxf(__fmul_rn(r, inv), -127.0f), 127.0f);
+  return __float_as_uint(__fadd_rn(q, 12582912.0f));
+}
+
+__global__ void __launch_bounds__(kWarpsPerBlock * 32) bdi_compress128_kernel(
+    const float4* __restrict__ x, unsigned* __restrict__ deltas,
+    float* __restrict__ base_out, float* __restrict__ scale_out,
+    unsigned* __restrict__ maskp, int* __restrict__ enc_out, long long n) {
+  const int lane = threadIdx.x & 31;
+  const long long tile0 =
+      (static_cast<long long>(blockIdx.x) * kWarpsPerBlock +
+       (threadIdx.x >> 5)) * kTilesPerWarp;
+  if (tile0 >= n) return;  // whole warps leave together
+  float4 buf[kTilesPerWarp];
+#pragma unroll
+  for (int i = 0; i < kTilesPerWarp; ++i)
+    buf[i] = tile0 + i < n ? __ldg(x + (tile0 + i) * 32 + lane)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int i = 0; i < kTilesPerWarp; ++i) {
+    const long long row = tile0 + i;
+    if (row >= n) break;     // warp-uniform
+    const float v[4] = {buf[i].x, buf[i].y, buf[i].z, buf[i].w};
+    const float b = __shfl_sync(kFull, v[0], 0);
+    float r[4];
+    bool m[4];
+    float maxres = 0.0f;
+    bool rep = true, zero = true;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float rb = __fsub_rn(v[k], b);
+      m[k] = fabsf(rb) < fabsf(v[k]);
+      r[k] = m[k] ? rb : v[k];
+      maxres = fmaxf(maxres, fabsf(r[k]));
+      rep = rep && (v[k] == b);
+      zero = zero && (v[k] == 0.0f);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      maxres = fmaxf(maxres, __shfl_xor_sync(kFull, maxres, off));
+    const bool is_zero = __all_sync(kFull, zero);
+    const bool is_rep = __all_sync(kFull, rep) && !is_zero;
+    const float s = pow2_scale(maxres);
+    const float inv = pow2_recip(s);
+    unsigned word = __byte_perm(
+        __byte_perm(delta_byte(r[0], inv), delta_byte(r[1], inv), 0x0040),
+        __byte_perm(delta_byte(r[2], inv), delta_byte(r[3], inv), 0x0040),
+        0x5410);
+    unsigned bal[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      bal[k] = __ballot_sync(kFull, is_rep || (m[k] && !is_zero));
+    if (is_zero || is_rep) word = 0;
+    deltas[row * 32 + lane] = word;
+    if (lane < 4) {
+      // bytes 4*lane + k, k < 4: bit p is bit 4p + lane of ballot k
+      unsigned mw = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        mw |= every_fourth_bit(bal[k] >> lane) << (8 * k);
+      maskp[row * 4 + lane] = mw;
+    }
+    if (lane == 0) {
+      base_out[row] = is_zero ? 0.0f : b;
+      scale_out[row] = s;
+      enc_out[row] = is_zero ? kZero : (is_rep ? kRep : kD8);
+    }
+  }
+}
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32) bdi_compress_kernel(
     const float* __restrict__ x, int8_t* __restrict__ deltas,
@@ -66,11 +163,11 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) bdi_compress_kernel(
     rep = rep && (v == b);
   }
   for (int off = 16; off > 0; off >>= 1) {
-    maxres = fmaxf(maxres, __shfl_xor_sync(0xffffffffu, maxres, off));
-    maxabs = fmaxf(maxabs, __shfl_xor_sync(0xffffffffu, maxabs, off));
+    maxres = fmaxf(maxres, __shfl_xor_sync(kFull, maxres, off));
+    maxabs = fmaxf(maxabs, __shfl_xor_sync(kFull, maxabs, off));
   }
   const bool is_zero = maxabs == 0.0f;
-  const bool is_rep = __all_sync(0xffffffffu, rep) && !is_zero;
+  const bool is_rep = __all_sync(kFull, rep) && !is_zero;
   const float s = pow2_scale(maxres);
 
   int8_t* dr = deltas + row * t;
@@ -110,18 +207,32 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32) bdi_compress_kernel(
 
 // x f32 [n, t] -> deltas i8 [n, t], base f32 [n], scale f32 [n], maskp
 // u8 [n, t / 8], enc i32 [n], all contiguous on the device; launched on
-// `stream`.  Returns cudaGetLastError() (cudaErrorInvalidValue for a t
-// this kernel does not take).
+// `stream`.  t = 128 with x 16-byte aligned (and deltas and maskp 4-byte
+// aligned) takes the 128 instance, any other t the generic one.  Returns
+// cudaGetLastError() (cudaErrorInvalidValue for a t this kernel does not
+// take).
 extern "C" int bdi_compress(const void* x, void* deltas, void* base,
                             void* scale, void* maskp, void* enc, long long n,
                             int t, void* stream) {
   if (t < 8 || t % 8 != 0 || t > kMaxTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n > 0) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(deltas) % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(maskp) % 4 == 0;
+  if (n > 0 && t == 128 && aligned) {
+    constexpr long long kTiles = kWarpsPerBlock * kTilesPerWarp;
+    const long long blocks = (n + kTiles - 1) / kTiles;
+    bdi_compress128_kernel<<<static_cast<unsigned>(blocks),
+                             kWarpsPerBlock * 32, 0, st>>>(
+        static_cast<const float4*>(x), static_cast<unsigned*>(deltas),
+        static_cast<float*>(base), static_cast<float*>(scale),
+        static_cast<unsigned*>(maskp), static_cast<int*>(enc), n);
+  } else if (n > 0) {
     const long long blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
     bdi_compress_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
-                          0, static_cast<cudaStream_t>(stream)>>>(
+                          0, st>>>(
         static_cast<const float*>(x), static_cast<int8_t*>(deltas),
         static_cast<float*>(base), static_cast<float*>(scale),
         static_cast<uint8_t*>(maskp), static_cast<int*>(enc), n, t);

@@ -20,3 +20,16 @@ __device__ __forceinline__ float pow2_scale(float maxres) {
   if (e >= -126) return __int_as_float((e + 127) << 23);  // normal 2^e
   return __int_as_float(1 << 22);                         // 2^-127
 }
+
+// 1 / s, exact, for an s that pow2_scale gives: 2^-e built from bits
+// (2^127 for the subnormal 2^-127, the subnormal 2^-127 for 2^127), and
+// 0 for inf.  r * pow2_recip(s) is then r / s bit for bit: both round
+// the same real r * 2^-e once (subnormal results included), and r / inf
+// and r * 0 agree (0 of r's sign, NaN for an infinite r).
+__device__ __forceinline__ float pow2_recip(float s) {
+  const int eb = __float_as_int(s) >> 23;                 // biased exponent
+  if (eb == 0xFF) return 0.0f;                            // inf
+  if (eb == 0) return __int_as_float(254 << 23);          // 1 / 2^-127
+  if (eb == 254) return __int_as_float(1 << 22);          // 1 / 2^127
+  return __int_as_float((254 - eb) << 23);
+}

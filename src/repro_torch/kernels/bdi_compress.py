@@ -23,7 +23,7 @@ from .ref import PackedTiles
 from .ref import compress_ref as bdi_compress_ref  # noqa: F401
 from .ref import compress_rows as bdi_compress_kv_ref  # noqa: F401
 
-_MAX_TILE = 1024    # the kernel stages one tile's mask bytes per warp
+_MAX_TILE = 1024    # the generic instance stages a tile's mask bytes a warp
 
 
 def edge_tiles(t: int) -> dict[str, torch.Tensor]:

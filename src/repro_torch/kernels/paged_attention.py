@@ -6,16 +6,19 @@ kernels ``repro/kernels/paged_attention.py:211``
 ``_paged_attention_tail`` (entry point :func:`paged_attention_tail`)
 and ``:153`` ``_paged_attention`` (:func:`paged_attention`, no tail).
 It splits the pages (flash-decoding): one block per (sequence, kv head)
-and split of ``SPLIT_PAGES`` page-table entries, the tail a split of its
+and split of :func:`split_pages` page-table entries (a warp takes 16
+rows: a page, or half of one over 16 rows), the tail a split of its
 own, each writing its unnormalised softmax state to a scratch buffer
 ``[B*KVH, n_split, G, D+2]`` that this module allocates; a combine pass
 in the same C call merges the splits in index order, so the result is
 the same bits at every launch.  The split count comes from PMAX, not
 from ``lengths`` (that would sync with the host).  The launch is bound
-by the bytes it reads, ``B*KVH*(len + tail)*(2D + 16)``.  It takes D in
-``HEAD_DIMS``, a page of 4, 8, 12 or 16 rows and G*D up to ``MAX_GD``;
-``_check`` raises ``ValueError`` for any other shape.  Their plain
-PyTorch versions are :func:`paged_attention_tail_ref` and
+by the bytes it reads, ``B*KVH*(len + tail)*(2D + 16)``.  It takes the
+shapes :func:`takes` names (D a multiple of 4 up to 256, with its own
+instances at 16, 32, 64 and 128; pages of 4 to 32 rows in steps of 4;
+G*D up to ``MAX_GD``); ``_check`` raises ``ValueError`` for any other,
+and ``PagedKVEngine`` refuses such a shape at construction.  Their
+plain PyTorch versions are :func:`paged_attention_tail_ref` and
 :func:`paged_attention_ref`; they agree within an f32 tolerance (sums
 in another order, q scaled before rather than after the dot).  Callers
 reach either through :mod:`repro_torch.kernels.ops`.
@@ -29,16 +32,37 @@ from . import _build
 from .ref import CompressedKVPages
 from .ref import paged_attention_ref, paged_attention_tail_ref  # noqa: F401
 
-SPLIT_PAGES = 4          # page-table entries a split takes (a warp each)
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_PAGE = 16            # and a multiple of 4 (P.V takes 4 keys a step)
+WARP_ROWS = 16           # rows a warp takes: a page, or half of one
+MAX_D = 256              # and a multiple of 4 (4-byte loads of int8 rows)
+MAX_PAGE = 2 * WARP_ROWS  # and a multiple of 4 (P.V takes 4 keys a step)
 MAX_SPLITS = 6000        # the combine keeps 8 bytes a split in shared memory
 MAX_GD = 1024            # a lane keeps G*D / 128 x 4 accumulators
 
 
-def n_split(pmax: int, tail: bool) -> int:
-    """Splits of one (sequence, kv head): ceil(PMAX / 4), plus the tail."""
-    return -(-pmax // SPLIT_PAGES) + int(tail)
+def takes(g: int, d: int, page: int) -> bool:
+    """Whether the kernel takes G query heads a kv head, head width D and
+    pages of ``page`` rows (``shape_ok`` in the CUDA source)."""
+    return (d % 4 == 0 and 4 <= d <= MAX_D and page % 4 == 0
+            and 4 <= page <= MAX_PAGE and g >= 1 and g * d <= MAX_GD)
+
+
+def refusal(name: str, g: int, d: int, page: int) -> str:
+    """The message for a shape :func:`takes` refuses."""
+    return (f"{name} takes D a multiple of 4 up to {MAX_D}, page a "
+            f"multiple of 4 from 4 to {MAX_PAGE} and G*D up to {MAX_GD}; "
+            f"got G={g} D={d} page={page}")
+
+
+def split_pages(page: int) -> int:
+    """Page-table entries a split takes: 4 (a warp each), or 2 when a
+    page is over ``WARP_ROWS`` rows (two warps each)."""
+    return 4 if page <= WARP_ROWS else 2
+
+
+def n_split(pmax: int, tail: bool, page: int) -> int:
+    """Splits of one (sequence, kv head): ceil(PMAX / split_pages), plus
+    the tail."""
+    return -(-pmax // split_pages(page)) + int(tail)
 
 
 def _check(q: torch.Tensor, pages: CompressedKVPages,
@@ -52,13 +76,9 @@ def _check(q: torch.Tensor, pages: CompressedKVPages,
     b, kvh, g, d = q.shape
     n_pages, _, page, _ = pages.kd.shape
     pmax = page_table.shape[-1]
-    if (d not in HEAD_DIMS or page % 4 or not 4 <= page <= MAX_PAGE
-            or g < 1 or g * d > MAX_GD):
-        raise ValueError(
-            f"{name} takes D in {HEAD_DIMS}, page a multiple of 4 up to "
-            f"{MAX_PAGE} and G*D up to {MAX_GD}; got G={g} D={d} "
-            f"page={page}")
-    if n_split(pmax, True) > MAX_SPLITS:
+    if not takes(g, d, page):
+        raise ValueError(refusal(name, g, d, page))
+    if n_split(pmax, True, page) > MAX_SPLITS:
         raise ValueError(f"PMAX = {pmax} gives more than {MAX_SPLITS} "
                          f"splits")
     f32, i32 = torch.float32, torch.int32
@@ -112,7 +132,7 @@ def paged_attention_tail(q: torch.Tensor, pages: CompressedKVPages,
     want(tail_len, "tail_len", torch.int32, (b,), dev)
     _aligned(tail_k, "tail_k")
     _aligned(tail_v, "tail_v")
-    splits = n_split(pmax, True)
+    splits = n_split(pmax, True, page)
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=dev)
     scratch = _scratch(b, kvh, g, d, splits, dev)
     lib = _build.load()
@@ -134,7 +154,7 @@ def paged_attention(q: torch.Tensor, pages: CompressedKVPages,
     """
     b, kvh, g, d, page, pmax = _check(q, pages, page_table, lengths,
                                       "paged_attention")
-    splits = n_split(pmax, False)
+    splits = n_split(pmax, False, page)
     out = torch.empty((b, kvh, g, d), dtype=torch.float32, device=q.device)
     scratch = _scratch(b, kvh, g, d, splits, q.device)
     lib = _build.load()

@@ -46,6 +46,7 @@ import torch
 
 from repro_torch import codecs
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels._device import resolve_device
 from repro_torch.kernels.ref import softmax_attend
 from repro_torch.models import attention as A
@@ -262,6 +263,15 @@ class PagedKVEngine:
         if cfg.attn_kind != "gqa" or cfg.is_encdec:
             raise ValueError(f"{cfg.name}: the engine serves dense GQA only")
         self.device = resolve_device(device)
+        self.codec = codecs.resolve(codec)
+        # on the card a fused codec decodes through the attention kernel:
+        # refuse here a shape it does not take, not at the first step
+        g = cfg.n_heads // cfg.n_kv_heads
+        if (self.device.type == "cuda" and self.codec.has_fused_kernels
+                and not PA.takes(g, cfg.head_dim, page_size)):
+            raise ValueError(f"{cfg.name} under {self.codec.name}: " +
+                             PA.refusal("paged_attention_tail", g,
+                                        cfg.head_dim, page_size))
         self.cfg = cfg
         self.params = to_device(params, self.device)
         self._layers = [layer(self.params["blocks"], li)
@@ -269,7 +279,6 @@ class PagedKVEngine:
         self.page = page_size
         self.max_batch = max_batch
         self.n_pool_pages = n_pool_pages
-        self.codec = codecs.resolve(codec)
         # chunked-prefill step width; page-aligned so every chunk
         # completes whole pages
         self.prefill_chunk = (2 * page_size if prefill_chunk is None

@@ -183,6 +183,29 @@ def test_gbdi_plain_versions_match_jax_oracle_and_kernels():
         np.testing.assert_array_equal(_bytes(a), _bytes(b))
 
 
+def test_gbdi_plain_version_matches_jax_kernel_at_gemma_page():
+    """gemma3-27b's page, KVH 16 x page 16 = 256 rows of D 168: random
+    pages and the in-range edge pages, plain version vs the Pallas
+    kernels in interpret mode."""
+    rows, d = 256, 168
+    rng = np.random.default_rng(16)
+    x = (rng.standard_normal((2, rows, d)) * 2.0).astype(np.float32)
+    edge = gbdi_codec.edge_pages(rows, d)
+    x = np.concatenate([x, np.stack([edge[n].numpy()
+                                     for n in IN_JAX_RANGE])])
+    flat = gbdi_codec.gbdi_compress_kv_ref(
+        torch.from_numpy(x.reshape(-1, d)), rows)
+    jflat = jax_gbdi.gbdi_compress(jnp.asarray(x.reshape(-1, d)),
+                                   rows_per_page=rows, interpret=True)
+    for a, b in zip(flat, jflat):
+        np.testing.assert_array_equal(_bytes(a).reshape(-1),
+                                      _bytes(b).reshape(-1))
+    dec = gbdi_codec.gbdi_decompress_kv_ref(*flat[:4], rows)
+    jdec = jax_gbdi.gbdi_decompress(*jflat[:4], rows_per_page=rows,
+                                    interpret=True)
+    np.testing.assert_array_equal(_bytes(dec), _bytes(jdec))
+
+
 def _np_pow2(maxres: np.ndarray) -> np.ndarray:
     ratio = (maxres / np.float32(127.0)).astype(np.float32)
     bits = ratio.view(np.int32)

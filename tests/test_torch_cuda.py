@@ -64,8 +64,14 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+# GBDI pages: the staged instance at yi-6b's page (64 x 128, 300 pages),
+# small pages and gemma3-27b's (256 x 168: 172 KB of shared memory);
+# the generic instance at a D that is no multiple of 4 (77) and at a page
+# over the shared-memory budget (512 x 128: 256 KB).  Every case carries
+# the edge pages.
 @pytest.mark.parametrize("rows,d,pages", [(64, 128, 300), (16, 16, 7),
-                                          (24, 36, 5)])
+                                          (24, 36, 5), (256, 168, 6),
+                                          (16, 77, 5), (512, 128, 3)])
 def test_gbdi_kernels_bit_exact(dev, rows, d, pages):
     gen = torch.Generator().manual_seed(rows + d)
     x = torch.randn((pages, rows, d), generator=gen) * 2.0
@@ -91,8 +97,12 @@ def test_gbdi_wrappers_count_launches(dev):
         before["gbdi_decompress_kv"] + 2
 
 
+# Tile counts: T 128 takes the 128 instance (4 tiles a warp; the cases
+# add 2n + 13 tiles, so no count divides by 4), every other T the generic
+# one.
 @pytest.mark.parametrize("n,t", [(4096, 128), (77, 8), (300, 256),
-                                 (129, 512), (40, 1024)])
+                                 (129, 512), (40, 1024), (1, 128),
+                                 (33, 128), (4097, 128)])
 def test_bdi_tile_kernels_bit_exact(dev, n, t):
     gen = torch.Generator().manual_seed(n + t)
     x = torch.randn((n, t), generator=gen) * 3.0
@@ -113,6 +123,23 @@ def test_bdi_tile_kernels_bit_exact(dev, n, t):
                        _bits(bdi_decompress.bdi_decompress(got)))
     assert ops.LAUNCHES["bdi_compress"] == before["bdi_compress"] + 1
     assert ops.LAUNCHES["bdi_decompress"] == before["bdi_decompress"] + 1
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 33, 4097])
+def test_bdi_tile_compress_any_tile_count(dev, n):
+    """Exactly n tiles of 128, and the same tiles 4 bytes off a 16-byte
+    boundary (the launcher then takes the generic instance)."""
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn((n, 128), generator=gen) * 3.0
+    x[0, 5:9] = x[0, 0]                           # a few base picks
+    want = ref.compress_ref(x)
+    flat = torch.empty(n * 128 + 1, device=dev)
+    shifted = flat[1:].view(n, 128)
+    shifted.copy_(x.to(dev))
+    for xd in (x.to(dev), shifted):
+        got = bdi_compress.bdi_compress(xd)
+        for name, a, b in zip(got._fields, got, want):
+            assert torch.equal(_bits(a.cpu()), _bits(b)), name
 
 
 def test_roundtrip_tensor_on_card_matches_cpu(dev):
@@ -164,6 +191,20 @@ ATTN_CASES = [
          lengths=[100, 37], tail_len=[4, 0]),
     dict(seed=10, bsz=2, kvh=3, g=1, d=16, page=4, pmax=8, pool=20,
          lengths=[30, 5], tail_len=[2, 4]),
+    # the generic D: gemma3-27b's head (D 168, G 2) at pages of 16 and 32,
+    # D 8 and D 20 (G 3, pages of 12); yi-6b's instance at pages of 32
+    # (two warps a page, two pages a split), one length ending in the
+    # second half of a page
+    dict(seed=11, bsz=4, kvh=3, g=2, d=168, page=16, pmax=12, pool=60,
+         lengths=[192, 0, 77, 161], tail_len=[16, 5, 0, 1]),
+    dict(seed=12, bsz=4, kvh=3, g=2, d=168, page=32, pmax=6, pool=30,
+         lengths=[192, 0, 77, 161], tail_len=[32, 17, 0, 16]),
+    dict(seed=13, bsz=3, kvh=2, g=8, d=128, page=32, pmax=9, pool=40,
+         lengths=[288, 57, 15], tail_len=[31, 0, 20]),
+    dict(seed=14, bsz=3, kvh=2, g=4, d=8, page=8, pmax=5, pool=20,
+         lengths=[40, 3, 0], tail_len=[8, 2, 0]),
+    dict(seed=15, bsz=2, kvh=2, g=3, d=20, page=12, pmax=5, pool=16,
+         lengths=[60, 25], tail_len=[12, 7]),
 ]
 
 
@@ -202,16 +243,29 @@ def test_paged_attention_matches_plain(dev, case):
 
 
 def test_paged_attention_refuses_shapes_it_does_not_take(dev):
-    args = _attn_args(dev, **ATTN_CASES[0])
+    """D 6 (no multiple of 4), D 260 (over 256), G*D 1056, pages of 36
+    and of 6 rows raise before any launch."""
+    args = _attn_args(dev, **ATTN_CASES[0])           # G 2, D 16, page 8
     q, pages = args[0], args[1]
-    for bad_q in (q[..., :8].contiguous(),            # D 8
+    for bad_q in (q[..., :6].contiguous(),            # D 6
+                  q.repeat(1, 1, 1, 17)[..., :260].contiguous(),  # D 260
                   q.repeat(1, 1, 33, 1)):             # G 66, D 16: G*D 1056
         with pytest.raises(ValueError):
             paged_attention.paged_attention(bad_q, pages, *args[2:4])
-    big = ref.CompressedKVPages(*(t.repeat_interleave(4, dim=2)
-                                  for t in pages))   # page 32
-    with pytest.raises(ValueError):
-        paged_attention.paged_attention(q, big, *args[2:4])
+    for rows in (36, 6):
+        bad = ref.CompressedKVPages(*(
+            t.repeat_interleave(5, dim=2)[:, :, :rows].contiguous()
+            for t in pages))
+        with pytest.raises(ValueError):
+            paged_attention.paged_attention(q, bad, *args[2:4])
+
+
+def test_engine_refuses_untaken_shape_on_card(dev):
+    cfg = get_arch("yi-6b").reduced(n_layers=1)       # D 16, G 2
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="page=36"):
+        PagedKVEngine(cfg, params, page_size=36, codec="bdi", device=dev)
+    PagedKVEngine(cfg, params, page_size=36, codec="gbdi", device=dev)
 
 
 @pytest.mark.parametrize("codec", ["bdi", "gbdi", "adaptive"])

@@ -28,7 +28,11 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.serving import faults as jax_faults
 from repro_torch import codecs
+from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as PA
+from repro_torch.models.transformer import init_params
+from repro_torch.serving import engine as engine_mod
 from repro_torch.serving import faults
 
 
@@ -176,6 +180,13 @@ ATTN_CASES = {
     "scrambled": dict(seed=8, bsz=4, kvh=2, g=8, d=128, page=16, pmax=5,
                       pool=24, lengths=[80, 0, 37, 1], tail_len=[1, 16, 5, 9],
                       scrambled=True),
+    # gemma3-27b's head (D 168, G 2) at pages of 16 and 32
+    "gemma_p16": dict(seed=9, bsz=3, kvh=2, g=2, d=168, page=16, pmax=4,
+                      pool=16, lengths=[64, 0, 37], tail_len=[16, 3, 9],
+                      scrambled=True),
+    "gemma_p32": dict(seed=10, bsz=3, kvh=2, g=2, d=168, page=32, pmax=3,
+                      pool=12, lengths=[96, 0, 45], tail_len=[32, 5, 17],
+                      scrambled=True),
 }
 
 
@@ -237,6 +248,11 @@ PAGED_CASES = {
     # a sequence with no token: NaN (0/0) in JAX, the kernel and here
     "zero_length": dict(seed=5, bsz=3, kvh=4, g=2, d=64, page=8, pmax=3,
                         lengths=[17, 0, 24]),
+    # gemma3-27b's head (D 168, G 2) at pages of 16 and 32
+    "b2_h2_g2_d168_p16": dict(seed=6, bsz=2, kvh=2, g=2, d=168, page=16,
+                              pmax=3),
+    "b2_h2_g2_d168_p32": dict(seed=7, bsz=2, kvh=2, g=2, d=168, page=32,
+                              pmax=2, lengths=[64, 33]),
 }
 # (cases share shapes where they can: each new shape costs an interpret
 # compile of the Pallas kernel)
@@ -286,3 +302,49 @@ def test_cuda_launchers_refuse_cpu_tensors():
         paged_attention.paged_attention(
             _t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
             _t(lengths))
+
+
+# ---------------------------------------------------------------------------
+# the attention kernel's shapes (the kernel itself runs on the card only)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("g,d,page,taken", [
+    (2, 168, 16, True), (2, 168, 32, True), (8, 128, 32, True),
+    (4, 8, 8, True), (3, 20, 12, True), (8, 128, 16, True),
+    (1, 256, 4, True), (4, 256, 32, True), (1, 4, 20, True),
+    (2, 6, 16, False), (2, 260, 16, False), (2, 168, 36, False),
+    (2, 168, 6, False), (66, 16, 8, False), (4, 264, 16, False),
+    (0, 16, 16, False), (2, 16, 0, False)])
+def test_attention_shape_predicate(g, d, page, taken):
+    assert PA.takes(g, d, page) is taken
+
+
+def test_attention_split_count_follows_the_page():
+    # 4 table entries a split up to 16 rows a page, 2 above
+    assert [PA.n_split(9, False, p) for p in (4, 16, 20, 32)] == [3, 3, 5, 5]
+    assert PA.n_split(9, True, 32) == 6 and PA.n_split(0, True, 8) == 1
+
+
+@pytest.mark.parametrize("page", [16, 32])
+def test_every_dense_gqa_config_is_taken(page):
+    served = [c for c in ARCHS.values()
+              if c.attn_kind == "gqa" and not c.is_encdec]
+    assert {"gemma3-27b", "yi-6b", "qwen2.5-14b"} <= {c.name for c in served}
+    for cfg in served:
+        assert PA.takes(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
+                        page), cfg.name
+
+
+def test_engine_refuses_untaken_shape_at_construction(monkeypatch):
+    """On the card, bdi decodes through the attention kernel, so the engine
+    refuses a page it does not take when it is built.  The device is
+    faked: the refusal comes before anything touches it."""
+    cfg = get_arch("yi-6b").reduced(n_layers=1)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    monkeypatch.setattr(engine_mod, "resolve_device",
+                        lambda device: torch.device("cuda"))
+    g, d = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    with pytest.raises(ValueError) as err:
+        engine_mod.PagedKVEngine(cfg, params, page_size=36, codec="bdi",
+                                 device="cuda")
+    assert PA.refusal("paged_attention_tail", g, d, 36) in str(err.value)

@@ -58,7 +58,28 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      leaves a layer at a time), |x - x_hat| <= scale/2 per tile, the
      tile-class mix, compression ratio, GB/s and peak memory; then the
      quickstart twin (``repro_torch.launch.quickstart``) on the card;
-     both tile kernels must have launched.
+     both tile kernels must have launched;
+  7. continuous batching with the SIP prefix cache: yi-6b at full width
+     (phase 4's weights) under ``bdi``, page 16, chunk 32, batch 8,
+     token budget 256, through ``ContinuousScheduler`` with a
+     ``PrefixCache``: 16 requests share a 384-token system prompt and add
+     32-128 tokens of their own (seed 7), 32 new tokens each; wave 1 (8
+     requests) arrives every 2 iterations, wave 2 once every wave-1
+     request has finished its prefill, and is admitted as wave 1
+     retires.  Every wave-2 request must start from >= 384 cached tokens,
+     the cache's hit rate be > 0, the row codec and the attention kernel
+     have launched, no request be preempted; prints ms an iteration,
+     tok/s, TTFT in iterations, the prefill tokens hits skipped and the
+     KV ratio;
+  7b. the same 16 requests without the prefix cache: every request's
+     tokens equal phase 7's up to reported one-bf16-ULP ties, at most
+     four;
+  7c. cross-device parity through the scheduler at depth 2
+     (``phase_parity(scheduler=True)``): prompts sharing a prefix on a
+     pool small enough that SIP evicts retained entries; finish reasons,
+     first-token and finish iterations, scheduler and engine stats and
+     the cache's state (eviction order, hit rate) equal after every
+     iteration, tokens equal up to ties; under ``bdi`` and ``gbdi``.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -857,10 +878,13 @@ def _assert_same_host_state(gpu, cpu) -> None:
 
 
 def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int,
-                 codec: str = "bdi", init_on: str = "cpu") -> dict:
+                 codec: str = "bdi", init_on: str = "cpu",
+                 scheduler: bool = False) -> dict:
     """Greedy parity of the engine on ``dev`` and on the CPU; the weights
     come from a seeded generator on ``init_on`` (the card for a model whose
-    CPU init would take long)."""
+    CPU init would take long).  ``scheduler=True`` drives both engines
+    through ``ContinuousScheduler`` with a prefix cache instead
+    (:func:`parity_scheduler`)."""
     import torch
     from repro_torch.models.params import to_device
     from repro_torch.models.transformer import init_params
@@ -868,6 +892,8 @@ def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int,
     from repro_torch.serving.parity import GreedyParity, engine_logits
     params = init_params(cfg, torch.Generator(device=init_on).manual_seed(0),
                          init_on)
+    if scheduler:
+        return parity_scheduler(dev, cfg, params, page, lo, hi, steps, codec)
     prompts = ragged_prompts(8, lo, hi, cfg.vocab, seed=4)
     n_pool = pool_for(cfg, prompts, steps, page)
     gpu, cpu = (PagedKVEngine(cfg, to_device(params, torch.device(d)),
@@ -890,6 +916,253 @@ def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int,
            "ties": [vars(t) for t in parity.ties]}
     log(f"parity {codec} {cfg.name} d_model={cfg.d_model}: "
         f"{json.dumps(res)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 7, 7b, 7c: continuous batching with the SIP prefix cache
+# ---------------------------------------------------------------------------
+
+def shared_prefix_requests(n: int, prefix: int, lo: int, hi: int,
+                           vocab: int, seed: int) -> dict:
+    """``n`` prompts: one ``prefix``-token system prompt, then lo..hi
+    tokens of each request's own."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    sysp = torch.randint(1, vocab, (prefix,), generator=g).tolist()
+    own = torch.randint(lo, hi + 1, (n,), generator=g).tolist()
+    return {r: sysp + torch.randint(1, vocab, (k,), generator=g).tolist()
+            for r, k in enumerate(own)}
+
+
+def drive_waves(scheds: list, reqs: dict, gen: int, on_step=None,
+                stagger: int = 2, max_iters: int = 4000) -> None:
+    """Drive schedulers in lockstep: the first half of ``reqs`` arrives
+    every ``stagger`` iterations, the second half at once when every
+    first-half request has finished its prefill (or retired before it),
+    to be admitted as the first half retires.  ``on_step(events)`` sees
+    each iteration's events."""
+    n1 = len(reqs) // 2
+    arrivals = {r: stagger * r for r in range(n1)}
+    wave2 = False
+    lead = scheds[0]
+    while arrivals or not wave2 or not lead.idle:
+        if lead.iteration >= max_iters:
+            raise AssertionError(f"not drained after {max_iters} iterations")
+        due = [r for r, at in arrivals.items() if at <= lead.iteration]
+        if not wave2 and not arrivals and all(
+                lead.tracks[r].prefill_done_iter is not None
+                or lead.tracks[r].state == "finished" for r in range(n1)):
+            due, wave2 = list(range(n1, len(reqs))), True
+        for r in due:
+            arrivals.pop(r, None)
+            for sc in scheds:
+                sc.submit(r, reqs[r], max_new_tokens=gen)
+        events = [sc.step() for sc in scheds]
+        if on_step is not None:
+            on_step(events)
+
+
+def capture_logits(eng) -> list:
+    """Keep every engine step's logits rows by request and output
+    position: ``rows[(rid, k)]`` is the row that chose request ``rid``'s
+    k-th token (for tie reports)."""
+    rows, pos = {}, {}
+    inner = eng.mixed_step
+
+    def mixed_step(*a, **kw):
+        out, completed = inner(*a, **kw)
+        if out:
+            lg = eng.last_logits.clone()
+            for rid in out:
+                k = pos.get(rid, 0)
+                rows[(rid, k)] = lg[eng.seqs[rid].slot]
+                pos[rid] = k + 1
+        return out, completed
+
+    eng.mixed_step = mixed_step
+    return rows
+
+
+def compare_requests(want: dict, got: dict, want_rows: dict,
+                     got_rows: dict):
+    """Per-request greedy parity of two runs whose schedules differ:
+    position k of every request is one parity step."""
+    from repro_torch.serving.parity import GreedyParity
+    parity = GreedyParity()
+    for k in range(max(len(t) for t in want.values())):
+        w = {r: t[k] for r, t in want.items() if k < len(t)}
+        g = {r: got[r][k] for r in w}
+        parity.check(k, w, g, lambda r: got_rows[(r, k)],
+                     lambda r: want_rows[(r, k)])
+    return parity
+
+
+SCHED_PREFIX, SCHED_OWN, SCHED_GEN, SCHED_N = 384, (32, 128), 32, 16
+# warm and cold prefill run GEMMs of other row counts and offsets on the
+# card, so a one-bf16-ULP tie may flip a token; more than a handful of
+# them over 512 tokens would point at a fault, not at ties
+SCHED_MAX_TIES = 4
+
+
+def phase_scheduler(dev, cfg, params, page: int) -> dict:
+    """7 and 7b: the scheduler with and without the prefix cache at full
+    width under bdi (see the module docstring)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.serving.telemetry import Telemetry
+    reqs = shared_prefix_requests(SCHED_N, SCHED_PREFIX, *SCHED_OWN,
+                                  cfg.vocab, seed=7)
+    # every request's pages as if none were shared: neither run evicts
+    # or preempts (the cold one holds the prefix once a request)
+    n_pool = pool_for(cfg, reqs, SCHED_GEN, page)
+    runs = {}
+    for name, cached in (("7 warm", True), ("7b cold", False)):
+        tel = Telemetry()
+        cache = PrefixCache.for_model(cfg, page) if cached else None
+        eng = PagedKVEngine(cfg, params, page_size=page, n_pool_pages=n_pool,
+                            max_batch=8, prefill_chunk=32, prefix_cache=cache,
+                            codec="bdi", telemetry=tel, device=dev)
+        sched = ContinuousScheduler(eng, token_budget=256, telemetry=tel)
+        rows = capture_logits(eng)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        drive_waves([sched], reqs, SCHED_GEN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        fin = sched.finished()
+        st, est = sched.stats, eng.stats
+        toks = {r: fin[r].out_tokens for r in reqs}
+        reasons = [str(t.finish_reason) for t in fin.values()]
+        if set(reasons) != {"length"} or est["preemptions"] or any(
+                len(t) != SCHED_GEN or not all(0 <= x < cfg.vocab for x in t)
+                for t in toks.values()):
+            raise AssertionError(f"phase {name}: finish reasons {reasons}, "
+                                 f"stats {est}")
+        if not torch.isfinite(eng.last_logits.float()).all():
+            raise AssertionError(f"phase {name}: non-finite logits")
+        for k in ("bdi_compress_kv", "paged_attention_tail"):
+            if launches[k] <= 0:
+                raise AssertionError(f"phase {name}: kernel {k} never "
+                                     f"launched: {launches}")
+        ttft = sched._h_ttft_it
+        res = {"card": smi(), "requests": SCHED_N,
+               "prompt_lens": [len(p) for p in reqs.values()],
+               "n_pool_pages": n_pool, "iterations": sched.iteration,
+               "wall_s": wall, "ms_per_iteration": 1e3 * wall /
+               sched.iteration,
+               "tok_s": st["decode_tokens"] / wall,
+               "ttft_iters_p50": ttft.quantile(0.5),
+               "ttft_iters_p99": ttft.quantile(0.99),
+               "ttft_iters": [fin[r].first_token_iter - fin[r].submitted_iter
+                              for r in reqs],
+               "cached_tokens": [fin[r].pf_start for r in reqs],
+               "prefill_tokens": st["prefill_tokens"],
+               "prefix_cached_tokens": st["prefix_cached_tokens"],
+               "mixed_iterations": st["mixed_iterations"],
+               "kv_compression_ratio": eng.compression_ratio(),
+               "engine_stats": est, "launches": launches}
+        if cached:
+            wave2 = res["cached_tokens"][SCHED_N // 2:]
+            if min(wave2) < SCHED_PREFIX or cache.hit_rate() <= 0:
+                raise AssertionError(f"phase 7: wave 2 cached {wave2}, hit "
+                                     f"rate {cache.hit_rate()}")
+            res["hit_rate"] = cache.hit_rate()
+            res["cache_stats"] = dict(cache.stats)
+        log(f"phase {name}: {json.dumps(res)}")
+        runs[name] = (res, toks, rows)
+        del eng, sched, cache
+        torch.cuda.empty_cache()
+    (warm, wtoks, wrows), (cold, ctoks, crows) = runs["7 warm"], \
+        runs["7b cold"]
+    parity = compare_requests(ctoks, wtoks, crows, wrows)
+    log(f"phase 7b: warm vs cold tokens, {parity.compared} equal, "
+        f"{len(parity.ties)} one-bf16-ULP ties: "
+        f"{json.dumps([vars(t) for t in parity.ties])}")
+    if len(parity.ties) > SCHED_MAX_TIES:
+        raise AssertionError(f"phase 7b: {len(parity.ties)} ties, more than "
+                             f"{SCHED_MAX_TIES}")
+    warm["ties_vs_cold"] = len(parity.ties)
+    return warm
+
+
+def parity_scheduler(dev, cfg, params, page: int, lo: int, hi: int,
+                     steps: int, codec: str) -> dict:
+    """7c: the scheduler over a prefix-cached engine on ``dev`` and on the
+    CPU in lockstep: 8 requests sharing a 3-page prefix, 4 slots, a pool
+    that holds the live sequences but not every retained entry, so SIP
+    evicts; host state, scheduler stats, tracks and cache state equal
+    after every iteration, tokens up to ties."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import to_device
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.parity import GreedyParity
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    reqs = shared_prefix_requests(8, 3 * page, lo, hi, cfg.vocab, seed=4)
+    # 16 pages a layer: at page 16, prompts of 64-108 tokens and 24 steps,
+    # four live requests fit, but not with every retained entry beside
+    # them, so SIP evicts (and CAMP preempts once: yi-6b at 2 layers)
+    n_pool = 1 + cfg.n_layers * 16
+    scheds, rows = [], []
+    for d in (dev, "cpu"):
+        eng = PagedKVEngine(cfg, to_device(params, torch.device(d)),
+                            page_size=page, n_pool_pages=n_pool, max_batch=4,
+                            prefix_cache=PrefixCache.for_model(cfg, page),
+                            codec=codec, device=d)
+        rows.append(capture_logits(eng))
+        scheds.append(ContinuousScheduler(eng, token_budget=64))
+    parity = GreedyParity()
+    ops.reset_launches()
+
+    def state(sc):
+        fin = {r: [str(t.finish_reason), t.first_token_iter,
+                   t.finished_iter, t.pf_start]
+               for r, t in sc.finished().items()}
+        return dict(_host_state(sc.engine), sched=sc.stats, tracks=fin,
+                    cache=sc.engine.prefix_cache.state(),
+                    hit_rate=sc.engine.prefix_cache.hit_rate())
+
+    def on_step(events):
+        gpu_ev, cpu_ev = events
+        it = gpu_ev["iteration"]
+        k = {r: len(scheds[1].tracks[r].out_tokens) - 1
+             for r in cpu_ev["decoded"]}
+        parity.check(it, cpu_ev["decoded"], gpu_ev["decoded"],
+                     lambda r: rows[0][(r, k[r])],
+                     lambda r: rows[1][(r, k[r])])
+        if parity.ties:
+            return                    # the runs may part after a tie
+        a, b = state(scheds[0]), state(scheds[1])
+        for key in a:
+            if a[key] != b[key]:
+                raise AssertionError(f"7c {codec}: {key} differs across "
+                                     f"devices after iteration {it}: "
+                                     f"{a[key]} vs {b[key]}")
+
+    drive_waves(scheds, reqs, steps, on_step)
+    est = scheds[0].engine.stats
+    cache = scheds[0].engine.prefix_cache
+    if est["prefix_pages_evicted"] <= 0 or cache.hit_rate() <= 0:
+        raise AssertionError(f"7c {codec}: no SIP eviction or no hit: {est}")
+    need = {"bdi": ("bdi_compress_kv", "paged_attention_tail"),
+            "gbdi": ("gbdi_compress_kv", "gbdi_decompress_kv")}[codec]
+    if not all(ops.LAUNCHES[k] > 0 for k in need):
+        raise AssertionError(f"7c {codec}: kernels {need} not all launched: "
+                             f"{dict(ops.LAUNCHES)}")
+    res = {"codec": codec, "config": cfg.name, "n_pool_pages": n_pool,
+           "iterations": scheds[0].iteration,
+           "tokens_equal": parity.compared,
+           "ties": [vars(t) for t in parity.ties],
+           "engine_stats": est, "cache_stats": dict(cache.stats),
+           "hit_rate": cache.hit_rate(), "launches": dict(ops.LAUNCHES)}
+    log(f"parity scheduler {codec} {cfg.name}: {json.dumps(res)}")
     return res
 
 
@@ -980,6 +1253,8 @@ def main() -> int:
     phase_done("4c serve adaptive")
     tile = phase_tile_path(dev, params)
     phase_done("6 tile path (every yi-6b leaf, quickstart)")
+    phase_scheduler(dev, cfg, params, page)
+    phase_done("7/7b scheduler + prefix cache, warm and cold")
     del params
     torch.cuda.empty_cache()
     # launches of the path that ran each kernel (3b set its own)
@@ -1012,6 +1287,9 @@ def main() -> int:
         "card, so that the CPU engine stays within the time limit")
     phase_parity(dev, gemma_wide, page, 16, 48, 8, init_on=dev.type)
     phase_done("5c parity bdi gemma3-27b")
+    for codec in ("bdi", "gbdi"):
+        phase_parity(dev, tiny, page, 16, 60, 24, codec, scheduler=True)
+    phase_done("7c scheduler parity bdi/gbdi")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -26,20 +26,37 @@ bdi) reads the pools in compressed form, every other codec goes through
 :func:`_attend_ref`, which gathers the pages, decompresses them and
 attends densely.
 
+With a :class:`~repro_torch.serving.prefix_cache.PrefixCache` attached,
+admission looks up each prompt's longest cached page-boundary prefix,
+pins the entry chain, maps its pool pages into the new sequence's page
+table and decompresses them into the prefill scratch
+(:func:`_fill_warm_scratch`); the member then starts chunked prefill at
+the first uncached boundary — each cohort row at its own offset through
+one shared relative chunk grid — and a full hit skips prefill.  Prompt
+pages register in the cache as they publish; two same-prefix members of
+one cohort dedup onto one entry.  Under pool pressure, pages come back
+from the free list, then from refcount-0 cache entries in SIP order,
+then from CAMP preemption of a live sequence (whose value counts only
+the bytes its preemption would free).
+
 Where the JAX engine donates buffers to a jit, this engine updates the
 same tensors in place (slice assignment / ``index_put_``), and says so
 at each site.  ``lax.scan`` over layers is a Python loop over the
 stacked ``[L, ...]`` parameters.  Host decisions are the JAX engine's,
-step for step: the free list, CAMP victims, ``PMAX`` doubling, cohort
-row and scratch rounding, and the publish order.
+step for step: the free list, CAMP victims, SIP evictions, ``PMAX``
+doubling, cohort row and scratch rounding, and the publish order.
+Counters live in a :class:`~repro_torch.serving.telemetry.Telemetry`
+registry (``stats`` reads the eight of them back as a dict), with the
+JAX engine's gauges and per-codec publish series.
 
-Not ported yet: the prefix cache, fault injection and integrity checks,
-the host/disk tier, telemetry and the observatory.
+Not ported yet: fault injection and the integrity checks (the warm-hit
+and preemption-victim verification branches), the host/disk tier, the
+observatory and snapshot/restore.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -54,8 +71,9 @@ from repro_torch.models import layers as L
 from repro_torch.models.params import layer, to_device
 from repro_torch.serving import faults as F
 from repro_torch.serving._tree import tree_leaves, tree_map
-from repro_torch.serving.prefix_cache import (canonical_update,
+from repro_torch.serving.prefix_cache import (PrefixCache, canonical_update,
                                               prefix_chunk_attention)
+from repro_torch.serving.telemetry import Telemetry
 
 
 @dataclass
@@ -68,19 +86,27 @@ class Sequence:
     done: bool = False
     preempted: bool = False
     prefilling: bool = False             # in-flight admission cohort member
+    # prefix-cache chain: entry ids whose pages this sequence maps, in
+    # block order.  pages[li][:len(chain)] are shared (cache-owned); the
+    # rest are private and freed on release/preemption.
+    chain: list[int] = field(default_factory=list)
 
 
 @dataclass
 class _Cohort:
     """In-flight chunked-prefill admission cohort.
 
-    All members advance one shared chunk grid: each step moves the grid
-    offset ``roff`` by up to ``prefill_chunk`` tokens.  ``toks`` is the
-    host-side zero-padded prompt buffer; ``kscr/vscr`` the exact f32 K/V
-    scratch and ``kcan/vcan`` its canonical view, all [L, nrows, tmax, K,
-    D] on the device (the canonical view zero-length, T = 0, for a
-    lossless codec); ``pub[i]`` counts pages already published for
-    ``seqs[i]``; ``done_sids`` the members whose prefill completed.
+    All members advance one shared *relative* chunk grid: each step moves
+    the grid offset ``roff`` by up to ``prefill_chunk`` tokens.  Member
+    ``i`` starts at its own absolute offset ``starts[i]`` (its prefix-cache
+    hit boundary, 0 when cold), so its chunk covers absolute positions
+    ``starts[i] + roff ..``.  ``toks`` is the host-side zero-padded prompt
+    buffer (absolute positions); ``kscr/vscr`` the exact f32 K/V scratch
+    and ``kcan/vcan`` its canonical view, all [L, nrows, tmax, K, D] on
+    the device (the canonical view zero-length, T = 0, for a lossless
+    codec; warm rows carry the decompressed cached prefix below
+    ``starts[i]``); ``pub[i]`` counts pages already published or mapped
+    for ``seqs[i]``; ``done_sids`` the members whose prefill completed.
     """
     seqs: list[Sequence]
     row: dict[int, int]                  # sid -> scratch row
@@ -89,7 +115,8 @@ class _Cohort:
     vscr: torch.Tensor
     kcan: torch.Tensor
     vcan: torch.Tensor
-    maxrel: int                          # grid length: longest stored prompt
+    starts: list[int]                    # absolute start offset per member
+    maxrel: int                          # grid length: max stored - start
     pub: list[int]
     done_sids: set[int]
     roff: int = 0                        # grid offset
@@ -236,6 +263,37 @@ def _publish_blocks(pools, k_blocks, v_blocks, layer_idx, pids, *,
     return codec.page_nbytes(pg), F.page_checksums(pg), codec.page_tags(pg)
 
 
+def _fill_warm_scratch(kscr, vscr, kcan, vcan, pools, wpt, wlen, *,
+                       codec: codecs.PageCodec) -> None:
+    """Decompress cached prefix pages into the scratch warm regions.
+
+    kscr/vscr/kcan/vcan [L, R, T, K, D], written in place (the JAX step
+    donates them); wpt i64 [L, R, WP] per-layer pool ids of each row's
+    cached chain (0-padded); wlen [R] cached token count (page-aligned).
+    The values are what decode-side attention reads for those pages —
+    canonical by construction — so both the exact scratch and the
+    canonical view receive them, and ``canonical_update`` never
+    re-compresses the warm region (its windows start at or after the hit
+    boundary).  A lossless codec's canonical view is zero-length: only
+    the exact scratch is filled.
+    """
+    lyr, r, _, kvh, dh = kscr.shape
+    wp = wpt.shape[2]
+    for li in range(lyr):
+        pools_l = tree_map(lambda a: a[li], pools)
+        kw, vw = codec.decompress_pages(
+            tree_map(lambda a: a[wpt[li]], pools_l))   # [R, WP, K, pg, D]
+        n = wp * kw.shape[3]
+        m = (torch.arange(n, device=kscr.device)[None, :]
+             < wlen[:, None])[:, :, None, None]        # [R, WP*pg, 1, 1]
+        bufs = [(kscr, kw), (vscr, vw)]
+        if not codec.lossless:
+            bufs += [(kcan, kw), (vcan, vw)]
+        for buf, warm in bufs:
+            warm = warm.movedim(2, 3).reshape(r, n, kvh, dh)
+            buf[li, :, :n] = torch.where(m, warm, buf[li, :, :n])
+
+
 # ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
@@ -245,11 +303,12 @@ class PagedKVEngine:
 
     ``add_requests`` admits prompts and prefills them; ``decode_batch``
     decodes one token for every active sequence; ``mixed_step`` does both
-    in one iteration.  Runs on the card unless ``device="cpu"``.
+    in one iteration (what ``serving/scheduler.py`` drives).  Runs on the
+    card unless ``device="cpu"``.
     """
 
-    # the JAX engine's counters; the last three stay 0 until the prefix
-    # cache and the integrity checks are ported
+    # the JAX engine's counters; ``integrity_failures`` stays 0 until the
+    # integrity checks are ported
     _STAT_KEYS = ("pages_compressed", "pages_evicted", "bytes_raw",
                   "bytes_compressed", "preemptions",
                   "prefix_pages_evicted", "shed_inserts",
@@ -258,10 +317,16 @@ class PagedKVEngine:
     def __init__(self, cfg: ArchConfig, params: dict, *, page_size: int = 16,
                  n_pool_pages: int = 256, max_batch: int = 32,
                  prefill_chunk: int | None = None,
+                 prefix_cache: PrefixCache | None = None,
                  codec: str | codecs.PageCodec | None = None,
+                 telemetry: Telemetry | None = None,
                  device: str | torch.device | None = None):
         if cfg.attn_kind != "gqa" or cfg.is_encdec:
             raise ValueError(f"{cfg.name}: the engine serves dense GQA only")
+        if prefix_cache is not None and (
+                prefix_cache.page != page_size
+                or prefix_cache.n_layers != cfg.n_layers):
+            raise ValueError("prefix cache shape disagrees with the engine")
         self.device = resolve_device(device)
         self.codec = codecs.resolve(codec)
         # on the card a fused codec decodes through the attention kernel:
@@ -279,6 +344,7 @@ class PagedKVEngine:
         self.page = page_size
         self.max_batch = max_batch
         self.n_pool_pages = n_pool_pages
+        self.prefix_cache = prefix_cache
         # chunked-prefill step width; page-aligned so every chunk
         # completes whole pages
         self.prefill_chunk = (2 * page_size if prefill_chunk is None
@@ -300,6 +366,10 @@ class PagedKVEngine:
         # per-page codec tags: 0 for a single codec, the winning member
         # id under ``adaptive``
         self.page_codec_id = np.zeros(n_pool_pages, np.int32)
+        # degradation-ladder level 1 (set by the scheduler): drop
+        # speculative prefix-cache insertions while the pool is under
+        # pressure
+        self.shed_cache_inserts = False
         self.seqs: dict[int, Sequence] = {}
         # cumulative published [raw, compressed] bytes per request
         # (survives release)
@@ -309,13 +379,70 @@ class PagedKVEngine:
         self._pt_dev: torch.Tensor | None = None
         self._pt_dirty = True
         self._cohort: _Cohort | None = None
-        self._stats = dict.fromkeys(self._STAT_KEYS, 0)
+        # registry-backed counters behind ``stats``, shareable with the
+        # scheduler through one Telemetry
+        self.telemetry = telemetry if telemetry is not None else Telemetry()
+        self._init_metrics()
+        if prefix_cache is not None:
+            prefix_cache.telemetry = self.telemetry
         # logits [S, V] of the last decode step (greedy-parity tie reports)
         self.last_logits: torch.Tensor | None = None
 
+    def _init_metrics(self) -> None:
+        reg = self.telemetry.registry
+        cn = self.codec.name
+        self._m = {k: reg.counter(f"engine_{k}_total", codec=cn)
+                   for k in self._STAT_KEYS}
+        self._g_pool_used = reg.gauge(
+            "engine_pool_used_pages", "mapped pool pages (id 0 excluded)")
+        self._g_free = reg.gauge(
+            "engine_free_list_depth", "pages on the free list")
+        self._g_pressure = reg.gauge(
+            "engine_pool_pressure", "non-reclaimable pool fraction [0,1]")
+        # per-codec publish series: under the adaptive composite each
+        # page's winning member is its tag, so the series split by member
+        members = getattr(self.codec, "members", None)
+        self._tag_names = ([m.name for m in members] if members else [cn])
+        self._tag_metrics: dict[int, tuple] = {}
+
+    def _publish_metrics(self, tag: int):
+        tm = self._tag_metrics.get(tag)
+        if tm is None:
+            reg = self.telemetry.registry
+            name = (self._tag_names[tag] if tag < len(self._tag_names)
+                    else str(tag))
+            tm = self._tag_metrics[tag] = (
+                reg.counter("engine_pages_by_codec_total",
+                            "published pages by winning codec",
+                            codec=name),
+                reg.counter("engine_compressed_bytes_by_codec_total",
+                            "compressed bytes by winning codec",
+                            codec=name),
+                reg.histogram("engine_page_compressed_bytes",
+                              "per-page compressed size", codec=name),
+                reg.histogram("engine_page_compression_ratio",
+                              "per-page raw/compressed ratio",
+                              codec=name))
+        return tm
+
     @property
     def stats(self) -> dict:
-        return dict(self._stats)
+        """The eight counters of ``_STAT_KEYS``, read from the registry."""
+        return {k: m.value for k, m in self._m.items()}
+
+    def load_stats_dict(self, s: dict) -> None:
+        """Restore counters from a stats dict."""
+        for k, m in self._m.items():
+            if k in s:
+                m.value = s[k]
+
+    def sample_gauges(self) -> None:
+        """Refresh the pool-occupancy gauges (called before an export)."""
+        self._g_pool_used.set(self.pool_used_pages())
+        self._g_free.set(len(self.free))
+        self._g_pressure.set(round(self.pool_pressure(), 6))
+        if self.prefix_cache is not None:
+            self.prefix_cache.sample_metrics()
 
     # -- pool bookkeeping ----------------------------------------------------
 
@@ -323,24 +450,66 @@ class PagedKVEngine:
         c = self.cfg
         return 2 * self.page * c.n_kv_heads * c.head_dim * 2   # K+V bf16
 
+    def pool_pressure(self) -> float:
+        """Non-reclaimable pool fraction in [0, 1]: pages neither free nor
+        held only by the prefix cache (refcount-0 entries free without
+        preempting anyone).  The degradation ladder's input."""
+        reclaimable = len(self.free)
+        if self.prefix_cache is not None:
+            reclaimable += self.prefix_cache.retained_pages()
+        return max(0.0, 1.0 - reclaimable / (self.n_pool_pages - 1))
+
     def _reserve_pages(self, n: int) -> list[int]:
+        """Reclaim order: the free list, then retained prefix-cache
+        entries (SIP victims), then CAMP preemption of the least valuable
+        live sequence (which unpins its chain, possibly feeding the next
+        round of cache eviction)."""
         while len(self.free) < n:
-            self._preempt_one()
+            if not self._evict_prefix_pages(n - len(self.free)):
+                self._preempt_one()
         return [self.free.pop() for _ in range(n)]
 
+    def _evict_prefix_pages(self, need: int) -> bool:
+        if self.prefix_cache is None:
+            return False
+        pids = self.prefix_cache.evict_for(need)
+        if not pids:
+            return False
+        self.free.extend(pids)
+        self._m["prefix_pages_evicted"].inc(len(pids))
+        return True
+
+    def _seq_reclaimable_bytes(self, seq: Sequence) -> int:
+        """Compressed bytes preempting this sequence would make evictable:
+        its private pages, plus the shared entries it alone pins."""
+        ns = len(seq.chain)
+        size = sum(int(self.page_bytes[p])
+                   for lp in seq.pages for p in lp[ns:])
+        for eid in seq.chain:
+            e = self.prefix_cache.entries[eid]
+            if e.refcount == 1:
+                size += e.nbytes
+        return size
+
     def _seq_value(self, seq: Sequence) -> float:
-        """CAMP/MVE value: reuse proxy / compressed size (smaller =
-        victim); a finished sequence is worth -1."""
+        """CAMP/MVE value: reuse proxy / reclaimable compressed size
+        (smaller = victim); a finished sequence is worth -1."""
         if seq.done:
             return -1.0
-        size = sum(int(self.page_bytes[p]) for lp in seq.pages for p in lp)
-        return (len(seq.tokens) + 1) / max(size, 1)
+        return ((len(seq.tokens) + 1)
+                / max(self._seq_reclaimable_bytes(seq), 1))
 
     def _drop_seq_pages(self, seq: Sequence, *, count_evicted: bool) -> None:
+        """Free the private pages and unpin the shared chain (cache-owned
+        pages stay resident; refcount-0 entries become evictable)."""
+        ns = len(seq.chain)
         for lp in seq.pages:
-            self.free.extend(lp)
+            self.free.extend(lp[ns:])
             if count_evicted:
-                self._stats["pages_evicted"] += len(lp)
+                self._m["pages_evicted"].inc(len(lp) - ns)
+        if seq.chain:
+            self.prefix_cache.release(seq.chain)
+            seq.chain = []
         seq.pages = [[] for _ in range(self.cfg.n_layers)]
 
     def _preempt_one(self) -> None:
@@ -354,23 +523,29 @@ class PagedKVEngine:
         victim.tail_len = 0
         victim.preempted = True
         self._pt_dirty = True
-        self._stats["preemptions"] += 1
+        self._m["preemptions"].inc()
 
     def _record_publish(self, seq: Sequence, pids: list[int],
                         nbytes: np.ndarray, csums: np.ndarray,
                         tags: np.ndarray) -> None:
         """Attach freshly published pages (one per layer) to a sequence."""
+        raw = self.page_raw_bytes()
         for li, pid in enumerate(pids):
-            self.page_bytes[pid] = int(nbytes[li])
+            nb, tag = int(nbytes[li]), int(tags[li])
+            self.page_bytes[pid] = nb
             self.page_checksum[pid] = csums[li]
-            self.page_codec_id[pid] = int(tags[li])
+            self.page_codec_id[pid] = tag
             seq.pages[li].append(pid)
-        raw = self.page_raw_bytes() * len(pids)
-        self._stats["pages_compressed"] += len(pids)
-        self._stats["bytes_raw"] += raw
-        self._stats["bytes_compressed"] += int(nbytes.sum())
+            pages_c, bytes_c, h_bytes, h_ratio = self._publish_metrics(tag)
+            pages_c.inc()
+            bytes_c.inc(nb)
+            h_bytes.observe(nb)
+            h_ratio.observe(raw / max(nb, 1))
+        self._m["pages_compressed"].inc(len(pids))
+        self._m["bytes_raw"].inc(raw * len(pids))
+        self._m["bytes_compressed"].inc(int(nbytes.sum()))
         rb = self.request_bytes.setdefault(seq.sid, [0, 0])
-        rb[0] += raw
+        rb[0] += raw * len(pids)
         rb[1] += int(nbytes.sum())
         self._pt_dirty = True
 
@@ -395,22 +570,40 @@ class PagedKVEngine:
     # -- request lifecycle ---------------------------------------------------
 
     def release(self, sid: int) -> None:
-        """Retire a request: free its pool pages and recycle its slot."""
+        """Retire a request: free its private pool pages, unpin its shared
+        prefix chain (those pages stay cache-retained for the next request
+        that shares the prefix) and recycle its slot."""
         seq = self.seqs[sid]
         if seq.prefilling and not seq.preempted:
             raise ValueError(f"sid {sid} is mid-prefill; cannot release")
         del self.seqs[sid]
         self._drop_seq_pages(seq, count_evicted=False)
+        if self.prefix_cache is not None:
+            # quarantined entries free once their last pin drops
+            self.free.extend(self.prefix_cache.purge_corrupt())
         self._free_slots.append(seq.slot)
         self._pt_dirty = True
+
+    def abort(self, sid: int) -> None:
+        """Abandon a request mid-flight (deadline miss): drop its pages and
+        mark it preempted, so ``release`` accepts it even mid-prefill —
+        its cohort row keeps computing masked values that are never
+        published, as for a CAMP victim, without the preemption count."""
+        seq = self.seqs[sid]
+        if seq.preempted:
+            return
+        self._drop_seq_pages(seq, count_evicted=False)
+        seq.tail_len = 0
+        seq.preempted = True
+        self._pt_dirty = True
+        self._maybe_drop_cohort()
 
     def add_request(self, sid: int, prompt: list[int]) -> None:
         self.add_requests({sid: prompt})
 
     def add_requests(self, prompts: dict[int, list[int]]) -> dict[int, int]:
         """Admit a batch of prompts and prefill them to completion (one
-        cohort, full-width chunks).  Returns ``{sid: cached_tokens}``,
-        all 0 until the prefix cache is ported."""
+        cohort, full-width chunks).  Returns ``{sid: cached_tokens}``."""
         cached = self.begin_cohort(prompts)
         while self._cohort is not None:
             self.mixed_step(decode_sids=[], pf_tokens=self.prefill_chunk)
@@ -419,9 +612,14 @@ class PagedKVEngine:
     def begin_cohort(self, prompts: dict[int, list[int]]) -> dict[int, int]:
         """Admit prompts into a chunked-prefill cohort without running it.
 
-        Allocates batch slots and the cohort's scratch; no model compute
-        happens until :meth:`mixed_step` gets a nonzero ``pf_tokens``.
-        The whole batch is validated before any state changes.
+        With a prefix cache, each prompt's longest cached page-boundary
+        prefix is looked up, pinned and mapped into the new sequence's
+        page table, and the member starts prefill at the first uncached
+        boundary (a full hit skips prefill and is decodable at once).
+        Returns ``{sid: cached_tokens}``.  Allocates batch slots and the
+        cohort's scratch; no model compute happens until
+        :meth:`mixed_step` gets a nonzero ``pf_tokens``.  The whole batch
+        is validated before any state changes.
         """
         self._maybe_drop_cohort()
         if self._cohort is not None:
@@ -436,27 +634,36 @@ class PagedKVEngine:
         cached: dict[int, int] = {}
         if not prompts:
             return cached
-        cfg, chunk = self.cfg, self.prefill_chunk
+        cfg, chunk, page = self.cfg, self.prefill_chunk, self.page
         lyr, kvh, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-        seqs = []
+        seqs, starts = [], []
         for sid, prompt in prompts.items():
+            start, chain = 0, []
+            if self.prefix_cache is not None:
+                start, chain = self.prefix_cache.lookup(prompt)
+                self.prefix_cache.pin(chain)
+            ent = [self.prefix_cache.entries[e] for e in chain]
             seq = Sequence(sid=sid, slot=self._free_slots.pop(),
                            tokens=list(prompt),
-                           pages=[[] for _ in range(lyr)], prefilling=True)
+                           pages=[[e.pages[li] for e in ent]
+                                  for li in range(lyr)],
+                           chain=list(chain), prefilling=True)
             self.seqs[sid] = seq
-            cached[sid] = 0
-            if len(prompt) == 1:
-                # nothing to store: the first decode step writes the only
-                # token's K/V into the tail
+            cached[sid] = start
+            if start >= len(prompt) - 1:
+                # every stored token is already paged in (or there is
+                # none): straight to decode, with an empty tail
                 seq.prefilling = False
                 continue
             seqs.append(seq)
+            starts.append(start)
         self._pt_dirty = True
         if not seqs:
             return cached
         # the grid covers *stored* positions only (prompt minus the last
         # token, whose K/V the first decode step computes into the tail)
         maxstored = max(len(s.tokens) - 1 for s in seqs)
+        maxrel = max(len(s.tokens) - 1 - st for s, st in zip(seqs, starts))
         # scratch length: one chunk of headroom past the longest stored
         # prefix, rounded up to a power-of-two chunk count
         n_chunks = -(-maxstored // chunk) + 1
@@ -481,11 +688,30 @@ class PagedKVEngine:
 
         # a lossless codec's prefill never reads the canonical view
         can_t = 0 if self.codec.lossless else tmax
-        self._cohort = _Cohort(seqs=seqs, row=row, toks=toks,
-                               kscr=scratch(tmax), vscr=scratch(tmax),
-                               kcan=scratch(can_t), vcan=scratch(can_t),
-                               maxrel=maxstored,
-                               pub=[0] * len(seqs), done_sids=set())
+        co = _Cohort(seqs=seqs, row=row, toks=toks, kscr=scratch(tmax),
+                     vscr=scratch(tmax), kcan=scratch(can_t),
+                     vcan=scratch(can_t), starts=starts, maxrel=maxrel,
+                     pub=[st // page for st in starts], done_sids=set())
+        if any(starts):
+            # each warm row's cached chain, decompressed into its scratch
+            # prefix; WP rounds up to a power of two (the JAX engine's
+            # retrace bound), capped at the scratch's page count
+            wp = 1
+            while wp < max(starts) // page:
+                wp *= 2
+            wp = min(wp, tmax // page)
+            wpt = np.zeros((lyr, nrows, wp), np.int64)
+            wlen = np.zeros(nrows, np.int64)
+            for s, st in zip(seqs, starts):
+                wlen[row[s.sid]] = st
+                for li in range(lyr):
+                    wpt[li, row[s.sid], :st // page] = s.pages[li][:st // page]
+            _fill_warm_scratch(co.kscr, co.vscr, co.kcan, co.vcan,
+                               self.pools,
+                               torch.from_numpy(wpt).to(self.device),
+                               torch.from_numpy(wlen).to(self.device),
+                               codec=self.codec)
+        self._cohort = co
         return cached
 
     def _maybe_drop_cohort(self) -> None:
@@ -507,7 +733,7 @@ class PagedKVEngine:
         new_roff = min(co.roff + n, co.maxrel)
         entries = []
         for i, s in enumerate(co.seqs):
-            upto = min(new_roff, len(s.tokens) - 1) // page
+            upto = min(co.starts[i] + new_roff, len(s.tokens) - 1) // page
             entries.extend((s, blk) for blk in range(co.pub[i], upto))
             co.pub[i] = max(co.pub[i], upto)
         if entries:
@@ -517,11 +743,12 @@ class PagedKVEngine:
             kb, vb = _scratch_blocks(co.kscr, co.vscr, rows, blks, page)
             shape = (-1,) + tuple(kb.shape[2:])        # layer-major blocks
             self._publish(kb.reshape(shape), vb.reshape(shape),
-                          [s for s, _ in entries])
+                          [s for s, _ in entries],
+                          blocks=[b for _, b in entries])
         completed, tails = [], []
-        for s in co.seqs:
+        for i, s in enumerate(co.seqs):
             stored = len(s.tokens) - 1
-            if s.sid in co.done_sids or new_roff < stored:
+            if s.sid in co.done_sids or co.starts[i] + new_roff < stored:
                 continue
             co.done_sids.add(s.sid)
             s.prefilling = False
@@ -545,13 +772,16 @@ class PagedKVEngine:
             self._cohort = None
         return completed
 
-    def _publish(self, k_blocks, v_blocks, seqs: list[Sequence]) -> None:
+    def _publish(self, k_blocks, v_blocks, seqs: list[Sequence],
+                 blocks: list[int] | None = None) -> None:
         """Publish len(seqs) filled pages per layer in one step.
 
         Blocks are layer-major [L * len(seqs), K, page, D], the order of
-        ``seqs`` repeating inside each layer group.  Pages of a sequence
-        already preempted, or preempted by this very reservation, go
-        straight back to the free list.
+        ``seqs`` repeating inside each layer group.  ``blocks[j]`` is the
+        page index of a *prompt* page (None for decode tails): those
+        register in the prefix cache.  Pages of a sequence already
+        preempted, or preempted by this very reservation, go straight
+        back to the free list.
         """
         lyr, m_all = self.cfg.n_layers, len(seqs)
         keep = [j for j, s in enumerate(seqs) if not s.preempted]
@@ -562,6 +792,8 @@ class PagedKVEngine:
                                 for j in keep], device=self.device)
             k_blocks, v_blocks = k_blocks[sel], v_blocks[sel]
             seqs = [seqs[j] for j in keep]
+            if blocks is not None:
+                blocks = [blocks[j] for j in keep]
         m = len(seqs)
         pids = self._reserve_pages(lyr * m)
         layer_idx = torch.from_numpy(np.repeat(np.arange(lyr), m)).to(
@@ -578,6 +810,44 @@ class PagedKVEngine:
                 continue
             self._record_publish(seq, pids[j::m], nbytes[j::m], csums[j::m],
                                  tags[j::m])
+            if blocks is not None and self.prefix_cache is not None:
+                self._register_prompt_page(seq, blocks[j], pids[j::m],
+                                           int(nbytes[j::m].sum()))
+
+    def _register_prompt_page(self, seq: Sequence, blk: int,
+                              pids: list[int], nbytes: int) -> None:
+        """Attach a freshly published prompt page to the prefix cache."""
+        page, cache = self.page, self.prefix_cache
+        if self.shed_cache_inserts or blk != len(seq.chain):
+            # ladder level 1 sheds speculative insertions (the page stays
+            # private); once a block is shed the chain is broken, so
+            # later blocks stay private even after pressure clears
+            self._m["shed_inserts"].inc()
+            return
+        parent = seq.chain[-1] if seq.chain else 0
+        toks = tuple(seq.tokens[blk * page:(blk + 1) * page])
+        eid, created = cache.insert(
+            parent, toks, pids, nbytes,
+            codec_ids=[int(self.page_codec_id[p]) for p in pids])
+        self.free.extend(cache.drain_displaced())    # healed-over pages
+        if eid is None:            # pinned corrupt twin: block stays private
+            self._m["shed_inserts"].inc()
+            return
+        cache.pin([eid])
+        seq.chain.append(eid)
+        if not created:
+            # in-cohort dedup: map the first publisher's pages (the same
+            # bits by the canonical-prefix contract) and free ours; undo
+            # their publish accounting so each resident page counts once
+            ent = cache.entries[eid]
+            for li in range(self.cfg.n_layers):
+                seq.pages[li][blk] = ent.pages[li]
+            self.free.extend(pids)
+            self._pt_dirty = True
+            lyr = self.cfg.n_layers
+            self._m["pages_compressed"].inc(-lyr)
+            self._m["bytes_raw"].inc(-self.page_raw_bytes() * lyr)
+            self._m["bytes_compressed"].inc(-nbytes)
 
     # -- decode --------------------------------------------------------------
 
@@ -626,11 +896,12 @@ class PagedKVEngine:
         nrows, tmax = co.toks.shape
         ptoks = np.zeros((nrows, c), np.int32)
         offs = np.zeros(nrows, np.int64)
-        off = min(co.roff, tmax - c)
-        for s in co.seqs:
+        for i, s in enumerate(co.seqs):
             r = co.row[s.sid]
-            # clamped so the static-width scratch write stays in bounds
-            # for rows already past their stored length
+            # each row's absolute chunk start, clamped so the static-width
+            # scratch write stays in bounds for rows already past their
+            # stored length
+            off = min(co.starts[i] + co.roff, tmax - c)
             offs[r] = off
             ptoks[r] = co.toks[r, off:off + c]
         # budget-split chunk: tokens past the valid width are zero padding,
@@ -689,9 +960,9 @@ class PagedKVEngine:
     # -- metrics -------------------------------------------------------------
 
     def compression_ratio(self) -> float:
-        if not self._stats["bytes_compressed"]:
+        if not self._m["bytes_compressed"].value:
             return 1.0
-        return self._stats["bytes_raw"] / self._stats["bytes_compressed"]
+        return self._m["bytes_raw"].value / self._m["bytes_compressed"].value
 
     def pool_used_pages(self) -> int:
         return (self.n_pool_pages - 1) - len(self.free)

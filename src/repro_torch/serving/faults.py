@@ -1,5 +1,7 @@
 """Failure taxonomy and per-page checksums (port of part of
-``repro/serving/faults.py``).
+``repro/serving/faults.py``: ``FinishReason``, the two errors and
+``page_checksums``; fault injection and the integrity checks are not
+ported yet).
 
 ``page_checksums`` must equal the JAX function bit for bit on the same
 pages, so that checksums written by one package verify in the other.  It
@@ -32,6 +34,10 @@ class FinishReason(str, enum.Enum):
 
 class PoolExhaustedError(RuntimeError):
     """Page reservation found nothing evictable (pool truly exhausted)."""
+
+
+class SchedulerStalledError(RuntimeError):
+    """The scheduler made no progress for ``stall_limit`` iterations."""
 
 
 _MIX = 2654435761                      # Knuth multiplicative hash constant

@@ -303,3 +303,54 @@ def test_engine_cuda_matches_cpu(dev, codec):
     assert all(ops.LAUNCHES[k] > 0 for k in want), ops.LAUNCHES
     if codec != "bdi":
         assert ops.LAUNCHES["paged_attention_tail"] == 0, ops.LAUNCHES
+
+
+@pytest.mark.parametrize("codec", ["bdi", "gbdi"])
+def test_scheduler_cuda_matches_cpu(dev, codec):
+    """The scheduler over a prefix-cached engine on the card and on the
+    CPU, in lockstep: scheduler and engine stats, page tables and the
+    cache's state equal after every iteration, tokens equal up to
+    reported bf16 ties, warm hits taken and the codec's kernels
+    launched."""
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    cfg = get_arch("yi-6b").reduced(n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    sysp = [1 + (j * 7) % 250 for j in range(24)]
+    prompts = {i: sysp + [1 + (i * 5 + j * 3) % 250 for j in range(3 + 4 * i)]
+               for i in range(6)}
+    scheds = [ContinuousScheduler(
+        PagedKVEngine(cfg, to_device(params, d), page_size=8,
+                      n_pool_pages=64, max_batch=4, codec=codec,
+                      prefix_cache=PrefixCache.for_model(cfg, 8), device=d),
+        token_budget=24) for d in (dev, "cpu")]
+    gpu, rows = scheds[0].engine, {}
+    inner = gpu.mixed_step
+
+    def mixed_step(*a, **kw):            # keep the rows of the step's tokens
+        out, completed = inner(*a, **kw)
+        rows.update({s: gpu.last_logits[gpu.seqs[s].slot] for s in out})
+        return out, completed
+
+    gpu.mixed_step = mixed_step
+    ops.reset_launches()
+    parity = GreedyParity()
+    for it in range(300):
+        for s in scheds:
+            if it < len(prompts):
+                s.submit(it, prompts[it], max_new_tokens=10)
+        if it >= len(prompts) and all(s.idle for s in scheds):
+            break
+        got, want = (s.step()["decoded"] for s in scheds)
+        parity.check(it, want, got, rows.__getitem__)
+        if parity.ties:
+            break                      # the schedules may part after a tie
+        a, b = (s.engine for s in scheds)
+        assert scheds[0].stats == scheds[1].stats
+        assert a.stats == b.stats
+        assert torch.equal(a._page_table().cpu(), b._page_table())
+        assert a.prefix_cache.state() == b.prefix_cache.state()
+    assert scheds[0].stats["prefix_cached_tokens"] > 0
+    want = {"bdi": ("bdi_compress_kv", "paged_attention_tail"),
+            "gbdi": ("gbdi_compress_kv", "gbdi_decompress_kv")}[codec]
+    assert all(ops.LAUNCHES[k] > 0 for k in want), ops.LAUNCHES

@@ -24,6 +24,8 @@ def test_import_loads_neither_jax_nor_repro():
     mods = _modules()
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.launch.quickstart" in mods
+    for m in ("trace", "telemetry", "scheduler", "prefix_cache"):
+        assert f"repro_torch.serving.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -63,6 +65,8 @@ def test_entry_points_raise_without_cuda():
         PagedKVEngine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate("yi-6b", paged=True, smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate("yi-6b", smoke=True, scheduler=True, prefix_cache=True)
     from repro_torch.launch import quickstart
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quickstart.main()

@@ -79,7 +79,32 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      pool small enough that SIP evicts retained entries; finish reasons,
      first-token and finish iterations, scheduler and engine stats and
      the cache's state (eviction order, hit rate) equal after every
-     iteration, tokens equal up to ties; under ``bdi`` and ``gbdi``.
+     iteration, tokens equal up to ties; under ``bdi`` and ``gbdi``;
+  8. multi-turn from the host tier: one conversation through a
+     prefix-cached engine that caches decode pages, with a 64 MB
+     ``TieredPageStore`` (yi-6b full width, phase 4's weights, bdi, page
+     16, chunk 32): a 1024-token opening prompt (seed 11), 4 turns of 32
+     new tokens plus 8 fresh user tokens, ``recycle_device_pool()``
+     between turns, so turns 2-4 promote their history from host RAM;
+     then again with 8 MB of host RAM and a disk arena, so records spill
+     and promote from disk.  Per turn: TTFT (synchronised), cached
+     tokens (equal to the count rehearsed on the CPU), demotions,
+     promotions, spills, bytes to and from the host; tokens equal a
+     tierless run fed the same prompts up to reported ties;
+  8b. phase 7's warm workload snapshotted (``save_snapshot`` with the
+     scheduler) at the first iteration with every request submitted,
+     decodes in flight and no cohort, finished, restored into a fresh
+     engine and scheduler on the card and finished again: exactly equal
+     tokens; raw and stored bytes, save and restore seconds;
+  8c. phase 7's warm workload under a fault schedule (page corruption,
+     garbage tokens, a free-list hold): every request ends eos/length,
+     a corruption is detected and a request restarted, the injector's
+     log printed, tokens equal phase 7's up to reported ties;
+  8d. at depth 2 under bdi and gbdi: a scheduler snapshot written on the
+     card restores on the CPU and both finish with equal tokens and host
+     state; a tier persisted on the card restores on the CPU with the
+     same bytes, records and checksums, and promotes the same pages.
+     Every phase 8 run ends with ``debug_validate``.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -1005,9 +1030,10 @@ SCHED_PREFIX, SCHED_OWN, SCHED_GEN, SCHED_N = 384, (32, 128), 32, 16
 SCHED_MAX_TIES = 4
 
 
-def phase_scheduler(dev, cfg, params, page: int) -> dict:
+def phase_scheduler(dev, cfg, params, page: int) -> tuple:
     """7 and 7b: the scheduler with and without the prefix cache at full
-    width under bdi (see the module docstring)."""
+    width under bdi (see the module docstring).  Returns phase 7's result,
+    tokens and logits rows (phase 8c's reference)."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import PagedKVEngine
@@ -1088,7 +1114,7 @@ def phase_scheduler(dev, cfg, params, page: int) -> dict:
         raise AssertionError(f"phase 7b: {len(parity.ties)} ties, more than "
                              f"{SCHED_MAX_TIES}")
     warm["ties_vs_cold"] = len(parity.ties)
-    return warm
+    return warm, wtoks, wrows
 
 
 def parity_scheduler(dev, cfg, params, page: int, lo: int, hi: int,
@@ -1163,6 +1189,435 @@ def parity_scheduler(dev, cfg, params, page: int, lo: int, hi: int,
            "engine_stats": est, "cache_stats": dict(cache.stats),
            "hit_rate": cache.hit_rate(), "launches": dict(ops.LAUNCHES)}
     log(f"parity scheduler {codec} {cfg.name}: {json.dumps(res)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 8, 8b, 8c, 8d: the host/disk tier, snapshot/restore, faults
+# ---------------------------------------------------------------------------
+
+TURN_PROMPT, TURN_GEN, TURN_USER, TURNS = 1024, 32, 8, 4
+
+
+def rows_by_position(eng, sched) -> dict:
+    """Keep each decode step's logits rows by request and position in its
+    final output, ``rows[(rid, k)]`` (a restarted request's later attempt
+    overwrites its earlier one; positions count from the original prompt,
+    so a requeue that absorbs tokens keeps them)."""
+    rows = {}
+    inner = eng.mixed_step
+
+    def mixed_step(*a, **kw):
+        out, completed = inner(*a, **kw)
+        if out:
+            lg = eng.last_logits.clone()
+            for rid in out:
+                k = len(eng.seqs[rid].tokens) \
+                    - len(sched.tracks[rid].orig_prompt) - 1
+                rows[(rid, k)] = lg[eng.seqs[rid].slot]
+        return out, completed
+
+    eng.mixed_step = mixed_step
+    return rows
+
+
+def need_launched(name: str, need: tuple[str, ...]) -> None:
+    from repro_torch.kernels import ops
+    missing = [k for k in need if ops.LAUNCHES[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase {name}: kernels {missing} never "
+                             f"launched: {dict(ops.LAUNCHES)}")
+
+
+def conversation(dev, cfg, params, page: int, *, tier_kw: dict | None,
+                 convos: list | None = None,
+                 need: tuple[str, ...] = ("bdi_compress_kv",
+                                          "paged_attention_tail")) -> dict:
+    """One conversation of TURNS turns at batch 1 under bdi, the device
+    pool recycled between turns: turn 1 is a TURN_PROMPT-token prompt
+    (seed 11), each later turn the last one's prompt, its TURN_GEN
+    tokens and TURN_USER fresh ones.  With ``tier_kw`` the engine has a
+    prefix cache, caches decode pages and a TieredPageStore built from
+    ``tier_kw``, so later turns promote their history; without it every
+    turn prefills cold.  ``convos`` feeds the prompts of another run
+    (so a tie cannot fork the history)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.tier import TieredPageStore
+    eng = PagedKVEngine(cfg, params, page_size=page, n_pool_pages=
+                        1 + cfg.n_layers * 96, max_batch=1,
+                        prefill_chunk=32, codec="bdi",
+                        prefix_cache=(PrefixCache.for_model(cfg, page)
+                                      if tier_kw else None),
+                        cache_decode_pages=bool(tier_kw), device=dev)
+    tier = None
+    demotes = []                             # seconds of each demotion
+    if tier_kw:
+        tier = TieredPageStore.for_model(cfg, page, eng.codec, **tier_kw)
+        eng.attach_tier(tier)
+        inner = eng._demote_pages
+
+        def demote_pages(*a, **kw):  # a gather, one copy to the host, pack
+            t0 = time.perf_counter()
+            inner(*a, **kw)
+            demotes.append(time.perf_counter() - t0)
+
+        eng._demote_pages = demote_pages
+    rows = capture_logits(eng)
+    g = torch.Generator().manual_seed(11)
+    convo = torch.randint(1, cfg.vocab, (TURN_PROMPT,), generator=g).tolist()
+    ops.reset_launches()
+    turns, outs, prompts = [], {}, []
+    for t in range(1, TURNS + 1):
+        if convos is not None:
+            convo = convos[t - 1]
+        prompts.append(list(convo))
+        base = dict(tier.stats) if tier else {}
+        from_disk = (sum(r.level == "disk" for r in tier.lookup(convo))
+                     if tier and tier.disk is not None else 0)
+        n_dem = len(demotes)
+        promote_s = eng._h_promote.sum if tier else 0.0
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        cached = eng.add_requests({t: convo})[t]
+        out = [eng.decode_one(t)]                  # ends in a host sync
+        ttft = time.perf_counter() - t0
+        out += [eng.decode_one(t) for _ in range(TURN_GEN - 1)]
+        eng.release(t)
+        eng.recycle_device_pool()
+        eng.debug_validate()
+        outs[t] = out
+        d = {k: tier.stats[k] - base[k] for k in tier.stats} if tier else {}
+        turns.append({"turn": t, "prompt_tokens": len(convo),
+                      "ttft_ms": 1e3 * ttft, "cached_tokens": cached,
+                      "demotions": d.get("demotions", 0),
+                      "promotions": d.get("promotions", 0),
+                      "spills": d.get("spills", 0),
+                      "promoted_from_disk_records": from_disk,
+                      "promote_ms": 1e3 * ((eng._h_promote.sum if tier
+                                            else 0.0) - promote_s),
+                      "demote_ms": 1e3 * sum(demotes[n_dem:]),
+                      "d2h_bytes": (len(demotes) - n_dem)
+                      * (tier.slot_bytes if tier else 0),
+                      "h2d_bytes": d.get("promotions", 0)
+                      * (tier.slot_bytes if tier else 0)})
+        extra = torch.randint(1, cfg.vocab, (TURN_USER,), generator=torch
+                              .Generator().manual_seed(100 + t)).tolist()
+        convo = convo + out + extra
+    need_launched("8", need)
+    return {"turns": turns, "outs": outs, "rows": rows, "prompts": prompts,
+            "tier": None if tier is None else dict(tier.stats),
+            "tier_logical_bytes": None if tier is None
+            else tier.logical_bytes(),
+            "slot_bytes": None if tier is None else tier.slot_bytes,
+            "launches": dict(ops.LAUNCHES)}
+
+
+def expected_cached(prompts: list, page: int) -> list:
+    """Cached tokens each turn takes from the tier: turn 1 none, a later
+    turn every full page of the last turn's prompt and its first
+    TURN_GEN - 1 tokens (their K/V was computed; the last token's was
+    not)."""
+    return [0] + [(len(p) + TURN_GEN - 1) // page * page
+                  for p in prompts[:-1]]
+
+
+# the disk variant's arenas in tier slots: 15 host slots are 7.97 MB at
+# yi-6b's full width under bdi (8 MB holds 15), 240 disk slots 127.5 MB
+DISK_RUN_SLOTS = (15, 240)
+
+
+def phase_multi_turn(dev, cfg, params, page: int, need=("bdi_compress_kv",
+                     "paged_attention_tail")) -> dict:
+    """8: multi-turn from host RAM (64 MB), then from 15 slots of host RAM
+    (7.97 MB) spilling to a disk arena, each against a run without a tier
+    fed the same prompts; tokens equal up to reported ties."""
+    import tempfile
+    from repro_torch import codecs
+    from repro_torch.serving._tree import tree_leaves
+    slot_mb = cfg.n_layers * sum(
+        t.numel() * t.element_size() for t in tree_leaves(
+            codecs.get("bdi").init_pools(1, 1, cfg.n_kv_heads, page,
+                                         cfg.head_dim, "cpu"))) / 2**20
+    res = {}
+    with tempfile.TemporaryDirectory() as disk:
+        for name, kw in (("host 64 MB", {"host_mb": 64}),
+                         ("host 15 slots + disk", {
+                             "host_mb": DISK_RUN_SLOTS[0] * slot_mb,
+                             "disk_dir": disk,
+                             "disk_mb": DISK_RUN_SLOTS[1] * slot_mb})):
+            tiered = conversation(dev, cfg, params, page, tier_kw=kw,
+                                  need=need)
+            cold = conversation(dev, cfg, params, page, tier_kw=None,
+                                convos=tiered["prompts"], need=need)
+            parity = compare_requests(cold["outs"], tiered["outs"],
+                                      cold["rows"], tiered["rows"])
+            got = [t["cached_tokens"] for t in tiered["turns"]]
+            want = expected_cached(tiered["prompts"], page)
+            if got != want:
+                raise AssertionError(f"phase 8 {name}: cached {got}, "
+                                     f"rehearsed {want}")
+            if tiered["tier"]["corrupt"] or not all(
+                    t["promotions"] for t in tiered["turns"][1:]):
+                raise AssertionError(f"phase 8 {name}: {tiered['turns']}")
+            if "disk" in name and not (
+                    tiered["tier"]["spills"] > 0 and any(
+                        t["promoted_from_disk_records"]
+                        for t in tiered["turns"])):
+                raise AssertionError(f"phase 8 {name}: nothing promoted "
+                                     f"from disk: {tiered['turns']}")
+            if len(parity.ties) > SCHED_MAX_TIES:
+                raise AssertionError(f"phase 8 {name}: {len(parity.ties)} "
+                                     "ties")
+            r = {"card": smi(), "turns": tiered["turns"],
+                 "tierless_ttft_ms": [t["ttft_ms"] for t in cold["turns"]],
+                 "tier": tiered["tier"],
+                 "tier_logical_bytes": tiered["tier_logical_bytes"],
+                 "slot_bytes": tiered["slot_bytes"],
+                 "tokens_equal": parity.compared,
+                 "ties": [vars(t) for t in parity.ties],
+                 "launches": tiered["launches"]}
+            log(f"phase 8 {name}: {json.dumps(r)}")
+            res[name] = r
+    return res
+
+
+# page boundaries of 8b's pool: phase 7's workload peaks near 104 live
+# ones (the 24 shared, ~10 of each of 8 requests); SIP evicts retained
+# entries beyond that
+SNAP_POOL_BLOCKS = 128
+
+
+def phase_snapshot(dev, cfg, params, page: int) -> dict:
+    """8b: phase 7's warm workload, snapshotted at the first iteration
+    with every request submitted, decodes in flight and no cohort;
+    finished, then restored into a fresh engine and scheduler on the same
+    device and finished again: the same tokens exactly.
+
+    A pool id holds a page of one layer but is allocated in all L (the
+    JAX layout, ``[L, P, ...]``), so the pools are L times the pages in
+    use: at full width even this workload's pool is 2.3 GB, which the
+    host's BDI stream codec (tens of MB/s) would take minutes to
+    compress.  So the pool is sized to the workload (SNAP_POOL_BLOCKS
+    page boundaries, not phase 7's every-request-unshared sizing) and the
+    snapshot is stored uncompressed; the compressed path is held by the
+    CPU tests and by 8d."""
+    import tempfile
+    import torch
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.serving.snapshot import restore_snapshot, save_snapshot
+    from repro_torch.serving.telemetry import Telemetry
+    reqs = shared_prefix_requests(SCHED_N, SCHED_PREFIX, *SCHED_OWN,
+                                  cfg.vocab, seed=7)
+    tel = Telemetry()
+    eng = PagedKVEngine(cfg, params, page_size=page,
+                        n_pool_pages=1 + cfg.n_layers * SNAP_POOL_BLOCKS,
+                        max_batch=8, prefill_chunk=32, codec="bdi",
+                        prefix_cache=PrefixCache.for_model(cfg, page),
+                        telemetry=tel, device=dev)
+    sched = ContinuousScheduler(eng, token_budget=256, telemetry=tel)
+    snap = {}
+    with tempfile.TemporaryDirectory() as d:
+        def on_step(events):
+            if not snap and len(sched.tracks) == SCHED_N \
+                    and eng._cohort is None and sched._running:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                man = save_snapshot(d, eng, sched, step=sched.iteration,
+                                    compress=False)
+                snap.update(iteration=sched.iteration,
+                            save_s=time.perf_counter() - t0,
+                            raw_bytes=man["raw_bytes"],
+                            stored_bytes=man["stored_bytes"],
+                            files=len(man["entries"]),
+                            running=len(sched._running),
+                            waiting=len(sched.waiting))
+
+        drive_waves([sched], reqs, SCHED_GEN, on_step)
+        if not snap:
+            raise AssertionError("phase 8b: no iteration to snapshot at")
+        eng.debug_validate()
+        fin = sched.finished()
+        t0 = time.perf_counter()
+        eng2, sched2 = restore_snapshot(d, cfg, params, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        snap["restore_s"] = time.perf_counter() - t0
+        fin2 = sched2.run()
+        eng2.debug_validate()
+    a = {r: (str(t.finish_reason), t.out_tokens) for r, t in fin.items()}
+    b = {r: (str(t.finish_reason), t.out_tokens) for r, t in fin2.items()}
+    if a != b or eng.stats != eng2.stats or eng.stats["preemptions"]:
+        raise AssertionError(f"phase 8b: the restored run differs or "
+                             f"preempted: {eng.stats} vs {eng2.stats}")
+    snap.update(card=smi(), requests=len(fin2), equal_tokens=sum(
+        len(t) for _, t in b.values()), iterations=sched2.iteration,
+        engine_stats=eng.stats)
+    log(f"phase 8b: {json.dumps(snap)}")
+    return snap
+
+
+CHAOS = dict(corrupt_page_every=7, corrupt_max=2, garble_decode_every=11,
+             garble_max=2, holds=((10, 64, 6),))
+
+
+def phase_chaos(dev, cfg, params, page: int, clean: dict, clean_rows: dict,
+                need=("bdi_compress_kv", "paged_attention_tail")) -> dict:
+    """8c: phase 7's warm workload under a fault schedule: every request
+    ends eos/length, a corruption is detected and a request restarted,
+    and the tokens equal phase 7's up to reported ties."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import faults as F
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.serving.telemetry import Telemetry
+    reqs = shared_prefix_requests(SCHED_N, SCHED_PREFIX, *SCHED_OWN,
+                                  cfg.vocab, seed=7)
+    inj = F.FaultInjector(F.FaultSpec(**CHAOS), seed=0)
+    tel = Telemetry()
+    eng = PagedKVEngine(cfg, params, page_size=page,
+                        n_pool_pages=pool_for(cfg, reqs, SCHED_GEN, page),
+                        max_batch=8, prefill_chunk=32, codec="bdi",
+                        prefix_cache=PrefixCache.for_model(cfg, page),
+                        faults=inj, telemetry=tel, device=dev)
+    sched = ContinuousScheduler(eng, token_budget=256, telemetry=tel)
+    rows = rows_by_position(eng, sched)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    drive_waves([sched], reqs, SCHED_GEN)
+    wall = time.perf_counter() - t0
+    inj.release_holds(eng)
+    eng.debug_validate()
+    fin = sched.finished()
+    toks = {r: fin[r].out_tokens for r in reqs}
+    reasons = {str(t.finish_reason) for t in fin.values()}
+    st, est = sched.stats, eng.stats
+    if not reasons <= {"eos", "length"}:
+        raise AssertionError(f"phase 8c: finish reasons {reasons}")
+    if inj.stats["corruptions"] < 1 or est["integrity_failures"] < 1 \
+            or st["corrupt_retries"] < 1:
+        raise AssertionError(f"phase 8c: no corruption detected and "
+                             f"restarted: {inj.stats}, {est}, {st}")
+    parity = compare_requests(clean, toks, clean_rows, rows)
+    if len(parity.ties) > SCHED_MAX_TIES:
+        raise AssertionError(f"phase 8c: {len(parity.ties)} ties")
+    need_launched("8c", need)
+    res = {"card": smi(), "log": inj.log, "injected": dict(inj.stats),
+           "integrity_failures": est["integrity_failures"],
+           "corrupt_events": st["corrupt_events"],
+           "corrupt_retries": st["corrupt_retries"],
+           "iterations": sched.iteration, "wall_s": wall,
+           "cache_stats": dict(eng.prefix_cache.stats),
+           "tokens_equal": parity.compared,
+           "ties": [vars(t) for t in parity.ties]}
+    log(f"phase 8c: {json.dumps(res)}")
+    return res
+
+
+def parity_snapshot_tier(dev, cfg, page: int, codec: str) -> dict:
+    """8d at depth 2: a scheduler snapshot written on the card restores on
+    the CPU, and both finish with equal tokens (up to reported ties) and,
+    with no tie, equal host and cache state; a tier persisted on the card
+    restores on the CPU with the same slot bytes, records and checksums,
+    and the CPU engine promotes the card's page bytes out of it."""
+    import tempfile
+    import torch
+    from repro_torch.models.params import to_device
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving._tree import tree_leaves
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.parity import GreedyParity
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.serving.snapshot import restore_snapshot, save_snapshot
+    from repro_torch.serving.tier import TieredPageStore
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    reqs = shared_prefix_requests(8, 3 * page, 16, 60, cfg.vocab, seed=4)
+
+    def engine(d, **kw):
+        return PagedKVEngine(cfg, to_device(params, torch.device(d)),
+                             page_size=page, n_pool_pages=1 + cfg.n_layers
+                             * 64, max_batch=4, codec=codec, device=d,
+                             prefix_cache=PrefixCache.for_model(cfg, page),
+                             **kw)
+
+    gpu = engine(dev)
+    sched = ContinuousScheduler(gpu, token_budget=64)
+    rows = rows_by_position(gpu, sched)
+    res = {"codec": codec}
+    with tempfile.TemporaryDirectory() as d:
+        def on_step(events):
+            if "snapshot_iteration" not in res and len(sched.tracks) == 8 \
+                    and sched._running:
+                save_snapshot(d, gpu, sched, step=sched.iteration)
+                res["snapshot_iteration"] = sched.iteration
+
+        drive_waves([sched], reqs, 24, on_step)
+        cpu, sched_cpu = restore_snapshot(d, cfg, params, device="cpu")
+    cpu_rows = rows_by_position(cpu, sched_cpu)
+    sched_cpu.run()
+    gpu.debug_validate()
+    cpu.debug_validate()
+    parity = GreedyParity()
+    want = {r: t.out_tokens for r, t in sched.finished().items()}
+    got = {r: t.out_tokens for r, t in sched_cpu.finished().items()}
+    for k in range(max(len(t) for t in want.values())):
+        w = {r: t[k] for r, t in want.items() if k < len(t)}
+        parity.check(k, w, {r: got[r][k] for r in w},
+                     lambda r: cpu_rows.get((r, k), rows[(r, k)]),
+                     lambda r: rows[(r, k)])
+    if not parity.ties:
+        a = dict(_host_state(gpu), sched=sched.stats,
+                 cache=gpu.prefix_cache.state())
+        b = dict(_host_state(cpu), sched=sched_cpu.stats,
+                 cache=cpu.prefix_cache.state())
+        for key in a:
+            if a[key] != b[key]:
+                raise AssertionError(f"8d {codec}: {key} differs after the "
+                                     f"card-to-cpu restore")
+    res.update(tokens_equal=parity.compared,
+               ties=[vars(t) for t in parity.ties])
+
+    def chain_bytes(eng, chain):
+        pools = [lf.cpu() for lf in tree_leaves(eng.pools)]
+        return [b"".join(lf[li, eng.prefix_cache.entries[e].pages[li]]
+                         .contiguous().view(torch.uint8).numpy().tobytes()
+                         for lf in pools for li in range(cfg.n_layers))
+                for e in chain]
+
+    tiered = engine(dev)
+    tiered.attach_tier(TieredPageStore.for_model(cfg, page, tiered.codec,
+                                                 host_mb=4))
+    prompt = reqs[0]
+    tiered.add_requests({0: prompt})
+    before = chain_bytes(tiered, tiered.seqs[0].chain)
+    tiered.release(0)
+    tiered.recycle_device_pool()
+    with tempfile.TemporaryDirectory() as d:
+        tiered.tier.persist(d)
+        cpu_tier = TieredPageStore.restore(d, cfg, tiered.codec, host_mb=4)
+    same = (cpu_tier.tier_arrays()["tier_data"].tobytes()
+            == tiered.tier.tier_arrays()["tier_data"].tobytes()
+            and cpu_tier.meta_state()["records"]
+            == tiered.tier.meta_state()["records"])
+    cpu2 = engine("cpu")
+    cpu2.attach_tier(cpu_tier)
+    cached = cpu2.add_requests({1: prompt})[1]
+    promoted = chain_bytes(cpu2, cpu2.seqs[1].chain)
+    cpu2.debug_validate()
+    if not same or cached != len(before) * page or promoted != before:
+        raise AssertionError(f"8d {codec}: the card's tier restored on the "
+                             f"cpu differs (bytes and records equal: "
+                             f"{same}, cached {cached})")
+    res.update(tier_records=cpu_tier.record_count(), tier_cached=cached)
+    log(f"8d {codec}: {json.dumps(res)}")
     return res
 
 
@@ -1253,8 +1708,15 @@ def main() -> int:
     phase_done("4c serve adaptive")
     tile = phase_tile_path(dev, params)
     phase_done("6 tile path (every yi-6b leaf, quickstart)")
-    phase_scheduler(dev, cfg, params, page)
+    _, clean, clean_rows = phase_scheduler(dev, cfg, params, page)
     phase_done("7/7b scheduler + prefix cache, warm and cold")
+    phase_multi_turn(dev, cfg, params, page)
+    phase_done("8 multi-turn from the host tier, then host + disk")
+    phase_snapshot(dev, cfg, params, page)
+    phase_done("8b snapshot/restore mid-stream")
+    phase_chaos(dev, cfg, params, page, clean, clean_rows)
+    del clean_rows
+    phase_done("8c chaos")
     del params
     torch.cuda.empty_cache()
     # launches of the path that ran each kernel (3b set its own)
@@ -1290,6 +1752,9 @@ def main() -> int:
     for codec in ("bdi", "gbdi"):
         phase_parity(dev, tiny, page, 16, 60, 24, codec, scheduler=True)
     phase_done("7c scheduler parity bdi/gbdi")
+    for codec in ("bdi", "gbdi"):
+        parity_snapshot_tier(dev, tiny, page, codec)
+    phase_done("8d snapshot and tier, card to cpu, bdi/gbdi")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -21,16 +21,30 @@ ladder) control overload; ``--trace-out``, ``--metrics``,
 shared telemetry registry and tracer.  Any registered page codec
 (``--codec``; default ``REPRO_CODEC`` or bdi).
 
+Resilience and the memory tier (scheduler mode): ``--chaos SEED`` injects
+a deterministic fault schedule (page corruption and garbage decode
+tokens; every request still ends with a deterministic finish reason and
+the report carries the injector's log); ``--snapshot-dir DIR`` saves the
+engine mid-stream, restores it into a fresh engine after the run and
+drives it to the end (``snapshot.restored_match`` says whether its
+tokens equal the run's); ``--tier-host-mb``/``--tier-disk-dir`` attach
+the host/disk tier behind the prefix cache, and ``--persist-cache DIR``
+carries it across restarts.  ``--multi-turn N`` runs one growing
+conversation of N turns, the device pool recycled between turns, and
+reports each turn's TTFT and tier traffic.
+
 Weights are random, made from a seed on the device; prompts are random
 token ids from a second seed.  The pool is sized so the requests never
-preempt.  The JAX CLI's fault injection, snapshot, tier, multi-turn and
-observatory flags are refused (not ported yet).
+preempt.  The JAX CLI's observatory flags are refused (not ported).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --paged \\
       [--smoke] [--batch 4 --prompt-len 16 --gen 16] [--device cuda|cpu] \\
       [--codec bdi|zero|raw|gbdi|fpc|adaptive] \\
-      [--scheduler [--prefix-cache --shared-prefix N] [--token-budget 64]]
+      [--scheduler [--prefix-cache --shared-prefix N] [--token-budget 64]
+       [--chaos SEED] [--snapshot-dir DIR] [--tier-host-mb MB]]
+      | --multi-turn N [--tier-host-mb MB] [--tier-disk-dir DIR]
+        [--persist-cache DIR]
 """
 
 from __future__ import annotations
@@ -51,12 +65,6 @@ PAGE = 8
 
 # the JAX CLI's flags whose subsystems the port does not have yet
 _NOT_PORTED = {
-    "--chaos": "fault injection (ROADMAP Queue 1 item 4)",
-    "--snapshot-dir": "snapshot/restore (ROADMAP Queue 1 item 4)",
-    "--tier-host-mb": "the host/disk tier (ROADMAP Queue 1 item 5)",
-    "--tier-disk-dir": "the host/disk tier (ROADMAP Queue 1 item 5)",
-    "--persist-cache": "the host/disk tier (ROADMAP Queue 1 item 5)",
-    "--multi-turn": "the host/disk tier (ROADMAP Queue 1 item 5)",
     "--observatory": "the observatory (ROADMAP Queue 1 item 6)",
     "--audit-out": "the observatory (ROADMAP Queue 1 item 6)",
 }
@@ -75,9 +83,14 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
              metrics_port: int | None = None,
              metrics_out: str | None = None,
              metrics_jsonl: str | None = None,
+             chaos: int | None = None, snapshot_dir: str | None = None,
+             tier_host_mb: float | None = None,
+             tier_disk_dir: str | None = None,
+             persist_cache: str | None = None, multi_turn: int = 0,
              device: str | torch.device | None = None) -> dict:
-    if not (paged or scheduler):
-        raise ValueError("only the --paged and --scheduler paths are ported")
+    if not (paged or scheduler or multi_turn):
+        raise ValueError("only the --paged, --scheduler and --multi-turn "
+                         "paths are ported")
     if shared_prefix > prompt_len:
         raise ValueError(f"--shared-prefix {shared_prefix} exceeds "
                          f"--prompt-len {prompt_len}")
@@ -95,6 +108,12 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
     reqs = {b: prompts[b].tolist() for b in range(batch)}
     pages_per_seq = -(-(prompt_len + gen) // PAGE)
     n_pool = 1 + cfg.n_layers * batch * pages_per_seq
+    tier_args = {"host_mb": tier_host_mb, "disk_dir": tier_disk_dir,
+                 "persist": persist_cache}
+    if multi_turn:
+        return _serve_multi_turn(cfg, params, reqs[0], dev, turns=multi_turn,
+                                 gen=gen, prefill_chunk=prefill_chunk,
+                                 codec=codec, tier_args=tier_args)
     if scheduler:
         return _serve_scheduler(
             cfg, params, reqs, dev, n_pool=n_pool, gen=gen,
@@ -104,7 +123,8 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
             ttft_deadline=ttft_deadline, deadline=deadline,
             max_queue=max_queue, overload=overload, trace_out=trace_out,
             metrics=metrics, metrics_port=metrics_port,
-            metrics_out=metrics_out, metrics_jsonl=metrics_jsonl)
+            metrics_out=metrics_out, metrics_jsonl=metrics_jsonl,
+            chaos=chaos, snapshot_dir=snapshot_dir, tier_args=tier_args)
     eng = PagedKVEngine(cfg, params, page_size=PAGE, n_pool_pages=n_pool,
                         max_batch=batch, prefill_chunk=prefill_chunk,
                         codec=codec, device=dev)
@@ -120,15 +140,92 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
             "tok_per_s": batch * gen / dt}
 
 
+def _build_tier(eng, cfg, *, host_mb, disk_dir, persist):
+    """The host/disk tier behind the engine's prefix cache; restores a
+    persisted warm cache when ``persist`` holds a checkpoint."""
+    from repro_torch.checkpoint import store
+    from repro_torch.serving.tier import TieredPageStore
+    host_mb = host_mb if host_mb else 64.0
+    if persist is not None and store.latest_step(persist) is not None:
+        tier = TieredPageStore.restore(persist, cfg, eng.codec,
+                                       host_mb=host_mb, disk_dir=disk_dir)
+    else:
+        tier = TieredPageStore.for_model(cfg, eng.page, eng.codec,
+                                         host_mb=host_mb, disk_dir=disk_dir)
+    eng.attach_tier(tier)
+    return tier
+
+
+def _serve_multi_turn(cfg, params, prompt: list[int], dev, *, turns: int,
+                      gen: int, prefill_chunk, codec, tier_args) -> dict:
+    """``--multi-turn N``: one conversation grows by the model's reply and
+    8 fresh user tokens a turn, the device pool recycled between turns, so
+    turn N's history promotes from the tier (or recomputes without it)."""
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.telemetry import Telemetry
+    # the last turn's pages in every layer (a pool id holds one layer's
+    # page), so the conversation never preempts at any depth
+    last = len(prompt) + (turns - 1) * (gen + 8) + gen
+    n_pool = 1 + cfg.n_layers * (-(-last // PAGE) + 1)
+    eng = PagedKVEngine(cfg, params, page_size=PAGE, n_pool_pages=n_pool,
+                        max_batch=1, prefill_chunk=prefill_chunk,
+                        prefix_cache=PrefixCache.for_model(cfg, PAGE),
+                        codec=codec, telemetry=Telemetry(),
+                        cache_decode_pages=True, device=dev)
+    tier = _build_tier(eng, cfg, **tier_args)
+    convo = list(prompt)
+    # throwaway primer turn, so turn 1's TTFT is not a first-call cost
+    eng.add_requests({-1: convo[:eng.page]})
+    eng.decode_one(-1)
+    eng.release(-1)
+    eng.recycle_device_pool()
+    base = dict(tier.stats)
+    report, total_toks, t_run = [], 0, time.perf_counter()
+    for turn in range(1, turns + 1):
+        t0 = time.perf_counter()
+        cached = eng.add_requests({turn: convo})[turn]
+        out_toks = [eng.decode_one(turn)]       # ends in a host sync
+        ttft = time.perf_counter() - t0
+        out_toks += [eng.decode_one(turn) for _ in range(gen - 1)]
+        eng.release(turn)
+        freed = eng.recycle_device_pool()
+        d = {k: tier.stats[k] - base[k] for k in tier.stats}
+        report.append({"turn": turn, "prompt_tokens": len(convo),
+                       "ttft_s": round(ttft, 4), "cached_tokens": cached,
+                       "recycled_pages": freed,
+                       "demotions": d["demotions"],
+                       "promotions": d["promotions"]})
+        base = dict(tier.stats)
+        total_toks += len(out_toks)
+        # the next user message: the model's reply plus fresh user tokens
+        extra = torch.randint(1, cfg.vocab, (8,), generator=torch.Generator()
+                              .manual_seed(100 + turn)).tolist()
+        convo = convo + out_toks + extra
+    dt = time.perf_counter() - t_run
+    eng.debug_validate()
+    eng.sample_gauges()
+    persist = tier_args["persist"]
+    if persist is not None:
+        tier.persist(persist)
+    return {"turns": report, "codec": eng.codec.name, "device": str(dev),
+            "tier": dict(tier.stats),
+            "tier_logical_bytes": tier.logical_bytes(),
+            "kv_compression_ratio": eng.compression_ratio(),
+            "stats": eng.stats, "tok_per_s": total_toks / dt,
+            "persisted": persist}
+
+
 def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
                      prefill_chunk, token_budget, arrival_stagger,
                      prefix_cache, requeue_preempted, codec, ttft_deadline,
                      deadline, max_queue, overload, trace_out, metrics,
-                     metrics_port, metrics_out, metrics_jsonl) -> dict:
+                     metrics_port, metrics_out, metrics_jsonl, chaos,
+                     snapshot_dir, tier_args) -> dict:
     """The ``--scheduler`` path: open-loop arrivals through
     :class:`ContinuousScheduler`, one shared Telemetry for engine and
     scheduler."""
     from repro_torch.core.camp import PressureLadder
+    from repro_torch.serving import faults as F
     from repro_torch.serving.prefix_cache import PrefixCache
     from repro_torch.serving.scheduler import ContinuousScheduler
     from repro_torch.serving.telemetry import (Telemetry,
@@ -136,10 +233,22 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
                                                stop_metrics_server)
     tel = Telemetry(trace=trace_out is not None)
     cache = PrefixCache.for_model(cfg, PAGE) if prefix_cache else None
+    injector = None
+    if chaos is not None:
+        injector = F.FaultInjector(F.FaultSpec(
+            corrupt_page_every=7, corrupt_max=2,
+            garble_decode_every=11, garble_max=2), seed=chaos)
     eng = PagedKVEngine(cfg, params, page_size=PAGE, n_pool_pages=n_pool,
                         max_batch=len(reqs), prefill_chunk=prefill_chunk,
-                        prefix_cache=cache, codec=codec, telemetry=tel,
-                        device=dev)
+                        prefix_cache=cache, codec=codec, faults=injector,
+                        telemetry=tel, device=dev)
+    tier = None
+    if any(v is not None for v in tier_args.values()):
+        if cache is None:
+            raise ValueError("--tier-host-mb/--tier-disk-dir/--persist-cache "
+                             "need --prefix-cache (the tier backs the "
+                             "prefix cache)")
+        tier = _build_tier(eng, eng.cfg, **tier_args)
     sched = ContinuousScheduler(eng, token_budget=token_budget,
                                 requeue_preempted=requeue_preempted,
                                 max_queue=max_queue,
@@ -155,6 +264,7 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
     jsonl_f = open(metrics_jsonl, "w") if metrics_jsonl is not None else None
     arrivals = {b: b * arrival_stagger for b in reqs}
     pending = dict(arrivals)
+    snap_step = None
     t0 = tel.clock.now()
     try:
         while pending or not sched.idle:
@@ -169,6 +279,13 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
                                  ttft_deadline=ttft_deadline,
                                  deadline=deadline)
                     del pending[rid]
+            if snapshot_dir is not None and snap_step is None \
+                    and not pending and (sched._running or sched._prefill):
+                # mid-stream, requests in flight: the restore below must
+                # finish them with the same tokens
+                from repro_torch.serving.snapshot import save_snapshot
+                snap_step = sched.iteration
+                save_snapshot(snapshot_dir, eng, sched, step=snap_step)
             sched.step()
         dt = tel.clock.now() - t0
         eng.sample_gauges()
@@ -208,11 +325,29 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
            "stats": eng.stats, "sched_stats": sched.stats,
            "per_request": report, "iterations": sched.iteration,
            "wall_s": dt, "tok_per_s": sum(len(o) for o in outs) / dt}
+    if injector is not None:
+        out["faults"] = dict(injector.stats, log=injector.log)
     if cache is not None:
         out["prefix_cache"] = dict(cache.stats,
                                    hit_rate=round(cache.hit_rate(), 3))
+    if tier is not None:
+        out["tier"] = dict(tier.stats)
+        if tier_args["persist"] is not None:
+            tier.persist(tier_args["persist"])
+            out["persisted"] = tier_args["persist"]
     if metrics or metrics_out is not None or trace_out is not None:
         out["metrics_summary"] = _metrics_summary(tel, eng, sched)
+    if snap_step is not None:
+        from repro_torch.serving.snapshot import restore_snapshot
+        eng2, sched2 = restore_snapshot(snapshot_dir, cfg, params,
+                                        step=snap_step, device=dev)
+        fin2 = sched2.run()
+        match = all(fin2[b].out_tokens == fin[b].out_tokens
+                    and str(fin2[b].finish_reason) == str(fin[b].finish_reason)
+                    for b in fin2)
+        eng2.debug_validate()
+        out["snapshot"] = {"step": snap_step, "restored_match": match,
+                           "restored_requests": len(fin2)}
     return out
 
 
@@ -303,6 +438,23 @@ def main() -> None:
     ap.add_argument("--metrics-jsonl", default=None,
                     help="append JSON-lines registry snapshots here every "
                          "16 iterations")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="inject a deterministic fault schedule (scheduler "
+                         "mode)")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="snapshot the engine mid-stream, restore it after "
+                         "the run and check it finishes identically")
+    ap.add_argument("--tier-host-mb", type=float, default=None,
+                    help="host-RAM tier behind the prefix cache (MB)")
+    ap.add_argument("--tier-disk-dir", default=None,
+                    help="spill the tier's host victims to an mmap arena "
+                         "here")
+    ap.add_argument("--persist-cache", default=None,
+                    help="restore the tier from / persist it to this "
+                         "checkpoint directory")
+    ap.add_argument("--multi-turn", type=int, default=0, metavar="N",
+                    help="one conversation of N turns, the device pool "
+                         "recycled between turns, history from the tier")
     for flag in _NOT_PORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -310,9 +462,11 @@ def main() -> None:
     for flag, what in _NOT_PORTED.items():
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported: it needs {what}")
-    if not (args.paged or args.scheduler):
-        ap.error("pass --paged or --scheduler (the ported paths)")
-    sched_flags = (args.prefix_cache or args.shared_prefix
+    if not (args.paged or args.scheduler or args.multi_turn):
+        ap.error("pass --paged, --scheduler or --multi-turn (the ported "
+                 "paths)")
+    sched_flags = (args.chaos is not None or args.snapshot_dir
+                   or args.prefix_cache or args.shared_prefix
                    or args.requeue_preempted or args.overload
                    or args.trace_out or args.metrics
                    or args.metrics_port is not None or args.metrics_out
@@ -321,6 +475,11 @@ def main() -> None:
                    or args.ttft_deadline is not None)
     if sched_flags and not args.scheduler:
         ap.error("these flags belong to scheduler mode: add --scheduler")
+    tier_flags = (args.tier_host_mb is not None or args.tier_disk_dir
+                  or args.persist_cache)
+    if tier_flags and not (args.multi_turn or args.prefix_cache):
+        ap.error("the tier flags need --multi-turn or --scheduler "
+                 "--prefix-cache (the tier backs the prefix cache)")
     out = generate(args.arch, smoke=args.smoke, batch=args.batch,
                    prompt_len=args.prompt_len, gen=args.gen,
                    paged=args.paged, prefill_chunk=args.prefill_chunk,
@@ -334,7 +493,21 @@ def main() -> None:
                    overload=args.overload, trace_out=args.trace_out,
                    metrics=args.metrics, metrics_port=args.metrics_port,
                    metrics_out=args.metrics_out,
-                   metrics_jsonl=args.metrics_jsonl, device=args.device)
+                   metrics_jsonl=args.metrics_jsonl, chaos=args.chaos,
+                   snapshot_dir=args.snapshot_dir,
+                   tier_host_mb=args.tier_host_mb,
+                   tier_disk_dir=args.tier_disk_dir,
+                   persist_cache=args.persist_cache,
+                   multi_turn=args.multi_turn, device=args.device)
+    if "turns" in out:
+        for t in out["turns"]:
+            print(f"[serve] turn {t['turn']}: {t['prompt_tokens']} prompt "
+                  f"tokens, {t['cached_tokens']} cached, ttft "
+                  f"{t['ttft_s']} s, {t['demotions']} demotions, "
+                  f"{t['promotions']} promotions")
+        print(f"[serve] tier: {out['tier']}; {out['tok_per_s']:.1f} tok/s "
+              f"on {out['device']} (codec {out['codec']})")
+        return
     n_tok = sum(len(t) for t in out["tokens"])
     print(f"[serve] {n_tok} tokens at {out['tok_per_s']:.1f} tok/s on "
           f"{out['device']} (codec {out['codec']})")
@@ -363,8 +536,9 @@ def main() -> None:
                   f"page-ratio p50 {pc['ratio_p50']}")
         print(f"[serve]   ladder transitions {ms['ladder_transitions']}, "
               f"pool used {ms['pool_used_pages']} pages")
-    if "prefix_cache" in out:
-        print(f"[serve] prefix cache: {out['prefix_cache']}")
+    for key in ("prefix_cache", "tier", "faults", "snapshot"):
+        if key in out:
+            print(f"[serve] {key.replace('_', ' ')}: {out[key]}")
 
 
 if __name__ == "__main__":

@@ -49,13 +49,24 @@ Counters live in a :class:`~repro_torch.serving.telemetry.Telemetry`
 registry (``stats`` reads the eight of them back as a dict), with the
 JAX engine's gauges and per-codec publish series.
 
-Not ported yet: fault injection and the integrity checks (the warm-hit
-and preemption-victim verification branches), the host/disk tier, the
-observatory and snapshot/restore.
+Integrity (``serving/faults.py``): every published page carries a
+checksum computed with its compression; with ``integrity=True`` (the
+default) a warm prefix hit is verified before its chain is mapped, and
+with a fault injector attached each CAMP victim is verified before its
+pages drop.  A :class:`~repro_torch.serving.tier.TieredPageStore`
+(``tier=``) catches the prefix cache's eviction victims: their
+compressed pages are gathered out of the pools and copied to the host
+(one copy a demotion, off the decode path); admission walks the tier
+past the device hit, verifies each record host-side and scatters the
+verified run back into the pools with one indexed write per pool leaf.
+``cache_decode_pages`` also demotes a retiring sequence's private pages
+(the multi-turn chat path).  ``serving/snapshot.py`` saves and restores
+the whole engine.  Not ported: the observatory.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -70,6 +81,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.params import layer, to_device
 from repro_torch.serving import faults as F
+from repro_torch.serving import tier as T
 from repro_torch.serving._tree import tree_leaves, tree_map
 from repro_torch.serving.prefix_cache import (PrefixCache, canonical_update,
                                               prefix_chunk_attention)
@@ -85,6 +97,7 @@ class Sequence:
     tail_len: int = 0
     done: bool = False
     preempted: bool = False
+    corrupted: bool = False              # failed a page-integrity check
     prefilling: bool = False             # in-flight admission cohort member
     # prefix-cache chain: entry ids whose pages this sequence maps, in
     # block order.  pages[li][:len(chain)] are shared (cache-owned); the
@@ -294,6 +307,20 @@ def _fill_warm_scratch(kscr, vscr, kcan, vcan, pools, wpt, wlen, *,
             buf[li, :, :n] = torch.where(m, warm, buf[li, :, :n])
 
 
+def _to_host(tensors: list[torch.Tensor]) -> list[np.ndarray]:
+    """Copy tensors to host numpy arrays through one byte buffer: a single
+    device-to-host copy however many there are."""
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in tensors]).cpu().numpy()
+    out, off = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        dt = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out.append(flat[off:off + n].view(dt).reshape(tuple(t.shape)))
+        off += n
+    return out
+
+
 # ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
@@ -307,8 +334,7 @@ class PagedKVEngine:
     card unless ``device="cpu"``.
     """
 
-    # the JAX engine's counters; ``integrity_failures`` stays 0 until the
-    # integrity checks are ported
+    # the JAX engine's counters
     _STAT_KEYS = ("pages_compressed", "pages_evicted", "bytes_raw",
                   "bytes_compressed", "preemptions",
                   "prefix_pages_evicted", "shed_inserts",
@@ -319,7 +345,11 @@ class PagedKVEngine:
                  prefill_chunk: int | None = None,
                  prefix_cache: PrefixCache | None = None,
                  codec: str | codecs.PageCodec | None = None,
+                 faults: F.FaultInjector | None = None,
+                 integrity: bool = True,
                  telemetry: Telemetry | None = None,
+                 tier: T.TieredPageStore | None = None,
+                 cache_decode_pages: bool = False,
                  device: str | torch.device | None = None):
         if cfg.attn_kind != "gqa" or cfg.is_encdec:
             raise ValueError(f"{cfg.name}: the engine serves dense GQA only")
@@ -366,6 +396,8 @@ class PagedKVEngine:
         # per-page codec tags: 0 for a single codec, the winning member
         # id under ``adaptive``
         self.page_codec_id = np.zeros(n_pool_pages, np.int32)
+        self.integrity = integrity
+        self.faults = faults
         # degradation-ladder level 1 (set by the scheduler): drop
         # speculative prefix-cache insertions while the pool is under
         # pressure
@@ -383,10 +415,20 @@ class PagedKVEngine:
         # scheduler through one Telemetry
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self._init_metrics()
+        if faults is not None:
+            faults.telemetry = self.telemetry
         if prefix_cache is not None:
             prefix_cache.telemetry = self.telemetry
         # logits [S, V] of the last decode step (greedy-parity tie reports)
         self.last_logits: torch.Tensor | None = None
+        # optional host/disk tier.  Decode-page caching is opt-in: decode
+        # and prefill may differ at ULP level on the same prefix, so the
+        # warm == cold equalities keep it off by default
+        self.tier: T.TieredPageStore | None = None
+        self.cache_decode_pages = cache_decode_pages
+        self._h_promote = None
+        if tier is not None:
+            self.attach_tier(tier)
 
     def _init_metrics(self) -> None:
         reg = self.telemetry.registry
@@ -443,6 +485,10 @@ class PagedKVEngine:
         self._g_pressure.set(round(self.pool_pressure(), 6))
         if self.prefix_cache is not None:
             self.prefix_cache.sample_metrics()
+        if self.faults is not None:
+            self.faults.sample_metrics()
+        if self.tier is not None:
+            self.tier.sample_metrics()
 
     # -- pool bookkeeping ----------------------------------------------------
 
@@ -519,6 +565,12 @@ class PagedKVEngine:
                 f"pool exhausted with nothing evictable "
                 f"({self.n_pool_pages - 1} pages, {len(self.free)} free)")
         victim = min(cands, key=self._seq_value)   # first minimum
+        # verify the victim before its pages drop: a requeue absorbs its
+        # generated tokens into the prompt, so corruption must be flagged
+        # here (a check only where faults can occur)
+        if self.integrity and self.faults is not None \
+                and not F.verify_seq(self, victim.sid):
+            self._m["integrity_failures"].inc()
         self._drop_seq_pages(victim, count_evicted=True)
         victim.tail_len = 0
         victim.preempted = True
@@ -577,6 +629,11 @@ class PagedKVEngine:
         if seq.prefilling and not seq.preempted:
             raise ValueError(f"sid {sid} is mid-prefill; cannot release")
         del self.seqs[sid]
+        if (self.tier is not None and self.cache_decode_pages
+                and not seq.preempted and not seq.corrupted):
+            # decode-produced pages become demotable too (the multi-turn
+            # chat path); the tier holds copies, the pages free below
+            self._demote_decode_pages(seq)
         self._drop_seq_pages(seq, count_evicted=False)
         if self.prefix_cache is not None:
             # quarantined entries free once their last pin drops
@@ -597,6 +654,174 @@ class PagedKVEngine:
         seq.preempted = True
         self._pt_dirty = True
         self._maybe_drop_cohort()
+
+    # -- host/disk tier (serving/tier.py) ------------------------------------
+
+    def attach_tier(self, tier: T.TieredPageStore) -> None:
+        """Attach a host/disk tier: SIP eviction victims demote into it
+        (compressed bytes, codec tags and publish-time checksums intact)
+        and warm lookups that miss the device pool promote out of it."""
+        if self.prefix_cache is None:
+            raise ValueError("a tier needs a prefix cache to demote from")
+        if (tier.page != self.page or tier.n_layers != self.cfg.n_layers
+                or tier.codec_name != self.codec.name):
+            raise ValueError("tier layout disagrees with the engine")
+        self.tier = tier
+        if tier.telemetry is None:
+            tier.telemetry = self.telemetry
+        self._h_promote = self.telemetry.registry.histogram(
+            "tier_promotion_seconds",
+            "wall time to promote a warm chain from the tier",
+            codec=self.codec.name)
+        self.prefix_cache.demote_cb = self._demote_entry
+
+    def _entry_parent_digest(self, e) -> str:
+        """Digest of the token prefix before entry ``e``, from its resident
+        ancestors (eviction is leaf-first, so they are all resident)."""
+        anc = []
+        pid = e.parent
+        while pid:
+            pe = self.prefix_cache.entries[pid]
+            anc.append(pe)
+            pid = pe.parent
+        digest = T.ROOT
+        for pe in reversed(anc):
+            digest = T.child_digest(digest, pe.toks)
+        return digest
+
+    def _demote_pages(self, parent: str, toks: tuple[int, ...],
+                      pids: list[int], *, hits: int = 0,
+                      source: str = "prompt") -> None:
+        """Gather one page boundary's ``[L]`` pages out of every pool leaf
+        and hand them to the tier with their publish metadata: one copy to
+        the host a demotion, off the decode path."""
+        lidx = torch.arange(len(pids), device=self.device)
+        pidx = torch.tensor(pids, dtype=torch.long, device=self.device)
+        leaves = _to_host([lf[lidx, pidx] for lf in tree_leaves(self.pools)])
+        self.tier.demote(parent, toks, leaves,
+                         [int(self.page_bytes[p]) for p in pids],
+                         [int(self.page_codec_id[p]) for p in pids],
+                         [int(self.page_checksum[p]) for p in pids],
+                         hits=hits, source=source)
+
+    def _demote_entry(self, e) -> None:
+        """``PrefixCache.demote_cb``: capture an eviction victim's pages
+        before they drop.  Bytes corrupted since publish travel with their
+        original checksum, so promotion quarantines them."""
+        self._demote_pages(self._entry_parent_digest(e), e.toks,
+                           list(e.pages), hits=e.hits)
+
+    def _demote_decode_pages(self, seq: Sequence) -> None:
+        """Retirement hook (``cache_decode_pages``): demote the sequence's
+        private full pages — decode-produced and any shed prompt pages —
+        keyed by the token prefix they cover, so a follow-up turn that
+        replays this exchange promotes instead of recomputing."""
+        page, lyr = self.page, self.cfg.n_layers
+        ns = len(seq.chain)
+        digest = T.ROOT
+        for blk in range(len(seq.pages[0])):
+            toks = tuple(seq.tokens[blk * page:(blk + 1) * page])
+            if blk >= ns:
+                self._demote_pages(digest, toks,
+                                   [seq.pages[li][blk] for li in range(lyr)],
+                                   source="decode")
+            digest = T.child_digest(digest, toks)
+
+    def _promote_from_tier(self, prompt: list[int], start: int,
+                           chain: list[int]) -> tuple[int, list[int]]:
+        """Extend a warm hit past the device pool from the tier.
+
+        Walks the tier trie from the first block the device did not hit,
+        verifies each record host-side (a corrupt one is quarantined and
+        ends the walk: a shorter hit, never bad bytes), scatters the
+        verified run into freshly reserved pool pages with one indexed
+        write per pool leaf (rows padded to a power of two and aimed at
+        page 0, as in JAX), and inserts each block into the prefix cache,
+        pinned, in chain order.  Returns the extended ``(start, chain)``.
+        """
+        tier, cache, page = self.tier, self.prefix_cache, self.page
+        lyr = self.cfg.n_layers
+        recs = tier.lookup(prompt)
+        b = start // page
+        if len(recs) <= b:
+            return start, chain
+        t0 = time.perf_counter()
+        stored, promoted = len(prompt) - 1, 0
+        picked: list = []
+        while (b + len(picked) < len(recs)
+               and (b + len(picked) + 1) * page <= stored):
+            rec = recs[b + len(picked)]
+            lo = (b + len(picked)) * page
+            if rec.toks != tuple(prompt[lo:lo + page]):
+                break                      # a digest collision
+            leaves, ok = tier.read_record(rec)
+            if not ok:
+                self._m["integrity_failures"].inc()
+                break
+            picked.append((rec, leaves))
+        if not picked:
+            return start, chain
+        pids = [self._reserve_pages(lyr) for _ in picked]
+        pad = 1 << (len(picked) - 1).bit_length()
+        rows = torch.tensor(pids + [[0] * lyr] * (pad - len(picked)),
+                            dtype=torch.long, device=self.device)
+        lidx = torch.arange(lyr, device=self.device)[None, :]
+        for i, pool in enumerate(tree_leaves(self.pools)):
+            vals = np.stack([lv[i] for _, lv in picked]
+                            + [picked[0][1][i]] * (pad - len(picked)))
+            pool[lidx, rows] = torch.from_numpy(vals).to(self.device)
+        for idx, ((rec, _), bpids) in enumerate(zip(picked, pids)):
+            for li, pid in enumerate(bpids):
+                self.page_bytes[pid] = rec.nbytes[li]
+                self.page_checksum[pid] = rec.checksums[li]
+                self.page_codec_id[pid] = rec.codec_ids[li]
+            eid, created = cache.insert(
+                chain[-1] if chain else 0, rec.toks, bpids,
+                sum(rec.nbytes), codec_ids=list(rec.codec_ids))
+            self.free.extend(cache.drain_displaced())   # healed-over pages
+            if eid is None:        # pinned corrupt twin: cannot map
+                for later in pids[idx:]:   # scattered but unmapped
+                    self.free.extend(later)
+                break
+            if not created:        # a clean twin is resident: share it
+                self.free.extend(bpids)
+            cache.pin([eid])
+            chain.append(eid)
+            tier.on_promoted(rec)
+            promoted += 1
+            b += 1
+        if promoted:
+            self._pt_dirty = True
+            self._h_promote.observe(time.perf_counter() - t0)
+            if self.telemetry.tracer.enabled:
+                self.telemetry.tracer.event(-1, "tier_promote",
+                                            blocks=promoted)
+        return b * page, chain
+
+    def recycle_device_pool(self) -> int:
+        """Drop every retained prefix entry (demoting through the tier when
+        one is attached) and return their pages to the free list: the
+        multi-turn scenario's reset between turns.  Needs an idle engine.
+        Returns the number of pages freed."""
+        if self.seqs or self._cohort is not None:
+            raise RuntimeError("recycle_device_pool with work in flight")
+        before = len(self.free)
+        while (self.prefix_cache is not None and self.prefix_cache.entries
+               and self._evict_prefix_pages(self.n_pool_pages)):
+            pass
+        return len(self.free) - before
+
+    # -- integrity / invariants ---------------------------------------------
+
+    def verify_seq(self, sid: int) -> bool:
+        """Recompute checksums of every pool page the sequence maps;
+        quarantines corrupt shared entries (``faults.verify_seq``)."""
+        return F.verify_seq(self, sid)
+
+    def debug_validate(self) -> None:
+        """Assert page/refcount/slot accounting is exact
+        (``faults.debug_validate``)."""
+        F.debug_validate(self)
 
     def add_request(self, sid: int, prompt: list[int]) -> None:
         self.add_requests({sid: prompt})
@@ -641,7 +866,23 @@ class PagedKVEngine:
             start, chain = 0, []
             if self.prefix_cache is not None:
                 start, chain = self.prefix_cache.lookup(prompt)
+                if self.integrity:
+                    # warm-hit trust boundary: a corrupt entry truncates
+                    # the hit, and the request recomputes from there
+                    vstart, chain = F.verified_prefix(self, start, chain)
+                    if vstart != start:
+                        self._m["integrity_failures"].inc()
+                        if self.telemetry.tracer.enabled:
+                            self.telemetry.tracer.event(
+                                sid, "hit_truncated", hit=start,
+                                verified=vstart)
+                        start = vstart
                 self.prefix_cache.pin(chain)
+                if self.tier is not None:
+                    # the device chain is pinned first, so promotion's
+                    # reservations cannot evict the chain it extends
+                    start, chain = self._promote_from_tier(prompt, start,
+                                                           chain)
             ent = [self.prefix_cache.entries[e] for e in chain]
             seq = Sequence(sid=sid, slot=self._free_slots.pop(),
                            tokens=list(prompt),
@@ -813,6 +1054,13 @@ class PagedKVEngine:
             if blocks is not None and self.prefix_cache is not None:
                 self._register_prompt_page(seq, blocks[j], pids[j::m],
                                            int(nbytes[j::m].sum()))
+        if self.faults is not None:
+            # corruption lands in the pool bytes after the checksums were
+            # recorded, like bit rot after publish
+            for j, seq in enumerate(seqs):
+                if not seq.preempted:
+                    for li, pid in enumerate(pids[j::m]):
+                        self.faults.page_published(self, li, pid)
 
     def _register_prompt_page(self, seq: Sequence, blk: int,
                               pids: list[int], nbytes: int) -> None:
@@ -829,7 +1077,11 @@ class PagedKVEngine:
         eid, created = cache.insert(
             parent, toks, pids, nbytes,
             codec_ids=[int(self.page_codec_id[p]) for p in pids])
-        self.free.extend(cache.drain_displaced())    # healed-over pages
+        displaced = cache.drain_displaced()         # healed-over pages
+        self.free.extend(displaced)
+        if displaced and self.telemetry.tracer.enabled:
+            self.telemetry.tracer.event(seq.sid, "cache_heal",
+                                        pages=len(displaced))
         if eid is None:            # pinned corrupt twin: block stays private
             self._m["shed_inserts"].inc()
             return
@@ -930,6 +1182,9 @@ class PagedKVEngine:
     def _decode_post(self, sids: list[int], nxt: np.ndarray
                      ) -> dict[int, int]:
         """Append decoded tokens; publish every tail page that filled."""
+        if self.faults is not None:
+            nxt = self.faults.garble_tokens(
+                nxt, [self.seqs[sid].slot for sid in sids])
         filled: list[Sequence] = []
         out: dict[int, int] = {}
         for sid in sids:

@@ -19,8 +19,9 @@ the victim ranking over refcount-0 entries — G-CAMP's value
 size-bin priority learned from lookup hits.  Host code only, equal to
 the JAX classes decision for decision
 (``tests/test_torch_prefix_cache.py``).
-Left out: the observatory's audit record and the tier's demotion hook in
-``evict_for`` (those modules are not ported yet).
+``demote_cb`` hands each clean eviction victim to the host/disk tier
+(``serving/tier.py``) before its pages drop.  Left out: the observatory's
+audit record in ``evict_for`` (the observatory is not ported).
 
 Lifecycle:
 
@@ -218,6 +219,9 @@ class PrefixCache:
                       "evicted": 0, "quarantined": 0, "healed": 0}
         self._n_corrupt = 0
         self._displaced: list[int] = []   # pool ids freed by healing
+        # set by an engine with a tier: called with each clean eviction
+        # victim before its pages drop, so the tier captures them
+        self.demote_cb = None
         # set by the owning engine; :meth:`sample_metrics` pushes the
         # cache's counters into its registry at export time (zero cost
         # on the lookup/insert hot path)
@@ -392,6 +396,9 @@ class PrefixCache:
             victim = min(cands, key=lambda e:
                          (not e.corrupt,     # quarantined entries go first
                           self.policy.value(e.hits, e.nbytes), e.born))
+            if self.demote_cb is not None and not victim.corrupt:
+                # quarantined entries are never demoted
+                self.demote_cb(victim)
             freed.extend(self._drop(victim))
         return freed
 

@@ -30,9 +30,11 @@ Decisions equal the JAX scheduler's iteration for iteration
 (``tests/test_torch_scheduler.py``).  Left out: the host-looped oracle
 path (``make_reference_scheduler`` and the reference branch of
 ``_dispatch``, which need ``serving/reference.py``) and the
-observatory's audit records.  The fault branches (``engine.faults``,
-``verify_seq``, corrupt tokens) are kept and stay inert: the port's
-engine has no fault injector yet.
+observatory's audit records.  Faults become outcomes here: the
+injector's iteration hook (free-list holds), the finish-time
+``verify_seq`` (default on exactly when faults are armed), the range
+check on decoded tokens, and restarts from the original prompt with
+backoff up to ``max_retries`` (then ``FinishReason.CORRUPTED``).
 """
 
 from __future__ import annotations

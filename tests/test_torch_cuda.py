@@ -354,3 +354,98 @@ def test_scheduler_cuda_matches_cpu(dev, codec):
     want = {"bdi": ("bdi_compress_kv", "paged_attention_tail"),
             "gbdi": ("gbdi_compress_kv", "gbdi_decompress_kv")}[codec]
     assert all(ops.LAUNCHES[k] > 0 for k in want), ops.LAUNCHES
+
+
+def _tiered(cfg, params, d, *, codec="bdi"):
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.tier import TieredPageStore
+    eng = PagedKVEngine(cfg, to_device(params, torch.device(d)), page_size=8,
+                        n_pool_pages=96, max_batch=4, codec=codec,
+                        prefix_cache=PrefixCache.for_model(cfg, 8), device=d)
+    eng.attach_tier(TieredPageStore.for_model(cfg, 8, eng.codec, host_mb=4))
+    return eng
+
+
+def _chain_bytes(eng, chain) -> list[bytes]:
+    from repro_torch.serving._tree import tree_leaves
+    pools = [lf.cpu() for lf in tree_leaves(eng.pools)]
+    return [b"".join(lf[li, eng.prefix_cache.entries[eid].pages[li]]
+                     .contiguous().view(torch.uint8).numpy().tobytes()
+                     for lf in pools for li in range(eng.cfg.n_layers))
+            for eid in chain]
+
+
+@pytest.mark.parametrize("codec", ["bdi", "gbdi"])
+def test_tier_round_trip_on_card_byte_equal_to_cpu(dev, codec, tmp_path):
+    """Pages demoted from the card and promoted back are the bits they
+    were; the tier persisted on the card restores on the CPU with the
+    same slot bytes and checksums, and the CPU engine promotes the same
+    page bytes out of it."""
+    from repro_torch.serving.tier import TieredPageStore
+    cfg = get_arch("yi-6b").reduced(n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = [1 + (j * 7) % 250 for j in range(33)]
+    gpu = _tiered(cfg, params, dev, codec=codec)
+    gpu.add_requests({0: prompt})
+    before = _chain_bytes(gpu, gpu.seqs[0].chain)
+    gpu.release(0)
+    gpu.recycle_device_pool()
+    assert gpu.add_requests({1: prompt})[1] == 32
+    assert _chain_bytes(gpu, gpu.seqs[1].chain) == before
+    gpu.release(1)
+    gpu.debug_validate()
+    gpu.tier.persist(str(tmp_path))
+    cpu_tier = TieredPageStore.restore(str(tmp_path), cfg, gpu.codec,
+                                       host_mb=4)
+    assert np.array_equal(cpu_tier.tier_arrays()["tier_data"],
+                          gpu.tier.tier_arrays()["tier_data"])
+    assert cpu_tier.meta_state()["records"] \
+        == gpu.tier.meta_state()["records"]
+    cpu = _tiered(cfg, params, "cpu", codec=codec)
+    cpu.tier = None
+    cpu.attach_tier(cpu_tier)
+    assert cpu.add_requests({2: prompt})[2] == 32
+    assert _chain_bytes(cpu, cpu.seqs[2].chain) == before
+    cpu.debug_validate()
+
+
+def test_bit_flip_in_device_pool_caught_by_verify_seq(dev):
+    from repro_torch.serving import faults as F
+    cfg = get_arch("yi-6b").reduced(n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = PagedKVEngine(cfg, to_device(params, dev), page_size=8,
+                        n_pool_pages=64, max_batch=4, device=dev)
+    eng.add_requests({0: [1 + (j * 3) % 250 for j in range(21)]})
+    assert eng.verify_seq(0)
+    pid = eng.seqs[0].pages[1][-1]
+    F.FaultInjector(seed=0).corrupt_page(eng, 1, pid)
+    assert eng.pools.kd.device.type == "cuda"        # flipped in place there
+    assert not eng.verify_seq(0) and eng.seqs[0].corrupted
+
+
+def test_snapshot_on_card_restores_on_cpu(dev, tmp_path):
+    """A scheduler snapshot taken mid-stream on the card finishes on the
+    CPU with the tokens the card's uninterrupted run gives."""
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.serving.snapshot import restore_snapshot, save_snapshot
+    cfg = get_arch("yi-6b").reduced(n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = PagedKVEngine(cfg, to_device(params, dev), page_size=8,
+                        n_pool_pages=96, max_batch=2, device=dev,
+                        prefix_cache=PrefixCache.for_model(cfg, 8))
+    sched = ContinuousScheduler(eng, token_budget=24)
+    sysp = [1 + (j * 7) % 250 for j in range(16)]
+    for r in range(3):
+        sched.submit(r, sysp + [3 + r, 9, 27 + r], max_new_tokens=10)
+    while not sched._running:
+        sched.step()
+    sched.step()
+    save_snapshot(str(tmp_path), eng, sched)
+    fin = sched.run()
+    eng2, sched2 = restore_snapshot(str(tmp_path), cfg, params, device="cpu")
+    assert eng2.device.type == "cpu"
+    fin2 = sched2.run()
+    eng2.debug_validate()
+    assert {r: t.out_tokens for r, t in fin2.items()} \
+        == {r: t.out_tokens for r, t in fin.items()}

@@ -1,4 +1,5 @@
-"""The port stands alone: no jax, no ``repro``, and no silent CPU fallback."""
+"""The port stands alone: no jax, no ``repro``, no ``ml_dtypes``, and no
+silent CPU fallback."""
 
 import os
 import pkgutil
@@ -24,15 +25,17 @@ def test_import_loads_neither_jax_nor_repro():
     mods = _modules()
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.launch.quickstart" in mods
-    for m in ("trace", "telemetry", "scheduler", "prefix_cache"):
+    for m in ("trace", "telemetry", "scheduler", "prefix_cache", "faults",
+              "tier", "snapshot"):
         assert f"repro_torch.serving.{m}" in mods
+    assert "repro_torch.checkpoint.store" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'repro'\n"
-        "             or m.startswith('repro.'))\n"
+        "             or m.startswith('repro.') or m == 'ml_dtypes')\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=300,
@@ -41,7 +44,8 @@ def test_import_loads_neither_jax_nor_repro():
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
-    r"|from\s+repro\b(?!_torch))", re.M)
+    r"|from\s+repro\b(?!_torch)|import\s+ml_dtypes\b|from\s+ml_dtypes\b)",
+    re.M)
 
 
 def test_sources_import_neither_jax_nor_repro():
@@ -67,6 +71,12 @@ def test_entry_points_raise_without_cuda():
         generate("yi-6b", paged=True, smoke=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate("yi-6b", smoke=True, scheduler=True, prefix_cache=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate("yi-6b", smoke=True, multi_turn=2, tier_host_mb=4)
+    from repro_torch.serving.snapshot import restore_snapshot
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        # the device is resolved before the snapshot directory is read
+        restore_snapshot("/nonexistent", cfg, params)
     from repro_torch.launch import quickstart
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quickstart.main()

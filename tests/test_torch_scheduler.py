@@ -56,21 +56,26 @@ class Kit:
         self.side, self.cfg, self.params = side, cfg, params
         if side == "jax":
             from repro.core.camp import PressureLadder
+            from repro.serving import faults, snapshot
             from repro.serving.engine import PagedKVEngine
             from repro.serving.prefix_cache import PrefixCache
             from repro.serving.scheduler import ContinuousScheduler
             from repro.serving.telemetry import Telemetry
+            from repro.serving.tier import TieredPageStore
             self._dev = {}
         else:
             from repro_torch.core.camp import PressureLadder
+            from repro_torch.serving import faults, snapshot
             from repro_torch.serving.engine import PagedKVEngine
             from repro_torch.serving.prefix_cache import PrefixCache
             from repro_torch.serving.scheduler import ContinuousScheduler
             from repro_torch.serving.telemetry import Telemetry
+            from repro_torch.serving.tier import TieredPageStore
             self._dev = {"device": "cpu"}
         self.Engine, self.Scheduler = PagedKVEngine, ContinuousScheduler
         self.PrefixCache = PrefixCache
         self.PressureLadder, self.Telemetry = PressureLadder, Telemetry
+        self.F, self.Tier, self._snapshot = faults, TieredPageStore, snapshot
         self.rec = Recorder(self)
 
     def engine(self, *, pool: int = 96, max_batch: int = 4,
@@ -85,6 +90,21 @@ class Kit:
 
     def sched(self, eng, **kw):
         return self.Scheduler(eng, **kw)
+
+    def codec_of(self, name: str):
+        pkg = "repro" if self.side == "jax" else "repro_torch"
+        return __import__(f"{pkg}.codecs", fromlist=["get"]).get(name)
+
+    def save_snapshot(self, path, eng, sched=None, *, step: int = 0):
+        return self._snapshot.save_snapshot(str(path), eng, sched, step=step)
+
+    def restore(self, path, **kw):
+        """``restore_snapshot`` on this package (the CPU for the port),
+        the restored engine watched by the recorder."""
+        eng, sched = self._snapshot.restore_snapshot(
+            str(path), self.cfg, self.params, **kw, **self._dev)
+        self.rec.watch(eng)
+        return eng, sched
 
 
 class Recorder:
@@ -351,9 +371,9 @@ def jax_records_main(module: str, path: str) -> None:
     Path(path).write_text(json.dumps(out))
 
 
-def run_jax_records(module: str, tmp_path_factory) -> dict:
+def run_jax_records(module: str, tmp_path_factory, **env_extra) -> dict:
     path = tmp_path_factory.mktemp("jax") / "records.json"
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu", **env_extra,
                PYTHONPATH=os.pathsep.join(
                    [str(REPO / "src"), str(REPO / "tests")]
                    + [p for p in [os.environ.get("PYTHONPATH")] if p]),
@@ -491,8 +511,7 @@ def test_generate_scheduler_prefix_cache_on_cpu(tmp_path):
     assert json.loads(lines[-1])["final"] is True
 
 
-@pytest.mark.parametrize("flag",
-                         ["--chaos", "--tier-host-mb", "--observatory"])
+@pytest.mark.parametrize("flag", ["--observatory", "--audit-out"])
 def test_serve_cli_refuses_unported_flags(flag, monkeypatch, capsys):
     from repro_torch.launch import serve
     monkeypatch.setattr(sys, "argv", ["serve", "--arch", "yi-6b", "--smoke",

@@ -105,6 +105,30 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      state; a tier persisted on the card restores on the CPU with the
      same bytes, records and checksums, and promotes the same pages.
      Every phase 8 run ends with ``debug_validate``.
+  9. the observatory: phase 7's warm workload (bdi, phase 7's pool)
+     without and with an ``Observatory`` in turns (off, on, on, off):
+     every run's tokens, engine stats and scheduler stats exactly phase
+     7's (a pure observer); ms an iteration of each beside phase 7's
+     and the host ms spent inside the observatory's hooks, the joint
+     size-bin x reuse-distance table, shadow hit rates per policy and
+     audit counts; then the same workload under
+     ``adaptive`` on a pool of 104 page boundaries (3329 ids, 29.9 GB at
+     281 KB a layer and id), tight enough that SIP evicts retained
+     entries (each audited) and loose enough that nothing is preempted:
+     every published page's five member sizes recorded, the registry and
+     audit log exported (Prometheus text,
+     metrics JSONL, audit JSONL) and rendered by
+     ``repro_torch.launch.observe``;
+  9b. the oracle on the card: yi-6b at full width, 2 layers, 4 requests
+     on a shared two-page prefix, 16 new tokens each, through the batched
+     scheduler and through ``make_reference_scheduler`` over
+     ``ReferencePagedKVEngine(device="cuda")`` (pools on the host), under
+     bdi and gbdi: tokens equal up to reported ties; stats, tracks and the
+     allocation-order-free host state equal every iteration; ms a token of
+     each;
+  9c. at depth 2 under adaptive: an engine with an observatory
+     snapshotted on the card restores on the CPU with the observatory's
+     state and registry series exactly equal.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -1092,7 +1116,8 @@ def phase_scheduler(dev, cfg, params, page: int) -> tuple:
                "prefix_cached_tokens": st["prefix_cached_tokens"],
                "mixed_iterations": st["mixed_iterations"],
                "kv_compression_ratio": eng.compression_ratio(),
-               "engine_stats": est, "launches": launches}
+               "engine_stats": est, "sched_stats": dict(st),
+               "launches": launches}
         if cached:
             wave2 = res["cached_tokens"][SCHED_N // 2:]
             if min(wave2) < SCHED_PREFIX or cache.hit_rate() <= 0:
@@ -1621,6 +1646,429 @@ def parity_snapshot_tier(dev, cfg, page: int, codec: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 9, 9b, 9c: the observatory, the oracle on the card, and an
+# observatory snapshot from the card
+# ---------------------------------------------------------------------------
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def obs_series(reg) -> dict:
+    """The observatory's registry series (JSON-normalised)."""
+    return json.loads(json.dumps(
+        {k: v for k, v in reg.snapshot().items()
+         if k.startswith(("obs_", "shadow_", "audit_"))}))
+
+
+def time_hooks(obs) -> dict:
+    """Wrap the observatory's engine hooks and its audit log's ``record``
+    with host-clock accumulators; returns ``{hook: seconds spent}``, the
+    observatory's whole cost to the serving loop (it does no device
+    work)."""
+    spent: dict[str, float] = {}
+
+    def wrap(owner, name):
+        inner = getattr(owner, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(owner, name, timed)
+
+    for name in ("on_publish", "on_admit", "on_cache_insert", "on_dedup",
+                 "on_release", "on_retire", "sample_gauges"):
+        wrap(obs, name)
+    wrap(obs.audit, "record")
+    return spent
+
+
+def observed_run(dev, cfg, params, page: int, reqs: dict, *, codec: str,
+                 n_pool: int, observe: bool = True,
+                 jsonl: list | None = None) -> dict:
+    """Phase 7's warm workload (two waves through the scheduler and the
+    prefix cache) under ``codec``, with an Observatory attached when
+    ``observe``; with ``jsonl`` the registry is sampled into it every 16
+    iterations (the serve CLI's ``--metrics-jsonl`` cadence)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.observatory import Observatory
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.serving.telemetry import Telemetry
+    tel = Telemetry()
+    obs = Observatory(tel) if observe else None
+    eng = PagedKVEngine(cfg, params, page_size=page, n_pool_pages=n_pool,
+                        max_batch=8, prefill_chunk=32, codec=codec,
+                        prefix_cache=PrefixCache.for_model(cfg, page),
+                        telemetry=tel, observatory=obs, device=dev)
+    sched = ContinuousScheduler(eng, token_budget=256, telemetry=tel)
+    hooks = time_hooks(obs) if observe else {}
+
+    def on_step(events):
+        if jsonl is not None and sched.iteration % 16 == 0:
+            eng.sample_gauges()
+            jsonl.append(tel.registry.to_jsonl_line(
+                iteration=sched.iteration))
+
+    sync(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    drive_waves([sched], reqs, SCHED_GEN, on_step)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    eng.debug_validate()
+    eng.sample_gauges()
+    if jsonl is not None:
+        jsonl.append(tel.registry.to_jsonl_line(iteration=sched.iteration,
+                                                final=True))
+    fin = sched.finished()
+    if not torch.isfinite(eng.last_logits.float()).all():
+        raise AssertionError(f"phase 9 {codec}: non-finite logits")
+    return {"eng": eng, "sched": sched, "obs": obs, "wall": wall,
+            "launches": launches, "hook_ms": {k: 1e3 * v
+                                              for k, v in hooks.items()},
+            "tokens": {r: fin[r].out_tokens for r in reqs},
+            "reasons": sorted({str(t.finish_reason) for t in fin.values()})}
+
+
+# page boundaries of phase 9's adaptive pool: phase 7's workload then
+# evicts 10 retained prefix entries (a CPU rehearsal at 2 layers; the
+# decisions depend on token counts only) and preempts nothing
+OBS_POOL_BLOCKS = 104
+
+
+def phase_observatory(dev, cfg, params, page: int, warm: dict,
+                      warm_toks: dict) -> dict:
+    """9: phase 7's workload under bdi without and with an Observatory, in
+    turns (off, on, on, off): every run gives the tokens, engine stats and
+    scheduler stats of phase 7's (the observatory is a pure observer);
+    ms an iteration of each beside phase 7's; the joint size-bin x
+    reuse-distance table, shadow hit rates and audit counts.  Then under
+    adaptive on a pool sized to the workload: every member's would-be
+    bytes recorded for every published page; the registry and the audit
+    log exported (Prometheus text, metrics JSONL, audit JSONL) and
+    rendered by ``repro_torch.launch.observe``."""
+    import tempfile
+    import torch
+    from repro_torch.codecs.adaptive import MEMBER_NAMES
+    from repro_torch.launch import observe
+    reqs = shared_prefix_requests(SCHED_N, SCHED_PREFIX, *SCHED_OWN,
+                                  cfg.vocab, seed=7)
+    res, launches, ms, hook_ms = {}, {}, {"off": [], "on": []}, []
+    for attach in (False, True, True, False):
+        bdi = observed_run(dev, cfg, params, page, reqs, codec="bdi",
+                           n_pool=warm["n_pool_pages"], observe=attach)
+        eng, sched, obs = bdi["eng"], bdi["sched"], bdi["obs"]
+        need_launched("9 bdi", ("bdi_compress_kv", "paged_attention_tail"))
+        same = {"tokens": bdi["tokens"] == warm_toks,
+                "engine_stats": eng.stats == warm["engine_stats"],
+                "sched_stats": sched.stats == warm["sched_stats"]}
+        if not all(same.values()):
+            raise AssertionError(f"phase 9: a run with observatory "
+                                 f"{attach} differs from phase 7: {same}")
+        ms["on" if attach else "off"].append(1e3 * bdi["wall"] /
+                                             sched.iteration)
+        if attach:
+            hook_ms.append(bdi["hook_ms"])
+        if attach and "bdi" not in res:
+            summ = obs.summary()
+            rates = summ["shadow_hit_rates"]
+            if not obs.reuse.joint_counts() or min(rates.values()) <= 0:
+                raise AssertionError(f"phase 9: no reuse recorded: {summ}")
+            res["bdi"] = {"card": smi(), "iterations": sched.iteration,
+                          "same_as_phase7": same, "summary": summ,
+                          "reuse_table": obs.reuse_table(),
+                          "launches": bdi["launches"]}
+            for ln in obs.reuse_table().splitlines():
+                log(f"  {ln}")
+            for k, v in bdi["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        del eng, sched, obs, bdi
+        torch.cuda.empty_cache()
+    res["bdi"].update(ms_per_iteration_on=ms["on"],
+                      ms_per_iteration_off=ms["off"],
+                      phase7_ms_per_iteration=warm["ms_per_iteration"],
+                      hook_ms=hook_ms, hook_ms_per_iteration=[
+                          sum(h.values()) / res["bdi"]["iterations"]
+                          for h in hook_ms])
+    log(f"phase 9 bdi: {json.dumps(res['bdi'])}")
+
+    jsonl: list[str] = []
+    ad = observed_run(dev, cfg, params, page, reqs, codec="adaptive",
+                      n_pool=1 + cfg.n_layers * OBS_POOL_BLOCKS,
+                      jsonl=jsonl)
+    eng, sched, obs = ad["eng"], ad["sched"], ad["obs"]
+    need_launched("9 adaptive", ("bdi_compress_kv", "gbdi_compress_kv",
+                                 "gbdi_decompress_kv"))
+    est, cache = eng.stats, eng.prefix_cache
+    published = est["pages_compressed"] + cfg.n_layers * \
+        cache.stats["deduped"]
+    wb = obs.codec_shadow.bytes
+    if (set(wb) != set(MEMBER_NAMES) or min(wb.values()) <= 0
+            or obs.codec_shadow.pages != published
+            or ad["reasons"] != ["length"] or est["preemptions"]
+            or not obs.audit.counts().get("sip_evict")):
+        raise AssertionError(f"phase 9 adaptive: would-be bytes {wb} over "
+                             f"{obs.codec_shadow.pages} pages, {published} "
+                             f"published; {ad['reasons']}, {est}")
+    with tempfile.TemporaryDirectory() as d:
+        paths = {k: Path(d) / f"obs.{k}" for k in ("prom", "jsonl",
+                                                  "audit")}
+        paths["prom"].write_text(eng.telemetry.registry.to_prometheus())
+        paths["jsonl"].write_text("".join(ln + "\n" for ln in jsonl))
+        n_audit = obs.audit.to_jsonl(paths["audit"])
+        audit = [json.loads(ln) for ln in
+                 paths["audit"].read_text().splitlines()]
+        snap, records = observe.load_jsonl(str(paths["jsonl"]))
+        report = observe.render_report(snap, jsonl_records=records,
+                                       audit_records=audit)
+        from_prom = observe.render_report(observe.parse_prometheus(
+            paths["prom"].read_text()), audit_records=audit)
+        sizes = {k: p.stat().st_size for k, p in paths.items()}
+    if "size_bin" not in report or "size_bin" not in from_prom:
+        raise AssertionError(f"phase 9: the report lacks the joint table:\n"
+                             f"{report}")
+    res["adaptive"] = {"card": smi(), "iterations": sched.iteration,
+                       "ms_per_iteration": 1e3 * ad["wall"] /
+                       sched.iteration,
+                       "n_pool_pages": eng.n_pool_pages,
+                       "pages_published": published,
+                       "wouldbe_bytes": dict(wb),
+                       "kv_compression_ratio": eng.compression_ratio(),
+                       "summary": obs.summary(), "audit_records": n_audit,
+                       "hook_ms": ad["hook_ms"],
+                       "hook_ms_per_iteration": sum(ad["hook_ms"].values())
+                       / sched.iteration,
+                       "export_bytes": sizes, "launches": ad["launches"]}
+    log(f"phase 9 adaptive: {json.dumps(res['adaptive'])}")
+    for ln in report.splitlines():
+        log(f"  observe| {ln}")
+    for k, v in ad["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    res["launches"] = launches
+    del eng, sched, obs, ad
+    torch.cuda.empty_cache()
+    return res
+
+
+def shape_state(eng) -> dict:
+    """Host state that does not depend on which pool ids were handed out
+    (the batched engine reserves a step's pages at once, the oracle one at
+    a time): stats, pool use and pressure, each sequence's page counts,
+    tail, flags and chain, request bytes, the cache trie without pool
+    ids."""
+    cache = eng.prefix_cache
+    cs = None
+    if cache is not None:
+        cs = cache.state()
+        for e in cs["entries"]:
+            del e["pages"]
+    return json.loads(json.dumps({
+        "stats": dict(eng.stats), "used": eng.pool_used_pages(),
+        "pressure": eng.pool_pressure(),
+        "seqs": {sid: [[len(lp) for lp in s.pages], s.tail_len, s.preempted,
+                       list(s.chain)] for sid, s in sorted(eng.seqs.items())},
+        "request_bytes": {k: list(v)
+                          for k, v in sorted(eng.request_bytes.items())},
+        "cache": cs}))
+
+
+def oracle_run(sched, reqs: dict, gen: int) -> dict:
+    """Drive one scheduler over ``reqs`` (arriving every 2 iterations),
+    synced and timed, keeping each iteration's decoded tokens and shape
+    state and each token's logits row by request and position."""
+    from repro_torch.kernels import ops
+    eng = sched.engine
+    rows, pos = {}, {}
+    if hasattr(eng, "mixed_step"):
+        rows = capture_logits(eng)
+    else:
+        inner = eng.decode_one
+
+        def decode_one(sid):
+            tok = inner(sid)
+            k = pos.get(sid, 0)
+            rows[(sid, k)] = eng.last_logits[sid].clone()
+            pos[sid] = k + 1
+            return tok
+
+        eng.decode_one = decode_one
+    dev = eng.device
+    iters, first = [], {}
+    sync(dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    pending = {r: 2 * r for r in reqs}
+    while pending or not sched.idle:
+        for r in [r for r, at in pending.items() if at <= sched.iteration]:
+            sched.submit(r, reqs[r], max_new_tokens=gen)
+            del pending[r]
+        ev = sched.step()
+        for r in ev["decoded"]:
+            k = len(sched.tracks[r].out_tokens) - 1
+            first.setdefault((r, k), ev["iteration"])
+        iters.append(shape_state(eng))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    eng.debug_validate()
+    fin = sched.finished()
+    return {"wall": wall, "launches": dict(ops.LAUNCHES), "rows": rows,
+            "states": iters, "iteration_of": first,
+            "tokens": {r: fin[r].out_tokens for r in reqs},
+            "tracks": {r: [str(t.finish_reason), t.first_token_iter,
+                           t.finished_iter, t.pf_start]
+                       for r, t in sorted(fin.items())},
+            "sched_stats": dict(sched.stats),
+            "engine_stats": dict(eng.stats)}
+
+
+ORACLE_GEN = 16
+
+
+def phase_oracle(dev, cfg, page: int) -> dict:
+    """9b: yi-6b at full width and depth 2, 4 requests sharing a two-page
+    prefix, through the batched scheduler and through
+    ``make_reference_scheduler`` over ``ReferencePagedKVEngine`` on the
+    card (pools on the host, math and codec kernels on the card), under
+    bdi and gbdi: tokens equal up to reported ties; scheduler and engine
+    stats, tracks and the allocation-order-free host state equal after
+    every iteration (up to the first tie)."""
+    import torch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving._tree import tree_leaves
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.reference import ReferencePagedKVEngine
+    from repro_torch.serving.scheduler import (ContinuousScheduler,
+                                               make_reference_scheduler)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    reqs = shared_prefix_requests(4, 2 * page, 24, 72, cfg.vocab, seed=9)
+    n_pool = pool_for(cfg, reqs, ORACLE_GEN, page)
+    res, launches = {}, {}
+    need = {"bdi": (("bdi_compress_kv", "paged_attention_tail"),
+                    ("bdi_compress_kv",)),
+            "gbdi": (("gbdi_compress_kv", "gbdi_decompress_kv"),
+                     ("gbdi_compress_kv", "gbdi_decompress_kv"))}
+    for codec in ("bdi", "gbdi"):
+        be = PagedKVEngine(cfg, params, page_size=page, n_pool_pages=n_pool,
+                           max_batch=4, prefill_chunk=32, codec=codec,
+                           prefix_cache=PrefixCache.for_model(cfg, page),
+                           device=dev)
+        batched = oracle_run(ContinuousScheduler(be, token_budget=64),
+                             reqs, ORACLE_GEN)
+        need_launched(f"9b {codec} batched", need[codec][0])
+        re_ = ReferencePagedKVEngine(
+            cfg, params, page_size=page, n_pool_pages=n_pool,
+            prefill_chunk=32, codec=codec,
+            prefix_cache=PrefixCache.for_model(cfg, page), device=dev)
+        oracle = oracle_run(make_reference_scheduler(
+            re_, token_budget=64, max_batch=4, prefill_chunk=32), reqs,
+            ORACLE_GEN)
+        need_launched(f"9b {codec} oracle", need[codec][1])
+        if oracle["launches"]["paged_attention_tail"] or {
+                lf.device.type for lf in tree_leaves(re_.pools)} != {"cpu"}:
+            raise AssertionError(f"9b {codec}: the oracle's pools left the "
+                                 f"host or it ran the attention kernel")
+        parity = compare_requests(oracle["tokens"], batched["tokens"],
+                                  oracle["rows"], batched["rows"])
+        upto = min((batched["iteration_of"][(t.sid, t.step)]
+                    for t in parity.ties), default=len(batched["states"]))
+        same = batched["states"][:upto] == oracle["states"][:upto]
+        if not parity.ties:
+            same = same and all(batched[k] == oracle[k] for k in (
+                "states", "tracks", "sched_stats", "engine_stats"))
+        if not same:
+            raise AssertionError(f"9b {codec}: the oracle's host state, "
+                                 f"stats or tracks differ")
+        n_tok = batched["sched_stats"]["decode_tokens"]
+        res[codec] = {"card": smi(), "config": cfg.name, "d_model":
+                      cfg.d_model, "n_layers": cfg.n_layers,
+                      "prompt_lens": [len(p) for p in reqs.values()],
+                      "iterations": len(batched["states"]),
+                      "decode_tokens": n_tok,
+                      "tokens_equal": parity.compared,
+                      "ties": [vars(t) for t in parity.ties],
+                      "batched_ms_per_token": 1e3 * batched["wall"] / n_tok,
+                      "oracle_ms_per_token": 1e3 * oracle["wall"] / n_tok,
+                      "engine_stats": batched["engine_stats"],
+                      "launches_batched": batched["launches"],
+                      "launches_oracle": oracle["launches"]}
+        log(f"phase 9b {codec}: {json.dumps(res[codec])}")
+        for run in (batched, oracle):
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        del be, re_, batched, oracle
+        torch.cuda.empty_cache()
+    res["launches"] = launches
+    return res
+
+
+def phase_obs_snapshot(dev, cfg, page: int) -> dict:
+    """9c at depth 2 under adaptive: an engine with an Observatory,
+    snapshotted on the card mid-stream, restores on the CPU with the
+    observatory's state and registry series exactly equal; the restored
+    run finishes and validates."""
+    import tempfile
+    import torch
+    from repro_torch.models.params import to_device
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.observatory import Observatory
+    from repro_torch.serving.prefix_cache import PrefixCache
+    from repro_torch.serving.scheduler import ContinuousScheduler
+    from repro_torch.serving.snapshot import restore_snapshot, save_snapshot
+    from repro_torch.serving.telemetry import Telemetry
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    reqs = shared_prefix_requests(8, 3 * page, 16, 60, cfg.vocab, seed=4)
+    tel = Telemetry()
+    obs = Observatory(tel)
+    eng = PagedKVEngine(cfg, to_device(params, dev), page_size=page,
+                        n_pool_pages=1 + cfg.n_layers * 64, max_batch=4,
+                        codec="adaptive", telemetry=tel, observatory=obs,
+                        prefix_cache=PrefixCache.for_model(cfg, page),
+                        device=dev)
+    sched = ContinuousScheduler(eng, token_budget=64, telemetry=tel)
+    saved = {}
+    with tempfile.TemporaryDirectory() as d:
+        def on_step(events):
+            if not saved and len(sched.tracks) == 8 and sched._running:
+                save_snapshot(d, eng, sched, step=sched.iteration)
+                saved.update(iteration=sched.iteration,
+                             state=json.loads(json.dumps(obs.state())),
+                             series=obs_series(tel.registry))
+
+        drive_waves([sched], reqs, 24, on_step)
+        cpu, sched_cpu = restore_snapshot(d, cfg, params, device="cpu")
+    got = {"state": json.loads(json.dumps(cpu.obs.state())),
+           "series": obs_series(cpu.telemetry.registry)}
+    if not saved or got["state"] != saved["state"] \
+            or got["series"] != saved["series"]:
+        raise AssertionError("9c: the observatory restored on the cpu "
+                             "differs from the card's")
+    sched_cpu.run()
+    cpu.debug_validate()
+    eng.debug_validate()
+    s = saved["state"]
+    res = {"card": smi(), "iteration": saved["iteration"],
+           "reuse_ticks": s["reuse"]["tick"],
+           "live_pages": len(s["reuse"]["live"]),
+           "audit_records": len(s["audit"]["records"]),
+           "codec_shadow_pages": s["codec_shadow"]["pages"],
+           "restored_finished": len(sched_cpu.finished())}
+    log(f"phase 9c: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1708,7 +2156,7 @@ def main() -> int:
     phase_done("4c serve adaptive")
     tile = phase_tile_path(dev, params)
     phase_done("6 tile path (every yi-6b leaf, quickstart)")
-    _, clean, clean_rows = phase_scheduler(dev, cfg, params, page)
+    warm, clean, clean_rows = phase_scheduler(dev, cfg, params, page)
     phase_done("7/7b scheduler + prefix cache, warm and cold")
     phase_multi_turn(dev, cfg, params, page)
     phase_done("8 multi-turn from the host tier, then host + disk")
@@ -1717,17 +2165,11 @@ def main() -> int:
     phase_chaos(dev, cfg, params, page, clean, clean_rows)
     del clean_rows
     phase_done("8c chaos")
+    observed = phase_observatory(dev, cfg, params, page, warm, clean)
+    del clean
+    phase_done("9 observatory, bdi (pure observer) and adaptive")
     del params
     torch.cuda.empty_cache()
-    # launches of the path that ran each kernel (3b set its own)
-    path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
-            "gbdi_compress_kv": gbdi, "gbdi_decompress_kv": gbdi,
-            "bdi_compress": tile, "bdi_decompress": tile}
-    for k in kernels:
-        if k["name"] in path:
-            k["launches"] = path[k["name"]]["launches"][k["name"]]
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']}: no launch on its path")
 
     tiny = cfg.reduced(n_layers=2)
     wide = cfg.reduced(n_layers=2, d_model=cfg.d_model, n_heads=cfg.n_heads,
@@ -1755,6 +2197,27 @@ def main() -> int:
     for codec in ("bdi", "gbdi"):
         parity_snapshot_tier(dev, tiny, page, codec)
     phase_done("8d snapshot and tier, card to cpu, bdi/gbdi")
+    oracle = phase_oracle(dev, wide, page)
+    phase_done("9b the oracle on the card, bdi/gbdi")
+    phase_obs_snapshot(dev, tiny, page)
+    phase_done("9c observatory snapshot, card to cpu")
+
+    # launches of the paths that ran each kernel (3b set its own): the
+    # serve run of phase 4 or 4b, the tile path, and for the serving
+    # kernels phases 9 and 9b, each counted from 0 over its own run
+    path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
+            "gbdi_compress_kv": gbdi, "gbdi_decompress_kv": gbdi,
+            "bdi_compress": tile, "bdi_decompress": tile}
+    for k in kernels:
+        name = k["name"]
+        if name in path:
+            k["launches"] = path[name]["launches"][name]
+        if name in ("bdi_compress_kv", "paged_attention_tail",
+                    "gbdi_compress_kv", "gbdi_decompress_kv"):
+            k["launches"] += (observed["launches"][name]
+                              + oracle["launches"][name])
+        if k["launches"] <= 0:
+            raise AssertionError(f"{name}: no launch on its path")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

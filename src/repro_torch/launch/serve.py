@@ -1,11 +1,14 @@
 """Serving CLI: batched greedy generation through the paged compressed-KV
-engine (port of the ``--paged`` and ``--scheduler`` paths of
-``repro/launch/serve.py``).
+engine (port of the ``--paged``, ``--paged-reference`` and ``--scheduler``
+paths of ``repro/launch/serve.py``).
 
 ``--paged`` admits every prompt through ``PagedKVEngine.add_requests``
 (one chunked-batch prefill pass; ``--prefill-chunk`` sets the step
 width) and decodes through ``decode_batch`` (one step per token for the
-whole batch).  ``--scheduler`` drives the token-budget
+whole batch); ``--paged-reference`` serves the same requests through
+the host-looped oracle (``serving/reference.py``: one sequence and one
+layer at a time, pools on the host), the A/B baseline.  ``--scheduler``
+drives the token-budget
 continuous-batching loop (``serving/scheduler.py``): requests arrive
 ``--arrival-stagger`` iterations apart, are admitted and retired between
 iterations, and prefill chunks ride on decode steps under
@@ -33,16 +36,25 @@ carries it across restarts.  ``--multi-turn N`` runs one growing
 conversation of N turns, the device pool recycled between turns, and
 reports each turn's TTFT and tier traffic.
 
+``--observatory`` (scheduler mode) attaches the memory-hierarchy
+observatory (``serving/observatory.py``): the report adds the shadow
+policies' hit rates, each adaptive member's would-be bytes and the joint
+size-bin x reuse-distance table; ``--audit-out PATH`` (implies it) writes
+the decision audit log as JSONL.  Render saved artifacts with
+``python -m repro_torch.launch.observe``.
+
 Weights are random, made from a seed on the device; prompts are random
 token ids from a second seed.  The pool is sized so the requests never
-preempt.  The JAX CLI's observatory flags are refused (not ported).
+preempt.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --paged \\
       [--smoke] [--batch 4 --prompt-len 16 --gen 16] [--device cuda|cpu] \\
       [--codec bdi|zero|raw|gbdi|fpc|adaptive] \\
       [--scheduler [--prefix-cache --shared-prefix N] [--token-budget 64]
-       [--chaos SEED] [--snapshot-dir DIR] [--tier-host-mb MB]]
+       [--chaos SEED] [--snapshot-dir DIR] [--tier-host-mb MB]
+       [--observatory] [--audit-out PATH]]
+      | --paged-reference
       | --multi-turn N [--tier-host-mb MB] [--tier-disk-dir DIR]
         [--persist-cache DIR]
 """
@@ -63,15 +75,10 @@ from repro_torch.serving.engine import PagedKVEngine
 
 PAGE = 8
 
-# the JAX CLI's flags whose subsystems the port does not have yet
-_NOT_PORTED = {
-    "--observatory": "the observatory (ROADMAP Queue 1 item 6)",
-    "--audit-out": "the observatory (ROADMAP Queue 1 item 6)",
-}
-
 
 def generate(arch: str, *, smoke: bool = True, batch: int = 4,
              prompt_len: int = 16, gen: int = 16, paged: bool = True,
+             paged_reference: bool = False,
              prefill_chunk: int | None = None,
              scheduler: bool = False, token_budget: int = 64,
              arrival_stagger: int = 2, prefix_cache: bool = False,
@@ -83,14 +90,15 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
              metrics_port: int | None = None,
              metrics_out: str | None = None,
              metrics_jsonl: str | None = None,
+             observatory: bool = False, audit_out: str | None = None,
              chaos: int | None = None, snapshot_dir: str | None = None,
              tier_host_mb: float | None = None,
              tier_disk_dir: str | None = None,
              persist_cache: str | None = None, multi_turn: int = 0,
              device: str | torch.device | None = None) -> dict:
-    if not (paged or scheduler or multi_turn):
-        raise ValueError("only the --paged, --scheduler and --multi-turn "
-                         "paths are ported")
+    if not (paged or paged_reference or scheduler or multi_turn):
+        raise ValueError("only the --paged, --paged-reference, --scheduler "
+                         "and --multi-turn paths are ported")
     if shared_prefix > prompt_len:
         raise ValueError(f"--shared-prefix {shared_prefix} exceeds "
                          f"--prompt-len {prompt_len}")
@@ -124,14 +132,27 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
             max_queue=max_queue, overload=overload, trace_out=trace_out,
             metrics=metrics, metrics_port=metrics_port,
             metrics_out=metrics_out, metrics_jsonl=metrics_jsonl,
+            observatory=observatory, audit_out=audit_out,
             chaos=chaos, snapshot_dir=snapshot_dir, tier_args=tier_args)
-    eng = PagedKVEngine(cfg, params, page_size=PAGE, n_pool_pages=n_pool,
-                        max_batch=batch, prefill_chunk=prefill_chunk,
-                        codec=codec, device=dev)
-    t0 = time.perf_counter()
-    eng.add_requests(reqs)          # one chunked-batch prefill pass
-    for _ in range(gen):
-        eng.decode_batch()          # ends in a host sync of the tokens
+    if paged_reference:
+        from repro_torch.serving.reference import ReferencePagedKVEngine
+        eng = ReferencePagedKVEngine(cfg, params, page_size=PAGE,
+                                     n_pool_pages=n_pool,
+                                     prefill_chunk=prefill_chunk,
+                                     codec=codec, device=dev)
+        t0 = time.perf_counter()
+        eng.add_requests(reqs)      # one prompt at a time
+        for _ in range(gen):
+            for b in range(batch):
+                eng.decode_one(b)   # one sequence at a time
+    else:
+        eng = PagedKVEngine(cfg, params, page_size=PAGE, n_pool_pages=n_pool,
+                            max_batch=batch, prefill_chunk=prefill_chunk,
+                            codec=codec, device=dev)
+        t0 = time.perf_counter()
+        eng.add_requests(reqs)      # one chunked-batch prefill pass
+        for _ in range(gen):
+            eng.decode_batch()      # ends in a host sync of the tokens
     dt = time.perf_counter() - t0
     outs = [eng.seqs[b].tokens[prompt_len:] for b in range(batch)]
     return {"tokens": outs, "codec": eng.codec.name, "device": str(dev),
@@ -219,8 +240,8 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
                      prefill_chunk, token_budget, arrival_stagger,
                      prefix_cache, requeue_preempted, codec, ttft_deadline,
                      deadline, max_queue, overload, trace_out, metrics,
-                     metrics_port, metrics_out, metrics_jsonl, chaos,
-                     snapshot_dir, tier_args) -> dict:
+                     metrics_port, metrics_out, metrics_jsonl, observatory,
+                     audit_out, chaos, snapshot_dir, tier_args) -> dict:
     """The ``--scheduler`` path: open-loop arrivals through
     :class:`ContinuousScheduler`, one shared Telemetry for engine and
     scheduler."""
@@ -232,6 +253,12 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
                                                start_metrics_server,
                                                stop_metrics_server)
     tel = Telemetry(trace=trace_out is not None)
+    obs = None
+    if observatory or audit_out is not None:
+        # reuse tracking, shadow policy/codec simulators and the decision
+        # audit, all on the shared registry
+        from repro_torch.serving.observatory import Observatory
+        obs = Observatory(tel)
     cache = PrefixCache.for_model(cfg, PAGE) if prefix_cache else None
     injector = None
     if chaos is not None:
@@ -241,7 +268,7 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
     eng = PagedKVEngine(cfg, params, page_size=PAGE, n_pool_pages=n_pool,
                         max_batch=len(reqs), prefill_chunk=prefill_chunk,
                         prefix_cache=cache, codec=codec, faults=injector,
-                        telemetry=tel, device=dev)
+                        telemetry=tel, observatory=obs, device=dev)
     tier = None
     if any(v is not None for v in tier_args.values()):
         if cache is None:
@@ -258,7 +285,7 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
     if metrics_port is not None:
         server = start_metrics_server([tel.registry], metrics_port)
         print(f"[serve] serving /metrics on port {server.server_address[1]}")
-    for p in (trace_out, metrics_out, metrics_jsonl):
+    for p in (trace_out, metrics_out, metrics_jsonl, audit_out):
         if p is not None and os.path.dirname(p):
             os.makedirs(os.path.dirname(p), exist_ok=True)
     jsonl_f = open(metrics_jsonl, "w") if metrics_jsonl is not None else None
@@ -337,6 +364,11 @@ def _serve_scheduler(cfg, params, reqs: dict, dev, *, n_pool: int, gen: int,
             out["persisted"] = tier_args["persist"]
     if metrics or metrics_out is not None or trace_out is not None:
         out["metrics_summary"] = _metrics_summary(tel, eng, sched)
+    if obs is not None:
+        out["observatory"] = obs.summary()
+        out["reuse_table"] = obs.reuse_table()
+        if audit_out is not None:
+            obs.audit.to_jsonl(audit_out)
     if snap_step is not None:
         from repro_torch.serving.snapshot import restore_snapshot
         eng2, sched2 = restore_snapshot(snapshot_dir, cfg, params,
@@ -394,6 +426,9 @@ def main() -> None:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--paged", action="store_true",
                     help="the paged compressed-KV engine, blocking admission")
+    ap.add_argument("--paged-reference", action="store_true",
+                    help="the host-looped reference engine (the oracle; "
+                         "A/B baseline)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="chunked-prefill step width in tokens "
                          "(page-aligned; default 2x page size)")
@@ -438,6 +473,13 @@ def main() -> None:
     ap.add_argument("--metrics-jsonl", default=None,
                     help="append JSON-lines registry snapshots here every "
                          "16 iterations")
+    ap.add_argument("--observatory", action="store_true",
+                    help="attach the memory-hierarchy observatory: reuse "
+                         "tables, shadow policy/codec simulators, decision "
+                         "audit (scheduler mode)")
+    ap.add_argument("--audit-out", default=None,
+                    help="write the decision audit log as JSONL here "
+                         "(scheduler mode; implies --observatory)")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
                     help="inject a deterministic fault schedule (scheduler "
                          "mode)")
@@ -455,22 +497,18 @@ def main() -> None:
     ap.add_argument("--multi-turn", type=int, default=0, metavar="N",
                     help="one conversation of N turns, the device pool "
                          "recycled between turns, history from the tier")
-    for flag in _NOT_PORTED:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
     args = ap.parse_args()
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported: it needs {what}")
-    if not (args.paged or args.scheduler or args.multi_turn):
-        ap.error("pass --paged, --scheduler or --multi-turn (the ported "
-                 "paths)")
+    if not (args.paged or args.paged_reference or args.scheduler
+            or args.multi_turn):
+        ap.error("pass --paged, --paged-reference, --scheduler or "
+                 "--multi-turn (the ported paths)")
     sched_flags = (args.chaos is not None or args.snapshot_dir
                    or args.prefix_cache or args.shared_prefix
                    or args.requeue_preempted or args.overload
                    or args.trace_out or args.metrics
                    or args.metrics_port is not None or args.metrics_out
                    or args.metrics_jsonl or args.max_queue is not None
+                   or args.observatory or args.audit_out is not None
                    or args.deadline is not None
                    or args.ttft_deadline is not None)
     if sched_flags and not args.scheduler:
@@ -482,7 +520,8 @@ def main() -> None:
                  "--prefix-cache (the tier backs the prefix cache)")
     out = generate(args.arch, smoke=args.smoke, batch=args.batch,
                    prompt_len=args.prompt_len, gen=args.gen,
-                   paged=args.paged, prefill_chunk=args.prefill_chunk,
+                   paged=args.paged, paged_reference=args.paged_reference,
+                   prefill_chunk=args.prefill_chunk,
                    scheduler=args.scheduler, token_budget=args.token_budget,
                    arrival_stagger=args.arrival_stagger,
                    prefix_cache=args.prefix_cache,
@@ -493,7 +532,9 @@ def main() -> None:
                    overload=args.overload, trace_out=args.trace_out,
                    metrics=args.metrics, metrics_port=args.metrics_port,
                    metrics_out=args.metrics_out,
-                   metrics_jsonl=args.metrics_jsonl, chaos=args.chaos,
+                   metrics_jsonl=args.metrics_jsonl,
+                   observatory=args.observatory, audit_out=args.audit_out,
+                   chaos=args.chaos,
                    snapshot_dir=args.snapshot_dir,
                    tier_host_mb=args.tier_host_mb,
                    tier_disk_dir=args.tier_disk_dir,
@@ -536,6 +577,19 @@ def main() -> None:
                   f"page-ratio p50 {pc['ratio_p50']}")
         print(f"[serve]   ladder transitions {ms['ladder_transitions']}, "
               f"pool used {ms['pool_used_pages']} pages")
+    if "observatory" in out:
+        ob = out["observatory"]
+        print(f"[serve] observatory: shadow hit rates "
+              f"{ob['shadow_hit_rates']}")
+        print(f"[serve]   live pages {ob['live_pages']}, reuse ticks "
+              f"{ob['reuse_ticks']}, audit decisions "
+              f"{ob['audit_decisions']}")
+        if ob["codec_wouldbe_bytes"]:
+            print(f"[serve]   single-codec what-if bytes: "
+                  f"{ob['codec_wouldbe_bytes']}")
+        print("[serve] size-bin x reuse-distance:")
+        for ln in out["reuse_table"].splitlines():
+            print(f"[serve]   {ln}")
     for key in ("prefix_cache", "tier", "faults", "snapshot"):
         if key in out:
             print(f"[serve] {key.replace('_', ' ')}: {out[key]}")

@@ -61,7 +61,13 @@ past the device hit, verifies each record host-side and scatters the
 verified run back into the pools with one indexed write per pool leaf.
 ``cache_decode_pages`` also demotes a retiring sequence's private pages
 (the multi-turn chat path).  ``serving/snapshot.py`` saves and restores
-the whole engine.  Not ported: the observatory.
+the whole engine.
+
+An :class:`~repro_torch.serving.observatory.Observatory`
+(``observatory=``) rides the page lifecycle: publishes (with every
+adaptive member's would-be size, from the same compressed pages and the
+same host sync), warm-hit and dedup reuse, releases and CAMP victims.
+Without one (``obs`` None) each hook is a single ``is not None`` check.
 """
 
 from __future__ import annotations
@@ -74,6 +80,7 @@ import torch
 
 from repro_torch import codecs
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.camp import _pow2_bucket
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels._device import resolve_device
 from repro_torch.kernels.ref import softmax_attend
@@ -265,15 +272,22 @@ def _scratch_blocks(kscr, vscr, rows, blks, page: int):
 
 
 def _publish_blocks(pools, k_blocks, v_blocks, layer_idx, pids, *,
-                    codec: codecs.PageCodec):
+                    codec: codecs.PageCodec, member_sizes: bool = False):
     """Compress [n, K, page, D] KV blocks and scatter them into the pools
     in place (``index_put_``; the JAX step donates the pools).  Returns
-    the per-page compressed byte counts [n], checksums [n] and codec
-    tags [n]."""
+    the per-page compressed byte counts [n], checksums [n], codec tags
+    [n] and, with ``member_sizes`` (a composite codec under an
+    observatory), every member's would-be byte counts [n_members, n]
+    read off the member pages the compress already made (else None)."""
     pg = codec.compress_kv_pages(k_blocks, v_blocks)
     for pool, new in zip(tree_leaves(pools), tree_leaves(pg)):
         pool.index_put_((layer_idx, pids), new)
-    return codec.page_nbytes(pg), F.page_checksums(pg), codec.page_tags(pg)
+    msizes = None
+    if member_sizes:
+        msizes = torch.stack([m.page_nbytes(c).to(torch.int64)
+                              for m, c in zip(codec.members, pg[1:])])
+    return (codec.page_nbytes(pg), F.page_checksums(pg), codec.page_tags(pg),
+            msizes)
 
 
 def _fill_warm_scratch(kscr, vscr, kcan, vcan, pools, wpt, wlen, *,
@@ -350,6 +364,7 @@ class PagedKVEngine:
                  telemetry: Telemetry | None = None,
                  tier: T.TieredPageStore | None = None,
                  cache_decode_pages: bool = False,
+                 observatory=None,
                  device: str | torch.device | None = None):
         if cfg.attn_kind != "gqa" or cfg.is_encdec:
             raise ValueError(f"{cfg.name}: the engine serves dense GQA only")
@@ -421,6 +436,11 @@ class PagedKVEngine:
             prefix_cache.telemetry = self.telemetry
         # logits [S, V] of the last decode step (greedy-parity tie reports)
         self.last_logits: torch.Tensor | None = None
+        # opt-in hierarchy observatory (serving/observatory.py); None keeps
+        # every hook a single attribute check
+        self.obs = observatory
+        if observatory is not None:
+            observatory.bind_engine(self)
         # optional host/disk tier.  Decode-page caching is opt-in: decode
         # and prefill may differ at ULP level on the same prefix, so the
         # warm == cold equalities keep it off by default
@@ -487,6 +507,8 @@ class PagedKVEngine:
             self.prefix_cache.sample_metrics()
         if self.faults is not None:
             self.faults.sample_metrics()
+        if self.obs is not None:
+            self.obs.sample_gauges()
         if self.tier is not None:
             self.tier.sample_metrics()
 
@@ -522,6 +544,8 @@ class PagedKVEngine:
         if not pids:
             return False
         self.free.extend(pids)
+        if self.obs is not None:
+            self.obs.on_release(pids)
         self._m["prefix_pages_evicted"].inc(len(pids))
         return True
 
@@ -551,6 +575,8 @@ class PagedKVEngine:
         ns = len(seq.chain)
         for lp in seq.pages:
             self.free.extend(lp[ns:])
+            if self.obs is not None:
+                self.obs.on_release(lp[ns:])
             if count_evicted:
                 self._m["pages_evicted"].inc(len(lp) - ns)
         if seq.chain:
@@ -565,6 +591,14 @@ class PagedKVEngine:
                 f"pool exhausted with nothing evictable "
                 f"({self.n_pool_pages - 1} pages, {len(self.free)} free)")
         victim = min(cands, key=self._seq_value)   # first minimum
+        if self.obs is not None:
+            rb = self._seq_reclaimable_bytes(victim)
+            self.obs.audit.record(
+                "camp_preempt", sid=victim.sid,
+                value=self._seq_value(victim), reclaimable_bytes=rb,
+                pow2_bucket=_pow2_bucket(max(rb, 1)),
+                tokens=len(victim.tokens), pins=len(victim.chain),
+                candidates=len(cands))
         # verify the victim before its pages drop: a requeue absorbs its
         # generated tokens into the prompt, so corruption must be flagged
         # here (a check only where faults can occur)
@@ -579,8 +613,11 @@ class PagedKVEngine:
 
     def _record_publish(self, seq: Sequence, pids: list[int],
                         nbytes: np.ndarray, csums: np.ndarray,
-                        tags: np.ndarray) -> None:
-        """Attach freshly published pages (one per layer) to a sequence."""
+                        tags: np.ndarray,
+                        msizes: np.ndarray | None = None) -> None:
+        """Attach freshly published pages (one per layer) to a sequence.
+        ``msizes`` [n_members, L]: each member's would-be page bytes
+        (observatory-on adaptive publishes only)."""
         raw = self.page_raw_bytes()
         for li, pid in enumerate(pids):
             nb, tag = int(nbytes[li]), int(tags[li])
@@ -593,6 +630,13 @@ class PagedKVEngine:
             bytes_c.inc(nb)
             h_bytes.observe(nb)
             h_ratio.observe(raw / max(nb, 1))
+            if self.obs is not None:
+                name = (self._tag_names[tag] if tag < len(self._tag_names)
+                        else str(tag))
+                wb = (None if msizes is None else
+                      {self._tag_names[k]: int(msizes[k][li])
+                       for k in range(msizes.shape[0])})
+                self.obs.on_publish(pid, nb, name, wb)
         self._m["pages_compressed"].inc(len(pids))
         self._m["bytes_raw"].inc(raw * len(pids))
         self._m["bytes_compressed"].inc(int(nbytes.sum()))
@@ -637,7 +681,12 @@ class PagedKVEngine:
         self._drop_seq_pages(seq, count_evicted=False)
         if self.prefix_cache is not None:
             # quarantined entries free once their last pin drops
-            self.free.extend(self.prefix_cache.purge_corrupt())
+            purged = self.prefix_cache.purge_corrupt()
+            self.free.extend(purged)
+            if self.obs is not None:
+                self.obs.on_release(purged)
+        if self.obs is not None:
+            self.obs.on_retire(sid)
         self._free_slots.append(seq.slot)
         self._pt_dirty = True
 
@@ -669,6 +718,8 @@ class PagedKVEngine:
         self.tier = tier
         if tier.telemetry is None:
             tier.telemetry = self.telemetry
+        if tier.observatory is None:
+            tier.observatory = self.obs
         self._h_promote = self.telemetry.registry.histogram(
             "tier_promotion_seconds",
             "wall time to promote a warm chain from the tier",
@@ -778,7 +829,10 @@ class PagedKVEngine:
             eid, created = cache.insert(
                 chain[-1] if chain else 0, rec.toks, bpids,
                 sum(rec.nbytes), codec_ids=list(rec.codec_ids))
-            self.free.extend(cache.drain_displaced())   # healed-over pages
+            displaced = cache.drain_displaced()   # healed-over pages
+            self.free.extend(displaced)
+            if self.obs is not None:
+                self.obs.on_release(displaced)
             if eid is None:        # pinned corrupt twin: cannot map
                 for later in pids[idx:]:   # scattered but unmapped
                     self.free.extend(later)
@@ -891,6 +945,12 @@ class PagedKVEngine:
                            chain=list(chain), prefilling=True)
             self.seqs[sid] = seq
             cached[sid] = start
+            if self.obs is not None:
+                # counterfactual access stream: one key per full prompt
+                # block whatever the real lookup found; the warm chain's
+                # pages score real reuse accesses
+                self.obs.on_admit(sid, prompt, (len(prompt) - 1) // page,
+                                  [pid for e in ent for pid in e.pages])
             if start >= len(prompt) - 1:
                 # every stored token is already paged in (or there is
                 # none): straight to decode, with an empty tail
@@ -1039,18 +1099,28 @@ class PagedKVEngine:
         pids = self._reserve_pages(lyr * m)
         layer_idx = torch.from_numpy(np.repeat(np.arange(lyr), m)).to(
             self.device)
-        nbytes, csums, tags = _publish_blocks(
+        # observatory + composite codec: every member's would-be page
+        # size rides the same host copy (what-if codec sampling)
+        want_members = (self.obs is not None
+                        and getattr(self.codec, "members", None) is not None)
+        nbytes, csums, tags, msizes = _publish_blocks(
             self.pools, k_blocks, v_blocks, layer_idx,
-            torch.tensor(pids, device=self.device), codec=self.codec)
-        host = torch.stack([nbytes.to(torch.int64), csums,
-                            tags.to(torch.int64)]).cpu().numpy()  # 1 sync
+            torch.tensor(pids, device=self.device), codec=self.codec,
+            member_sizes=want_members)
+        rows = [nbytes.to(torch.int64)[None], csums[None],
+                tags.to(torch.int64)[None]]
+        if msizes is not None:
+            rows.append(msizes)
+        host = torch.cat(rows).cpu().numpy()                  # 1 sync
         nbytes, csums, tags = host[0], host[1].astype(np.uint32), host[2]
+        msizes = host[3:] if msizes is not None else None
         for j, seq in enumerate(seqs):
             if seq.preempted:      # victim of our own reservation
                 self.free.extend(pids[j::m])
                 continue
             self._record_publish(seq, pids[j::m], nbytes[j::m], csums[j::m],
-                                 tags[j::m])
+                                 tags[j::m],
+                                 None if msizes is None else msizes[:, j::m])
             if blocks is not None and self.prefix_cache is not None:
                 self._register_prompt_page(seq, blocks[j], pids[j::m],
                                            int(nbytes[j::m].sum()))
@@ -1079,6 +1149,8 @@ class PagedKVEngine:
             codec_ids=[int(self.page_codec_id[p]) for p in pids])
         displaced = cache.drain_displaced()         # healed-over pages
         self.free.extend(displaced)
+        if self.obs is not None:
+            self.obs.on_release(displaced)
         if displaced and self.telemetry.tracer.enabled:
             self.telemetry.tracer.event(seq.sid, "cache_heal",
                                         pages=len(displaced))
@@ -1087,7 +1159,10 @@ class PagedKVEngine:
             return
         cache.pin([eid])
         seq.chain.append(eid)
-        if not created:
+        if created:
+            if self.obs is not None:
+                self.obs.on_cache_insert(seq.sid, blk, nbytes)
+        else:
             # in-cohort dedup: map the first publisher's pages (the same
             # bits by the canonical-prefix contract) and free ours; undo
             # their publish accounting so each resident page counts once
@@ -1095,6 +1170,8 @@ class PagedKVEngine:
             for li in range(self.cfg.n_layers):
                 seq.pages[li][blk] = ent.pages[li]
             self.free.extend(pids)
+            if self.obs is not None:
+                self.obs.on_dedup(seq.sid, blk, nbytes, pids, ent.pages)
             self._pt_dirty = True
             lyr = self.cfg.n_layers
             self._m["pages_compressed"].inc(-lyr)

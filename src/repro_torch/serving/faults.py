@@ -271,6 +271,14 @@ class FaultInjector:
         self.log.append(("garble", slot))
         return nxt
 
+    def garble_one(self, tok: int) -> int:
+        """Reference-engine hook: maybe replace one decoded token."""
+        if not self._garble_fires():
+            return tok
+        self.stats["garbled"] += 1
+        self.log.append(("garble", -1))
+        return GARBAGE_TOKEN
+
     # -- pool-allocation failure (scheduler iteration hook) -----------------
 
     def on_iteration(self, engine, iteration: int) -> None:
@@ -374,6 +382,8 @@ def debug_validate(engine) -> None:
             assert e.parent == 0 or e.parent in cache.entries, \
                 f"entry {eid}: dangling parent {e.parent}"
 
-    slots = list(engine._free_slots) + [s.slot for s in engine.seqs.values()]
-    assert sorted(slots) == list(range(engine.max_batch)), \
-        f"slot accounting drift: {sorted(slots)}"
+    if hasattr(engine, "_free_slots"):   # the batched engine only
+        slots = (list(engine._free_slots)
+                 + [s.slot for s in engine.seqs.values()])
+        assert sorted(slots) == list(range(engine.max_batch)), \
+            f"slot accounting drift: {sorted(slots)}"

@@ -20,8 +20,9 @@ size-bin priority learned from lookup hits.  Host code only, equal to
 the JAX classes decision for decision
 (``tests/test_torch_prefix_cache.py``).
 ``demote_cb`` hands each clean eviction victim to the host/disk tier
-(``serving/tier.py``) before its pages drop.  Left out: the observatory's
-audit record in ``evict_for`` (the observatory is not ported).
+(``serving/tier.py``) before its pages drop; with an observatory
+attached, ``evict_for`` records each victim ranking in its decision
+audit log (``serving/audit.py``).
 
 Lifecycle:
 
@@ -222,6 +223,9 @@ class PrefixCache:
         # set by an engine with a tier: called with each clean eviction
         # victim before its pages drop, so the tier captures them
         self.demote_cb = None
+        # optional hierarchy observatory (serving/observatory.py), set by
+        # the owning engine: :meth:`evict_for` audits each SIP victim
+        self.observatory = None
         # set by the owning engine; :meth:`sample_metrics` pushes the
         # cache's counters into its registry at export time (zero cost
         # on the lookup/insert hot path)
@@ -396,6 +400,15 @@ class PrefixCache:
             victim = min(cands, key=lambda e:
                          (not e.corrupt,     # quarantined entries go first
                           self.policy.value(e.hits, e.nbytes), e.born))
+            if self.observatory is not None:
+                self.observatory.audit.record(
+                    "sip_evict", eid=victim.eid, hits=victim.hits,
+                    nbytes=victim.nbytes,
+                    value=self.policy.value(victim.hits, victim.nbytes),
+                    pow2_bucket=_pow2_bucket(max(victim.nbytes, 1)),
+                    size_bin=self.policy.bin(victim.nbytes),
+                    born=victim.born, corrupt=victim.corrupt,
+                    candidates=len(cands))
             if self.demote_cb is not None and not victim.corrupt:
                 # quarantined entries are never demoted
                 self.demote_cb(victim)

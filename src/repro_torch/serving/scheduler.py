@@ -27,10 +27,12 @@ level 3 rejects submissions) control overload; a stall watchdog raises
 telemetry clock is the only time source here.
 
 Decisions equal the JAX scheduler's iteration for iteration
-(``tests/test_torch_scheduler.py``).  Left out: the host-looped oracle
-path (``make_reference_scheduler`` and the reference branch of
-``_dispatch``, which need ``serving/reference.py``) and the
-observatory's audit records.  Faults become outcomes here: the
+(``tests/test_torch_scheduler.py``).  The same loop drives the
+host-looped oracle (:func:`make_reference_scheduler` over
+``serving/reference.py``): ``_dispatch`` then replays each iteration's
+decodes one sequence at a time and advances the cohort member by member.
+With an observatory on the engine, admission rejects and ladder
+transitions leave decision audit records.  Faults become outcomes here: the
 injector's iteration hook (free-list holds), the finish-time
 ``verify_seq`` (default on exactly when faults are armed), the range
 check on decoded tokens, and restarts from the original prompt with
@@ -86,7 +88,12 @@ class Track:
 
 
 class ContinuousScheduler:
-    """Token-budget continuous-batching loop over a ``PagedKVEngine``."""
+    """Token-budget continuous-batching loop over a paged-KV engine.
+
+    ``engine`` is either a ``PagedKVEngine`` (batched mixed-step path)
+    or a ``ReferencePagedKVEngine`` (sequential oracle path) — told apart
+    by the presence of ``mixed_step``.
+    """
 
     def __init__(self, engine, *, token_budget: int = 64,
                  requeue_preempted: bool = False, max_requeues: int = 3,
@@ -111,6 +118,11 @@ class ContinuousScheduler:
         # path pays publish-side checksumming only)
         self.verify_finish = (getattr(engine, "faults", None) is not None
                               if verify_finish is None else verify_finish)
+        self._batched = hasattr(engine, "mixed_step")
+        # the oracle's admission capacity and chunk width, pinned to the
+        # batched engine's by make_reference_scheduler (None: unbounded)
+        self._ref_max_batch: int | None = None
+        self._ref_prefill_chunk = 16
         self.waiting: deque[Request] = deque()
         self.tracks: dict[int, Track] = {}
         self._prefill: list[int] = []     # rids of the in-flight cohort
@@ -214,6 +226,15 @@ class ContinuousScheduler:
             and self.ladder.level >= self.ladder.n_levels
         if over_queue or shedding:
             self._m["rejected"].inc()
+            obs = getattr(self.engine, "obs", None)
+            if obs is not None:
+                obs.audit.record(
+                    "admission_reject", rid=rid,
+                    queue_depth=len(self.waiting),
+                    max_queue=self.max_queue,
+                    ladder_level=(self.ladder.level if self.ladder
+                                  else 0),
+                    over_queue=over_queue, shedding=shedding)
             self._finish(tr, FinishReason.REJECTED, self.iteration, now)
             return False
         self.waiting.append(req)
@@ -270,9 +291,15 @@ class ContinuousScheduler:
             self.engine.shed_cache_inserts = lvl >= 1
             self._g_ladder.set(lvl)
             self._g_ladder_tr.set(self.ladder.transitions)
-            if lvl != prev_lvl and self.trace.enabled:
-                self.trace.event(None, "ladder_transition", level=lvl,
-                                 prev=prev_lvl)
+            if lvl != prev_lvl:
+                if self.trace.enabled:
+                    self.trace.event(None, "ladder_transition", level=lvl,
+                                     prev=prev_lvl)
+                obs = getattr(self.engine, "obs", None)
+                if obs is not None:
+                    obs.audit.record("ladder_transition", iteration=it,
+                                     level=lvl, prev=prev_lvl,
+                                     pressure=round(pressure, 6))
         admitted = self._admit()
         decode_rids = list(self._running)
         n_pf = self._plan_prefill_tokens(len(decode_rids))
@@ -471,13 +498,23 @@ class ContinuousScheduler:
         if self.ladder is not None \
                 and self.ladder.level >= self.ladder.n_levels:
             return []                     # overload: admissions paused
-        free = len(self.engine._free_slots)
+        if self._batched:
+            free = len(self.engine._free_slots)
+        elif self._ref_max_batch is None:
+            free = len(self.waiting)          # unconstrained
+        else:
+            free = self._ref_max_batch - len(self.engine.seqs)
         cohort: list[Request] = []
         while self.waiting and len(cohort) < free:
             cohort.append(self.waiting.popleft())
         if not cohort:
             return []
-        starts = self.engine.begin_cohort({r.rid: r.prompt for r in cohort})
+        prompts = {r.rid: r.prompt for r in cohort}
+        if self._batched:
+            starts = self.engine.begin_cohort(prompts)
+        else:
+            starts = {rid: self.engine.begin_request(rid, prompt)
+                      for rid, prompt in prompts.items()}
         for r in cohort:
             tr = self.tracks[r.rid]
             tr.admitted_iter = self.iteration
@@ -502,6 +539,15 @@ class ContinuousScheduler:
         self._cohort_pos = 0
         return [r.rid for r in cohort]
 
+    def set_reference_max_batch(self, max_batch: int) -> None:
+        """Pin the oracle's admission capacity to the batched engine's
+        ``max_batch`` so both produce the same schedule."""
+        self._ref_max_batch = max_batch
+
+    def set_reference_prefill_chunk(self, chunk: int) -> None:
+        """Pin the oracle's chunk width to the batched engine's."""
+        self._ref_prefill_chunk = chunk
+
     def _plan_prefill_tokens(self, n_decodes: int) -> int:
         """Budget the iteration's prefill-chunk width (Sarathi packing).
 
@@ -519,7 +565,8 @@ class ContinuousScheduler:
             budget = max(1, budget // 2)  # degradation: shrink prefill share
         if budget == 0:
             return 0
-        chunk = self.engine.prefill_chunk
+        chunk = (self.engine.prefill_chunk if self._batched
+                 else self._ref_prefill_chunk)
         off = self._cohort_pos
         rems = [len(self.tracks[r].req.prompt) - 1
                 - self.tracks[r].pf_start - off for r in self._prefill]
@@ -544,7 +591,24 @@ class ContinuousScheduler:
     def _dispatch(self, decode_rids: list[int], n_pf: int
                   ) -> tuple[dict[int, int], list[int]]:
         """Run the iteration's compute and advance prefill bookkeeping."""
-        out, completed = self.engine.mixed_step(decode_rids, n_pf)
+        if self._batched:
+            out, completed = self.engine.mixed_step(decode_rids, n_pf)
+        else:
+            # oracle replay of the same iteration: decodes first (the
+            # batched step publishes decode tails before prefill pages),
+            # then the cohort's chunk, member by member in cohort order
+            out = {}
+            for rid in decode_rids:
+                seq = self.engine.seqs.get(rid)
+                if seq is None or seq.preempted or seq.done:
+                    continue
+                out[rid] = self.engine.decode_one(rid)
+            completed = []
+            if n_pf > 0:
+                for rid in self._prefill:
+                    if (rid in self.engine.seqs
+                            and self.engine.prefill_advance(rid, n_pf)):
+                        completed.append(rid)
         # scheduler-side progress mirror (drives the budget planner)
         if n_pf > 0:
             self._cohort_pos += n_pf
@@ -685,3 +749,14 @@ class ContinuousScheduler:
         if rid in self.engine.seqs:
             self.engine.release(rid)
 
+
+def make_reference_scheduler(ref_engine, *, token_budget: int,
+                             max_batch: int, prefill_chunk: int,
+                             **kw) -> ContinuousScheduler:
+    """Oracle scheduler over the host-looped reference engine, pinned to
+    the batched engine's capacity and chunk width so both produce the
+    same schedule (and therefore the same tokens)."""
+    sched = ContinuousScheduler(ref_engine, token_budget=token_budget, **kw)
+    sched.set_reference_max_batch(max_batch)
+    sched.set_reference_prefill_chunk(prefill_chunk)
+    return sched

@@ -5,7 +5,8 @@ Saves the whole serving state of a :class:`PagedKVEngine` — the
 compressed page pools, decode tails, the in-flight prefill cohort's
 scratch, page tables, free list and byte accounting, per-page checksums
 and codec tags, the prefix-cache trie with its SIP state, the attached
-host/disk tier, the telemetry registry — and optionally the
+host/disk tier, the telemetry registry, the observatory's host state
+(reuse tracker, shadow caches, audit ring) — and optionally the
 :class:`ContinuousScheduler`'s queue and request records, so a killed
 engine restores mid-stream and finishes its in-flight requests with the
 tokens the uninterrupted run gives.
@@ -34,6 +35,7 @@ from repro_torch.checkpoint import store
 from repro_torch.kernels._device import resolve_device
 from repro_torch.serving._tree import tree_leaves
 from repro_torch.serving.engine import PagedKVEngine, Sequence, _Cohort
+from repro_torch.serving.observatory import Observatory
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import ContinuousScheduler, Request, Track
 from repro_torch.serving.telemetry import Telemetry
@@ -136,7 +138,10 @@ def save_snapshot(ckpt_dir: str, engine: PagedKVEngine,
             "free_slots": list(engine._free_slots),
             "pmax": engine._pmax, "stats": dict(engine.stats),
             "telemetry": engine.telemetry.state(),
-            "observatory": None,
+            # observatory host state (reuse tracker, shadow caches, audit
+            # ring); its registry metrics travel with the telemetry
+            "observatory": (None if engine.obs is None
+                            else engine.obs.state()),
             "request_bytes": {str(k): list(v)
                               for k, v in engine.request_bytes.items()},
             "seqs": [_seq_meta(s) for s in engine.seqs.values()],
@@ -203,20 +208,25 @@ def restore_snapshot(ckpt_dir: str, cfg, params, *, step: int | None = None,
     if meta.get("kind") != KIND:
         raise ValueError(f"not an engine snapshot: {ckpt_dir}")
     em = meta["engine"]
-    if em.get("observatory") is not None:
-        raise NotImplementedError("the snapshot carries an observatory, "
-                                  "which the port does not have")
 
     cache = None
     if meta["cache"] is not None:
         cache = PrefixCache(cfg.n_layers, em["page"], meta["cache_line"])
         cache.load_state(meta["cache"])
 
+    # a saved observatory restores into a fresh one on the fresh
+    # telemetry: its registry series come back with the telemetry state,
+    # its host trackers with the observatory state, so reuse histograms
+    # and shadow counters continue rather than restart
+    tel = Telemetry()
+    om = em.get("observatory")
+    obs = None if om is None else Observatory(tel)
     eng = PagedKVEngine(
         cfg, params, page_size=em["page"], n_pool_pages=em["n_pool_pages"],
         max_batch=em["max_batch"], prefill_chunk=em["prefill_chunk"],
         prefix_cache=cache, codec=em["codec"], faults=faults,
-        integrity=em["integrity"], telemetry=Telemetry(), device=device)
+        integrity=em["integrity"], telemetry=tel, observatory=obs,
+        device=device)
 
     # the fresh engine's tensors have the saved shapes: copy in place
     for i, leaf in enumerate(tree_leaves(eng.pools)):
@@ -234,6 +244,8 @@ def restore_snapshot(ckpt_dir: str, cfg, params, *, step: int | None = None,
         eng.telemetry.load_state(em["telemetry"])
     else:
         eng.load_stats_dict(em["stats"])
+    if obs is not None:
+        obs.load_state(om)
     tm = meta.get("tier")
     if tm is not None and cache is not None:
         tier = TieredPageStore.for_model(

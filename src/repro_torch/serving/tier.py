@@ -27,8 +27,9 @@ host; promotion verifies a record's bytes host-side against the
 publish-time checksums (:func:`np_page_checksums`, equal bit for bit to
 ``faults.page_checksums``), quarantines a corrupt one, and scatters a
 verified run back into the pools.  The tier is inclusive: promotion
-copies.  All state here is host-side.  Left out: the observatory's audit
-records (the observatory is not ported).
+copies.  All state here is host-side.  With an observatory attached,
+demotions, promotions, spills and quarantines leave decision audit
+records (``serving/audit.py``).
 """
 
 from __future__ import annotations
@@ -174,7 +175,8 @@ class TieredPageStore:
 
     def __init__(self, codec, *, n_layers: int, page: int, kvh: int,
                  dh: int, host_bytes: int, disk_dir: str | None = None,
-                 disk_bytes: int | None = None, telemetry=None):
+                 disk_bytes: int | None = None, telemetry=None,
+                 observatory=None):
         self.codec_name = codec.name
         self.n_layers = n_layers
         self.page = page
@@ -207,6 +209,7 @@ class TieredPageStore:
         # set by the owning engine (attach_tier); counters/gauges are
         # synced into the registry at export time (sample_metrics)
         self.telemetry = telemetry
+        self.observatory = observatory
 
     @classmethod
     def for_model(cls, cfg, page: int, codec, *, host_mb: float = 64,
@@ -326,6 +329,11 @@ class TieredPageStore:
             self._records[dg] = rec
             self._kids[parent] = self._kids.get(parent, 0) + 1
         self.stats["demotions"] += 1
+        if self.observatory is not None:
+            self.observatory.audit.record(
+                "tier_demote", digest=dg, depth=rec.depth,
+                nbytes=sum(rec.nbytes), level=rec.level, hits=rec.hits,
+                source=source)
         return rec
 
     # -- promote (read side) ------------------------------------------------
@@ -340,6 +348,10 @@ class TieredPageStore:
         if not np.array_equal(got, np.asarray(rec.checksums, np.uint32)):
             rec.corrupt = True
             self.stats["corrupt"] += 1
+            if self.observatory is not None:
+                self.observatory.audit.record(
+                    "tier_corrupt", digest=rec.digest, depth=rec.depth,
+                    level=rec.level)
             return leaves, False
         return leaves, True
 
@@ -348,6 +360,10 @@ class TieredPageStore:
         (the tier is inclusive: the record stays resident)."""
         rec.hits += 1
         self.stats["promotions"] += 1
+        if self.observatory is not None:
+            self.observatory.audit.record(
+                "tier_promote", digest=rec.digest, depth=rec.depth,
+                nbytes=sum(rec.nbytes), level=rec.level, hits=rec.hits)
 
     # -- replacement --------------------------------------------------------
 
@@ -396,6 +412,10 @@ class TieredPageStore:
                     self.host.free(victim.slot)
                     victim.slot, victim.level = dslot, "disk"
                     self.stats["spills"] += 1
+                    if self.observatory is not None:
+                        self.observatory.audit.record(
+                            "tier_spill", digest=victim.digest,
+                            depth=victim.depth, nbytes=sum(victim.nbytes))
                     return self.host.alloc()
         cands = self._leaves_at("host")
         if not cands:

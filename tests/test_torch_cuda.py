@@ -449,3 +449,90 @@ def test_snapshot_on_card_restores_on_cpu(dev, tmp_path):
     eng2.debug_validate()
     assert {r: t.out_tokens for r, t in fin2.items()} \
         == {r: t.out_tokens for r, t in fin.items()}
+
+
+def _count_device_reads(monkeypatch) -> list:
+    """Count every read of a CUDA tensor's values on the host (``.cpu``,
+    ``.item``, ``.tolist``, ``int``/``float``/``bool``): each is a sync."""
+    reads = []
+    for name in ("cpu", "item", "tolist", "__int__", "__float__",
+                 "__bool__", "__index__"):
+        real = getattr(torch.Tensor, name)
+
+        def wrapped(self, *a, _real=real, _name=name, **kw):
+            if self.is_cuda:
+                reads.append(_name)
+            return _real(self, *a, **kw)
+
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+    return reads
+
+
+def test_observatory_publish_rides_the_single_host_sync(dev, monkeypatch):
+    """An adaptive publish with an observatory attached reads every
+    member's would-be page bytes back in the one device-to-host copy the
+    publish makes without it: one read a publish either way."""
+    from repro_torch.serving.observatory import Observatory
+    from repro_torch.serving.telemetry import Telemetry
+    cfg = get_arch("yi-6b").reduced(n_layers=2)
+    params = to_device(init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu"), dev)
+    prompts = {i: [1 + (i * 7 + j * 5) % 250 for j in range(25)]
+               for i in range(3)}
+    per_publish = {}
+    for observe in (False, True):
+        tel = Telemetry()
+        eng = PagedKVEngine(cfg, params, page_size=8, n_pool_pages=64,
+                            max_batch=4, codec="adaptive", telemetry=tel,
+                            observatory=Observatory(tel) if observe
+                            else None, device=dev)
+        inner, counts = eng._publish, []
+
+        def publish(*a, _inner=inner, _counts=counts, **kw):
+            reads = _count_device_reads(monkeypatch)
+            _inner(*a, **kw)
+            _counts.append(list(reads))
+            monkeypatch.undo()
+        eng._publish = publish
+        eng.add_requests(prompts)
+        assert counts
+        per_publish[observe] = counts
+        if observe:
+            wb = eng.obs.codec_shadow.bytes
+            assert set(wb) == {"bdi", "zero", "raw", "gbdi", "fpc"}
+            assert eng.obs.codec_shadow.pages == eng.stats[
+                "pages_compressed"]
+    assert per_publish[True] == per_publish[False]
+    assert all(c == ["cpu"] for c in per_publish[True])
+
+
+def test_reference_oracle_pools_on_host_math_on_card(dev):
+    """The oracle on ``device="cuda"``: its pools stay on the host, its
+    tails, scratch and model math on the card, its publishes through the
+    codec's kernel; tokens equal the CPU oracle's up to reported ties."""
+    from repro_torch.serving._tree import tree_leaves
+    from repro_torch.serving.reference import ReferencePagedKVEngine
+    cfg = get_arch("yi-6b").reduced(n_layers=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = {i: [1 + (i * 7 + j * 5) % 250 for j in range(9 + 13 * i)]
+               for i in range(3)}
+    engs = [ReferencePagedKVEngine(cfg, to_device(params, d), page_size=8,
+                                   n_pool_pages=96, device=d)
+            for d in (dev, "cpu")]
+    ops.reset_launches()
+    for e in engs:
+        e.add_requests(prompts)
+    assert ops.LAUNCHES["bdi_compress_kv"] > 0, ops.LAUNCHES
+    parity = GreedyParity()
+    for step in range(10):
+        got = {s: engs[0].decode_one(s) for s in prompts}
+        want = {s: engs[1].decode_one(s) for s in prompts}
+        parity.check(step, want, got, engs[0].last_logits.__getitem__,
+                     engs[1].last_logits.__getitem__)
+    card = engs[0]
+    assert {lf.device.type for lf in tree_leaves(card.pools)} == {"cpu"}
+    assert card.seqs[0].tail_k.device.type == "cuda"
+    assert card.params["embed"]["w"].device.type == "cuda"
+    assert card.last_logits[0].device.type == "cuda"
+    assert card.stats == engs[1].stats
+    assert (card.page_bytes == engs[1].page_bytes).all()

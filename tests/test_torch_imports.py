@@ -26,8 +26,10 @@ def test_import_loads_neither_jax_nor_repro():
     assert "repro_torch.serving.engine" in mods
     assert "repro_torch.launch.quickstart" in mods
     for m in ("trace", "telemetry", "scheduler", "prefix_cache", "faults",
-              "tier", "snapshot"):
+              "tier", "snapshot", "audit", "reuse", "shadow", "observatory",
+              "reference"):
         assert f"repro_torch.serving.{m}" in mods
+    assert "repro_torch.launch.observe" in mods
     assert "repro_torch.checkpoint.store" in mods
     code = (
         "import importlib, sys\n"
@@ -63,12 +65,19 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.launch.serve import generate
     from repro_torch.models.transformer import init_params
     from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.reference import ReferencePagedKVEngine
     cfg = get_arch("yi-6b").reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         PagedKVEngine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReferencePagedKVEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate("yi-6b", paged=True, smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate("yi-6b", paged=False, paged_reference=True, smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate("yi-6b", smoke=True, scheduler=True, observatory=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate("yi-6b", smoke=True, scheduler=True, prefix_cache=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -81,3 +90,4 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quickstart.main()
     PagedKVEngine(cfg, params, device="cpu")        # explicit CPU is fine
+    ReferencePagedKVEngine(cfg, params, device="cpu")

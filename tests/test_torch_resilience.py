@@ -21,9 +21,9 @@ JAX package's snapshots; each restored engine must finish with the tokens
 of the uninterrupted run, with a cohort in flight and with a warm cache
 too.
 
-Left out: the ``batched=False`` cases (and the second half of the chaos
-composite), which run ``serving/reference.py``'s host-looped engine; the
-reference engine is not ported (ROADMAP Queue 1 item 6).
+The ``batched=False`` cases (and the second half of the chaos composite),
+which run the host-looped oracle, are in
+``tests/test_torch_reference_faults.py``.
 """
 
 import os

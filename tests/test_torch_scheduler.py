@@ -58,8 +58,11 @@ class Kit:
             from repro.core.camp import PressureLadder
             from repro.serving import faults, snapshot
             from repro.serving.engine import PagedKVEngine
+            from repro.serving.observatory import Observatory
             from repro.serving.prefix_cache import PrefixCache
-            from repro.serving.scheduler import ContinuousScheduler
+            from repro.serving.reference import ReferencePagedKVEngine
+            from repro.serving.scheduler import (ContinuousScheduler,
+                                                 make_reference_scheduler)
             from repro.serving.telemetry import Telemetry
             from repro.serving.tier import TieredPageStore
             self._dev = {}
@@ -67,12 +70,18 @@ class Kit:
             from repro_torch.core.camp import PressureLadder
             from repro_torch.serving import faults, snapshot
             from repro_torch.serving.engine import PagedKVEngine
+            from repro_torch.serving.observatory import Observatory
             from repro_torch.serving.prefix_cache import PrefixCache
-            from repro_torch.serving.scheduler import ContinuousScheduler
+            from repro_torch.serving.reference import ReferencePagedKVEngine
+            from repro_torch.serving.scheduler import (
+                ContinuousScheduler, make_reference_scheduler)
             from repro_torch.serving.telemetry import Telemetry
             from repro_torch.serving.tier import TieredPageStore
             self._dev = {"device": "cpu"}
         self.Engine, self.Scheduler = PagedKVEngine, ContinuousScheduler
+        self.Reference = ReferencePagedKVEngine
+        self.make_reference_scheduler = make_reference_scheduler
+        self.Observatory = Observatory
         self.PrefixCache = PrefixCache
         self.PressureLadder, self.Telemetry = PressureLadder, Telemetry
         self.F, self.Tier, self._snapshot = faults, TieredPageStore, snapshot
@@ -86,6 +95,17 @@ class Kit:
                               self.cfg, PAGE) if cache else None),
                           **kw, **self._dev)
         self.rec.watch(eng)
+        return eng
+
+    def ref_engine(self, *, pool: int = 96, cache: bool = False, **kw):
+        """The host-looped oracle (``serving/reference.py``), built like
+        :meth:`engine`; its ``decode_one`` calls are recorded."""
+        eng = self.Reference(self.cfg, self.params, page_size=PAGE,
+                             n_pool_pages=pool,
+                             prefix_cache=(self.PrefixCache.for_model(
+                                 self.cfg, PAGE) if cache else None),
+                             **kw, **self._dev)
+        self.rec.watch_oracle(eng)
         return eng
 
     def sched(self, eng, **kw):
@@ -131,6 +151,20 @@ class Recorder:
             return out, completed
 
         eng.mixed_step = mixed_step
+
+    def watch_oracle(self, eng) -> None:
+        """The oracle's twin of :meth:`watch`: one step per
+        ``decode_one`` call."""
+        inner = eng.decode_one
+
+        def decode_one(sid):
+            tok = inner(sid)
+            self.steps.append({str(sid): int(tok)})
+            if self.kit.side == "port":
+                self.logits.append({sid: eng.last_logits[sid].clone()})
+            return tok
+
+        eng.decode_one = decode_one
 
     def state(self, eng, **extra) -> None:
         self.states.append(host_state(eng, **extra))
@@ -511,13 +545,94 @@ def test_generate_scheduler_prefix_cache_on_cpu(tmp_path):
     assert json.loads(lines[-1])["final"] is True
 
 
-@pytest.mark.parametrize("flag", ["--observatory", "--audit-out"])
-def test_serve_cli_refuses_unported_flags(flag, monkeypatch, capsys):
+# the CLI's observatory, audit and oracle flags, against the JAX CLI's
+# ``generate`` on the same arguments (the port adds keys of its own:
+# device, wall time, iteration count, per-request bytes)
+_CLI_CASES = {
+    "observatory": (["--scheduler", "--prefix-cache", "--shared-prefix",
+                     "8", "--observatory"],
+                    {"scheduler": True, "prefix_cache": True,
+                     "shared_prefix": 8, "observatory": True}),
+    "audit_out": (["--scheduler", "--max-queue", "1", "--arrival-stagger",
+                   "0", "--audit-out", "{audit}"],
+                  {"scheduler": True, "max_queue": 1, "arrival_stagger": 0,
+                   "audit_out": "{audit}"}),
+    "paged_reference": (["--paged-reference"], {"paged_reference": True}),
+}
+
+
+def _cli_record(out: dict, audit: str | None) -> dict:
+    kinds = None
+    if audit is not None:
+        with open(audit) as f:
+            kinds = sorted({json.loads(ln)["kind"] for ln in f})
+    return {"keys": sorted(out), "stats": sorted(out["stats"]),
+            "observatory": (sorted(out["observatory"]) if "observatory"
+                            in out else None),
+            "audit_kinds": kinds, "n_tokens": [len(t) for t in out["tokens"]]}
+
+
+def jax_cli_main(path: str) -> None:
+    """Subprocess entry: the JAX CLI's ``generate`` on each case."""
+    from repro.launch.serve import generate
+    rec = {}
+    for name, (_, kw) in _CLI_CASES.items():
+        audit = str(Path(path).with_name(f"jax_{name}.jsonl"))
+        kw = {k: (audit if v == "{audit}" else v) for k, v in kw.items()}
+        rec[name] = _cli_record(generate("yi-6b", **kw),
+                                kw.get("audit_out"))
+    Path(path).write_text(json.dumps(rec))
+
+
+@pytest.fixture(scope="module")
+def jax_cli(tmp_path_factory):
+    path = tmp_path_factory.mktemp("jax_cli") / "cli.json"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO / "src"), str(REPO / "tests")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    subprocess.run([sys.executable, "-c",
+                    "import test_torch_scheduler as t; "
+                    f"t.jax_cli_main({str(path)!r})"],
+                   env=env, cwd=REPO, check=True, timeout=900)
+    return json.loads(path.read_text())
+
+
+@pytest.mark.parametrize("name", list(_CLI_CASES))
+def test_serve_cli_observatory_audit_and_oracle(name, jax_cli, monkeypatch,
+                                                tmp_path, capsys):
+    """``--observatory``, ``--audit-out PATH`` and ``--paged-reference``
+    through the port's CLI on the CPU in smoke mode: the run's summary
+    keys (the observatory's included) and the audit log's decision kinds
+    equal the JAX CLI's on the same arguments."""
     from repro_torch.launch import serve
+    audit = str(tmp_path / "audit.jsonl")
+    flags = [audit if f == "{audit}" else f for f in _CLI_CASES[name][0]]
     monkeypatch.setattr(sys, "argv", ["serve", "--arch", "yi-6b", "--smoke",
-                                      "--device", "cpu", "--scheduler", flag,
-                                      "3"])
-    with pytest.raises(SystemExit) as e:
-        serve.main()
-    assert e.value.code == 2
-    assert f"{flag} is not ported" in capsys.readouterr().err
+                                      "--device", "cpu"] + flags)
+    captured = {}
+    real = serve.generate
+
+    def generate(*a, **kw):                 # keep the run's summary
+        captured["out"] = real(*a, **kw)
+        return captured["out"]
+
+    monkeypatch.setattr(serve, "generate", generate)
+    serve.main()
+    printed = capsys.readouterr().out
+    got = _cli_record(captured["out"],
+                      audit if "--audit-out" in flags else None)
+    want = jax_cli[name]
+    assert set(want["keys"]) <= set(got["keys"])
+    assert got["stats"] == want["stats"]
+    assert got["observatory"] == want["observatory"]
+    assert got["audit_kinds"] == want["audit_kinds"]
+    assert got["n_tokens"] == want["n_tokens"]
+    if name == "observatory":
+        assert "[serve] observatory: shadow hit rates" in printed
+        assert "size-bin x reuse-distance" in printed
+    elif name == "audit_out":
+        assert got["audit_kinds"] == ["admission_reject"]
+        assert captured["out"]["sched_stats"]["rejected"] == 3
+    else:
+        assert captured["out"]["stats"]["pages_compressed"] > 0

@@ -128,7 +128,32 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      each;
   9c. at depth 2 under adaptive: an engine with an observatory
      snapshotted on the card restores on the CPU with the observatory's
-     state and registry series exactly equal.
+     state and registry series exactly equal;
+  10. training: ``launch.train.train("yi-6b", smoke=False, steps=8,
+     seq_len=128, batch=8, moment_dtype="bdi8")`` at full width (random
+     init from a seed, the synthetic stream): every loss finite, both
+     tile kernels launched by the optimizer's moment stores and loads;
+     ms a step (forward+backward, optimizer), the mask layout
+     conversion's share, tokens/s, model TFLOP/s (6N and 8N a token),
+     peak memory, ``opt_state_bytes`` of the four moment dtypes at full
+     depth (``adamw_init`` over meta tensors), and the share of elements
+     whose stored v is 0 while m is not (bdi8 rounds v to 0 below half a
+     tile step; such an element moves by lr * m / eps, so the reference
+     algorithm's loss can jump); then the same 8 steps under bf16
+     moments, whose last loss must be below the first;
+  10b. full width at 2 layers, 8 steps under f32, bf16, bdi8 and q8 from
+     the same params and batches: loss trajectories, the bdi8 - f32 gap,
+     ms a step, peak memory; the tile kernels launch under bdi8 only;
+  10c. card vs CPU losses over 10 steps at the reduced config and at d_model
+     256 under f32 (rtol 2e-3) and bdi8 (rtol 5e-2, see
+     ``tests/test_torch_train.py``); restart continuity on the card (f32,
+     rtol 1e-5, and whether two runs give the same bits); one moment leaf
+     of 10b's bdi8 state through both tile kernels and their plain
+     versions, bit-equal;
+  10d. the training twins on the card: ``launch.train_lm`` (yi-100m, 200
+     steps, bdi8, a checkpoint every 50, loss drop > 0.5) and
+     ``launch.compressed_checkpointing`` (resume at step 30 from the
+     trained state).
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -2069,6 +2094,291 @@ def phase_obs_snapshot(dev, cfg, page: int) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 10-10d: training with BDI-compressed AdamW moments
+# ---------------------------------------------------------------------------
+
+def _finite_losses(name: str, losses: list) -> None:
+    import math
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: a loss is not finite: {losses}")
+
+
+def _step_split(out: dict) -> dict:
+    """Mean host ms of the forward+backward and of the update over every
+    step but the first (which builds the kernels' first calls and the
+    allocator's pools), and the first step's ms."""
+    fb = [a * 1e3 for a, _ in out["step_s"]]
+    opt = [b * 1e3 for _, b in out["step_s"]]
+    rest = slice(1, None) if len(fb) > 1 else slice(None)
+    mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
+    return {"fwd_bwd_ms": mean(fb[rest]), "opt_ms": mean(opt[rest]),
+            "step_ms": mean(fb[rest]) + mean(opt[rest]),
+            "first_step_ms": fb[0] + opt[0]}
+
+
+def opt_bytes_by_dtype(params: dict) -> dict:
+    """``opt_state_bytes`` of each moment dtype for ``params``' shapes,
+    from ``adamw_init`` over meta tensors (nothing allocated)."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import AdamWConfig, adamw_init, opt_state_bytes
+    meta = tree_map(lambda t: t.to("meta"), params)
+    return {md: opt_state_bytes(adamw_init(meta, AdamWConfig(
+        moment_dtype=md)), AdamWConfig(moment_dtype=md))
+        for md in ("f32", "bf16", "bdi8", "q8")}
+
+
+def lost_second_moments(state: dict, params: dict) -> dict:
+    """Elements whose stored v loads as 0 while their stored m does not:
+    the next step moves each by lr * m / eps unless its gradient is large
+    enough to refill v (``_load`` of each row group; launches the tile
+    decompressor, so call it after reading the launch counts)."""
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.optim import adamw
+    out, total = {}, 0
+    for (name, p), m_s, v_s in zip(leaf_paths(params),
+                                   adamw._store_leaves(state["m"]),
+                                   adamw._store_leaves(state["v"])):
+        n = 0
+        for r0, r1 in adamw._groups(p):
+            shape = adamw._rows(p, r0, r1).shape
+            m = adamw._load(adamw._rows(m_s, r0, r1), shape)
+            v = adamw._load(adamw._rows(v_s, r0, r1), shape)
+            n += int(((v == 0) & (m != 0)).sum())
+        out[name] = n / p.numel()
+        total += n
+    return {"fraction": total / sum(p.numel() for _, p in leaf_paths(params)),
+            "by_leaf": out}
+
+
+def phase_train(dev, cfg) -> dict:
+    """Phase 10: yi-6b at full width, 8 steps under bdi8, then under bf16
+    moments from the same init and batches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.optim import adamw
+    seq, batch, steps = 128, 8, 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    out = train(cfg.name, smoke=False, steps=steps, seq_len=seq,
+                batch=batch, moment_dtype="bdi8", log_every=1, device="cuda")
+    sync(dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("bdi_compress",
+                                             "bdi_decompress")}
+    peak = torch.cuda.max_memory_allocated(dev)
+    _finite_losses("phase 10", out["losses"])
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"phase 10: {name} never launched on the "
+                                 f"training path: {dict(ops.LAUNCHES)}")
+    params = out["params"]
+    n_params = sum(t.numel() for t in _leaves(params))
+    split = _step_split(out)
+    tokens = seq * batch
+    # the mask layout conversion a step: every tiled moment element is
+    # stored (to_byte_mask) and loaded (to_bitplane_mask) once a step, for
+    # m and v; timed on one yi-6b MLP layer's tiles, scaled by tile count
+    gate = out["opt_state"]["m"]["blocks"]["ffn"]["gate"]["w"]["maskp"][0]
+    gate = gate.reshape(-1, 16)
+    bitplane = adamw.to_bitplane_mask(gate)
+    ms_to_byte = cuda_time_ms(lambda: adamw.to_byte_mask(bitplane))
+    ms_to_plane = cuda_time_ms(lambda: adamw.to_bitplane_mask(gate))
+    tiles = sum(s["maskp"].numel() // 16
+                for s in adamw._store_leaves(out["opt_state"]["m"])
+                if isinstance(s, dict))
+    conv_ms = 2 * (ms_to_byte + ms_to_plane) * tiles / gate.shape[0]
+    state_bytes = opt_bytes_by_dtype(params)
+    lost = lost_second_moments(out["opt_state"], params)
+    res = {"card": smi(), "params": n_params, "losses": out["losses"],
+           **split, "tokens_per_s": tokens / split["step_ms"] * 1e3,
+           "model_tflop_s_6n": 6 * n_params * tokens / split["step_ms"]
+           / 1e9,
+           "model_tflop_s_8n": 8 * n_params * tokens / split["step_ms"]
+           / 1e9,
+           "peak_mem_gb": peak / 1e9, "launches": launches,
+           "moment_tiles_per_step": 2 * tiles,
+           "mask_conversion_ms_per_step": conv_ms,
+           "mask_conversion_share_of_opt": conv_ms / split["opt_ms"],
+           "mask_ms_on_352256_tiles": {"to_byte": ms_to_byte,
+                                       "to_bitplane": ms_to_plane},
+           "opt_state_bytes": state_bytes,
+           "opt_state_bytes_actual": sum(
+               t.numel() * t.element_size() for k in ("m", "v")
+               for t in _leaves(out["opt_state"][k])),
+           "v_lost_m_kept_after_last_step": lost}
+    if res["opt_state_bytes_actual"] != state_bytes["bdi8"]:
+        raise AssertionError("phase 10: the bdi8 state's bytes differ from "
+                             "opt_state_bytes of adamw_init")
+    del out, params, gate, bitplane
+    torch.cuda.empty_cache()
+    # the same run with bf16 moments (f32's 48.5 GB of moments would leave
+    # too little of the card): the path itself must lower the loss
+    torch.cuda.reset_peak_memory_stats(dev)
+    ref = train(cfg.name, smoke=False, steps=steps, seq_len=seq,
+                batch=batch, moment_dtype="bf16", log_every=1, device="cuda")
+    sync(dev)
+    _finite_losses("phase 10 (bf16 moments)", ref["losses"])
+    if not ref["losses"][-1] < ref["losses"][0]:
+        raise AssertionError(f"phase 10: under bf16 moments the loss did "
+                             f"not fall: {ref['losses']}")
+    res["bf16_moments"] = {"losses": ref["losses"], **_step_split(ref),
+                           "peak_mem_gb": torch.cuda.max_memory_allocated(
+                               dev) / 1e9}
+    log(f"phase 10: {json.dumps(res)}")
+    del ref
+    torch.cuda.empty_cache()
+    return res
+
+
+def register(cfg, name: str):
+    """``cfg`` under ``name`` in the port's registry (``train`` takes a
+    name), as the training twins do."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = dataclasses.replace(cfg, name=name)
+    registry.ARCHS[name] = cfg
+    return cfg
+
+
+def phase_train_dtypes(dev, cfg) -> tuple[dict, dict]:
+    """Phase 10b: full width, 2 layers, 8 steps under each moment dtype
+    from the same params and batches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    two = register(cfg.reduced(n_layers=2, d_model=cfg.d_model,
+                               n_heads=cfg.n_heads,
+                               n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+                               vocab=cfg.vocab), "yi-6b-2l")
+    res, kept = {"card": smi()}, None
+    for md in ("f32", "bf16", "bdi8", "q8"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        out = train(two.name, smoke=False, steps=8, seq_len=128, batch=8,
+                    moment_dtype=md, log_every=100, device="cuda")
+        sync(dev)
+        _finite_losses(f"phase 10b {md}", out["losses"])
+        n = {k: ops.LAUNCHES[k] for k in ("bdi_compress", "bdi_decompress")}
+        if (md == "bdi8") != all(v > 0 for v in n.values()) or \
+                (md != "bdi8" and any(n.values())):
+            raise AssertionError(f"phase 10b {md}: tile kernel launches "
+                                 f"{n}")
+        res[md] = {"losses": out["losses"], **_step_split(out),
+                   "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                   "launches": n}
+        if md == "bdi8":
+            kept = out["opt_state"]
+        del out
+    gap = [b - a for a, b in zip(res["f32"]["losses"],
+                                 res["bdi8"]["losses"])]
+    res["bdi8_minus_f32"] = {"per_step": gap,
+                             "max_abs": max(abs(g) for g in gap)}
+    log(f"phase 10b: {json.dumps(res)}")
+    return res, kept
+
+
+def phase_train_parity(dev, cfg, state: dict) -> dict:
+    """Phase 10c: card vs CPU losses over 10 steps at the reduced config
+    and a wider one, under f32 and bdi8; restart continuity on the card;
+    a real moment leaf of 10b through the tile kernels and their plain
+    versions."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import bdi_compress, bdi_decompress, ref
+    from repro_torch.launch.train import train
+    from repro_torch.optim import adamw
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    wider = register(cfg.reduced(n_layers=2, d_model=256, n_heads=8,
+                                 n_kv_heads=2, d_ff=512, vocab=4096),
+                     "yi-6b-w256")
+    tol = {"f32": 2e-3, "bdi8": 5e-2}
+    res = {"card": smi(), "rtol": tol}
+    for arch, smoke in (("yi-6b", True), (wider.name, False)):
+        for md in ("f32", "bdi8"):
+            # both devices resume one step-0 checkpoint of a CPU init: a
+            # generator on the card draws other numbers than on the CPU
+            a = get_arch(arch).reduced() if smoke else get_arch(arch)
+            params = init_params(a, torch.Generator().manual_seed(0), "cpu")
+            runs = {}
+            with tempfile.TemporaryDirectory() as tmp:
+                store.save(f"{tmp}/init", 0, (params, adamw_init(
+                    params, AdamWConfig(moment_dtype=md))),
+                    extra={"next_step": 0, "data_seed": 0, "loss": None})
+                for d in ("cuda", "cpu"):
+                    shutil.copytree(f"{tmp}/init", f"{tmp}/{d}")
+                    runs[d] = train(arch, smoke=smoke, steps=10, seq_len=64,
+                                    batch=4, ckpt_dir=f"{tmp}/{d}",
+                                    ckpt_every=100, moment_dtype=md,
+                                    log_every=100, device=d)["losses"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"],
+                                                          runs["cpu"]))
+            res[f"{arch}/{md}"] = {"max_rel": rel, **runs}
+            if rel > tol[md]:
+                raise AssertionError(f"phase 10c: {arch} {md} card vs cpu "
+                                     f"losses differ by {rel:.3g}: {runs}")
+    # restart continuity on the card (f32 moments, as test_system)
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(smoke=True, seq_len=32, batch=4, log_every=100,
+                  device="cuda")
+        train("yi-6b", steps=20, ckpt_dir=f"{tmp}/a", ckpt_every=10, **kw)
+        resumed = train("yi-6b", steps=30, ckpt_dir=f"{tmp}/a",
+                        ckpt_every=10, **kw)
+        whole = [train("yi-6b", steps=30, ckpt_dir=f"{tmp}/{d}",
+                       ckpt_every=30, **kw)["losses"] for d in "bc"]
+    res["restart"] = {
+        "resumed_final": resumed["final_loss"], "whole_final": whole[0][-1],
+        "rel": abs(resumed["final_loss"] - whole[0][-1]) / whole[0][-1],
+        "two_whole_runs_bit_equal": whole[0] == whole[1]}
+    if resumed["steps_run"] != 10 or res["restart"]["rel"] > 1e-5:
+        raise AssertionError(f"phase 10c: restart continuity {res}")
+    # one real moment leaf of 10b (layer 0's MLP gate-projection m) through
+    # the tile kernels and their plain versions
+    st = state["m"]["blocks"]["ffn"]["gate"]["w"]
+    tiles = adamw._load({k: v[0] for k, v in st.items()},
+                        st["deltas"][0].shape[:-2]
+                        + (st["deltas"].shape[-2] * 128,)).reshape(-1, 128)
+    got, want = bdi_compress.bdi_compress(tiles), ref.compress_ref(tiles)
+    out, out_ref = bdi_decompress.bdi_decompress(got), ref.decompress_ref(got)
+    sync(dev)
+    for name, a, b in list(zip(got._fields, got, want)) + [("out", out,
+                                                            out_ref)]:
+        if not torch.equal(bits(a), bits(b)):
+            raise AssertionError(f"phase 10c: a 10b moment leaf: {name} "
+                                 "differs between kernel and plain version")
+    res["moment_leaf_tiles"] = tiles.shape[0]
+    log(f"phase 10c: {json.dumps(res)}")
+    return res
+
+
+def phase_train_twins(dev) -> dict:
+    """Phase 10d: the training twins on the card."""
+    from repro_torch.launch import compressed_checkpointing, train_lm
+    t0 = time.perf_counter()
+    lm = train_lm.main(steps=200, device="cuda")
+    t_lm = time.perf_counter() - t0
+    _finite_losses("train_lm", lm["losses"])
+    cc = compressed_checkpointing.main(device="cuda")
+    res = {"card": smi(), "train_lm": {
+        "first": lm["first_loss"], "final": lm["final_loss"],
+        "drop": lm["first_loss"] - lm["final_loss"], "s": t_lm,
+        **_step_split(lm)},
+        "compressed_checkpointing": {
+            "first_run_final": cc["first"]["final_loss"],
+            "resumed_first": cc["resumed"]["losses"][0],
+            "resumed_final": cc["resumed"]["final_loss"],
+            "compression_ratio": cc["compression_ratio"]}}
+    log(f"phase 10d: {json.dumps(res)}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2201,10 +2511,20 @@ def main() -> int:
     phase_done("9b the oracle on the card, bdi/gbdi")
     phase_obs_snapshot(dev, tiny, page)
     phase_done("9c observatory snapshot, card to cpu")
+    trained = phase_train(dev, cfg)
+    phase_done("10 train yi-6b at full width, bdi8 moments")
+    _, moments = phase_train_dtypes(dev, cfg)
+    phase_done("10b moment dtypes at full width, 2 layers")
+    phase_train_parity(dev, cfg, moments)
+    del moments
+    phase_done("10c training card vs cpu, restart, a moment leaf")
+    phase_train_twins(dev)
+    phase_done("10d the training twins")
 
     # launches of the paths that ran each kernel (3b set its own): the
-    # serve run of phase 4 or 4b, the tile path, and for the serving
-    # kernels phases 9 and 9b, each counted from 0 over its own run
+    # serve run of phase 4 or 4b, the tile path and the training run of
+    # phase 10, and for the serving kernels phases 9 and 9b, each counted
+    # from 0 over its own run
     path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
             "gbdi_compress_kv": gbdi, "gbdi_decompress_kv": gbdi,
             "bdi_compress": tile, "bdi_decompress": tile}
@@ -2212,6 +2532,8 @@ def main() -> int:
         name = k["name"]
         if name in path:
             k["launches"] = path[name]["launches"][name]
+        if name in ("bdi_compress", "bdi_decompress"):
+            k["launches"] += trained["launches"][name]
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

@@ -133,12 +133,12 @@ def compress(x: torch.Tensor) -> ref.PackedTiles:
 def decompress(p: ref.PackedTiles) -> torch.Tensor:
     """PackedTiles -> f32 [N, T], the masked FMA.  Every tile carries a
     valid scale (1.0 where its max residual is 0), so nothing is patched
-    here.  On CUDA one kernel launch; :func:`ref.decompress_ref` for CPU
-    tensors."""
+    here; ``enc`` is not read and may be None.  On CUDA one kernel
+    launch; :func:`ref.decompress_ref` for CPU tensors."""
     if not _on_cuda(p.deltas):
         return ref.decompress_ref(p)
     out = bdi_decompress.bdi_decompress(
-        ref.PackedTiles(*(t.contiguous() for t in p)))
+        ref.PackedTiles(*(t if t is None else t.contiguous() for t in p)))
     LAUNCHES["bdi_decompress"] += 1
     return out
 

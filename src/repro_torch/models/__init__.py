@@ -1,1 +1,1 @@
-"""Model building blocks of the port (dense GQA so far)."""
+"""Models of the port: the dense GQA family (params, forward, loss)."""

@@ -1,4 +1,4 @@
-"""Shared building blocks (port of ``repro/models/layers.py:19-123``).
+"""Shared building blocks (port of ``repro/models/layers.py:19-173``).
 
 Plain functions on dicts of tensors, as the JAX package has them:
 ``init_*`` returns a params dict on a given device from an explicit
@@ -11,7 +11,11 @@ bf16 semantics follow the JAX package:
     precision bf16 reductions ``kernels/_device.resolve_device`` turns
     off;
   * ``mlp`` applies ``silu`` (as ``x * sigmoid(x)``) in f32, then casts;
-  * ``apply_rope`` rotates interleaved (even, odd) pairs, not halves.
+  * ``apply_rope`` rotates interleaved (even, odd) pairs, not halves;
+  * the losses take logits in f32; ``chunked_cross_entropy`` recomputes
+    each chunk's logits in the backward (``torch.utils.checkpoint``, as
+    ``jax.checkpoint`` there), so one chunk's f32 logits are live at a
+    time.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def _dense_init(gen: torch.Generator, shape: tuple[int, ...],
@@ -115,3 +120,56 @@ def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
 
 def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(p, x)
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token ``logsumexp(logits) - logits[target]`` in f32."""
+    logits = logits.to(torch.float32)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean masked token cross-entropy in f32."""
+    nll = _nll(logits, targets)
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def chunked_cross_entropy(head_p: dict, x: torch.Tensor,
+                          targets: torch.Tensor,
+                          mask: torch.Tensor | None = None,
+                          chunk: int = 2048) -> torch.Tensor:
+    """CE over the vocab head without materialising [B, S, V] logits.
+
+    The sequence is cut into equal chunks (padded at the end, as the JAX
+    version pads), each chunk's logits computed under
+    ``torch.utils.checkpoint`` so that only one chunk's f32 logits are
+    live in the forward and the backward.
+    """
+    b, s, _ = x.shape
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=x.device)
+    n_chunks = max(1, (s + chunk - 1) // chunk)
+    c = (s + n_chunks - 1) // n_chunks
+    pad = n_chunks * c - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    mask = mask.to(torch.float32)
+
+    def one(xi, ti, mi):
+        nll = _nll(linear(head_p, xi), ti)
+        return (nll * mi).sum(), mi.sum()
+
+    parts = [checkpoint(one, x[:, i * c:(i + 1) * c],
+                        targets[:, i * c:(i + 1) * c],
+                        mask[:, i * c:(i + 1) * c], use_reentrant=False)
+             for i in range(n_chunks)]
+    nll = torch.stack([p[0] for p in parts]).sum()
+    cnt = torch.stack([p[1] for p in parts]).sum()
+    return nll / cnt.clamp(min=1.0)

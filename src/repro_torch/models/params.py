@@ -1,9 +1,13 @@
-"""Parameter trees: the bridge from the JAX package's pytree, and helpers.
+"""Parameter trees: the bridge to and from the JAX package's pytrees, and
+helpers.
 
-A tree is nested dicts with tensor leaves.  :func:`from_numpy` takes the
-JAX params as numpy arrays (``jax.tree.map(np.asarray, params)``, done by
-the caller — this module imports neither jax nor ml_dtypes) and carries
-bf16 bit-exact through a 16-bit integer view.
+A tree is nested dicts with tensor leaves: a model's params, or an
+optimizer state (``{"step", "m", "v"}``, whose ``bdi8``/``q8`` moments
+are dicts of tensors too).  :func:`from_numpy` takes a JAX tree as numpy
+arrays (``jax.tree.map(np.asarray, tree)``, done by the caller — this
+module imports neither jax nor ml_dtypes) and carries bf16 bit-exact
+through a 16-bit integer view; :func:`to_numpy` goes back.
+:func:`leaves` lists a tree's tensors in ``jax.tree.leaves`` order.
 """
 
 from __future__ import annotations
@@ -33,6 +37,39 @@ def from_numpy(tree: dict, device: str | torch.device = "cpu") -> dict:
             else _tensor(np.asarray(v)).to(device) for k, v in tree.items()}
 
 
+def to_numpy(tree: dict, bf16=None) -> dict:
+    """Tensor tree -> numpy arrays on the host, bit for bit.  bf16 leaves
+    come back as their int16 bits, viewed as ``bf16`` when the caller
+    gives that numpy dtype (``ml_dtypes.bfloat16``)."""
+    def one(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            a = t.view(torch.int16).numpy()
+            return a if bf16 is None else a.view(bf16)
+        return t.numpy()
+    return {k: to_numpy(v, bf16) if isinstance(v, dict) else one(v)
+            for k, v in tree.items()}
+
+
+def leaves(tree: dict) -> list[torch.Tensor]:
+    """The tensors of a tree in ``jax.tree.leaves`` order (dict keys
+    sorted, depth first)."""
+    return [leaf for k in sorted(tree)
+            for leaf in (leaves(tree[k]) if isinstance(tree[k], dict)
+                         else [tree[k]])]
+
+
+def unflatten(tree: dict, flat) -> dict:
+    """A tree of ``tree``'s structure whose leaves are ``flat``, in
+    :func:`leaves` order."""
+    it = iter(flat)
+
+    def build(t: dict) -> dict:
+        return {k: build(t[k]) if isinstance(t[k], dict) else next(it)
+                for k in sorted(t)}
+    return build(tree)
+
+
 def to_device(tree: dict, device: torch.device) -> dict:
     """Move every leaf to ``device`` (no copy for leaves already there)."""
     return tree_map(lambda t: t.to(device), tree)
@@ -41,3 +78,12 @@ def to_device(tree: dict, device: torch.device) -> dict:
 def layer(blocks: dict, li: int) -> dict:
     """Layer ``li``'s params out of the stacked [L, ...] blocks (views)."""
     return tree_map(lambda t: t[li], blocks)
+
+
+def unstack(blocks: dict) -> list[dict]:
+    """The stacked [L, ...] blocks as L per-layer trees of views, split
+    with one ``unbind`` a leaf (its backward stacks the layers' gradients
+    into the leaf's gradient once)."""
+    split = tree_map(lambda t: t.unbind(0), blocks)
+    n = len(leaves(split)[0])
+    return [tree_map(lambda ts, i=i: ts[i], split) for i in range(n)]

@@ -22,7 +22,7 @@ import torch
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels import (bdi_compress, bdi_decompress, gbdi_codec,
                                  ops, paged_attention, ref)
-from repro_torch.models.params import to_device
+from repro_torch.models.params import leaves, to_device
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import PagedKVEngine
 from repro_torch.serving.parity import GreedyParity, engine_logits
@@ -536,3 +536,106 @@ def test_reference_oracle_pools_on_host_math_on_card(dev):
     assert card.last_logits[0].device.type == "cuda"
     assert card.stats == engs[1].stats
     assert (card.page_bytes == engs[1].page_bytes).all()
+
+
+# ---------------------------------------------------------------------------
+# training: AdamW's tile-stored moments through the tile kernels
+# ---------------------------------------------------------------------------
+
+def _opt_inputs(step: int) -> tuple[dict, dict]:
+    """Params (bf16 weights, an f32 norm, a leaf not in 128-wide tiles)
+    and step ``step``'s gradients, made with numpy."""
+    rng = np.random.default_rng(step)
+
+    def t(shape, scale, dtype):
+        g = rng.standard_normal(shape) * np.exp(rng.uniform(-6, 0, shape))
+        return torch.from_numpy((g * scale).astype(np.float32)).to(dtype)
+    shapes = {"w": ((3, 64, 256), torch.bfloat16),
+              "ln": ((3, 64), torch.float32),
+              "odd": ((256, 40), torch.bfloat16)}
+    params = {k: t(s, 1.0, d) for k, (s, d) in shapes.items()}
+    grads = {k: t(s, 1e-2, d) for k, (s, d) in shapes.items()}
+    return params, grads
+
+
+@pytest.mark.parametrize("md", ["bdi8", "q8"])
+def test_adamw_on_card_matches_cpu(dev, md, monkeypatch):
+    """Three updates on the card and on the CPU from the same inputs, big
+    leaves in row groups: the moment state bit-equal (under bdi8 made by
+    the tile kernels, under q8 by plain tensor ops), the params within
+    one bf16 ULP (``b ** step`` may differ by an f32 ULP)."""
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(adamw, "BIG_LEAF", 1 << 12)
+    cfg = adamw.AdamWConfig(moment_dtype=md, grad_clip=1e9)
+    params = _opt_inputs(0)[0]
+    cpu = {k: v.clone() for k, v in params.items()}
+    card = to_device(params, dev)
+    s_cpu, s_card = adamw.adamw_init(cpu, cfg), adamw.adamw_init(card, cfg)
+    ops.reset_launches()
+    for step in range(1, 4):
+        g = _opt_inputs(step)[1]
+        cpu, s_cpu, _ = adamw.adamw_update(cpu, g, s_cpu, cfg)
+        card, s_card, _ = adamw.adamw_update(card, to_device(g, dev),
+                                             s_card, cfg)
+    torch.cuda.synchronize()
+    want = md == "bdi8"
+    assert (ops.LAUNCHES["bdi_compress"] > 0) == want, ops.LAUNCHES
+    assert (ops.LAUNCHES["bdi_decompress"] > 0) == want, ops.LAUNCHES
+    for key in ("m", "v"):
+        for a, b in zip(leaves(s_cpu[key]), leaves(s_card[key])):
+            assert a.dtype == b.dtype and torch.equal(_bits(a),
+                                                      _bits(b.cpu()))
+    assert int(s_card["step"]) == 3
+    for k in params:
+        a, b = cpu[k].float(), card[k].float().cpu()
+        mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        assert bool(((a - b).abs() <= ulp).all()), k
+
+
+def test_moment_mask_layout_round_trip_on_card(dev):
+    """The state's byte-layout mask and the tile kernels' bit planes
+    convert both ways on the card, as on the CPU."""
+    from repro_torch.core import bdi_value as bv
+    from repro_torch.optim import adamw
+    mask = torch.from_numpy(np.random.default_rng(4).random((999, 128))
+                            < 0.3)
+    byte, plane = bv.pack_mask(mask), ref.pack_mask_bitplane(mask)
+    got = adamw.to_byte_mask(plane.to(dev))
+    assert torch.equal(got.cpu(), byte)
+    assert torch.equal(adamw.to_bitplane_mask(got).cpu(), plane)
+    # a compress on the card, converted, equals the CPU store's mask
+    x = torch.randn((999, 128), generator=torch.Generator().manual_seed(5))
+    p = ops.compress(x.to(dev))
+    assert torch.equal(adamw.to_byte_mask(p.maskp).cpu(),
+                       bv.pack_mask(bv.compress_tiles(x).mask))
+
+
+def test_train_runs_on_card_through_the_tile_kernels(dev, tmp_path):
+    """``train()`` on the card under bdi8, resuming a step-0 checkpoint of
+    a CPU init: finite losses near the CPU run's from the same
+    checkpoint (rtol 5e-2: see ``tests/test_torch_train.py`` on bdi8's
+    sensitivity), both tile kernels launched; the default device is the
+    card."""
+    import shutil
+
+    from repro_torch.checkpoint import store
+    from repro_torch.launch.train import train
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_arch("yi-6b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    store.save(str(tmp_path / "init"), 0, (params, adamw_init(
+        params, AdamWConfig(moment_dtype="bdi8"))),
+        extra={"next_step": 0, "data_seed": 0, "loss": None})
+    for d in ("card", "cpu"):
+        shutil.copytree(tmp_path / "init", tmp_path / d)
+    kw = dict(smoke=True, steps=6, seq_len=32, batch=4, moment_dtype="bdi8",
+              log_every=100, ckpt_every=100)
+    ops.reset_launches()
+    card = train("yi-6b", ckpt_dir=str(tmp_path / "card"), **kw)
+    assert card["params"]["embed"]["w"].device.type == "cuda"
+    assert ops.LAUNCHES["bdi_compress"] > 0, ops.LAUNCHES
+    assert ops.LAUNCHES["bdi_decompress"] > 0, ops.LAUNCHES
+    cpu = train("yi-6b", device="cpu", ckpt_dir=str(tmp_path / "cpu"), **kw)
+    assert all(np.isfinite(card["losses"]))
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=5e-2)

@@ -31,6 +31,10 @@ def test_import_loads_neither_jax_nor_repro():
         assert f"repro_torch.serving.{m}" in mods
     assert "repro_torch.launch.observe" in mods
     assert "repro_torch.checkpoint.store" in mods
+    for m in ("data.pipeline", "optim", "optim.adamw", "models.api",
+              "models.transformer", "launch.train", "launch.train_lm",
+              "launch.compressed_checkpointing"):
+        assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -89,5 +93,12 @@ def test_entry_points_raise_without_cuda():
     from repro_torch.launch import quickstart
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         quickstart.main()
+    from repro_torch.launch import compressed_checkpointing, train, train_lm
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.train("yi-6b", steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_lm.main(steps=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        compressed_checkpointing.main()
     PagedKVEngine(cfg, params, device="cpu")        # explicit CPU is fine
     ReferencePagedKVEngine(cfg, params, device="cpu")

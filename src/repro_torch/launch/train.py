@@ -9,8 +9,8 @@ package:
 
   * checkpoint every ``--ckpt-every`` steps and at the last step (atomic,
     verified, compressed — ``checkpoint/store.py``, the JAX on-disk
-    format) with params, optimizer state and the data cursor; the three
-    newest are kept;
+    format, the optimizer state in the JAX package's layout) with params,
+    optimizer state and the data cursor; the three newest are kept;
   * on start, resume from the latest checkpoint (the stream replays from
     the saved step, so a relaunch continues the run);
   * ``--deadline-s`` bounds wall time and forces a checkpoint before exit.
@@ -40,7 +40,7 @@ from repro_torch.kernels._device import resolve_device
 from repro_torch.models import params as P
 from repro_torch.models.api import ModelAPI, get_model
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-from repro_torch.optim.adamw import MOMENT_DTYPES
+from repro_torch.optim.adamw import MOMENT_DTYPES, export_state, import_state
 
 
 def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
@@ -92,6 +92,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     if ckpt_dir and store.latest_step(ckpt_dir) is not None:
         (params, opt_state), manifest = store.restore(
             ckpt_dir, (params, opt_state))
+        opt_state = import_state(opt_state)
         start_step = manifest["extra"]["next_step"]
         data_seed = manifest["extra"]["data_seed"]
         print(f"[train] resumed from step {start_step}")
@@ -115,7 +116,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
         hit_deadline = deadline_s and (time.time() - t0) > deadline_s
         if ckpt_dir and ((i + 1) % ckpt_every == 0 or i == steps - 1
                          or hit_deadline):
-            store.save(ckpt_dir, i + 1, (params, opt_state),
+            store.save(ckpt_dir, i + 1, (params, export_state(opt_state)),
                        extra={"next_step": i + 1, "data_seed": data_seed,
                               "loss": losses[-1]})
             store.prune_old(ckpt_dir, keep=3)

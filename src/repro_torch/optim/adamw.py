@@ -20,12 +20,15 @@ All update math runs in f32 regardless of storage.
 The state has the JAX package's layout leaf for leaf: ``{"step": int32
 [], "m": tree, "v": tree}``, a ``bdi8`` moment ``{"deltas": int8 [...,
 D/128, 128], "base": f32 [..., D/128], "scale": f32 [..., D/128],
-"maskp": uint8 [..., D/128, 16]}`` with the mask in
-``core.bdi_value.pack_mask``'s byte layout (a ``q8`` one ``deltas`` and
-``scale``); leaves whose last dim is not a multiple of 128 stay f32.  So
-states and checkpoints cross the packages.  The tile kernels read and
-write the mask in bit planes (``kernels/ref.py``), so :func:`_store` and
-:func:`_load` convert at the kernel boundary.
+"maskp": uint8 [..., D/128, 16]}`` (a ``q8`` one ``deltas`` and
+``scale``); leaves whose last dim is not a multiple of 128 stay f32.
+One difference: while training, ``maskp`` holds the tile kernels' bit
+planes (``kernels/ref.py``), so a step stores and loads it as the
+kernels write and read it; JAX's state holds
+``core.bdi_value.pack_mask``'s byte layout.  :func:`export_state` and
+:func:`import_state` convert between the two where a state leaves or
+enters the port (a checkpoint, a state handed to or taken from the JAX
+package), so states and checkpoints cross the packages.
 
 Unlike the JAX version, :func:`adamw_update` writes the new params and
 moments into the tensors it is given (at yi-6b's full width a second
@@ -67,14 +70,42 @@ _TILE = 128
 # -- moment storage codecs ---------------------------------------------------
 
 def to_byte_mask(maskp: torch.Tensor) -> torch.Tensor:
-    """Bit-plane packed mask (the tile kernels') -> ``pack_mask``'s byte
-    layout (the state's)."""
+    """Bit-plane packed mask (the tile kernels', the live state's) ->
+    ``pack_mask``'s byte layout (JAX's state's, the checkpoints')."""
     return bv.pack_mask(ref.unpack_mask_bitplane(maskp))
 
 
 def to_bitplane_mask(maskp: torch.Tensor) -> torch.Tensor:
     """The reverse of :func:`to_byte_mask`."""
     return ref.pack_mask_bitplane(bv.unpack_mask(maskp))
+
+
+def _convert_masks(tree, fn):
+    """``tree`` with every ``bdi8`` mask converted by ``fn``, in chunks of
+    ``BIG_LEAF`` elements' tiles (the unpacked mask is 8x the packed);
+    the other leaves are shared, not copied."""
+    if not isinstance(tree, dict):
+        return tree
+    if "maskp" not in tree:
+        return {k: _convert_masks(v, fn) for k, v in tree.items()}
+    src = tree["maskp"].reshape(-1, _TILE // 8)
+    out = torch.empty_like(src)
+    step = BIG_LEAF // _TILE
+    for i in range(0, src.shape[0], step):
+        out[i:i + step] = fn(src[i:i + step])
+    return {**tree, "maskp": out.view(tree["maskp"].shape)}
+
+
+def export_state(state: dict) -> dict:
+    """The state as JAX holds it and checkpoints store it: ``bdi8`` masks
+    in ``pack_mask``'s byte layout (new tensors; ``state`` is unchanged)."""
+    return _convert_masks(state, to_byte_mask)
+
+
+def import_state(state: dict) -> dict:
+    """The reverse of :func:`export_state`: the live state of a state in
+    JAX's layout (a checkpoint, ``params.from_numpy`` of JAX's state)."""
+    return _convert_masks(state, to_bitplane_mask)
 
 
 def _tiled(shape, kind: str) -> bool:
@@ -103,7 +134,7 @@ def _store(x: torch.Tensor, kind: str):
     p = ops.compress(tiles)
     return {"deltas": p.deltas.view(*lead, _TILE), "base": p.base.view(lead),
             "scale": p.scale.view(lead),
-            "maskp": to_byte_mask(p.maskp).view(*lead, _TILE // 8)}
+            "maskp": p.maskp.view(*lead, _TILE // 8)}
 
 
 def _zero_store(p: torch.Tensor, kind: str):
@@ -133,7 +164,7 @@ def _load(s, shape) -> torch.Tensor:
         tiles = ops.decompress(ref.PackedTiles(
             s["deltas"].reshape(-1, _TILE), s["base"].reshape(-1, 1),
             s["scale"].reshape(-1, 1),
-            to_bitplane_mask(s["maskp"].reshape(-1, _TILE // 8)), None))
+            s["maskp"].reshape(-1, _TILE // 8), None))
     else:
         tiles = s["deltas"].to(torch.float32) * s["scale"][..., None]
     return tiles.reshape(shape)

@@ -13,6 +13,9 @@ exact (v is about g^2 / 127).
 What must match:
 
 * ``adamw_init``: every leaf, bit for bit, under each moment dtype;
+* the port's live ``bdi8`` masks are the tile kernels' bit planes; a
+  state is compared in JAX's byte layout (``adamw.export_state``), and
+  JAX's state enters the port through ``adamw.import_state``;
 * ``adamw_update`` with the clip idle (clip scale exactly 1): the whole
   state — step, m and v, the ``bdi8`` deltas, base, scale and byte-layout
   mask, the ``q8`` deltas and scale — bit for bit, and the params within
@@ -99,6 +102,11 @@ def _port_np(tree) -> dict:
     return to_numpy(tree, ml_dtypes.bfloat16)
 
 
+def _state_np(state) -> dict:
+    """The port's state as JAX holds it."""
+    return _port_np(O.export_state(state))
+
+
 def _assert_bits_equal(got: dict, want) -> None:
     g, w = _flat(got), _flat(want)
     assert [p for p, _ in g] == [p for p, _ in w]
@@ -134,7 +142,7 @@ def _run(md: str, clip: float, steps: int = 3):
 def test_adamw_init_matches_jax(md):
     jst = JO.adamw_init(_jax_tree(_params()), JO.AdamWConfig(moment_dtype=md))
     tst = O.adamw_init(from_numpy(_params()), O.AdamWConfig(moment_dtype=md))
-    _assert_bits_equal(_port_np(tst), jst)
+    _assert_bits_equal(_state_np(tst), jst)
     assert O.opt_state_bytes(tst, O.AdamWConfig(moment_dtype=md)) == \
         JO.opt_state_bytes(jst, JO.AdamWConfig(moment_dtype=md))
 
@@ -145,15 +153,16 @@ def test_adamw_update_clip_idle_matches_jax_bit_for_bit(md):
     assert float(tm["clip_scale"]) == float(jm["clip_scale"]) == 1.0
     np.testing.assert_allclose(float(tm["grad_norm"]),
                                float(jm["grad_norm"]), rtol=1e-6)
-    _assert_bits_equal(_port_np(ts), js)
+    _assert_bits_equal(_state_np(ts), js)
     _assert_bf16_ulp(_port_np(tp), jp)
 
 
 @pytest.mark.parametrize("md", ["bdi8", "q8"])
 def test_jax_state_continues_in_port(md):
     """JAX's params and state after two updates, carried over by
-    ``params.from_numpy`` (the 0-d int32 step, the tile-store dicts), take
-    the third update in the port with the same bits as in JAX."""
+    ``params.from_numpy`` (the 0-d int32 step, the tile-store dicts) and
+    ``adamw.import_state`` (byte-layout masks to bit planes), take the
+    third update in the port with the same bits as in JAX."""
     cfg_j = JO.AdamWConfig(moment_dtype=md, grad_clip=1e9)
     jp = _jax_tree(_params())
     js = JO.adamw_init(jp, cfg_j)
@@ -161,13 +170,13 @@ def test_jax_state_continues_in_port(md):
         jp, js, _ = JO.adamw_update(jp, _jax_tree(_grads(step, 1e-2)), js,
                                     cfg_j)
     tp = from_numpy(jax.tree.map(np.asarray, jp))
-    ts = from_numpy(jax.tree.map(np.asarray, js))
+    ts = O.import_state(from_numpy(jax.tree.map(np.asarray, js)))
     assert ts["step"].dtype == torch.int32 and ts["step"].dim() == 0
     g = _grads(2, 1e-2)
     jp, js, _ = JO.adamw_update(jp, _jax_tree(g), js, cfg_j)
     tp, ts, _ = O.adamw_update(tp, from_numpy(g), ts,
                                O.AdamWConfig(moment_dtype=md, grad_clip=1e9))
-    _assert_bits_equal(_port_np(ts), js)
+    _assert_bits_equal(_state_np(ts), js)
     _assert_bf16_ulp(_port_np(tp), jp)
 
 
@@ -195,7 +204,7 @@ def test_adamw_update_clip_firing_matches_jax(md):
                                float(jm["clip_scale"]), rtol=1e-6)
     assert int(ts["step"]) == int(js["step"]) == 3
     rtol = 2.0 ** -7 if md == "bf16" else 1e-5
-    for (g, qg), (w, qw) in zip(_moments(_port_np(ts), jp, md),
+    for (g, qg), (w, qw) in zip(_moments(_state_np(ts), jp, md),
                                 _moments(js, jp, md)):
         assert (np.abs(g - w) <= np.maximum(qg, qw)
                 + rtol * np.abs(w).max()).all()
@@ -218,7 +227,7 @@ def test_big_leaves_update_in_row_groups(md, monkeypatch):
     monkeypatch.setattr(O, "_groups", spy)
     (jp, js, _), (tp, ts, _) = _run(md, clip=1e9, steps=2)
     assert ((3, 64, 256), 3) in seen and ((256, 40), 11) in seen
-    _assert_bits_equal(_port_np(ts), js)
+    _assert_bits_equal(_state_np(ts), js)
     _assert_bf16_ulp(_port_np(tp), jp)
 
 

@@ -37,17 +37,24 @@ Tolerances, each from what the two packages do differently:
   (the same state, restored bit for bit): rtol 1e-4;
 * gradients: relative Frobenius error per leaf <= 1e-2 (bf16 gradients,
   whose ULP is 2^-8 relative, from f32 sums in another order);
-* ``train()`` losses over 10 steps, and the rest of a resumed run
-  against the other package's uninterrupted run: rtol 2e-3 under ``f32``
-  moments (the per-step gradient differences above, through AdamW's
-  normalised updates); rtol 5e-2 under ``bdi8``.  ``bdi8`` rounds a
-  second moment to zero where its tile holds one 16x larger, and such an
-  element then moves by lr * m / eps, so a one-ULP difference at the
-  rounding boundary changes the trajectory: the same port code on the
-  card and on the CPU differs by up to 1.3e-2 over 10 steps at d_model
-  256 under bdi8, where f32 moments differ by 1.4e-4 (``chip_smoke.py``
-  phase 10c).  A single ``bdi8`` update on identical inputs is
-  bit-equal (``tests/test_torch_optim.py``).
+* one ``train()`` step from one state (a run resumed from the other
+  package's step-9 checkpoint against the other package's step 10): the
+  params within one bf16 ULP for at least 99% of each leaf's elements,
+  and each loaded moment leaf (m and v) within a relative Frobenius error
+  of 2e-2.  Measured here, at steps 5 and 9, both ways: 99.70% and 6.0e-3
+  at worst.  A step whose params were not updated, whose moments were
+  zeroed or whose bdi8 masks stayed in the byte layout fails them
+  (``test_one_step_bounds_refuse_a_faulty_step``).  States are not
+  compared after 10 steps: under ``bdi8`` a one-ULP gradient difference
+  that flips a second moment's rounding to zero moves that element by lr
+  * m / eps, and after 5 steps a few percent of elements differ by
+  hundreds of ULPs (the same algorithm in both packages: a single update
+  on identical inputs is bit-equal, ``tests/test_torch_optim.py``);
+* ``train()`` losses over 10 steps: rtol 2e-3 under ``f32`` moments and
+  1e-2 under ``bdi8`` (the largest port-vs-JAX gaps measured here: 1.7e-4
+  and 3.5e-3).  These hold the trajectories near each other; they cannot
+  tell ``bdi8`` from ``f32`` moments (1.8e-3 apart here), which the state
+  checks above do.
 """
 
 import json
@@ -71,13 +78,17 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import layer, leaves
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.optim.adamw import (_load, _store_leaves, export_state,
+                                     import_state)
 
 REPO = Path(__file__).resolve().parents[1]
 ARCHS = ("yi-6b", "gemma3-27b")          # gemma3: window 8 on every layer
 REMAT = {"yi-6b": (True, False), "gemma3-27b": (True,)}
 TRAIN = dict(smoke=True, seq_len=32, batch=4, log_every=100)
 DTYPES = ("f32", "bdi8")
-TRAJ_RTOL = {"f32": 2e-3, "bdi8": 5e-2}
+TRAJ_RTOL = {"f32": 2e-3, "bdi8": 1e-2}
+STEP_ULP_SHARE = 0.99                   # params within 1 bf16 ULP, a leaf
+STEP_MOMENT_RTOL = 2e-2                 # loaded m, v: relative Frobenius
 
 
 # ---------------------------------------------------------------------------
@@ -214,19 +225,22 @@ def jax_main(work: str) -> None:
     runs = {}
     for md in DTYPES:
         d = os.path.join(work, md)
-        for key, src in (("whole", "init"), ("from_port", "port_half")):
-            runs[f"{md}_{key}"] = jtrain(
-                "yi-6b", steps=10, ckpt_dir=_copy(f"{d}/{src}",
-                                                  f"{d}/jax_{key}"),
-                ckpt_every=5, moment_dtype=md, **TRAIN)["losses"]
+        runs[f"{md}_whole"] = jtrain(
+            "yi-6b", steps=10, ckpt_dir=_copy(f"{d}/init", f"{d}/jax_whole"),
+            ckpt_every=9, moment_dtype=md, **TRAIN)["losses"]
+        runs[f"{md}_from_port"] = jtrain(
+            "yi-6b", steps=10, ckpt_dir=_copy(f"{d}/port_whole",
+                                              f"{d}/jax_from_port", {9}),
+            ckpt_every=9, moment_dtype=md, **TRAIN)["losses"]
     Path(work, "jax_runs.json").write_text(json.dumps(runs))
 
 
 @pytest.fixture(scope="module")
 def records(tmp_path_factory):
     """The port writes the params and each dtype's step-0 training
-    checkpoint and makes the run that the JAX side resumes; then the JAX
-    subprocess runs; the records of both sides come back."""
+    checkpoint and makes the 10-step run whose step-9 checkpoint the JAX
+    side resumes; then the JAX subprocess runs; the records of both sides
+    come back.  Every 10-step run checkpoints steps 9 and 10."""
     work = tmp_path_factory.mktemp("train")
     for name in ARCHS:
         store.save(str(work / "params" / name), 0, port_params(name)[1])
@@ -234,14 +248,13 @@ def records(tmp_path_factory):
     for md in DTYPES:
         d = work / md
         params = port_params("yi-6b")[1]
-        state = adamw_init(params, AdamWConfig(moment_dtype=md))
+        state = export_state(adamw_init(params, AdamWConfig(moment_dtype=md)))
         store.save(str(d / "init"), 0, (params, state),
                    extra={"next_step": 0, "data_seed": 0, "loss": None})
-        for key, steps in (("half", 5), ("whole", 10)):
-            port[f"{md}_{key}"] = train(
-                "yi-6b", steps=steps,
-                ckpt_dir=_copy(d / "init", d / f"port_{key}"), ckpt_every=5,
-                moment_dtype=md, device="cpu", **TRAIN)["losses"]
+        port[md] = train("yi-6b", steps=10,
+                         ckpt_dir=_copy(d / "init", d / "port_whole"),
+                         ckpt_every=9, moment_dtype=md, device="cpu",
+                         **TRAIN)["losses"]
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [str(REPO / "src"), str(REPO / "tests")]
@@ -410,10 +423,38 @@ def test_remat_does_not_change_the_gradients():
 # train(): trajectories and checkpoints across the packages
 # ---------------------------------------------------------------------------
 
+def load_ckpt(ckpt: Path, md: str, step: int) -> tuple[dict, dict]:
+    """Params and live optimizer state of a training checkpoint."""
+    params = port_params("yi-6b")[1]
+    state = export_state(adamw_init(params, AdamWConfig(moment_dtype=md)))
+    (params, state), _ = store.restore(str(ckpt), (params, state), step=step)
+    return params, import_state(state)
+
+
+def assert_one_step_matches(start, got, want) -> None:
+    """``got`` and ``want``: ``(params, state)`` one step after ``start``'s
+    (the tolerances of the module docstring)."""
+    p0, (pg, sg), (pw, sw) = start[0], got, want
+    assert int(sg["step"]) == int(sw["step"]) == int(start[1]["step"]) + 1
+    for (path, a), (_, b) in zip(store.leaf_paths(pg), store.leaf_paths(pw)):
+        a, b = a.float().numpy(), b.float().numpy()
+        ulp = _ulp(np.maximum(np.abs(a), np.abs(b)))
+        share = float((np.abs(a - b) <= ulp).mean())
+        assert share >= STEP_ULP_SHARE, (path, share)
+    for key in ("m", "v"):
+        for (path, p), x, y in zip(store.leaf_paths(p0),
+                                   _store_leaves(sg[key]),
+                                   _store_leaves(sw[key])):
+            assert type(x) is type(y), (key, path)
+            a, b = _load(x, p.shape), _load(y, p.shape)
+            err = float((a - b).norm() / b.norm())
+            assert err <= STEP_MOMENT_RTOL, (key, path, err)
+
+
 @pytest.mark.parametrize("md", DTYPES)
 def test_train_losses_match_jax(records, md):
     """Both resume the port's step-0 checkpoint and run 10 steps."""
-    got, want = records["port"][f"{md}_whole"], records["jax"][f"{md}_whole"]
+    got, want = records["port"][md], records["jax"][f"{md}_whole"]
     assert len(got) == len(want) == 10
     np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
     np.testing.assert_allclose(got, want, rtol=TRAJ_RTOL[md])
@@ -421,30 +462,59 @@ def test_train_losses_match_jax(records, md):
 
 @pytest.mark.parametrize("md", DTYPES)
 def test_jax_checkpoint_resumes_in_port(records, md):
-    """JAX's step-5 checkpoint, resumed by the port's train() to step 10,
-    continues JAX's uninterrupted run."""
+    """JAX's step-9 checkpoint, resumed by the port's train(), takes step
+    10 as JAX's uninterrupted run did."""
     d = records["work"] / md
-    ckpt = _copy(d / "jax_whole", d / "port_from_jax", steps={5})
-    assert store.latest_step(ckpt) == 5
-    out = train("yi-6b", steps=10, ckpt_dir=ckpt, ckpt_every=5,
+    ckpt = _copy(d / "jax_whole", d / "port_from_jax", steps={9})
+    assert store.latest_step(ckpt) == 9
+    out = train("yi-6b", steps=10, ckpt_dir=ckpt, ckpt_every=9,
                 moment_dtype=md, device="cpu", **TRAIN)
-    assert out["steps_run"] == 5
-    want = records["jax"][f"{md}_whole"][5:]
-    np.testing.assert_allclose(out["losses"][0], want[0], rtol=1e-4)
-    np.testing.assert_allclose(out["losses"], want, rtol=TRAJ_RTOL[md])
+    assert out["steps_run"] == 1
+    np.testing.assert_allclose(out["losses"][0],
+                               records["jax"][f"{md}_whole"][9], rtol=1e-4)
+    assert_one_step_matches(load_ckpt(d / "jax_whole", md, 9),
+                            load_ckpt(Path(ckpt), md, 10),
+                            load_ckpt(d / "jax_whole", md, 10))
 
 
 @pytest.mark.parametrize("md", DTYPES)
 def test_port_checkpoint_resumes_in_jax(records, md):
-    """The port's step-5 checkpoint, resumed by JAX's train() to step 10,
-    continues the port's uninterrupted run."""
-    got, port = records["jax"][f"{md}_from_port"], records["port"]
-    assert len(got) == 5
-    np.testing.assert_allclose(got[0], port[f"{md}_whole"][5], rtol=1e-4)
-    np.testing.assert_allclose(got, port[f"{md}_whole"][5:],
-                               rtol=TRAJ_RTOL[md])
-    # the port's own first half equals its whole run's, exactly
-    assert port[f"{md}_half"] == port[f"{md}_whole"][:5]
+    """The port's step-9 checkpoint, resumed by JAX's train(), takes step
+    10 as the port's uninterrupted run did."""
+    d = records["work"] / md
+    got = records["jax"][f"{md}_from_port"]
+    assert len(got) == 1
+    np.testing.assert_allclose(got[0], records["port"][md][9], rtol=1e-4)
+    assert_one_step_matches(load_ckpt(d / "port_whole", md, 9),
+                            load_ckpt(d / "jax_from_port", md, 10),
+                            load_ckpt(d / "port_whole", md, 10))
+
+
+def _fault(start: tuple, want: tuple, fault: str, md: str) -> tuple:
+    """``want`` with ``fault`` planted."""
+    params, st = want
+    if fault == "params not updated":
+        return start[0], st
+    if fault == "moments zeroed":
+        zero = adamw_init(params, AdamWConfig(moment_dtype=md))
+        return params, {**zero, "step": st["step"]}
+    return params, export_state(st)          # byte masks read as planes
+
+
+@pytest.mark.parametrize("md,fault", [
+    ("f32", "params not updated"), ("f32", "moments zeroed"),
+    ("bdi8", "params not updated"), ("bdi8", "moments zeroed"),
+    ("bdi8", "masks in the byte layout")])
+def test_one_step_bounds_refuse_a_faulty_step(records, md, fault):
+    """The one-step bounds refuse JAX's step 10 with one fault planted:
+    the params left at step 9, the moments zeroed, or the bdi8 masks
+    left in the checkpoints' byte layout."""
+    d = records["work"] / md
+    start = load_ckpt(d / "jax_whole", md, 9)
+    want = load_ckpt(d / "jax_whole", md, 10)
+    assert_one_step_matches(start, want, want)
+    with pytest.raises(AssertionError):
+        assert_one_step_matches(start, _fault(start, want, fault, md), want)
 
 
 def test_restart_continuity(tmp_path):

@@ -158,7 +158,38 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
   10d. the training twins on the card: ``launch.train_lm`` (yi-100m, 200
      steps, bdi8, a checkpoint every 50, loss drop > 0.5) and
      ``launch.compressed_checkpointing`` (resume at step 30 from the
-     trained state).
+     trained state);
+  11. dense decode, the path of ``launch.serve.generate(paged=False)``:
+     yi-6b at full width, batch 8, 512-token prompts, 64 new tokens
+     (prefill ms, decode ms a step, tok/s, the bf16 cache's bytes, peak
+     memory); the same prefill's K/V in the BDI-quantised cache, 16
+     steps of ``decode_step_quant`` fed the dense run's tokens (its bytes,
+     ms a step, share of equal tokens); the same prompts through
+     ``PagedKVEngine`` under bdi (first tokens equal up to reported ties,
+     the share of equal tokens printed: int8 KV is lossy);
+  11b. full width, 2 layers, card vs CPU: dense greedy tokens equal up to
+     ties; ``decode_step_quant`` fed the same tokens: logits within 4 bf16
+     ULPs of the largest, a (token, head) row whose base and scale agree
+     has deltas at most one step apart (those on a rounding boundary,
+     counted), every dequantised value within two steps;
+  11c. gemma3-27b at full width, 6 layers (5 local rings of 1024 slots,
+     then 1 global): batch 2, a 1100-token prompt (the rings wrap), 16
+     decode steps fed the sequence; each step's logits against
+     ``forward``'s at the same position: argmax equal up to ties, the
+     worst gap printed and within ``tests/test_models.py``'s 2e-2;
+  11d. deepseek-v2-lite-16b at full width, 27 layers (MLA + 64 experts,
+     capacity factor 1.25): batch 4, 256-token prompts, 32 new tokens;
+     a second run counts the (token, choice) pairs the capacity drops
+     and must give the same tokens; then at 2 layers, dropless, card vs
+     CPU: tokens equal up to ties, and every expert choice the card made
+     equal to the CPU's on the same router input but for reported
+     near-ties;
+  11e. arctic-480b at full width, 1 layer (128 experts, dense residual
+     FFN): batch 2, 64-token prompts, 8 new tokens, finite logits, the
+     same tokens twice;
+  11f. deepseek-v2-lite-16b at full width, 4 layers, trained 4 steps of 4
+     x 128 tokens under bf16 moments: finite losses, the last below the
+     first; ms a step and peak memory.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -2454,6 +2485,473 @@ def phase_train_twins(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 11-11f: dense decode, the quantised cache, gemma3's rings, MoE and
+# MLA serving, MoE training
+# ---------------------------------------------------------------------------
+
+def at_depth(cfg, n_layers: int, **kw):
+    """``cfg`` at full width with ``n_layers`` layers (and ``kw``)."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_layers=n_layers, **kw)
+
+
+def model_on(dev, cfg) -> dict:
+    """Random params of ``cfg`` from a seeded generator on ``dev``."""
+    import torch
+    from repro_torch.models.transformer import init_params
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    sync(dev)
+    return params
+
+
+def n_params(params: dict) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def timed_generate(dev, arch: str, batch: int, prompt_len: int,
+                   gen: int) -> dict:
+    """``launch.serve.generate(arch, paged=False)`` at full width (its
+    params from seed 0 on the card, its prompts from seed 1), after a
+    short warm-up call (cuBLAS heuristics, allocator); with the peak
+    memory of the timed call (its init included)."""
+    import torch
+    from repro_torch.launch import serve
+    serve.generate(arch, smoke=False, batch=batch, prompt_len=16, gen=3,
+                   device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = serve.generate(arch, smoke=False, batch=batch,
+                         prompt_len=prompt_len, gen=gen, device=dev)
+    steps = out["decode_s"]
+    out.update(decode_ms_per_step=1e3 * sum(steps) / len(steps),
+               decode_tok_s=batch * len(steps) / sum(steps),
+               prefill_ms=out["prefill_s"] * 1e3,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    torch.cuda.empty_cache()
+    return out
+
+
+def generate_inputs(dev, cfg, batch: int, prompt_len: int):
+    """The params and prompts ``launch.serve.generate`` makes."""
+    import torch
+    prompts = torch.randint(1, cfg.vocab, (batch, prompt_len),
+                            generator=torch.Generator().manual_seed(1))
+    return model_on(dev, cfg), prompts
+
+
+def check_tokens(name: str, tokens, vocab: int, shape) -> None:
+    import numpy as np
+    if np.shape(tokens) != tuple(shape) or not all(
+            0 <= t < vocab for row in tokens for t in row):
+        raise AssertionError(f"{name}: bad tokens {np.shape(tokens)}")
+
+
+def quantise_cache(cfg, dense, max_len: int):
+    """The quantised cache holding ``dense``'s K/V (every layer global),
+    each (token, head) row through ``_quant_vec``."""
+    from repro_torch.models import transformer as T
+    b = dense.full_k.shape[1]
+    q = T.init_quant_cache(cfg, b, max_len, device=dense.full_k.device)
+    for (dd, bb, ss), src in (((q.kd, q.kb, q.ks), dense.full_k),
+                              ((q.vd, q.vb, q.vs), dense.full_v)):
+        for li in range(cfg.n_layers):
+            dd[li], bb[li], ss[li] = T._quant_vec(src[li])
+    return q
+
+
+def phase_dense_decode(dev, cfg) -> dict:
+    """Phase 11: yi-6b at full width, ``generate(paged=False)``'s loop at
+    batch 8 (512-token prompts, 64 new tokens); the quantised cache from
+    the same prefill, 16 steps; the same prompts through the paged engine
+    under bdi."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.parity import GreedyParity, engine_logits
+    batch, plen, gen, page = 8, 512, 64, 16
+    out = timed_generate(dev, cfg.name, batch, plen, gen)
+    check_tokens("phase 11", out["tokens"], cfg.vocab, (batch, gen))
+    params, prompts = generate_inputs(dev, cfg, batch, plen)
+    res = {"card": smi(), "params": n_params(params), "batch": batch,
+           "prompt_len": plen, "gen": gen,
+           **{k: out[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                  "decode_tok_s", "tok_per_s",
+                                  "cache_bytes", "peak_mem_gb")}}
+    # the quantised cache: the prefill's K/V quantised, then 16 steps of
+    # decode_step_quant from the same tokens as the dense run
+    max_len = plen + gen
+    logits, dense = T.prefill(cfg, params, {"tokens": prompts.to(dev)},
+                              max_len)
+    quant = quantise_cache(cfg, dense, max_len)
+    res["quant_cache_bytes"] = T.cache_bytes(quant)
+    toks = torch.tensor([r[0] for r in out["tokens"]], device=dev)
+    qsteps, same = [], 0
+    for j in range(16):
+        sync(dev)
+        t0 = time.perf_counter()
+        ql, quant = T.decode_step_quant(cfg, params, quant, toks, plen + j)
+        nxt = torch.argmax(ql, -1).tolist()
+        qsteps.append(time.perf_counter() - t0)
+        want = [r[j + 1] for r in out["tokens"]]
+        same += sum(a == b for a, b in zip(nxt, want))
+        toks = torch.tensor(want, device=dev)      # teacher-forced
+    res["quant_decode_ms_per_step"] = 1e3 * sum(qsteps[1:]) / 15
+    res["quant_tokens_equal_dense_share"] = same / (16 * batch)
+    del quant, dense
+    # the paged engine under bdi on the same prompts
+    reqs = {b: prompts[b].tolist() for b in range(batch)}
+    eng = PagedKVEngine(cfg, params, page_size=page,
+                        n_pool_pages=pool_for(cfg, reqs, gen, page),
+                        max_batch=batch, codec="bdi", device=dev)
+    ops.reset_launches()
+    eng.add_requests(reqs)
+    first = eng.decode_batch()
+    parity = GreedyParity()
+    parity.check(0, {b: out["tokens"][b][0] for b in range(batch)}, first,
+                 engine_logits(eng), lambda sid: logits[sid])
+    for _ in range(gen - 1):
+        eng.decode_batch()
+    need_launched("11 paged", ("bdi_compress_kv",
+                                     "paged_attention_tail"))
+    paged = [eng.seqs[b].tokens[plen:] for b in range(batch)]
+    res["paged_bdi"] = {
+        "first_tokens_equal": parity.compared,
+        "first_token_ties": [vars(t) for t in parity.ties],
+        "tokens_equal_share": sum(a == b for r, q in zip(out["tokens"], paged)
+                                  for a, b in zip(r, q)) / (batch * gen)}
+    log(f"phase 11: {json.dumps(res)}")
+    del eng, params, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def logit_gap_ulps(got, want) -> float:
+    """max |got - want| in bf16 ULPs of the largest |want|."""
+    from repro_torch.serving.parity import bf16_ulp
+    want = want.float().cpu()
+    return float((got.float().cpu() - want).abs().max()
+                 / bf16_ulp(float(want.abs().max())))
+
+
+QUANT_LOGIT_ULPS = 4        # decode_step_quant logits, card vs cpu
+
+
+def quant_gap(a, b) -> dict:
+    """Two devices' quantised caches of the same tokens.  A row (token,
+    head) whose base and scale agree quantises the same grid, so its
+    deltas may differ only by one step, at a rounding boundary; a row
+    whose K/V differ by an ULP at element 0 (the base) or whose largest
+    residual crossed a power of two (the scale) quantises another grid.
+    Every dequantised value stays within two steps of the other's."""
+    import torch
+    out = {}
+    for d, bs, sc in (("kd", "kb", "ks"), ("vd", "vb", "vs")):
+        da, db = getattr(a, d).cpu().int(), getattr(b, d).int()
+        ba, bb = getattr(a, bs).cpu(), getattr(b, bs)
+        sa, sb = getattr(a, sc).cpu(), getattr(b, sc)
+        same = (ba == bb) & (sa == sb)
+        step = (torch.maximum(sa, sb))[..., None]
+        deq = ((da * sa[..., None] + ba[..., None])
+               - (db * sb[..., None] + bb[..., None])).abs() / step
+        off = (da != db) & same[..., None]
+        out[d] = {"rows": same.numel(), "rows_other_grid": int((~same).sum()),
+                  "deltas_on_a_boundary": int(off.sum()),
+                  "max_delta_gap_same_grid": int(((da - db).abs()
+                                                  * same[..., None]).max()),
+                  "max_dequant_gap_steps": float(deq.max())}
+    return out
+
+
+def phase_decode_parity(dev, cfg) -> dict:
+    """Phase 11b: full width, 2 layers, cuda vs cpu: dense greedy tokens
+    equal up to ties; ``decode_step_quant`` over the same tokens: int8
+    deltas equal but for values on a rounding boundary (:func:`quant_gap`),
+    logits within QUANT_LOGIT_ULPS bf16 ULPs of the largest."""
+    import torch
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import to_device
+    from repro_torch.serving.parity import GreedyParity
+    wide = cfg.reduced(n_layers=2, d_model=cfg.d_model, n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+                       vocab=cfg.vocab)
+    gpu = model_on(dev, wide)
+    cpu = to_device(gpu, torch.device("cpu"))
+    prompts = torch.randint(1, wide.vocab, (4, 48),
+                            generator=torch.Generator().manual_seed(22))
+    gen = 16
+    g = dense_generate(wide, gpu, prompts, gen, keep_logits=True)
+    c = dense_generate(wide, cpu, prompts, gen, keep_logits=True)
+    parity = GreedyParity()
+    for j in range(gen):
+        parity.check(j, {b: r[j] for b, r in enumerate(c["tokens"])},
+                     {b: r[j] for b, r in enumerate(g["tokens"])},
+                     lambda sid, j=j: g["logits"][j, sid],
+                     lambda sid, j=j: c["logits"][j, sid])
+    res = {"card": smi(), "dense_tokens_equal": parity.compared,
+           "dense_ties": [vars(t) for t in parity.ties]}
+    # the quantised cache, both devices fed the prompts' tokens
+    n = 32
+    qc = {d: T.init_quant_cache(wide, 4, n, device=d) for d in (dev, "cpu")}
+    worst = 0.0
+    for t in range(n):
+        tok = prompts[:, t]
+        lg, qc[dev] = T.decode_step_quant(wide, gpu, qc[dev], tok.to(dev), t)
+        lc, qc["cpu"] = T.decode_step_quant(wide, cpu, qc["cpu"], tok, t)
+        worst = max(worst, logit_gap_ulps(lg, lc))
+    gap = quant_gap(qc[dev], qc["cpu"])
+    res["quant"] = {"steps": n, "logit_gap_ulps": worst, "cache": gap}
+    log(f"phase 11b: {json.dumps(res)}")
+    if worst > QUANT_LOGIT_ULPS:
+        raise AssertionError(f"phase 11b: quantised-cache logits {worst} "
+                             f"bf16 ULPs apart across devices")
+    for key, v in gap.items():
+        if v["max_delta_gap_same_grid"] > 1 or v["max_dequant_gap_steps"] > 2:
+            raise AssertionError(f"phase 11b: {key} differs across devices "
+                                 f"beyond a rounding boundary: {v}")
+    del gpu, cpu, qc
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_gemma_rings(dev) -> dict:
+    """Phase 11c: gemma3-27b at full width, 6 layers (5 local with window
+    1024, then 1 global): a 1100-token prompt (the rings wrap), 16 decode
+    steps fed the sequence's next tokens; each step's logits against
+    forward's at the same position."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.parity import GreedyParity
+    cfg = at_depth(get_arch("gemma3-27b"), 6)
+    params = model_on(dev, cfg)
+    plen, steps = 1100, 16
+    seq = torch.randint(1, cfg.vocab, (2, plen + steps),
+                        generator=torch.Generator().manual_seed(23)).to(dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(cfg, params, {"tokens": seq[:, :plen]},
+                              plen + steps)
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    rows, step_s = [logits.float()], []
+    for j in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = T.decode_step(cfg, params, cache, seq[:, plen + j],
+                                      plen + j)
+        sync(dev)
+        step_s.append(time.perf_counter() - t0)
+        rows.append(logits.float())
+    with torch.no_grad():
+        h = T._hidden(cfg, params, {"tokens": seq}, remat=False)
+        want = L.lm_logits(params["lm_head"],
+                           h[:, plen - 1:plen + steps]).float()
+    got = torch.stack(rows, dim=1)
+    parity = GreedyParity()
+    for j in range(steps + 1):
+        parity.check(j, dict(enumerate(want[:, j].argmax(-1).tolist())),
+                     dict(enumerate(got[:, j].argmax(-1).tolist())),
+                     lambda sid, j=j: got[sid, j],
+                     lambda sid, j=j: want[sid, j])
+    gap = (got - want).abs()
+    res = {"card": smi(), "params": n_params(params),
+           "ring_slots": cache.ring_k.shape[2],
+           "global_len": cache.full_k.shape[2], "prefill_ms": prefill_ms,
+           "decode_ms_per_step": 1e3 * sum(step_s[1:]) / (steps - 1),
+           "argmax_equal": parity.compared,
+           "ties": [vars(t) for t in parity.ties],
+           "worst_gap": float(gap.max()),
+           "worst_gap_ulps": logit_gap_ulps(got, want)}
+    log(f"phase 11c: {json.dumps(res)}")
+    # the prefill/decode-vs-forward bound of tests/test_models.py
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-2, atol=2e-2)
+    del params, cache, h
+    torch.cuda.empty_cache()
+    return res
+
+
+class RouteLog:
+    """Wraps ``models/moe``'s ``_moe_local`` (counting the (token, choice)
+    pairs that the capacity drops, on the device: no sync per layer) or
+    ``_route`` (keeping every call's router input and choices)."""
+
+    def __init__(self, keep_routes: bool = False):
+        from repro_torch.models import moe as M
+        self.M, self.keep = M, keep_routes
+        self.saved = (M._moe_local, M._route)
+        self.dropped = {"prefill": 0, "decode": 0}     # device tensors
+        self.routes = []
+
+    def __enter__(self):
+        M, (moe_local, route) = self.M, self.saved
+
+        def counted(p, x2d, top_k, n_experts, e_off, e_loc, capacity):
+            import torch
+            _, idx = route(p["router"], x2d, top_k, n_experts)
+            over = (torch.bincount(idx.reshape(-1), minlength=n_experts)
+                    - capacity).clamp(min=0).sum()
+            key = "prefill" if x2d.shape[0] > 8 else "decode"
+            self.dropped[key] = self.dropped[key] + over
+            return moe_local(p, x2d, top_k, n_experts, e_off, e_loc,
+                             capacity)
+
+        def logged(router, x2d, top_k, n_experts):
+            out = route(router, x2d, top_k, n_experts)
+            self.routes.append((x2d.cpu(), out[1].cpu()))
+            return out
+
+        if self.keep:
+            M._route = logged
+        else:
+            M._moe_local = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.M._moe_local, self.M._route = self.saved
+
+
+ROUTE_NEAR_TIE_ULPS = 4     # competing probabilities, f32 ULPs
+
+
+def route_flips(cfg, cpu_params, routes) -> tuple[int, list[dict]]:
+    """The card's expert choices of each ``_route`` call against the
+    CPU's on the same router input (layer ``call % n_layers``): equal,
+    but where the two competing probabilities lie within
+    ROUTE_NEAR_TIE_ULPS f32 ULPs (softmax and the f32 product differ in
+    the last bits across devices), each such flip reported.  Returns
+    (choices compared, flips)."""
+    import numpy as np
+    from repro_torch.models import moe as M
+    router = cpu_params["blocks"]["ffn"]["router"]
+    flips, n = [], 0
+    for call, (x2d, got) in enumerate(routes):
+        li = call % cfg.n_layers
+        rp = {k: v[li] for k, v in router.items()}
+        _, want = M._route(rp, x2d, cfg.top_k, cfg.n_experts)
+        probs = M._probs(rp, x2d)
+        n += want.numel()
+        for tok, k in (want != got).nonzero().tolist():
+            a = float(probs[tok, want[tok, k]])
+            b = float(probs[tok, got[tok, k]])
+            ulps = abs(a - b) / float(np.spacing(np.float32(max(a, b))))
+            flips.append({"call": call, "token": tok, "choice": k,
+                          "ulps": ulps})
+            if ulps > ROUTE_NEAR_TIE_ULPS:
+                raise AssertionError(f"expert choice differs beyond a "
+                                     f"near-tie: {flips[-1]}")
+    return n, flips
+
+
+def phase_deepseek(dev) -> dict:
+    """Phase 11d: deepseek-v2-lite-16b at full width, 27 layers (MLA + 64
+    experts, capacity factor 1.25): batch 4, 256-token prompts, 32 new
+    tokens; a second run counts the capacity's drops (and must give the
+    same tokens); then at 2 layers, dropless, cuda vs cpu."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models.params import to_device
+    from repro_torch.serving.parity import GreedyParity
+    cfg = get_arch("deepseek-v2-lite-16b")
+    out = timed_generate(dev, cfg.name, 4, 256, 32)
+    check_tokens("phase 11d", out["tokens"], cfg.vocab, (4, 32))
+    params, prompts = generate_inputs(dev, cfg, 4, 256)
+    with RouteLog() as counts:
+        again = dense_generate(cfg, params, prompts, 32)
+    if again["tokens"] != out["tokens"]:
+        raise AssertionError("phase 11d: two runs gave other tokens")
+    res = {"card": smi(), "params": n_params(params),
+           "capacity_factor": cfg.capacity_factor,
+           **{k: out[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                  "decode_tok_s", "tok_per_s",
+                                  "cache_bytes", "peak_mem_gb")},
+           "dropped_choices": {k: int(v) for k, v in counts.dropped.items()},
+           "choices": {"prefill": 27 * 4 * 256 * cfg.top_k,
+                       "decode": 27 * 31 * 4 * cfg.top_k}}
+    del params, out, again
+    torch.cuda.empty_cache()
+    two = at_depth(cfg, 2, capacity_factor=cfg.n_experts / cfg.top_k)
+    gpu = model_on(dev, two)
+    cpu = to_device(gpu, torch.device("cpu"))
+    small = prompts[:, :32]
+    with RouteLog(keep_routes=True) as rg:
+        g = dense_generate(two, gpu, small, 12, keep_logits=True)
+    c = dense_generate(two, cpu, small, 12, keep_logits=True)
+    parity = GreedyParity()
+    for j in range(12):
+        parity.check(j, {b: r[j] for b, r in enumerate(c["tokens"])},
+                     {b: r[j] for b, r in enumerate(g["tokens"])},
+                     lambda sid, j=j: g["logits"][j, sid],
+                     lambda sid, j=j: c["logits"][j, sid])
+    choices, flips = route_flips(two, cpu, rg.routes)
+    res["two_layers_cuda_vs_cpu"] = {
+        "tokens_equal": parity.compared,
+        "ties": [vars(t) for t in parity.ties],
+        "expert_choices_compared": choices, "near_tie_flips": flips}
+    log(f"phase 11d: {json.dumps(res)}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_arctic(dev) -> dict:
+    """Phase 11e: arctic-480b at full width, 1 layer (128 experts, top-2,
+    dense residual FFN): batch 2, 64-token prompts, 8 new tokens."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import dense_generate
+    cfg = register(at_depth(get_arch("arctic-480b"), 1), "arctic-480b-1l")
+    out = timed_generate(dev, cfg.name, 2, 64, 8)
+    check_tokens("phase 11e", out["tokens"], cfg.vocab, (2, 8))
+    params, prompts = generate_inputs(dev, cfg, 2, 64)
+    again = dense_generate(cfg, params, prompts, 8, keep_logits=True)
+    if again["tokens"] != out["tokens"]:
+        raise AssertionError("phase 11e: two runs gave other tokens")
+    if not torch.isfinite(again["logits"]).all():
+        raise AssertionError("phase 11e: non-finite logits")
+    res = {"card": smi(), "params": n_params(params),
+           **{k: out[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                  "decode_tok_s", "tok_per_s",
+                                  "peak_mem_gb")}}
+    log(f"phase 11e: {json.dumps(res)}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_moe(dev) -> dict:
+    """Phase 11f: deepseek-v2-lite-16b at full width, 4 layers, trained 4
+    steps of 4 x 128 tokens with bf16 moments."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.train import train
+    cfg = register(at_depth(get_arch("deepseek-v2-lite-16b"), 4),
+                   "deepseek-v2-lite-16b-4l")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = train(cfg.name, smoke=False, steps=4, seq_len=128, batch=4,
+                moment_dtype="bf16", log_every=1, device=dev)
+    sync(dev)
+    _finite_losses("phase 11f", out["losses"])
+    if not out["losses"][-1] < out["losses"][0]:
+        raise AssertionError(f"phase 11f: the loss did not fall: "
+                             f"{out['losses']}")
+    res = {"card": smi(), "params": n_params(out["params"]),
+           "losses": out["losses"], **_step_split(out),
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    log(f"phase 11f: {json.dumps(res)}")
+    del out
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2595,6 +3093,19 @@ def main() -> int:
     phase_done("10c training card vs cpu, restart, a moment leaf")
     phase_train_twins(dev)
     phase_done("10d the training twins")
+    phase_dense_decode(dev, cfg)
+    phase_done("11 yi-6b dense decode at full width, quantised cache, "
+               "paged bdi")
+    phase_decode_parity(dev, cfg)
+    phase_done("11b dense and quantised decode, card vs cpu, 2 layers")
+    phase_gemma_rings(dev)
+    phase_done("11c gemma3-27b rings at full width, 6 layers")
+    phase_deepseek(dev)
+    phase_done("11d deepseek-v2-lite-16b at full width, then card vs cpu")
+    phase_arctic(dev)
+    phase_done("11e arctic-480b at full width, 1 layer")
+    phase_train_moe(dev)
+    phase_done("11f train deepseek-v2-lite-16b at full width, 4 layers")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training run of

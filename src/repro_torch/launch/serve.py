@@ -1,7 +1,10 @@
-"""Serving CLI: batched greedy generation through the paged compressed-KV
-engine (port of the ``--paged``, ``--paged-reference`` and ``--scheduler``
-paths of ``repro/launch/serve.py``).
+"""Serving CLI: batched greedy generation (port of
+``repro/launch/serve.py``).
 
+With no mode flag, dense decode through the model API: one prefill of
+the batch's prompts, then one ``decode_step`` a token over the dense KV
+cache (``models/transformer.py``), greedy argmax — the path of every
+decoder-only transformer (dense GQA, gemma3's ring caches, MLA, MoE).
 ``--paged`` admits every prompt through ``PagedKVEngine.add_requests``
 (one chunked-batch prefill pass; ``--prefill-chunk`` sets the step
 width) and decodes through ``decode_batch`` (one step per token for the
@@ -48,7 +51,7 @@ token ids from a second seed.  The pool is sized so the requests never
 preempt.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --paged \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b [--paged] \\
       [--smoke] [--batch 4 --prompt-len 16 --gen 16] [--device cuda|cpu] \\
       [--codec bdi|zero|raw|gbdi|fpc|adaptive] \\
       [--scheduler [--prefix-cache --shared-prefix N] [--token-budget 64]
@@ -70,14 +73,56 @@ import torch
 from repro_torch import codecs
 from repro_torch.configs.registry import get_arch
 from repro_torch.kernels._device import resolve_device
-from repro_torch.models.transformer import init_params
+from repro_torch.models.api import get_model
+from repro_torch.models.transformer import cache_bytes
 from repro_torch.serving.engine import PagedKVEngine
 
 PAGE = 8
 
 
+def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
+                   keep_logits: bool = False) -> dict:
+    """Greedy decode of ``prompts`` [B, S] for ``gen`` tokens: prefill,
+    then one ``decode_step`` a token (JAX's dense ``generate`` loop), on
+    the device of ``params``.
+
+    Returns ``tokens`` ([B, gen] as lists) and ``tok_per_s`` as JAX's
+    does, plus ``prefill_s``, ``decode_s`` (the seconds of each of the
+    gen - 1 steps, each ending in the host read of its tokens),
+    ``cache_bytes`` and, with ``keep_logits``, each token's logits
+    ``[gen, B, V]`` (f32, on the host)."""
+    model = get_model(cfg)
+    dev = params["embed"]["w"].device
+    prompts = prompts.to(dev)
+    b, s = prompts.shape
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompts}, s + gen)
+    toks = torch.argmax(logits, -1)
+    out = [toks.tolist()]
+    rows = [logits.float().cpu()] if keep_logits else []
+    t1 = time.perf_counter()
+    step_s = []
+    for t in range(s, s + gen - 1):
+        ts = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, toks, t)
+        toks = torch.argmax(logits, -1)
+        out.append(toks.tolist())           # the step's one host sync
+        step_s.append(time.perf_counter() - ts)
+        if keep_logits:
+            rows.append(logits.float().cpu())
+    dt = time.perf_counter() - t0
+    res = {"tokens": [list(r) for r in zip(*out)],
+           "tok_per_s": b * gen / dt, "prefill_s": t1 - t0,
+           "decode_s": step_s, "cache_bytes": cache_bytes(cache)}
+    if keep_logits:
+        res["logits"] = torch.stack(rows)
+    return res
+
+
 def generate(arch: str, *, smoke: bool = True, batch: int = 4,
-             prompt_len: int = 16, gen: int = 16, paged: bool = True,
+             prompt_len: int = 16, gen: int = 16, paged: bool = False,
              paged_reference: bool = False,
              prefill_chunk: int | None = None,
              scheduler: bool = False, token_budget: int = 64,
@@ -96,9 +141,6 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
              tier_disk_dir: str | None = None,
              persist_cache: str | None = None, multi_turn: int = 0,
              device: str | torch.device | None = None) -> dict:
-    if not (paged or paged_reference or scheduler or multi_turn):
-        raise ValueError("only the --paged, --paged-reference, --scheduler "
-                         "and --multi-turn paths are ported")
     if shared_prefix > prompt_len:
         raise ValueError(f"--shared-prefix {shared_prefix} exceeds "
                          f"--prompt-len {prompt_len}")
@@ -106,10 +148,14 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
     cfg = get_arch(arch)
     if smoke:
         cfg = cfg.reduced()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     prompts = torch.randint(1, cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(1))
+    if not (paged or paged_reference or scheduler or multi_turn):
+        out = dense_generate(cfg, params, prompts, gen)
+        out["device"] = str(dev)
+        return out
     # shared system prompt: every request reuses request 0's first
     # ``shared_prefix`` tokens
     prompts[:, :shared_prefix] = prompts[0, :shared_prefix]
@@ -498,10 +544,6 @@ def main() -> None:
                     help="one conversation of N turns, the device pool "
                          "recycled between turns, history from the tier")
     args = ap.parse_args()
-    if not (args.paged or args.paged_reference or args.scheduler
-            or args.multi_turn):
-        ap.error("pass --paged, --paged-reference, --scheduler or "
-                 "--multi-turn (the ported paths)")
     sched_flags = (args.chaos is not None or args.snapshot_dir
                    or args.prefix_cache or args.shared_prefix
                    or args.requeue_preempted or args.overload
@@ -550,6 +592,14 @@ def main() -> None:
               f"on {out['device']} (codec {out['codec']})")
         return
     n_tok = sum(len(t) for t in out["tokens"])
+    if "codec" not in out:                  # dense decode
+        steps = out["decode_s"]
+        print(f"[serve] {n_tok} tokens at {out['tok_per_s']:.1f} tok/s on "
+              f"{out['device']} (dense decode): prefill "
+              f"{out['prefill_s'] * 1e3:.1f} ms, decode "
+              f"{sum(steps) / max(len(steps), 1) * 1e3:.2f} ms a step, "
+              f"cache {out['cache_bytes']} bytes")
+        return
     print(f"[serve] {n_tok} tokens at {out['tok_per_s']:.1f} tok/s on "
           f"{out['device']} (codec {out['codec']})")
     print(f"[serve] codec {out['codec']}: aggregate compression "

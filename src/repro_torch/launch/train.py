@@ -1,7 +1,8 @@
 """Training driver with checkpoint/restart fault tolerance (port of
 ``repro/launch/train.py``).
 
-Trains a dense GQA model on the deterministic synthetic stream
+Trains a decoder-only transformer (dense GQA, MoE, MLA) on the
+deterministic synthetic stream
 (``data/pipeline.py``) with AdamW (``optim/adamw.py``; ``--moment-dtype
 bdi8`` keeps the moments as BDI tiles, compressed and decompressed by the
 tile kernels on the card).  Fault-tolerance contract, as in the JAX

@@ -1,1 +1,2 @@
-"""Models of the port: the dense GQA family (params, forward, loss)."""
+"""Models of the port: the decoder-only transformer family (dense GQA,
+MoE, MLA): params, forward, loss, prefill and decode."""

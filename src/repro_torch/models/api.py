@@ -1,13 +1,15 @@
 """Uniform model API (port of ``repro/models/api.py``).
 
-The dense GQA family exposes:
+The decoder-only transformer family (dense, moe, vlm; GQA or MLA)
+exposes:
   init(gen, device) -> params
   forward(params, batch) -> logits
   loss(params, batch) -> scalar
+  init_cache(batch_size, max_len) -> cache
+  prefill(params, batch, max_len) -> (last_logits, cache)
+  decode_step(params, cache, token [B], t) -> (logits [B, V], cache)
 
-Every other family raises, and the decode entry points (``init_cache``,
-``prefill``, ``decode_step``) are not ported yet: the serving engine
-(``serving/engine.py``) is the port's decode path.
+Every other family (ssm, hybrid, encoder-decoder) raises.
 """
 
 from __future__ import annotations
@@ -25,15 +27,20 @@ class ModelAPI(NamedTuple):
     init: Callable
     forward: Callable
     loss: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
 
 
 def get_model(cfg: ArchConfig) -> ModelAPI:
-    if not transformer.is_dense(cfg):
-        raise ValueError(f"{cfg.name}: only dense GQA models are ported")
+    transformer.check_family(cfg)
 
     def bind(fn):
         return functools.partial(fn, cfg)
 
     return ModelAPI(cfg=cfg, init=bind(transformer.init_params),
                     forward=bind(transformer.forward),
-                    loss=bind(transformer.loss_fn))
+                    loss=bind(transformer.loss_fn),
+                    init_cache=bind(transformer.init_cache),
+                    prefill=bind(transformer.prefill),
+                    decode_step=bind(transformer.decode_step))

@@ -1,13 +1,19 @@
-"""GQA: projections and full-sequence attention (port of
-``repro/models/attention.py:26-149``).
+"""Attention: GQA (full sequence, sliding window, decode over a full or a
+ring cache) and MLA (DeepSeek multi-head latent attention, absorbed
+decode).  Port of ``repro/models/attention.py:26-350``.
 
 Conventions: activations [B, S, D]; heads H, KV heads K (H % K == 0),
-head_dim Dh.  :func:`gqa_forward` is the training forward's attention:
-exact f32 einsums, chunked over queries so the S x T score matrix is
-never whole, with the causal and sliding-window masks (window 0 means
-global).  The serving engine's attention lives with its callers: prefill
-(``serving/prefix_cache.prefix_chunk_attention``) and decode (the
-paged-attention kernel).
+head_dim Dh.  The full-sequence paths are exact f32 einsums, chunked
+over queries so the S x T score matrix is never whole, with the causal
+and sliding-window masks (window 0 means global).  The decode paths take
+caches owned by the caller and a position ``t`` (a Python int: the host
+drives the loop) and write the new token's K/V into them in place, as
+the JAX package's donated ``jit`` does; they attend over the cache's
+first ``t + 1`` rows only (a full cache) or over every slot (a ring),
+which gives the masked softmax of the JAX version, whose masked scores
+weigh exactly 0.  The paged serving engine's attention lives with its
+callers: prefill (``serving/prefix_cache.prefix_chunk_attention``) and
+decode (the paged-attention kernel).
 """
 
 from __future__ import annotations
@@ -95,19 +101,216 @@ def _chunked_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                window: int = 0, theta: float = 1e4) -> torch.Tensor:
+                window: int = 0, theta: float = 1e4,
+                kv: tuple[torch.Tensor, torch.Tensor] | None = None
+                ) -> torch.Tensor:
     """Full-sequence causal GQA: x [B, S, D], positions [S] -> [B, S, D].
-    K/V come from :func:`gqa_kv`, the one projection path.  (The JAX
-    version's cross-attention and external-K/V arguments have no caller
-    in the port yet.)"""
+
+    ``kv``: (k roped, v), each [B, S, K, Dh], computed by the caller with
+    :func:`gqa_kv` (prefill projects K/V once for the cache and for
+    attention); else they are projected here.  (The JAX version's
+    cross-attention arguments wait for the encoder-decoder family.)
+    """
     b, s, _ = x.shape
     q = L.linear(p["wq"], x)                         # [B, S, H, Dh]
     dh = q.shape[-1]
     if theta > 0:
         cos, sin = L.rope_angles(positions, dh, theta)
         q = L.apply_rope(q, cos[None, :, None, :], sin[None, :, None, :])
-    k, v = gqa_kv(p, x, positions, theta=theta)
+    k, v = kv if kv is not None else gqa_kv(p, x, positions, theta=theta)
     h, kh = q.shape[2], k.shape[2]
     ctx = _chunked_attn(q.reshape(b, s, kh, h // kh, dh), k, v, positions,
                         positions, True, window)
     return _proj_out(p, ctx.reshape(b, s, h, -1))
+
+
+def _rope_at(x: torch.Tensor, t: int, theta: float) -> torch.Tensor:
+    """Rope of x [B, 1, H, d] at position ``t``."""
+    pos = torch.tensor([t], dtype=torch.int32, device=x.device)
+    cos, sin = L.rope_angles(pos, x.shape[-1], theta)
+    return L.apply_rope(x, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def _ring_slot(pos, tc: int):
+    """The ring slot of position(s) ``pos`` (an int or an integer tensor):
+    floor modulo, so a position below 0 maps into [0, tc) too."""
+    return pos % tc
+
+
+def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, t: int, *, ring: bool,
+               theta: float = 1e4, window: int = 0
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step.  x [B, 1, D]; caches [B, Tc, K, Dh], written in
+    place at the new token's slot; ``t`` its position.
+
+    ``ring``: the cache is a ring of Tc == window slots (slot t % Tc);
+    slot s holds the largest position p <= t with p % Tc == s, and
+    positions below 0 (slots not yet written) are masked.  A full cache
+    attends over its first t + 1 rows, within ``window`` if it is > 0.
+    Returns (y [B, 1, D], k_cache, v_cache).
+    """
+    b = x.shape[0]
+    tc = k_cache.shape[1]
+    q = L.linear(p["wq"], x)                         # [B, 1, H, Dh]
+    k_new = L.linear(p["wk"], x)                     # [B, 1, K, Dh]
+    v_new = L.linear(p["wv"], x)
+    dh = q.shape[-1]
+    if theta > 0:
+        q = _rope_at(q, t, theta)
+        k_new = _rope_at(k_new, t, theta)
+    slot = _ring_slot(t, tc) if ring else t
+    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+
+    if ring:
+        kk, vv = k_cache, v_cache
+        sidx = torch.arange(tc, dtype=torch.int64, device=x.device)
+        slot_pos = t - torch.remainder(t - sidx, tc)  # floor modulo
+        valid = (slot_pos >= 0) & (slot_pos <= t)
+    else:
+        kk, vv = k_cache[:, :t + 1], v_cache[:, :t + 1]
+        valid = None
+        if window > 0:
+            valid = torch.arange(t + 1, device=x.device) > t - window
+    h, kh = q.shape[2], k_cache.shape[2]
+    qg = q.reshape(b, kh, h // kh, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32),
+                          kk.to(torch.float32)) / math.sqrt(dh)
+    if valid is not None:
+        scores = torch.where(valid, scores, scores.new_tensor(NEG_INF))
+    wts = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bkgt,btkd->bkgd", wts,
+                       vv.to(torch.float32)).to(x.dtype)
+    return _proj_out(p, ctx.reshape(b, 1, h, dh)), k_cache, v_cache
+
+
+def gqa_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                      cache_len: int, *, ring: bool, theta: float = 1e4,
+                      kv: tuple[torch.Tensor, torch.Tensor] | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A prompt's K/V laid out as a decode cache [B, cache_len, K, Dh].
+
+    ``kv``: (k roped, v) from :func:`gqa_kv`, so that a caller that also
+    runs attention projects once.  A ring takes the last min(cache_len,
+    S) positions at slot ``position % cache_len``; a full cache the first
+    cache_len rows.
+    """
+    k, v = kv if kv is not None else gqa_kv(p, x, positions, theta=theta)
+    b, s, kh, dh = k.shape
+    kc = k.new_zeros((b, cache_len, kh, dh))
+    vc = torch.zeros_like(kc)
+    if ring:
+        take = min(cache_len, s)
+        idx = _ring_slot(positions[s - take:].long(), cache_len)
+        kc[:, idx] = k[:, s - take:]
+        vc[:, idx] = v[:, s - take:]
+    else:
+        n = min(cache_len, s)
+        kc[:, :n] = k[:, :n]
+        vc[:, :n] = v[:, :n]
+    return kc, vc
+
+
+# ---------------------------------------------------------------------------
+# MLA — multi-head latent attention (DeepSeek-V2), absorbed decode
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, d: int, n_heads: int, r: int, dn: int,
+             dr: int, dv: int, *, dtype=torch.bfloat16,
+             device: torch.device) -> dict:
+    def dense(shape):
+        return {"w": L._dense_init(gen, shape, dtype, device)}
+    return {
+        "wq": L.init_linear(gen, d, (n_heads, dn + dr), dtype=dtype,
+                            device=device),
+        "wdkv": L.init_linear(gen, d, r, dtype=dtype, device=device),
+        "wkr": L.init_linear(gen, d, dr, dtype=dtype, device=device),
+        "kv_norm": L.init_rmsnorm(r, device),
+        "wuk": dense((r, n_heads, dn)),
+        "wuv": dense((r, n_heads, dv)),
+        "wo": dense((n_heads, dv, d)),
+    }
+
+
+def _mla_qkr(p: dict, x: torch.Tensor, positions: torch.Tensor, dn: int,
+             dr: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope [B, S, H, dn], q_rope [B, S, H, dr] roped)."""
+    q = L.linear(p["wq"], x)                         # [B, S, H, dn+dr]
+    qn, qr = q[..., :dn], q[..., dn:]
+    cos, sin = L.rope_angles(positions, dr, theta)
+    qr = L.apply_rope(qr, cos[None, :, None, :], sin[None, :, None, :])
+    return qn, qr
+
+
+def _mla_latent(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(c [B, S, r] normed latent, k_rope [B, S, dr] roped)."""
+    c = L.rmsnorm(p["kv_norm"], L.linear(p["wdkv"], x))
+    kr = L.linear(p["wkr"], x)[:, :, None, :]
+    cos, sin = L.rope_angles(positions, kr.shape[-1], theta)
+    kr = L.apply_rope(kr, cos[None, :, None, :], sin[None, :, None, :])
+    return c, kr[:, :, 0]
+
+
+def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                dn: int, dr: int, theta: float = 1e4) -> torch.Tensor:
+    """Materialised MLA for training and prefill; causal.  The value
+    width (dv) differs from the q/k width (dn + dr)."""
+    b, s, _ = x.shape
+    qn, qr = _mla_qkr(p, x, positions, dn, dr, theta)
+    c, kr = _mla_latent(p, x, positions, theta)
+    kn = L.linear(p["wuk"], c)                       # [B, S, H, dn]
+    v = L.linear(p["wuv"], c)                        # [B, S, H, dv]
+    h = qn.shape[2]
+    q = torch.cat([qn, qr], dim=-1)
+    k = torch.cat([kn, kr[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    ctx = _chunked_attn(q.reshape(b, s, h, 1, dn + dr), k, v, positions,
+                        positions, True, 0)
+    return _proj_out(p, ctx.reshape(b, s, h, v.shape[-1]))
+
+
+def mla_decode(p: dict, x: torch.Tensor, c_cache: torch.Tensor,
+               kr_cache: torch.Tensor, t: int, dn: int, dr: int,
+               theta: float = 1e4
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Absorbed-matrix decode: attention runs in the r-wide latent space.
+
+    The cache is the latent itself (c [B, T, r], k_rope [B, T, dr]),
+    written in place at ``t``.  W_uk is absorbed into q and W_uv applied
+    to the latent context, both in f32 (bf16 operands are exact there;
+    TF32 is off on the card, ``kernels/_device.resolve_device``).
+    """
+    pos = torch.tensor([t], dtype=torch.int32, device=x.device)
+    qn, qr = _mla_qkr(p, x, pos, dn, dr, theta)
+    c_new, kr_new = _mla_latent(p, x, pos, theta)
+    c_cache[:, t] = c_new[:, 0].to(c_cache.dtype)
+    kr_cache[:, t] = kr_new[:, 0].to(kr_cache.dtype)
+
+    f32 = torch.float32
+    cc = c_cache[:, :t + 1].to(f32)                   # [B, t+1, r]
+    q_eff = torch.einsum("bhd,rhd->bhr", qn[:, 0].to(f32),
+                         p["wuk"]["w"].to(f32))
+    scores = torch.einsum("bhr,btr->bht", q_eff, cc)
+    scores = scores + torch.einsum("bhd,btd->bht", qr[:, 0].to(f32),
+                                   kr_cache[:, :t + 1].to(f32))
+    w = torch.softmax(scores / math.sqrt(dn + dr), dim=-1)
+    ctx_lat = torch.einsum("bht,btr->bhr", w, cc)
+    ctx = torch.einsum("bhr,rhd->bhd", ctx_lat,
+                       p["wuv"]["w"].to(f32)).to(x.dtype)
+    return _proj_out(p, ctx[:, None]), c_cache, kr_cache
+
+
+def mla_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                      cache_len: int, theta: float = 1e4
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A prompt's latent cache: c [B, cache_len, r] and k_rope [B,
+    cache_len, dr], the first cache_len positions."""
+    c, kr = _mla_latent(p, x, positions, theta)
+    b, s, r = c.shape
+    cc = c.new_zeros((b, cache_len, r))
+    krc = kr.new_zeros((b, cache_len, kr.shape[-1]))
+    n = min(cache_len, s)
+    cc[:, :n] = c[:, :n]
+    krc[:, :n] = kr[:, :n]
+    return cc, krc

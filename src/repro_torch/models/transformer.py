@@ -1,22 +1,34 @@
-"""Dense decoder-only LM: parameters, full-sequence forward and loss.
+"""Decoder-only LM for the dense / MoE / MLA families: parameters,
+full-sequence forward and loss, prefill and greedy decode over a dense
+KV cache, and decode over the BDI-quantised cache.
 
-Port of ``repro/models/transformer.py:37-165`` for the dense GQA family
-(yi-6b/9b, qwen2.5-14b, gemma3-27b's local:global windows, internvl2's
-prepended frontend embeddings); MoE and MLA raise.
+Port of ``repro/models/transformer.py``: yi-6b/9b, qwen2.5-14b (QKV
+bias), gemma3-27b (5:1 local:global windows), internvl2-76b (prepended
+frontend embeddings), deepseek-v2-lite (MLA + MoE with shared experts)
+and arctic-480b (MoE + a dense residual FFN).
 
 The parameter tree has the JAX package's layout — per-layer block
-params stacked along a leading ``[L, ...]`` axis — so a JAX pytree
-converts leaf for leaf (``params.from_numpy``) and the engine's loop over
-layers indexes ``blocks`` the way ``lax.scan`` sliced it.  Where JAX
-scans the blocks under ``jax.checkpoint(policy=nothing_saveable)``, the
-forward here loops over them, each layer under
-``torch.utils.checkpoint``: only each layer's input is kept for the
-backward.  The stacked leaves are split with ``unbind``, whose backward
-stacks a leaf's per-layer gradients once, instead of one full-size
-scatter a layer.
+params stacked along a leading ``[L, ...]`` axis (experts ``[L, E, D,
+F]``) — so a JAX pytree converts leaf for leaf (``params.from_numpy``)
+and a loop over layers indexes ``blocks`` the way ``lax.scan`` sliced
+it.  Where JAX scans the blocks under
+``jax.checkpoint(policy=nothing_saveable)``, the forward here loops over
+them, each layer under ``torch.utils.checkpoint``: only each layer's
+input is kept for the backward.  The stacked leaves are split with
+``unbind``, whose backward stacks a leaf's per-layer gradients once,
+instead of one full-size scatter a layer.
+
+Decode keeps two GQA cache pools — rings of ``window`` slots for local
+layers and full-length caches for global ones — and picks a layer's
+pool with a Python ``if`` where JAX has ``lax.cond``; MLA caches the
+latent.  The caches are written in place, as the JAX package's donated
+``jit`` updates them.
 """
 
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -24,16 +36,21 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
+from repro_torch.core.bdi_value import _pow2_scale
+
 from . import attention as A
 from . import layers as L
+from . import moe as M
 from . import params as P
 
 
-def is_dense(cfg: ArchConfig) -> bool:
-    """The family this module ports: GQA attention, dense FFN, decoder
-    only."""
-    return (cfg.attn_kind == "gqa" and not cfg.is_moe and not cfg.is_encdec
-            and cfg.family not in ("ssm", "hybrid"))
+def check_family(cfg: ArchConfig) -> None:
+    """The family this module ports: decoder-only transformers (dense,
+    moe, vlm) with GQA or MLA attention; any other config raises."""
+    if (cfg.attn_kind not in ("gqa", "mla") or cfg.is_encdec
+            or cfg.family in ("ssm", "hybrid")):
+        raise ValueError(f"{cfg.name}: only the decoder-only transformer "
+                         "family (dense, moe, vlm; GQA or MLA) is ported")
 
 
 def layer_windows(cfg: ArchConfig) -> np.ndarray:
@@ -46,25 +63,51 @@ def layer_windows(cfg: ArchConfig) -> np.ndarray:
     return w
 
 
+def cache_slots(cfg: ArchConfig) -> tuple[np.ndarray, np.ndarray,
+                                          tuple[int, int]]:
+    """(is_global [L], slot_id [L], counts (n_global, n_local))."""
+    is_global = layer_windows(cfg) == 0
+    slot = np.zeros(cfg.n_layers, np.int32)
+    slot[is_global] = np.arange(is_global.sum())
+    slot[~is_global] = np.arange((~is_global).sum())
+    return is_global, slot, (int(is_global.sum()), int((~is_global).sum()))
+
+
 def _init_block(cfg: ArchConfig, gen: torch.Generator,
                 device: torch.device) -> dict:
-    return {
-        "ln1": L.init_rmsnorm(cfg.d_model, device),
-        "ln2": L.init_rmsnorm(cfg.d_model, device),
-        "attn": A.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                           cfg.head_dim, bias=cfg.qkv_bias, device=device),
-        "ffn": L.init_mlp(gen, cfg.d_model, cfg.d_ff, device=device),
-    }
+    p = {"ln1": L.init_rmsnorm(cfg.d_model, device),
+         "ln2": L.init_rmsnorm(cfg.d_model, device)}
+    if cfg.attn_kind == "mla":
+        p["attn"] = A.init_mla(gen, cfg.d_model, cfg.n_heads,
+                               cfg.kv_lora_rank, cfg.qk_nope_dim,
+                               cfg.qk_rope_dim, cfg.v_head_dim, device=device)
+    else:
+        p["attn"] = A.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, bias=cfg.qkv_bias, device=device)
+    if cfg.is_moe:
+        p["ffn"] = M.init_moe(gen, cfg.d_model, cfg.d_ff_expert,
+                              cfg.n_experts, cfg.n_shared_experts,
+                              device=device)
+        if cfg.moe_dense_residual:
+            p["dense_ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                        device=device)
+    else:
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, device=device)
+    return p
 
 
 def _stack_into(dst: dict | None, src: dict, li: int, n: int) -> dict:
     """Copy one layer's params into stacked [n, ...] buffers (made on the
-    first layer), so the peak is the stack plus one layer."""
+    first layer), so the peak is the stack plus one layer; a one-layer
+    stack is a view of the layer (arctic's experts at one layer are 27
+    GB)."""
     if dst is None:
         dst = {}
     for k, v in src.items():
         if isinstance(v, dict):
             dst[k] = _stack_into(dst.get(k), v, li, n)
+        elif n == 1:
+            dst[k] = v.unsqueeze(0)
         else:
             if k not in dst:
                 dst[k] = torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
@@ -75,10 +118,9 @@ def _stack_into(dst: dict | None, src: dict, li: int, n: int) -> dict:
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
                 device: torch.device | str) -> dict:
-    """Random dense-GQA params on ``device`` from ``gen`` (a generator on
-    that device); the JAX init's distributions, not its numbers."""
-    if not is_dense(cfg):
-        raise ValueError(f"{cfg.name}: only dense GQA models are ported")
+    """Random params on ``device`` from ``gen`` (a generator on that
+    device); the JAX init's tree and distributions, not its numbers."""
+    check_family(cfg)
     device = torch.device(device)
     embed = L.init_embed(gen, cfg.vocab, cfg.d_model, device=device)
     blocks = None
@@ -99,14 +141,29 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _ffn_apply(cfg: ArchConfig, bp: dict, h: torch.Tensor) -> torch.Tensor:
+    if cfg.is_moe:
+        y = M.moe_ffn(bp["ffn"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                      capacity_factor=cfg.capacity_factor)
+        if cfg.moe_dense_residual:
+            y = y + L.mlp(bp["dense_ffn"], h)
+        return y
     return L.mlp(bp["ffn"], h)
+
+
+def _attn_forward(cfg: ArchConfig, bp: dict, h: torch.Tensor,
+                  positions: torch.Tensor, window: int,
+                  kv=None) -> torch.Tensor:
+    if cfg.attn_kind == "mla":
+        return A.mla_forward(bp["attn"], h, positions, cfg.qk_nope_dim,
+                             cfg.qk_rope_dim, cfg.rope_theta)
+    return A.gqa_forward(bp["attn"], h, positions, window=window,
+                         theta=cfg.rope_theta, kv=kv)
 
 
 def _block_forward(cfg: ArchConfig, bp: dict, x: torch.Tensor,
                    positions: torch.Tensor, window: int) -> torch.Tensor:
     h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    x = x + A.gqa_forward(bp["attn"], h, positions, window=window,
-                          theta=cfg.rope_theta)
+    x = x + _attn_forward(cfg, bp, h, positions, window)
     h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
     return x + _ffn_apply(cfg, bp, h)
 
@@ -142,3 +199,191 @@ def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     x = _hidden(cfg, params, batch)
     return L.chunked_cross_entropy(params["lm_head"], x, batch["targets"],
                                    batch.get("loss_mask"))
+
+
+# ---------------------------------------------------------------------------
+# Decode caches
+# ---------------------------------------------------------------------------
+
+class DecodeCache(NamedTuple):
+    full_k: torch.Tensor    # [n_global, B, T, K, Dh]
+    full_v: torch.Tensor
+    ring_k: torch.Tensor    # [n_local, B, W, K, Dh]
+    ring_v: torch.Tensor
+    mla_c: torch.Tensor     # [L, B, T, r]          (MLA archs; else size 0)
+    mla_kr: torch.Tensor    # [L, B, T, dr]
+
+
+class QuantDecodeCache(NamedTuple):
+    """BDI-quantised decode cache (all-global GQA archs): int8 deltas
+    plus an f32 base and scale for each (token, head) — the LCP
+    bandwidth path at the step level: it reads about half the bytes of
+    the bf16 cache."""
+    kd: torch.Tensor    # int8 [L, B, T, K, Dh]
+    kb: torch.Tensor    # f32  [L, B, T, K]
+    ks: torch.Tensor    # f32  [L, B, T, K]
+    vd: torch.Tensor    # int8 [L, B, T, K, Dh]
+    vb: torch.Tensor    # f32  [L, B, T, K]
+    vs: torch.Tensor    # f32  [L, B, T, K]
+
+
+def cache_bytes(cache: NamedTuple) -> int:
+    return sum(t.numel() * t.element_size() for t in cache)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16,
+               device: torch.device | str = "cpu") -> DecodeCache:
+    check_family(cfg)
+    _, _, (n_g, n_l) = cache_slots(cfg)
+    k, dh = cfg.n_kv_heads, cfg.head_dim
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.attn_kind == "mla":
+        return DecodeCache(
+            full_k=z(0), full_v=z(0), ring_k=z(0), ring_v=z(0),
+            mla_c=z(cfg.n_layers, batch, max_len, cfg.kv_lora_rank),
+            mla_kr=z(cfg.n_layers, batch, max_len, cfg.qk_rope_dim))
+    w = min(max(cfg.window, 1), max_len)
+    return DecodeCache(
+        full_k=z(n_g, batch, max_len, k, dh),
+        full_v=z(n_g, batch, max_len, k, dh),
+        ring_k=z(n_l, batch, w, k, dh), ring_v=z(n_l, batch, w, k, dh),
+        mla_c=z(0), mla_kr=z(0))
+
+
+def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     device: torch.device | str = "cpu") -> QuantDecodeCache:
+    _, _, (_, n_l) = cache_slots(cfg)
+    if n_l or cfg.attn_kind != "gqa":
+        raise ValueError(f"{cfg.name}: the quantised cache takes all-global "
+                         "GQA archs only")
+    lyr, k, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+
+    def z(*shape, dtype=torch.float32, fill=0.0):
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    return QuantDecodeCache(
+        kd=z(lyr, batch, max_len, k, dh, dtype=torch.int8),
+        kb=z(lyr, batch, max_len, k), ks=z(lyr, batch, max_len, k, fill=1.0),
+        vd=z(lyr, batch, max_len, k, dh, dtype=torch.int8),
+        vb=z(lyr, batch, max_len, k), vs=z(lyr, batch, max_len, k, fill=1.0))
+
+
+def _quant_vec(x: torch.Tensor):
+    """Single-base BDI over the last dim: x [..., Dh] -> (int8 deltas,
+    f32 base, f32 power-of-two scale)."""
+    base = x[..., 0].to(torch.float32)
+    r = x.to(torch.float32) - base[..., None]
+    scale = _pow2_scale(r.abs().amax(dim=-1), 127.0)
+    d = torch.clamp(torch.round(r / scale[..., None]), -127, 127)
+    return d.to(torch.int8), base, scale
+
+
+def _head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Last position's logits [B, V] of hidden states [B, S, D]."""
+    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return L.lm_logits(params["lm_head"], x)[:, 0]
+
+
+@torch.no_grad()
+def decode_step_quant(cfg: ArchConfig, params: dict, cache: QuantDecodeCache,
+                      token: torch.Tensor, t: int
+                      ) -> tuple[torch.Tensor, QuantDecodeCache]:
+    """:func:`decode_step` over the quantised cache: the new token's K/V
+    are quantised on the write path (in place at ``t``) and the cache is
+    dequantised inside attention (its first t + 1 rows)."""
+    t = int(t)
+    x = L.embed(params["embed"], token[:, None])
+    f32 = torch.float32
+    for i, bp in enumerate(P.unstack(params["blocks"])):
+        h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
+        a = bp["attn"]
+        q = A._rope_at(L.linear(a["wq"], h), t, cfg.rope_theta)
+        k_new = A._rope_at(L.linear(a["wk"], h), t, cfg.rope_theta)
+        v_new = L.linear(a["wv"], h)
+        b, _, hh, dh = q.shape
+        for (dd, bb, ss), new in (((cache.kd, cache.kb, cache.ks), k_new),
+                                  ((cache.vd, cache.vb, cache.vs), v_new)):
+            qd, qb, qs = _quant_vec(new[:, 0])            # [B, K, *]
+            dd[i, :, t], bb[i, :, t], ss[i, :, t] = qd, qb, qs
+        n = t + 1
+        kk = (cache.kd[i, :, :n].to(f32) * cache.ks[i, :, :n, :, None]
+              + cache.kb[i, :, :n, :, None])               # [B, n, K, Dh]
+        vv = (cache.vd[i, :, :n].to(f32) * cache.vs[i, :, :n, :, None]
+              + cache.vb[i, :, :n, :, None])
+        kh = kk.shape[2]
+        qg = q.reshape(b, kh, hh // kh, dh)
+        scores = torch.einsum("bkgd,btkd->bkgt", qg.to(f32), kk)
+        w = torch.softmax(scores / math.sqrt(dh), dim=-1)
+        ctx = torch.einsum("bkgt,btkd->bkgd", w, vv).to(x.dtype)
+        x = x + A._proj_out(a, ctx.reshape(b, 1, hh, dh))
+        h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+        x = x + _ffn_apply(cfg, bp, h)
+    return _head(cfg, params, x), cache
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: dict, cache: DecodeCache,
+                token: torch.Tensor, t: int
+                ) -> tuple[torch.Tensor, DecodeCache]:
+    """One decode step: token [B] at position ``t`` -> (logits [B, V],
+    the cache, updated in place)."""
+    t = int(t)
+    x = L.embed(params["embed"], token[:, None])
+    is_g, slots, _ = cache_slots(cfg)
+    for i, bp in enumerate(P.unstack(params["blocks"])):
+        h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
+        s = int(slots[i])
+        if cfg.attn_kind == "mla":
+            y, _, _ = A.mla_decode(bp["attn"], h, cache.mla_c[i],
+                                   cache.mla_kr[i], t, cfg.qk_nope_dim,
+                                   cfg.qk_rope_dim, cfg.rope_theta)
+        elif is_g[i]:
+            y, _, _ = A.gqa_decode(bp["attn"], h, cache.full_k[s],
+                                   cache.full_v[s], t, ring=False,
+                                   theta=cfg.rope_theta)
+        else:
+            y, _, _ = A.gqa_decode(bp["attn"], h, cache.ring_k[s],
+                                   cache.ring_v[s], t, ring=True,
+                                   theta=cfg.rope_theta)
+        x = x + y
+        h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+        x = x + _ffn_apply(cfg, bp, h)
+    return _head(cfg, params, x), cache
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
+            ) -> tuple[torch.Tensor, DecodeCache]:
+    """Run the prompt (plus frontend embeddings), building the decode
+    cache -> (last logits [B, V], cache).  A GQA layer projects K/V once,
+    for its cache and its attention; a local layer's ring takes the last
+    min(window, S) positions at slot ``position % window``."""
+    x = _embed_inputs(cfg, params, batch)
+    b, s, _ = x.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} positions exceeds max_len "
+                         f"{max_len}")
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    cache = init_cache(cfg, b, max_len, device=x.device)
+    is_g, slots, _ = cache_slots(cfg)
+    for i, (bp, w) in enumerate(zip(P.unstack(params["blocks"]),
+                                    layer_windows(cfg))):
+        h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
+        sl = int(slots[i])
+        kv = None
+        if cfg.attn_kind == "mla":
+            cache.mla_c[i], cache.mla_kr[i] = A.mla_prefill_cache(
+                bp["attn"], h, positions, max_len, cfg.rope_theta)
+        else:
+            kv = A.gqa_kv(bp["attn"], h, positions, theta=cfg.rope_theta)
+            k_pool, v_pool = ((cache.full_k, cache.full_v) if is_g[i]
+                              else (cache.ring_k, cache.ring_v))
+            k_pool[sl], v_pool[sl] = A.gqa_prefill_cache(
+                bp["attn"], h, positions, k_pool.shape[2], ring=not is_g[i],
+                kv=kv)
+        x = x + _attn_forward(cfg, bp, h, positions, int(w), kv=kv)
+        h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+        x = x + _ffn_apply(cfg, bp, h)
+    return _head(cfg, params, x), cache

@@ -108,8 +108,12 @@ class ReferencePagedKVEngine:
                  integrity: bool = True,
                  telemetry: Telemetry | None = None,
                  device: str | torch.device | None = None):
-        if cfg.attn_kind != "gqa" or cfg.is_encdec:
-            raise ValueError(f"{cfg.name}: the engine serves dense GQA only")
+        if (cfg.attn_kind != "gqa" or cfg.is_moe or cfg.is_encdec
+                or cfg.family in ("ssm", "hybrid")):
+            # its layers run the dense MLP over GQA pages (as the JAX
+            # engine's): serve MoE and MLA through launch/serve's dense path
+            raise ValueError(f"{cfg.name}: the paged engine serves dense "
+                             "GQA only (no MoE, MLA or recurrent layers)")
         if prefix_cache is not None and (
                 prefix_cache.page != page_size
                 or prefix_cache.n_layers != cfg.n_layers):

@@ -189,7 +189,30 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      same tokens twice;
   11f. deepseek-v2-lite-16b at full width, 4 layers, trained 4 steps of 4
      x 128 tokens under bf16 moments: finite losses, the last below the
-     first; ms a step and peak memory.
+     first; ms a step and peak memory;
+  12. xlstm-350m at full width and depth (24 layers, sLSTM at 7, 15,
+     23) through ``generate(smoke=False)``: batch 8, 256-token prompts
+     (prefill is one decode step a token), 64 new tokens (prefill ms,
+     decode ms a step, tok/s, cache bytes, peak memory); one decode step
+     and one sLSTM time scan (4 x 128) profiled: kernels and copies run,
+     device ms;
+  12b. hymba-1.5b at full width and depth (32 layers, global 0, 15, 31):
+     batch 2, 1100-token prompts (the 1024-slot rings wrap), 16 new
+     tokens; prefill and 16 decode steps fed a sequence against
+     ``forward`` (argmax equal up to ties, each row's gap recorded); one
+     decode step and layer 0's Mamba time scan, sequential and chunked,
+     profiled;
+  12c. seamless-m4t-large-v2 at full width and depth (24 + 24 layers):
+     batch 4, 256 frames and 256 prompt tokens, 32 new tokens; a second
+     run gives the same tokens, finite logits; one decode step profiled;
+  12d. each of the three at full width, 2 layers (seamless 2 + 2), card
+     vs CPU on the same params, prompts and frames: greedy tokens equal
+     up to reported ties, prefill logits within 4 bf16 ULPs of the
+     largest;
+  12e. ``train()`` at full width, 4 steps of 4 x 128 under bf16 moments:
+     xlstm-350m at full depth, hymba at 4 layers, seamless at 4 + 4;
+     finite, falling losses, ms a step, peak memory.
+     Phases 12-12e assert that none of the seven kernels launched.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -2497,11 +2520,12 @@ def at_depth(cfg, n_layers: int, **kw):
 
 
 def model_on(dev, cfg) -> dict:
-    """Random params of ``cfg`` from a seeded generator on ``dev``."""
+    """Random params of ``cfg`` (any family) from a seeded generator on
+    ``dev``."""
     import torch
-    from repro_torch.models.transformer import init_params
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         dev)
+    from repro_torch.models.api import get_model
+    params = get_model(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                                 dev)
     sync(dev)
     return params
 
@@ -2952,6 +2976,333 @@ def phase_train_moe(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 12-12e: the recurrent and encoder-decoder families (xlstm-350m,
+# hymba-1.5b, seamless-m4t-large-v2): dense decode through generate, card
+# vs cpu, training.  No kernel of the seven lies on their path.
+# ---------------------------------------------------------------------------
+
+FAMILY_LOGIT_ULPS = 4       # card vs cpu prefill logits, 2 layers
+
+
+def no_kernel_launched(name: str) -> None:
+    """The phase ran none of the seven kernels (their counts stayed 0)."""
+    from repro_torch.kernels import ops
+    ran = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if ran:
+        raise AssertionError(f"phase {name}: launched {ran}, none expected")
+
+
+def frames(cfg, batch: int, n: int):
+    """The encoder frames ``launch.serve.generate`` draws (f32, seed 2)."""
+    import torch
+    return torch.randn((batch, n, cfg.d_model),
+                       generator=torch.Generator().manual_seed(2)) * 0.02
+
+
+def device_ops(dev, fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: the kernels and copies it
+    ran on the card, their summed device ms, and the host ms of the
+    profiled call (synced)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+    n, busy = 0, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += e.count
+            busy += e.self_device_time_total
+    return {"device_ops": n, "device_busy_ms": busy / 1e3,
+            "profiled_wall_ms": wall * 1e3}
+
+
+def host_ms(dev, fn, reps: int = 3) -> float:
+    """Mean host ms of ``fn()`` (synced), after one unrecorded call."""
+    fn()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def generate_numbers(out: dict) -> dict:
+    return {k: out[k] for k in ("prefill_ms", "decode_ms_per_step",
+                                "decode_tok_s", "tok_per_s", "cache_bytes",
+                                "peak_mem_gb")}
+
+
+def phase_xlstm(dev) -> dict:
+    """Phase 12: xlstm-350m at full width and depth through
+    ``generate(arch, smoke=False)``: batch 8, 256-token prompts (the
+    prefill is 256 decode steps), 64 new tokens; one decode step and one
+    sLSTM time scan (block 7, 4 x 128, the training shape) profiled."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm as S
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.params import layer
+    cfg = get_arch("xlstm-350m")
+    ops.reset_launches()
+    out = timed_generate(dev, cfg.name, 8, 256, 64)
+    check_tokens("phase 12", out["tokens"], cfg.vocab, (8, 64))
+    params = model_on(dev, cfg)
+    slstm = [int(i) for i in X.layer_is_slstm(cfg).nonzero()[0]]
+    res = {"card": smi(), "params": n_params(params), "slstm_blocks": slstm,
+           **generate_numbers(out)}
+    cache = X.init_cache(cfg, 8, 320, device=dev)
+    tok = torch.ones(8, dtype=torch.int64, device=dev)
+    X.decode_step(cfg, params, cache, tok, 0)
+    step = device_ops(dev, lambda: X.decode_step(cfg, params, cache, tok, 1))
+    res["decode_step"] = step
+    res["prefill_device_ops"] = 256 * step["device_ops"]
+    bp = layer(params["blocks"], slstm[0])["slstm"]
+    x = (torch.randn((4, 128, cfg.d_model), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+         ).to(torch.bfloat16)
+    with torch.no_grad():
+        res["slstm_scan"] = {
+            "shape": [4, 128, cfg.d_model],
+            "ms": host_ms(dev, lambda: S.slstm_forward(bp, x, cfg.n_heads)),
+            **device_ops(dev, lambda: S.slstm_forward(bp, x, cfg.n_heads))}
+    no_kernel_launched("12")
+    log(f"phase 12: {json.dumps(res)}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_hymba(dev) -> dict:
+    """Phase 12b: hymba-1.5b at full width and depth through
+    ``generate(arch, smoke=False)``: batch 2, 1100-token prompts (the
+    1024-slot rings of the 29 windowed layers wrap), 16 new tokens; then
+    prefill and 16 decode steps fed a sequence, each step's logits
+    against ``forward``'s at the same position (argmax equal up to
+    reported ties; each row's gap in bf16 ULPs of its largest logit,
+    recorded); one decode step, and one layer's Mamba time scan on the
+    prompt, sequential (the default) and chunked, timed and profiled."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import hybrid as Hy
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models.params import layer
+    from repro_torch.serving.parity import GreedyParity
+    cfg = get_arch("hymba-1.5b")
+    plen, steps = 1100, 16
+    ops.reset_launches()
+    out = timed_generate(dev, cfg.name, 2, plen, steps)
+    check_tokens("phase 12b", out["tokens"], cfg.vocab, (2, steps))
+    params = model_on(dev, cfg)
+    is_g, _, (n_g, n_l) = Hy.cache_slots(cfg)
+    res = {"card": smi(), "params": n_params(params),
+           "global_layers": [int(i) for i in np.nonzero(is_g)[0]],
+           "windowed_layers": n_l, **generate_numbers(out)}
+    seq = torch.randint(1, cfg.vocab, (2, plen + steps),
+                        generator=torch.Generator().manual_seed(24)).to(dev)
+    logits, cache = Hy.prefill(cfg, params, {"tokens": seq[:, :plen]},
+                               plen + steps)
+    rows = [logits.float()]
+    for j in range(steps):
+        logits, cache = Hy.decode_step(cfg, params, cache, seq[:, plen + j],
+                                       plen + j)
+        rows.append(logits.float())
+    res["ring_slots"] = cache.ring_k.shape[2]
+    del cache
+    with torch.no_grad():
+        h = Hy._hidden(cfg, params, {"tokens": seq}, remat=False)
+        want = L.lm_logits(params["lm_head"],
+                           h[:, plen - 1:plen + steps]).float()
+    del h
+    got = torch.stack(rows, dim=1)
+    parity = GreedyParity()
+    for j in range(steps + 1):
+        parity.check(j, dict(enumerate(want[:, j].argmax(-1).tolist())),
+                     dict(enumerate(got[:, j].argmax(-1).tolist())),
+                     lambda sid, j=j: got[sid, j],
+                     lambda sid, j=j: want[sid, j])
+    # row 0 is prefill: forward's math on 1100 of the 1116 positions, so
+    # its gap is what other GEMM shapes alone move at this depth
+    res.update(argmax_equal=parity.compared,
+               ties=[vars(t) for t in parity.ties],
+               largest_logit=float(want.abs().max()),
+               worst_gap=float((got - want).abs().max()),
+               row_gap_ulps=[logit_gap_ulps(got[:, j], want[:, j])
+                             for j in range(steps + 1)])
+    # layer 0's Mamba branch on the prompt's normed embeddings
+    bp = layer(params["blocks"], 0)
+    with torch.no_grad():
+        x = L.rmsnorm(bp["ln1"], L.embed(params["embed"], seq[:, :plen]),
+                      cfg.norm_eps)
+        scan = {"shape": list(x.shape)}
+        seq_out = S.mamba_forward(bp["mamba"], x, cfg.ssm_state)
+        scan["sequential_ms"] = host_ms(dev, lambda: S.mamba_forward(
+            bp["mamba"], x, cfg.ssm_state))
+        scan["sequential"] = device_ops(dev, lambda: S.mamba_forward(
+            bp["mamba"], x, cfg.ssm_state))
+        S.CHUNKED_SCAN = True
+        try:
+            chk_out = S.mamba_forward(bp["mamba"], x, cfg.ssm_state)
+            scan["chunked_ms"] = host_ms(dev, lambda: S.mamba_forward(
+                bp["mamba"], x, cfg.ssm_state))
+            scan["chunked"] = device_ops(dev, lambda: S.mamba_forward(
+                bp["mamba"], x, cfg.ssm_state))
+        finally:
+            S.CHUNKED_SCAN = False
+        scan["chunked_vs_sequential_ulps"] = logit_gap_ulps(chk_out,
+                                                            seq_out)
+    res["mamba_scan"] = scan
+    cache = Hy.init_cache(cfg, 2, plen + steps, device=dev)
+    Hy.decode_step(cfg, params, cache, seq[:, 0], 0)
+    res["decode_step"] = device_ops(dev, lambda: Hy.decode_step(
+        cfg, params, cache, seq[:, 1], 1))
+    del cache
+    no_kernel_launched("12b")
+    log(f"phase 12b: {json.dumps(res)}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_seamless(dev) -> dict:
+    """Phase 12c: seamless-m4t-large-v2 at full width and depth (24 + 24
+    layers) through ``generate(arch, smoke=False)``: batch 4, 256 frames
+    and 256 prompt tokens, 32 new tokens; a second run gives the same
+    tokens."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models.api import get_model
+    cfg = get_arch("seamless-m4t-large-v2")
+    ops.reset_launches()
+    out = timed_generate(dev, cfg.name, 4, 256, 32)
+    check_tokens("phase 12c", out["tokens"], cfg.vocab, (4, 32))
+    params = model_on(dev, cfg)
+    prompts = torch.randint(1, cfg.vocab, (4, 256),
+                            generator=torch.Generator().manual_seed(1))
+    again = dense_generate(cfg, params, prompts, 32,
+                           enc_embeds=frames(cfg, 4, 256), keep_logits=True)
+    if again["tokens"] != out["tokens"]:
+        raise AssertionError("phase 12c: two runs gave other tokens")
+    if not torch.isfinite(again["logits"]).all():
+        raise AssertionError("phase 12c: non-finite logits")
+    res = {"card": smi(), "params": n_params(params),
+           **generate_numbers(out)}
+    m = get_model(cfg)
+    _, cache = m.prefill(params, {"tokens": prompts[:, :8].to(dev),
+                                  "enc_embeds": frames(cfg, 4, 256).to(dev)},
+                         16)
+    tok = prompts[:, 8].to(dev)
+    res["decode_step"] = device_ops(dev, lambda: m.decode_step(
+        params, cache, tok, 8))
+    del cache
+    no_kernel_launched("12c")
+    log(f"phase 12c: {json.dumps(res)}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_family_parity(dev) -> dict:
+    """Phase 12d: each family at full width and 2 layers (seamless 2 + 2),
+    the same params and prompts on the card and the CPU: greedy tokens
+    equal up to reported one-bf16-ULP ties, prefill logits within
+    FAMILY_LOGIT_ULPS of the largest.  xlstm puts its sLSTM block at
+    layer 1 (``slstm_every`` 2); hymba keeps one global layer and one of
+    window 1024 (``n_full_attn`` 1), whose ring wraps in a 1030-token
+    prompt."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models.params import to_device
+    from repro_torch.serving.parity import GreedyParity
+    cases = {"xlstm-350m": ({"slstm_every": 2}, 4, 32, 8),
+             "hymba-1.5b": ({"n_full_attn": 1}, 2, 1030, 8),
+             "seamless-m4t-large-v2": ({"enc_layers": 2}, 4, 64, 8)}
+    ops.reset_launches()
+    res = {"card": smi()}
+    for name, (kw, b, plen, gen) in cases.items():
+        cfg = at_depth(get_arch(name), 2, **kw)
+        gpu = model_on(dev, cfg)
+        cpu = to_device(gpu, torch.device("cpu"))
+        prompts = torch.randint(1, cfg.vocab, (b, plen),
+                                generator=torch.Generator().manual_seed(25))
+        enc = frames(cfg, b, plen) if cfg.is_encdec else None
+        g = dense_generate(cfg, gpu, prompts, gen, enc_embeds=enc,
+                           keep_logits=True)
+        c = dense_generate(cfg, cpu, prompts, gen, enc_embeds=enc,
+                           keep_logits=True)
+        parity = GreedyParity()
+        for j in range(gen):
+            parity.check(j, {i: r[j] for i, r in enumerate(c["tokens"])},
+                         {i: r[j] for i, r in enumerate(g["tokens"])},
+                         lambda sid, j=j: g["logits"][j, sid],
+                         lambda sid, j=j: c["logits"][j, sid])
+        gap = logit_gap_ulps(g["logits"][0], c["logits"][0])
+        res[name] = {"batch": b, "prompt_len": plen, "gen": gen,
+                     "tokens_equal": parity.compared,
+                     "ties": [vars(t) for t in parity.ties],
+                     "prefill_logit_gap_ulps": gap,
+                     "cpu_s": c["prefill_s"] + sum(c["decode_s"])}
+        if gap > FAMILY_LOGIT_ULPS:
+            raise AssertionError(f"phase 12d {name}: prefill logits {gap} "
+                                 f"bf16 ULPs apart across devices")
+        del gpu, cpu
+        torch.cuda.empty_cache()
+    no_kernel_launched("12d")
+    log(f"phase 12d: {json.dumps(res)}")
+    return res
+
+
+def phase_train_families(dev) -> dict:
+    """Phase 12e: ``train()`` at full width, 4 steps of 4 x 128 tokens
+    with bf16 moments: xlstm-350m at full depth, hymba-1.5b at 4 layers,
+    seamless-m4t-large-v2 at 4 + 4; losses finite and falling, ms a step,
+    peak memory."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    cases = {"xlstm-350m": get_arch("xlstm-350m"),
+             "hymba-1.5b-4l": at_depth(get_arch("hymba-1.5b"), 4),
+             "seamless-m4t-large-v2-4l": at_depth(
+                 get_arch("seamless-m4t-large-v2"), 4, enc_layers=4)}
+    ops.reset_launches()
+    res = {"card": smi()}
+    for name, cfg in cases.items():
+        register(cfg, name)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = train(name, smoke=False, steps=4, seq_len=128, batch=4,
+                    moment_dtype="bf16", log_every=1, device=dev)
+        sync(dev)
+        _finite_losses(f"phase 12e {name}", out["losses"])
+        if not out["losses"][-1] < out["losses"][0]:
+            raise AssertionError(f"phase 12e {name}: the loss did not fall: "
+                                 f"{out['losses']}")
+        res[name] = {"params": n_params(out["params"]),
+                     "losses": out["losses"], **_step_split(out),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
+                     / 1e9}
+        del out
+    no_kernel_launched("12e")
+    log(f"phase 12e: {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3106,6 +3457,16 @@ def main() -> int:
     phase_done("11e arctic-480b at full width, 1 layer")
     phase_train_moe(dev)
     phase_done("11f train deepseek-v2-lite-16b at full width, 4 layers")
+    phase_xlstm(dev)
+    phase_done("12 xlstm-350m at full width and depth")
+    phase_hymba(dev)
+    phase_done("12b hymba-1.5b at full width and depth, rings wrapping")
+    phase_seamless(dev)
+    phase_done("12c seamless-m4t-large-v2 at full width and depth")
+    phase_family_parity(dev)
+    phase_done("12d the three families, card vs cpu, 2 layers")
+    phase_train_families(dev)
+    phase_done("12e train the three families at full width")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training run of

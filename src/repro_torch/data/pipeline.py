@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.models.frontends import token_len
 
 
 @dataclass(frozen=True)
@@ -28,13 +29,6 @@ class DataConfig:
     seed: int = 0
     n_states: int = 32          # HMM states
     branch: int = 4             # candidate next-tokens per state
-
-
-def token_len(cfg: ArchConfig, seq_len: int) -> int:
-    """Token positions of a sequence of ``seq_len``: a vision frontend's
-    embeddings take the first ``n_frontend_embeds`` (port of
-    ``repro/models/frontends.py:30``)."""
-    return seq_len - (cfg.n_frontend_embeds if cfg.frontend == "vision" else 0)
 
 
 def _hmm_tables(cfg: DataConfig, vocab: int) -> tuple[np.ndarray, np.ndarray]:

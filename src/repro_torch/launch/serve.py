@@ -2,9 +2,12 @@
 ``repro/launch/serve.py``).
 
 With no mode flag, dense decode through the model API: one prefill of
-the batch's prompts, then one ``decode_step`` a token over the dense KV
-cache (``models/transformer.py``), greedy argmax — the path of every
-decoder-only transformer (dense GQA, gemma3's ring caches, MLA, MoE).
+the batch's prompts, then one ``decode_step`` a token over the model's
+decode cache, greedy argmax — the path of every config in the registry:
+decoder-only transformers (dense GQA, gemma3's ring caches, MLA, MoE)
+over a dense KV cache, xLSTM over its recurrent state, Hymba over ring
+caches and Mamba state, and the encoder-decoder over self and cross K/V
+(its encoder fed random frames, ``enc_embeds``, as JAX's ``generate``).
 ``--paged`` admits every prompt through ``PagedKVEngine.add_requests``
 (one chunked-batch prefill pass; ``--prefill-chunk`` sets the step
 width) and decodes through ``decode_batch`` (one step per token for the
@@ -48,7 +51,7 @@ the decision audit log as JSONL.  Render saved artifacts with
 
 Weights are random, made from a seed on the device; prompts are random
 token ids from a second seed.  The pool is sized so the requests never
-preempt.
+preempt; the paged modes serve dense GQA configs only.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b [--paged] \\
@@ -81,10 +84,12 @@ PAGE = 8
 
 
 def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
+                   enc_embeds: torch.Tensor | None = None,
                    keep_logits: bool = False) -> dict:
     """Greedy decode of ``prompts`` [B, S] for ``gen`` tokens: prefill,
     then one ``decode_step`` a token (JAX's dense ``generate`` loop), on
-    the device of ``params``.
+    the device of ``params``.  An encoder-decoder config takes its
+    encoder's frames ``enc_embeds`` [B, S_enc, D].
 
     Returns ``tokens`` ([B, gen] as lists) and ``tok_per_s`` as JAX's
     does, plus ``prefill_s``, ``decode_s`` (the seconds of each of the
@@ -93,12 +98,16 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
     ``[gen, B, V]`` (f32, on the host)."""
     model = get_model(cfg)
     dev = params["embed"]["w"].device
-    prompts = prompts.to(dev)
+    batch = {"tokens": prompts.to(dev)}
+    if cfg.is_encdec:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name}: the encoder needs enc_embeds")
+        batch["enc_embeds"] = enc_embeds.to(dev)
     b, s = prompts.shape
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompts}, s + gen)
+    logits, cache = model.prefill(params, batch, s + gen)
     toks = torch.argmax(logits, -1)
     out = [toks.tolist()]
     rows = [logits.float().cpu()] if keep_logits else []
@@ -153,7 +162,12 @@ def generate(arch: str, *, smoke: bool = True, batch: int = 4,
     prompts = torch.randint(1, cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(1))
     if not (paged or paged_reference or scheduler or multi_turn):
-        out = dense_generate(cfg, params, prompts, gen)
+        enc = None
+        if cfg.is_encdec:                   # random frames, f32, as JAX's
+            enc = torch.randn((batch, prompt_len, cfg.d_model),
+                              generator=torch.Generator().manual_seed(2)
+                              ) * 0.02
+        out = dense_generate(cfg, params, prompts, gen, enc_embeds=enc)
         out["device"] = str(dev)
         return out
     # shared system prompt: every request reuses request 0's first

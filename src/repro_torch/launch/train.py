@@ -1,8 +1,9 @@
 """Training driver with checkpoint/restart fault tolerance (port of
 ``repro/launch/train.py``).
 
-Trains a decoder-only transformer (dense GQA, MoE, MLA) on the
-deterministic synthetic stream
+Trains any config of the registry (``models/api.get_model``: the
+decoder-only transformers, xLSTM, the Hymba hybrid, the encoder-decoder,
+whose batches carry random frames) on the deterministic synthetic stream
 (``data/pipeline.py``) with AdamW (``optim/adamw.py``; ``--moment-dtype
 bdi8`` keeps the moments as BDI tiles, compressed and decompressed by the
 tile kernels on the card).  Fault-tolerance contract, as in the JAX
@@ -55,7 +56,10 @@ def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
         t0 = time.perf_counter()
         leaves = [t.requires_grad_() for t in P.leaves(params)]
         loss = model.loss(params, batch)
-        grads = P.unflatten(params, torch.autograd.grad(loss, leaves))
+        # a leaf the loss does not reach (xLSTM's idle cell in a block)
+        # gets a zero gradient, as jax.grad gives it
+        grads = P.unflatten(params, torch.autograd.grad(
+            loss, leaves, allow_unused=True, materialize_grads=True))
         loss = float(loss.detach())
         t1 = time.perf_counter()
         params, opt_state, m = adamw_update(params, grads, opt_state, ocfg)

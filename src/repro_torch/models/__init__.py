@@ -1,2 +1,3 @@
-"""Models of the port: the decoder-only transformer family (dense GQA,
-MoE, MLA): params, forward, loss, prefill and decode."""
+"""Models of the port, every family of the registry: decoder-only
+transformers (dense GQA, MoE, MLA), xLSTM, the Hymba hybrid and the
+encoder-decoder; params, forward, loss, prefill and decode."""

@@ -1,25 +1,29 @@
-"""Uniform model API (port of ``repro/models/api.py``).
+"""Uniform model API, dispatched by architecture family (port of
+``repro/models/api.py``).
 
-The decoder-only transformer family (dense, moe, vlm; GQA or MLA)
-exposes:
+Every family exposes:
   init(gen, device) -> params
   forward(params, batch) -> logits
   loss(params, batch) -> scalar
-  init_cache(batch_size, max_len) -> cache
+  init_cache(batch_size, max_len, ...) -> cache (``enc_len=`` for the
+      encoder-decoder)
   prefill(params, batch, max_len) -> (last_logits, cache)
   decode_step(params, cache, token [B], t) -> (logits [B, V], cache)
 
-Every other family (ssm, hybrid, encoder-decoder) raises.
+Encoder-decoder configs go to ``encdec``, ssm to ``xlstm``, hybrid to
+``hybrid`` and the rest to ``transformer``, which refuses an attention
+kind it does not take.
 """
 
 from __future__ import annotations
 
 import functools
+from types import ModuleType
 from typing import Callable, NamedTuple
 
 from repro_torch.configs.base import ArchConfig
 
-from . import transformer
+from . import encdec, hybrid, transformer, xlstm
 
 
 class ModelAPI(NamedTuple):
@@ -32,15 +36,25 @@ class ModelAPI(NamedTuple):
     decode_step: Callable
 
 
+def family_module(cfg: ArchConfig) -> ModuleType:
+    """The module that models ``cfg``; raises for a config none takes."""
+    if cfg.is_encdec:
+        return encdec
+    if cfg.family == "ssm":
+        return xlstm
+    if cfg.family == "hybrid":
+        return hybrid
+    transformer.check_family(cfg)        # dense | moe | vlm
+    return transformer
+
+
 def get_model(cfg: ArchConfig) -> ModelAPI:
-    transformer.check_family(cfg)
+    mod = family_module(cfg)
 
-    def bind(fn):
-        return functools.partial(fn, cfg)
+    def bind(fname):
+        return functools.partial(getattr(mod, fname), cfg)
 
-    return ModelAPI(cfg=cfg, init=bind(transformer.init_params),
-                    forward=bind(transformer.forward),
-                    loss=bind(transformer.loss_fn),
-                    init_cache=bind(transformer.init_cache),
-                    prefill=bind(transformer.prefill),
-                    decode_step=bind(transformer.decode_step))
+    return ModelAPI(cfg=cfg, init=bind("init_params"),
+                    forward=bind("forward"), loss=bind("loss_fn"),
+                    init_cache=bind("init_cache"), prefill=bind("prefill"),
+                    decode_step=bind("decode_step"))

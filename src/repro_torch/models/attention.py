@@ -1,6 +1,6 @@
-"""Attention: GQA (full sequence, sliding window, decode over a full or a
-ring cache) and MLA (DeepSeek multi-head latent attention, absorbed
-decode).  Port of ``repro/models/attention.py:26-350``.
+"""Attention: GQA (full sequence, sliding window, cross-attention, decode
+over a full or a ring cache) and MLA (DeepSeek multi-head latent
+attention, absorbed decode).  Port of ``repro/models/attention.py``.
 
 Conventions: activations [B, S, D]; heads H, KV heads K (H % K == 0),
 head_dim Dh.  The full-sequence paths are exact f32 einsums, chunked
@@ -101,26 +101,36 @@ def _chunked_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                window: int = 0, theta: float = 1e4,
+                window: int = 0, theta: float = 1e4, causal: bool = True,
+                kv_x: torch.Tensor | None = None,
+                kv_positions: torch.Tensor | None = None,
                 kv: tuple[torch.Tensor, torch.Tensor] | None = None
                 ) -> torch.Tensor:
-    """Full-sequence causal GQA: x [B, S, D], positions [S] -> [B, S, D].
+    """Full-sequence GQA: x [B, S, D], positions [S] -> [B, S, D].
 
-    ``kv``: (k roped, v), each [B, S, K, Dh], computed by the caller with
-    :func:`gqa_kv` (prefill projects K/V once for the cache and for
-    attention); else they are projected here.  (The JAX version's
-    cross-attention arguments wait for the encoder-decoder family.)
+    ``kv_x`` [B, T, D] (with ``kv_positions`` [T]) makes it
+    cross-attention: K/V are projected from it (unroped when ``theta`` is
+    0).  ``kv``: (k roped, v), each [B, T, K, Dh], computed by the caller
+    with :func:`gqa_kv` (prefill projects K/V once for the cache and for
+    attention); else they are projected here.  ``kv`` and ``kv_x``
+    exclude each other.
     """
     b, s, _ = x.shape
+    kvp = positions if kv_positions is None else kv_positions
     q = L.linear(p["wq"], x)                         # [B, S, H, Dh]
     dh = q.shape[-1]
     if theta > 0:
         cos, sin = L.rope_angles(positions, dh, theta)
         q = L.apply_rope(q, cos[None, :, None, :], sin[None, :, None, :])
-    k, v = kv if kv is not None else gqa_kv(p, x, positions, theta=theta)
+    if kv is not None:
+        if kv_x is not None:
+            raise ValueError("kv and kv_x are mutually exclusive")
+        k, v = kv
+    else:
+        k, v = gqa_kv(p, x if kv_x is None else kv_x, kvp, theta=theta)
     h, kh = q.shape[2], k.shape[2]
     ctx = _chunked_attn(q.reshape(b, s, kh, h // kh, dh), k, v, positions,
-                        positions, True, window)
+                        kvp, causal, window)
     return _proj_out(p, ctx.reshape(b, s, h, -1))
 
 

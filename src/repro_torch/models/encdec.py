@@ -1,0 +1,214 @@
+"""Encoder-decoder transformer: the seamless-m4t backbone (port of
+``repro/models/encdec.py``).
+
+Encoder: bidirectional self-attention over precomputed frame embeddings
+(the speech frontend is a stub: the batch carries ``enc_embeds`` [B,
+S_enc, D]).  Decoder: causal self-attention, then cross-attention to the
+encoder memory (unroped, ``theta`` 0).  Decode caches: self-attention
+K/V a decoder layer, plus the cross K/V projected once from the memory
+at prefill.  Layers loop in Python (under ``torch.utils.checkpoint`` in
+the training forward) where JAX scans them.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ArchConfig
+
+from . import attention as A
+from . import layers as L
+from . import params as P
+from .frontends import ENC_LEN_DECODE
+
+
+def _init_enc_block(cfg: ArchConfig, gen: torch.Generator,
+                    device: torch.device) -> dict:
+    d = cfg.d_model
+    return {"ln1": L.init_rmsnorm(d, device), "ln2": L.init_rmsnorm(d, device),
+            "attn": A.init_gqa(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, device=device),
+            "ffn": L.init_mlp(gen, d, cfg.d_ff, device=device)}
+
+
+def _init_dec_block(cfg: ArchConfig, gen: torch.Generator,
+                    device: torch.device) -> dict:
+    d = cfg.d_model
+    return {"ln1": L.init_rmsnorm(d, device), "lnx": L.init_rmsnorm(d, device),
+            "ln2": L.init_rmsnorm(d, device),
+            "attn": A.init_gqa(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, device=device),
+            "cross": A.init_gqa(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                cfg.head_dim, device=device),
+            "ffn": L.init_mlp(gen, d, cfg.d_ff, device=device)}
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator,
+                device: torch.device | str) -> dict:
+    """Random params on ``device`` from ``gen``; the JAX init's tree and
+    distributions, not its numbers."""
+    device = torch.device(device)
+    embed = L.init_embed(gen, cfg.vocab, cfg.d_model, device=device)
+    enc = P.init_stacked(lambda: _init_enc_block(cfg, gen, device),
+                         cfg.enc_layers)
+    dec = P.init_stacked(lambda: _init_dec_block(cfg, gen, device),
+                         cfg.n_layers)
+    return {"embed": embed, "enc_blocks": enc, "dec_blocks": dec,
+            "enc_norm": L.init_rmsnorm(cfg.d_model, device),
+            "final_norm": L.init_rmsnorm(cfg.d_model, device),
+            "lm_head": L.init_lm_head(gen, cfg.d_model, cfg.vocab,
+                                      device=device)}
+
+
+def _enc_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    x = x + A.gqa_forward(bp["attn"], h, positions, causal=False,
+                          theta=cfg.rope_theta)
+    h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(bp["ffn"], h)
+
+
+def encode(cfg: ArchConfig, params: dict, enc_embeds: torch.Tensor,
+           remat: bool = True) -> torch.Tensor:
+    """Frames [B, S_enc, D] (cast to bf16) -> memory [B, S_enc, D]."""
+    x = enc_embeds.to(torch.bfloat16)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    for bp in P.unstack(params["enc_blocks"]):
+        if remat:
+            x = checkpoint(_enc_block, cfg, bp, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _enc_block(cfg, bp, x, positions)
+    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _dec_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
+               positions: torch.Tensor, memory: torch.Tensor,
+               mem_pos: torch.Tensor) -> torch.Tensor:
+    h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
+    x = x + A.gqa_forward(bp["attn"], h, positions, theta=cfg.rope_theta)
+    h = L.rmsnorm(bp["lnx"], x, cfg.norm_eps)
+    x = x + A.gqa_forward(bp["cross"], h, positions, causal=False, theta=0.0,
+                          kv_x=memory, kv_positions=mem_pos)
+    h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+    return x + L.mlp(bp["ffn"], h)
+
+
+def _hidden(cfg: ArchConfig, params: dict, batch: dict,
+            remat: bool = True) -> torch.Tensor:
+    """Teacher-forcing decoder hidden states (before the LM head)."""
+    memory = encode(cfg, params, batch["enc_embeds"], remat)
+    x = L.embed(params["embed"], batch["tokens"])
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    mem_pos = torch.arange(memory.shape[1], dtype=torch.int32,
+                           device=x.device)
+    for bp in P.unstack(params["dec_blocks"]):
+        if remat:
+            x = checkpoint(_dec_block, cfg, bp, x, positions, memory,
+                           mem_pos, use_reentrant=False)
+        else:
+            x = _dec_block(cfg, bp, x, positions, memory, mem_pos)
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def forward(cfg: ArchConfig, params: dict, batch: dict,
+            remat: bool = True) -> torch.Tensor:
+    """Teacher forcing: the encoder over frames, the decoder over tokens."""
+    return L.lm_logits(params["lm_head"], _hidden(cfg, params, batch, remat))
+
+
+def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    x = _hidden(cfg, params, batch)
+    return L.chunked_cross_entropy(params["lm_head"], x, batch["targets"],
+                                   batch.get("loss_mask"))
+
+
+class EncDecCache(NamedTuple):
+    self_k: torch.Tensor    # [L, B, T, K, Dh]
+    self_v: torch.Tensor
+    cross_k: torch.Tensor   # [L, B, S_enc, K, Dh]
+    cross_v: torch.Tensor
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               enc_len: int = ENC_LEN_DECODE, dtype=torch.bfloat16,
+               device: torch.device | str = "cpu") -> EncDecCache:
+    lyr, k, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+
+    def z(n):
+        return torch.zeros((lyr, batch, n, k, dh), dtype=dtype, device=device)
+    return EncDecCache(self_k=z(max_len), self_v=z(max_len),
+                       cross_k=z(enc_len), cross_v=z(enc_len))
+
+
+@torch.no_grad()
+def decode_step(cfg: ArchConfig, params: dict, cache: EncDecCache,
+                token: torch.Tensor, t: int
+                ) -> tuple[torch.Tensor, EncDecCache]:
+    """One decode step: token [B] at position ``t`` -> (logits [B, V],
+    the cache, its self-attention K/V written in place).  Cross-attention
+    reads the whole static memory, without a mask or rope, scaled by
+    ``1 / sqrt(dh)`` in f32."""
+    t = int(t)
+    f32 = torch.float32
+    x = L.embed(params["embed"], token[:, None])
+    for i, bp in enumerate(P.unstack(params["dec_blocks"])):
+        h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
+        y, _, _ = A.gqa_decode(bp["attn"], h, cache.self_k[i],
+                               cache.self_v[i], t, ring=False,
+                               theta=cfg.rope_theta)
+        x = x + y
+        h = L.rmsnorm(bp["lnx"], x, cfg.norm_eps)
+        q = L.linear(bp["cross"]["wq"], h)               # [B, 1, H, Dh]
+        b, _, hh, dh = q.shape
+        ck, cv = cache.cross_k[i], cache.cross_v[i]
+        kh = ck.shape[2]
+        qg = q.reshape(b, kh, hh // kh, dh)
+        scores = torch.einsum("bkgd,btkd->bkgt", qg.to(f32),
+                              ck.to(f32)) / math.sqrt(dh)
+        w = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bkgt,btkd->bkgd", w, cv.to(f32))
+        x = x + A._proj_out(bp["cross"],
+                            ctx.reshape(b, 1, hh, dh).to(x.dtype))
+        h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp(bp["ffn"], h)
+    return L.last_logits(params, x, cfg.norm_eps), cache
+
+
+@torch.no_grad()
+def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
+            ) -> tuple[torch.Tensor, EncDecCache]:
+    """Encode the frames, run the prompt, build the cache -> (last logits
+    [B, V], cache).  A layer projects its self K/V once (roped, for the
+    cache and attention) and its cross K/V once from the memory (theta 0,
+    kept in the cache for decode)."""
+    memory = encode(cfg, params, batch["enc_embeds"], remat=False)
+    b, s_enc, _ = memory.shape
+    x = L.embed(params["embed"], batch["tokens"])
+    s = x.shape[1]
+    if s > max_len:
+        raise ValueError(f"prompt of {s} positions exceeds max_len "
+                         f"{max_len}")
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    mem_pos = torch.arange(s_enc, dtype=torch.int32, device=x.device)
+    cache = init_cache(cfg, b, max_len, enc_len=s_enc, device=x.device)
+    for i, bp in enumerate(P.unstack(params["dec_blocks"])):
+        h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
+        kv = A.gqa_kv(bp["attn"], h, positions, theta=cfg.rope_theta)
+        cache.self_k[i], cache.self_v[i] = A.gqa_prefill_cache(
+            bp["attn"], h, positions, max_len, ring=False, kv=kv)
+        x = x + A.gqa_forward(bp["attn"], h, positions, theta=cfg.rope_theta,
+                              kv=kv)
+        h = L.rmsnorm(bp["lnx"], x, cfg.norm_eps)
+        ck, cv = A.gqa_kv(bp["cross"], memory, mem_pos, theta=0.0)
+        cache.cross_k[i], cache.cross_v[i] = ck, cv
+        x = x + A.gqa_forward(bp["cross"], h, positions, causal=False,
+                              theta=0.0, kv=(ck, cv), kv_positions=mem_pos)
+        h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+        x = x + L.mlp(bp["ffn"], h)
+    return L.last_logits(params, x, cfg.norm_eps), cache

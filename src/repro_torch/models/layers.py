@@ -122,6 +122,13 @@ def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(p, x)
 
 
+def last_logits(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """A model's logits [B, V] at the last position of hidden states [B,
+    S, D]: ``final_norm`` then ``lm_head`` on that row only."""
+    x = rmsnorm(params["final_norm"], x[:, -1:], eps)
+    return lm_logits(params["lm_head"], x)[:, 0]
+
+
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Per-token ``logsumexp(logits) - logits[target]`` in f32."""
     logits = logits.to(torch.float32)

@@ -87,3 +87,33 @@ def unstack(blocks: dict) -> list[dict]:
     split = tree_map(lambda t: t.unbind(0), blocks)
     n = len(leaves(split)[0])
     return [tree_map(lambda ts, i=i: ts[i], split) for i in range(n)]
+
+
+def _stack_into(dst: dict | None, src: dict, li: int, n: int) -> dict:
+    """Copy one layer's params into stacked [n, ...] buffers (made on the
+    first layer), so the peak is the stack plus one layer; a one-layer
+    stack is a view of the layer (arctic's experts at one layer are 27
+    GB)."""
+    if dst is None:
+        dst = {}
+    for k, v in src.items():
+        if isinstance(v, dict):
+            dst[k] = _stack_into(dst.get(k), v, li, n)
+        elif n == 1:
+            dst[k] = v.unsqueeze(0)
+        else:
+            if k not in dst:
+                dst[k] = torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                                     device=v.device)
+            dst[k][li] = v
+    return dst
+
+
+def init_stacked(make_block: Callable[[], dict], n: int) -> dict:
+    """``n`` blocks from ``make_block()``, made one after another (the
+    generator's draws in layer order) and stacked along a leading [n, ...]
+    axis, the layout JAX's ``vmap``-ed init gives."""
+    blocks: dict | None = None
+    for li in range(n):
+        blocks = _stack_into(blocks, make_block(), li, n)
+    return blocks

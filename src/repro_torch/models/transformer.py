@@ -45,8 +45,10 @@ from . import params as P
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """The family this module ports: decoder-only transformers (dense,
-    moe, vlm) with GQA or MLA attention; any other config raises."""
+    """The family this module models: decoder-only transformers (dense,
+    moe, vlm) with GQA or MLA attention; any other config raises (the
+    ssm, hybrid and encoder-decoder families have modules of their own,
+    ``models/api.get_model``)."""
     if (cfg.attn_kind not in ("gqa", "mla") or cfg.is_encdec
             or cfg.family in ("ssm", "hybrid")):
         raise ValueError(f"{cfg.name}: only the decoder-only transformer "
@@ -96,26 +98,6 @@ def _init_block(cfg: ArchConfig, gen: torch.Generator,
     return p
 
 
-def _stack_into(dst: dict | None, src: dict, li: int, n: int) -> dict:
-    """Copy one layer's params into stacked [n, ...] buffers (made on the
-    first layer), so the peak is the stack plus one layer; a one-layer
-    stack is a view of the layer (arctic's experts at one layer are 27
-    GB)."""
-    if dst is None:
-        dst = {}
-    for k, v in src.items():
-        if isinstance(v, dict):
-            dst[k] = _stack_into(dst.get(k), v, li, n)
-        elif n == 1:
-            dst[k] = v.unsqueeze(0)
-        else:
-            if k not in dst:
-                dst[k] = torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
-                                     device=v.device)
-            dst[k][li] = v
-    return dst
-
-
 def init_params(cfg: ArchConfig, gen: torch.Generator,
                 device: torch.device | str) -> dict:
     """Random params on ``device`` from ``gen`` (a generator on that
@@ -123,10 +105,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     check_family(cfg)
     device = torch.device(device)
     embed = L.init_embed(gen, cfg.vocab, cfg.d_model, device=device)
-    blocks = None
-    for li in range(cfg.n_layers):
-        blocks = _stack_into(blocks, _init_block(cfg, gen, device), li,
-                             cfg.n_layers)
+    blocks = P.init_stacked(lambda: _init_block(cfg, gen, device),
+                            cfg.n_layers)
     return {
         "embed": embed,
         "blocks": blocks,
@@ -228,6 +208,7 @@ class QuantDecodeCache(NamedTuple):
 
 
 def cache_bytes(cache: NamedTuple) -> int:
+    """Bytes of a decode cache of any family (a NamedTuple of tensors)."""
     return sum(t.numel() * t.element_size() for t in cache)
 
 
@@ -280,12 +261,6 @@ def _quant_vec(x: torch.Tensor):
     return d.to(torch.int8), base, scale
 
 
-def _head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Last position's logits [B, V] of hidden states [B, S, D]."""
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return L.lm_logits(params["lm_head"], x)[:, 0]
-
-
 @torch.no_grad()
 def decode_step_quant(cfg: ArchConfig, params: dict, cache: QuantDecodeCache,
                       token: torch.Tensor, t: int
@@ -320,7 +295,7 @@ def decode_step_quant(cfg: ArchConfig, params: dict, cache: QuantDecodeCache,
         x = x + A._proj_out(a, ctx.reshape(b, 1, hh, dh))
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_apply(cfg, bp, h)
-    return _head(cfg, params, x), cache
+    return L.last_logits(params, x, cfg.norm_eps), cache
 
 
 @torch.no_grad()
@@ -350,7 +325,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: DecodeCache,
         x = x + y
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_apply(cfg, bp, h)
-    return _head(cfg, params, x), cache
+    return L.last_logits(params, x, cfg.norm_eps), cache
 
 
 @torch.no_grad()
@@ -386,4 +361,4 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
         x = x + _attn_forward(cfg, bp, h, positions, int(w), kv=kv)
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_apply(cfg, bp, h)
-    return _head(cfg, params, x), cache
+    return L.last_logits(params, x, cfg.norm_eps), cache

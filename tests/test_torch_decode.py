@@ -442,7 +442,9 @@ def test_generate_tokens_match_jax(jax_generate, name):
 
 def test_generate_defaults_to_dense():
     """``generate`` takes JAX's signature and default (``paged=False``):
-    dense decode, JAX's result keys; other families raise."""
+    dense decode, JAX's result keys, for every family; the paged engine
+    and the oracle still refuse the recurrent and encoder-decoder
+    families, as the reference's do."""
     import inspect
     assert inspect.signature(serve.generate).parameters[
         "paged"].default is False
@@ -451,8 +453,16 @@ def test_generate_defaults_to_dense():
     assert {"tokens", "tok_per_s"} <= set(out) and "codec" not in out
     assert np.shape(out["tokens"]) == (2, 4)
     for arch in ("xlstm-350m", "hymba-1.5b", "seamless-m4t-large-v2"):
-        with pytest.raises(ValueError, match="decoder-only transformer"):
-            serve.generate(arch, batch=1, prompt_len=4, gen=2, device="cpu")
+        out = serve.generate(arch, batch=2, prompt_len=4, gen=3,
+                             device="cpu")
+        assert "codec" not in out and out["cache_bytes"] > 0
+        assert np.shape(out["tokens"]) == (2, 3)
+        vocab = get_arch(arch).reduced().vocab
+        assert all(0 <= t < vocab for row in out["tokens"] for t in row)
+        for mode in ("paged", "paged_reference"):
+            with pytest.raises(ValueError, match="paged engine serves dense"):
+                serve.generate(arch, batch=1, prompt_len=4, gen=2,
+                               device="cpu", **{mode: True})
 
 
 def test_cli_without_a_mode_runs_dense(monkeypatch, capsys):

@@ -3,7 +3,9 @@
 ``repro_torch``'s data pipeline, losses, full-sequence attention, dense
 forward, loss and gradients, and ``launch/train.train`` with its
 checkpoints, held against the JAX package on the reduced yi-6b config
-(gemma3-27b's reduced config for the sliding window).  Inputs are made
+(gemma3-27b's reduced config for the sliding window), and a ``train()``
+step of each of the xlstm-350m, hymba-1.5b and seamless-m4t-large-v2
+reduced configs from a step-0 checkpoint the port writes.  Inputs are made
 with numpy from a seed.  Parameters are the port's init, handed to the
 JAX side bit for bit through a checkpoint the port writes in the JAX
 on-disk format; both packages' ``train()`` start from one step-0
@@ -76,6 +78,7 @@ from repro_torch.launch.train import train
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.api import get_model
 from repro_torch.models.params import layer, leaves
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.adamw import (_load, _store_leaves, export_state,
@@ -83,6 +86,7 @@ from repro_torch.optim.adamw import (_load, _store_leaves, export_state,
 
 REPO = Path(__file__).resolve().parents[1]
 ARCHS = ("yi-6b", "gemma3-27b")          # gemma3: window 8 on every layer
+FAMILIES = ("xlstm-350m", "hymba-1.5b", "seamless-m4t-large-v2")
 REMAT = {"yi-6b": (True, False), "gemma3-27b": (True,)}
 TRAIN = dict(smoke=True, seq_len=32, batch=4, log_every=100)
 DTYPES = ("f32", "bdi8")
@@ -232,6 +236,11 @@ def jax_main(work: str) -> None:
             "yi-6b", steps=10, ckpt_dir=_copy(f"{d}/port_whole",
                                               f"{d}/jax_from_port", {9}),
             ckpt_every=9, moment_dtype=md, **TRAIN)["losses"]
+    for name in FAMILIES:
+        d = os.path.join(work, "families", name)
+        runs[f"{name}_jax"] = jtrain(
+            name, steps=2, ckpt_dir=_copy(f"{d}/init", f"{d}/jax"),
+            ckpt_every=1, **TRAIN)["losses"]
     Path(work, "jax_runs.json").write_text(json.dumps(runs))
 
 
@@ -255,6 +264,13 @@ def records(tmp_path_factory):
                          ckpt_dir=_copy(d / "init", d / "port_whole"),
                          ckpt_every=9, moment_dtype=md, device="cpu",
                          **TRAIN)["losses"]
+    for name in FAMILIES:                     # f32 moments, zero
+        params = get_model(get_arch(name).reduced()).init(
+            torch.Generator().manual_seed(0), "cpu")
+        state = export_state(adamw_init(params, AdamWConfig()))
+        store.save(str(work / "families" / name / "init"), 0,
+                   (params, state),
+                   extra={"next_step": 0, "data_seed": 0, "loss": None})
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [str(REPO / "src"), str(REPO / "tests")]
@@ -542,6 +558,20 @@ def test_deadline_checkpoint(tmp_path):
     assert store.latest_step(ckpt) == out["steps_run"]
 
 
-def test_train_refuses_other_families():
-    with pytest.raises(ValueError, match="decoder-only transformer"):
-        train("xlstm-350m", steps=1, device="cpu")
+@pytest.mark.parametrize("name", FAMILIES)
+def test_train_other_families_match_jax(records, name):
+    """xLSTM, the Hymba hybrid and the encoder-decoder train through
+    ``train()``: from the port's step-0 checkpoint, the port's first loss
+    equals JAX's (which resumed the same checkpoint); from JAX's step-1
+    checkpoint, the port's step-2 loss equals JAX's step 2."""
+    d = records["work"] / "families" / name
+    want = records["jax"][f"{name}_jax"]
+    assert len(want) == 2
+    out = train(name, steps=1, ckpt_dir=_copy(d / "init", d / "port"),
+                ckpt_every=1, device="cpu", **TRAIN)
+    np.testing.assert_allclose(out["losses"][0], want[0], rtol=1e-4)
+    ckpt = _copy(d / "jax", d / "port_from_jax", steps={1})
+    out = train(name, steps=2, ckpt_dir=ckpt, ckpt_every=1, device="cpu",
+                **TRAIN)
+    assert out["steps_run"] == 1 and store.latest_step(ckpt) == 2
+    np.testing.assert_allclose(out["losses"][0], want[1], rtol=1e-4)

@@ -213,6 +213,34 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      xlstm-350m at full depth, hymba at 4 layers, seamless at 4 + 4;
      finite, falling losses, ms a step, peak memory.
      Phases 12-12e assert that none of the seven kernels launched.
+  13. the distributed layer's main path, compressed DP training: yi-6b
+     at full width and depth on a one-rank NCCL mesh
+     (``launch.mesh.make_host_mesh(1, 1)``; on one card the all-gather
+     and all-reduce are copies), ``compress_comm.make_dp_train_step``
+     with bdi8 moments, 4 steps of 8 x 128 from phase 10's stream and
+     init: the EC plan (``plan_compression``) from step 1's gradients
+     (seconds, leaves and bytes it ships compressed), then the 4 steps
+     compressed (every leaf, as ``benchmarks/bench_collectives.py``) and
+     raw (``compress=False``) from the same init and batches: both loss
+     trajectories and the last gap, wire bytes a step raw against
+     compressed, ms a step split into forward+backward, all-reduce and
+     update, peak memory, the residual's norm relative to the
+     gradient's; both tile kernels must launch inside the all-reduce
+     (counted apart from the optimizer's), every loss be finite;
+  13b. full width, 2 layers: ``tree_all_reduce`` of one set of gradients
+     and residuals on the card (NCCL, the tile kernels) and on the CPU
+     (gloo, the plain versions): means and residuals bit-equal; one
+     compressed DP step (the EC plan, f32 moments) from one state on
+     both: params within one bf16 ULP for >= 99% of each leaf;
+  13c. deepseek-v2-lite-16b at full width, 4 layers, through
+     ``dense_generate`` under ``use_mesh(make_host_mesh(1, 1))`` (MoE's
+     expert-parallel path) and without a mesh: tokens and logits
+     bit-equal;
+  13d. phase 13b's model saved with ``store.save`` and restored with
+     ``launch.elastic.restore_elastic`` onto a one-rank mesh on the card:
+     every leaf a DTensor on the mesh, bit-equal; ``reshard_plan`` of
+     yi-6b at full width, (16, 16) -> (2, 2): leaves flagged, the
+     largest growth.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -1739,6 +1767,19 @@ def sync(dev) -> None:
     import torch
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def release(dev) -> None:
+    """Free what the last phase left: objects in reference cycles (an
+    engine and its scheduler) hold card memory until the collector runs,
+    so collect, return the cached blocks, and log what stays allocated."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  allocated after release: "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
 
 
 def obs_series(reg) -> dict:
@@ -3303,6 +3344,344 @@ def phase_train_families(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 13-13d: the distributed layer (compressed DP training, card vs
+# cpu, MoE's expert-parallel path, elastic restore) on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+DP_SEQ, DP_BATCH, DP_STEPS = 128, 8, 4
+
+
+def dp_batches(dev, cfg, seq: int, batch: int, n: int) -> list:
+    """The first ``n`` batches of phase 10's stream (``launch.train``'s:
+    seed 0), on ``dev``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    it = DataIterator(cfg, ShapeConfig("train", seq, batch, "train"),
+                      DataConfig(seed=0))
+    return [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+            for _ in range(n)]
+
+
+def grads_of(model, params: dict, batch: dict) -> dict:
+    """The loss's gradients over every leaf (``make_dp_train_step``'s)."""
+    import torch
+    from repro_torch.models import params as P
+    leaves = [t.requires_grad_() for t in P.leaves(params)]
+    grads = torch.autograd.grad(model.loss(params, batch), leaves,
+                                allow_unused=True, materialize_grads=True)
+    for t in leaves:
+        t.requires_grad_(False)
+    return P.unflatten(params, grads)
+
+
+def plan_numbers(plan: dict, params: dict) -> dict:
+    """Leaves and f32 wire bytes the EC plan ships compressed."""
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import compress_comm as cc
+    shapes = {p: tuple(t.shape) for p, t in leaf_paths(params)}
+    raw = {p: cc.wire_bytes(s, False) for p, s in shapes.items()}
+    on = [p for p, v in plan.items() if v]
+    return {"leaves": len(plan), "leaves_compressed": len(on),
+            "raw_bytes_compressed": sum(raw[p] for p in on),
+            "raw_bytes_all": sum(raw.values()),
+            "wire_bytes_a_step_under_plan": sum(
+                cc.wire_bytes(shapes[p], True) if plan[p] else raw[p]
+                for p in shapes),
+            "compressed": sorted(on)}
+
+
+def dp_run(dev, cfg, batches: list, *, compress: bool, moment_dtype: str,
+           plan=None) -> dict:
+    """``make_dp_train_step`` over ``batches`` on a one-rank mesh from the
+    seed-0 init (``launch.train``'s), AdamW (lr 3e-4) with
+    ``moment_dtype`` moments: losses, each step's ms split, the residual's
+    norm relative to the reduced gradient's, the tile kernels' launches
+    inside the all-reduce, peak memory."""
+    import torch
+    from repro_torch.distributed import compress_comm as cc
+    from repro_torch.launch.mesh import BACKEND, destroy_mesh, make_host_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    model = get_model(cfg)
+    ocfg = AdamWConfig(moment_dtype=moment_dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw_init(params, ocfg)
+    res = cc.init_residuals(params, 1) if compress else None
+    mesh = make_host_mesh(1, 1, device=dev)
+    out = {"losses": [], "fwd_bwd_ms": [], "allreduce_ms": [], "opt_ms": [],
+           "residual_rel_norm": [],
+           "allreduce_launches": {"bdi_compress": 0, "bdi_decompress": 0}}
+    try:
+        if torch.distributed.get_backend() != BACKEND[dev.type]:
+            raise AssertionError(f"phase 13: a {dev.type} mesh on "
+                                 f"{torch.distributed.get_backend()}")
+        step = cc.make_dp_train_step(
+            model.loss, lambda p, g, s: adamw_update(p, g, s, ocfg), mesh,
+            plan=plan, compress=compress)
+        for b in batches:
+            params, opt, res, m = step(params, opt, res, b)
+            out["losses"].append(m["loss"])
+            for k in ("fwd_bwd", "allreduce", "opt"):
+                out[f"{k}_ms"].append(m[f"{k}_s"] * 1e3)
+            for k, v in m["allreduce_launches"].items():
+                out["allreduce_launches"][k] += v
+            if compress:
+                rn = torch.linalg.vector_norm(torch.stack([
+                    torch.linalg.vector_norm(r) for r in _leaves(res)]))
+                out["residual_rel_norm"].append(float(rn) / m["grad_norm"])
+        sync(dev)
+    finally:
+        destroy_mesh()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    rest = slice(1, None)
+    for k in ("fwd_bwd", "allreduce", "opt"):
+        xs = out[f"{k}_ms"][rest]
+        out[f"{k}_ms_mean"] = sum(xs) / len(xs)
+    out["step_ms_mean"] = sum(out[f"{k}_ms_mean"] for k in
+                              ("fwd_bwd", "allreduce", "opt"))
+    del params, opt, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp_train(dev, cfg) -> dict:
+    """Phase 13: yi-6b at full width and depth, compressed DP training on
+    a one-rank NCCL mesh with bdi8 moments, 4 steps of 8 x 128 from phase
+    10's stream and init; the EC plan from step 1's gradients; the same 4
+    steps with ``compress=False``."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import compress_comm as cc
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import get_model
+    batches = dp_batches(dev, cfg, DP_SEQ, DP_BATCH, DP_STEPS)
+    ops.reset_launches()
+    # the EC plan from step 1's gradients (the init's, on batch 1)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    grads = grads_of(model, params, batches[0])
+    sync(dev)
+    t0 = time.perf_counter()
+    plan = cc.plan_compression(grads)
+    plan_s = time.perf_counter() - t0
+    shapes = [tuple(t.shape) for _, t in leaf_paths(params)]
+    plan_info = {"seconds": plan_s, **plan_numbers(plan, params)}
+    del params, grads
+    torch.cuda.empty_cache()
+    comp = dp_run(dev, cfg, batches, compress=True, moment_dtype="bdi8")
+    exact = dp_run(dev, cfg, batches, compress=False, moment_dtype="bdi8")
+    sync(dev)
+    launches = {k: ops.LAUNCHES[k] for k in ("bdi_compress",
+                                             "bdi_decompress")}
+    for name, run in (("compressed", comp), ("exact", exact)):
+        _finite_losses(f"phase 13 {name}", run["losses"])
+    for k, n in comp["allreduce_launches"].items():
+        if n <= 0:
+            raise AssertionError(f"phase 13: {k} never launched inside the "
+                                 f"all-reduce: {comp['allreduce_launches']}")
+    if any(exact["allreduce_launches"].values()):
+        raise AssertionError("phase 13: the raw all-reduce launched a tile "
+                             f"kernel: {exact['allreduce_launches']}")
+    wire = {"raw_f32": sum(cc.wire_bytes(s, False) for s in shapes),
+            "bdi8": sum(cc.wire_bytes(s, True) for s in shapes)}
+    wire["reduction"] = wire["raw_f32"] / wire["bdi8"]
+    groups = sum(len(cc._groups(torch.empty(s, device="meta")))
+                 for s in shapes)
+    res = {"card": smi(), "params": sum(
+        int(torch.Size(s).numel()) for s in shapes),
+        "steps": DP_STEPS, "tokens_a_step": DP_SEQ * DP_BATCH,
+        "plan": {k: v for k, v in plan_info.items() if k != "compressed"},
+        "plan_compressed_leaves": plan_info["compressed"],
+        "wire_bytes_a_step": wire, "allreduce_groups_a_step": groups,
+        "exact_final": exact["losses"][-1],
+        "bdi8_final": comp["losses"][-1],
+        "final_gap": abs(exact["losses"][-1] - comp["losses"][-1]),
+        "compressed": comp, "exact": exact, "launches": launches}
+    log(f"phase 13: {json.dumps(res)}")
+    return res
+
+
+def phase_dp_parity(dev, cfg) -> dict:
+    """Phase 13b: full width, 2 layers: ``tree_all_reduce`` of one set of
+    gradients and residuals on the card (NCCL, the tile kernels) and on
+    the CPU (gloo, the plain versions), means and residuals bit-equal;
+    then one compressed DP step from one state on both, params within one
+    bf16 ULP for at least 99% of each leaf."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import compress_comm as cc
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.models import params as P
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    two = at_depth(cfg, 2)
+    model = get_model(two)
+    gpu = model_on(dev, two)
+    cpu_dev = torch.device("cpu")
+    cpu = P.tree_map(lambda t: t.to(cpu_dev, copy=True), gpu)
+    batch = dp_batches(dev, two, 64, 2, 1)[0]
+    grads = grads_of(model, gpu, batch)
+    t0 = time.perf_counter()
+    plan = cc.plan_compression(grads)
+    plan_s = time.perf_counter() - t0
+    out, secs = {}, {}
+    for side, d in (("card", dev), ("cpu", cpu_dev)):
+        g = P.tree_map(lambda t: t.to(d, copy=True), grads)
+        r = P.tree_map(lambda t: t.to(torch.float32) * 2.0 ** -9, g)
+        mesh = make_host_mesh(1, 1, device=d)
+        try:
+            ops.reset_launches()
+            sync(dev)
+            t0 = time.perf_counter()
+            cc.tree_all_reduce(g, r, mesh.get_group("data"), None)
+            sync(dev)
+            secs[side] = time.perf_counter() - t0
+            n = (ops.LAUNCHES["bdi_compress"], ops.LAUNCHES["bdi_decompress"])
+            if (d.type == "cuda") != (min(n) > 0):
+                raise AssertionError(f"phase 13b: tile launches {n} on {d}")
+        finally:
+            destroy_mesh()
+        out[side] = (P.to_device(g, cpu_dev), P.to_device(r, cpu_dev))
+    differ = [p for (p, a), (_, b) in zip(
+        leaf_paths(out["card"]), leaf_paths(out["cpu"]))
+        if not torch.equal(bits(a.float()), bits(b.float()))]
+    if differ:
+        raise AssertionError(f"phase 13b: tree_all_reduce differs, card vs "
+                             f"cpu, at {differ[:6]}")
+    del out, grads
+    torch.cuda.empty_cache()
+    # one compressed DP step from one state (f32 moments, the EC plan)
+    ocfg = AdamWConfig()
+    after = {}
+    for side, d, params in (("card", dev, gpu), ("cpu", cpu_dev, cpu)):
+        mesh = make_host_mesh(1, 1, device=d)
+        try:
+            step = cc.make_dp_train_step(
+                model.loss, lambda p, g, s: adamw_update(p, g, s, ocfg),
+                mesh, plan=plan)
+            p, _, _, m = step(params, adamw_init(params, ocfg),
+                              cc.init_residuals(params, 1),
+                              {k: v.to(d) for k, v in batch.items()})
+            after[side] = (P.to_device(p, cpu_dev), m["loss"])
+        finally:
+            destroy_mesh()
+    share = 1.0
+    for (_, a), (_, b) in zip(leaf_paths(after["card"][0]),
+                              leaf_paths(after["cpu"][0])):
+        a, b = a.float(), b.float()
+        mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        share = min(share, float(((a - b).abs() <= ulp).float().mean()))
+    res = {"card": smi(), "params": n_params(gpu),
+           "plan": {"seconds": plan_s, **{k: v for k, v in plan_numbers(
+               plan, gpu).items() if k != "compressed"}},
+           "tree_all_reduce_bit_equal_leaves": len(leaf_paths(gpu)),
+           "tree_all_reduce_s": secs,
+           "step_loss": {k: v[1] for k, v in after.items()},
+           "step_param_share_within_1ulp": share}
+    if share < 0.99:
+        raise AssertionError(f"phase 13b: one DP step, card vs cpu: {res}")
+    log(f"phase 13b: {json.dumps(res)}")
+    del gpu, cpu, after
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_mesh(dev) -> dict:
+    """Phase 13c: deepseek-v2-lite-16b at full width, 4 layers, through
+    ``dense_generate`` under ``use_mesh(make_host_mesh(1, 1))`` (the
+    expert-parallel path) and without a mesh: tokens and logits
+    bit-equal."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.serve import dense_generate
+    cfg = at_depth(get_arch("deepseek-v2-lite-16b"), 4)
+    params, prompts = generate_inputs(dev, cfg, 4, 64)
+    dense_generate(cfg, params, prompts[:, :8], 2)          # warm-up
+    plain = dense_generate(cfg, params, prompts, 8, keep_logits=True)
+    mesh = make_host_mesh(1, 1, device=dev)
+    try:
+        with use_mesh(mesh):
+            ep = dense_generate(cfg, params, prompts, 8, keep_logits=True)
+    finally:
+        destroy_mesh()
+    if ep["tokens"] != plain["tokens"] or not torch.equal(
+            bits(ep["logits"]), bits(plain["logits"])):
+        raise AssertionError("phase 13c: the expert-parallel path differs "
+                             "from the plain one at m = 1")
+    check_tokens("phase 13c", ep["tokens"], cfg.vocab, (4, 8))
+    res = {"card": smi(), "params": n_params(params),
+           "tokens_equal": True, "logits_bit_equal": True,
+           **{f"{k}_ms": {"plain": f(plain), "mesh": f(ep)} for k, f in (
+               ("prefill", lambda o: o["prefill_s"] * 1e3),
+               ("decode_step", lambda o: 1e3 * sum(o["decode_s"])
+                / len(o["decode_s"])))}}
+    log(f"phase 13c: {json.dumps(res)}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_elastic(dev, cfg) -> dict:
+    """Phase 13d: phase 13b's 2-layer model saved with ``store.save`` and
+    restored with ``restore_elastic`` onto a one-rank mesh on the card,
+    every leaf bit-equal and on the mesh; ``reshard_plan`` of yi-6b at
+    full width, (16, 16) -> (2, 2)."""
+    import tempfile
+
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import store
+    from repro_torch.launch.elastic import (abstract_mesh, reshard_plan,
+                                            restore_elastic)
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.models.api import get_model
+    two = at_depth(cfg, 2)
+    params = model_on(dev, two)
+    meta = get_model(two).init(torch.Generator(), "meta")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        man = store.save(tmp, 1, params, compress=False)
+        save_s = time.perf_counter() - t0
+        mesh = make_host_mesh(1, 1, device=dev)
+        try:
+            t0 = time.perf_counter()
+            out, _ = restore_elastic(tmp, meta, mesh)
+            sync(dev)
+            restore_s = time.perf_counter() - t0
+            for (p, a), (_, b) in zip(store.leaf_paths(out),
+                                      store.leaf_paths(params)):
+                if not (isinstance(a, DTensor) and a.device_mesh is mesh
+                        and a.to_local().device == b.device and torch.equal(
+                            a.to_local().view(torch.uint8),
+                            b.view(torch.uint8))):
+                    raise AssertionError(f"phase 13d: {p} not restored "
+                                         "bit-equal onto the mesh")
+        finally:
+            destroy_mesh()
+    full = get_model(cfg).init(torch.Generator(), "meta")
+    plan = reshard_plan(full, abstract_mesh((16, 16), ("data", "model")),
+                        abstract_mesh((2, 2), ("data", "model")))
+    top = max(plan.items(), key=lambda kv: kv[1]["replicated_growth"])
+    res = {"card": smi(), "leaves": len(store.leaf_paths(params)),
+           "bytes": man["raw_bytes"], "save_s": save_s,
+           "restore_s": restore_s, "reshard_plan_16x16_to_2x2": {
+               "flagged": sorted(plan), "largest_growth": top}}
+    if not plan:
+        raise AssertionError("phase 13d: shrinking the mesh flagged nothing")
+    log(f"phase 13d: {json.dumps(res)}")
+    del params, out
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3340,6 +3719,7 @@ def main() -> int:
     def phase_done(name: str) -> None:
         nonlocal t0
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        release(dev)
         t0 = time.perf_counter()
 
     phase_done("1 build")
@@ -3403,7 +3783,7 @@ def main() -> int:
     del clean
     phase_done("9 observatory, bdi (pure observer) and adaptive")
     del params
-    torch.cuda.empty_cache()
+    release(dev)
 
     tiny = cfg.reduced(n_layers=2)
     wide = cfg.reduced(n_layers=2, d_model=cfg.d_model, n_heads=cfg.n_heads,
@@ -3467,11 +3847,19 @@ def main() -> int:
     phase_done("12d the three families, card vs cpu, 2 layers")
     phase_train_families(dev)
     phase_done("12e train the three families at full width")
+    dp = phase_dp_train(dev, cfg)
+    phase_done("13 compressed DP training of yi-6b at full width")
+    phase_dp_parity(dev, cfg)
+    phase_done("13b tree_all_reduce and one DP step, card vs cpu, 2 layers")
+    phase_moe_mesh(dev)
+    phase_done("13c deepseek-v2-lite-16b's expert-parallel path at m = 1")
+    phase_elastic(dev, cfg)
+    phase_done("13d elastic restore onto a one-rank mesh, reshard_plan")
 
     # launches of the paths that ran each kernel (3b set its own): the
-    # serve run of phase 4 or 4b, the tile path and the training run of
-    # phase 10, and for the serving kernels phases 9 and 9b, each counted
-    # from 0 over its own run
+    # serve run of phase 4 or 4b, the tile path and the training runs of
+    # phases 10 and 13 (the compressed all-reduce), and for the serving
+    # kernels phases 9 and 9b, each counted from 0 over its own run
     path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
             "gbdi_compress_kv": gbdi, "gbdi_decompress_kv": gbdi,
             "bdi_compress": tile, "bdi_decompress": tile}
@@ -3480,7 +3868,7 @@ def main() -> int:
         if name in path:
             k["launches"] = path[name]["launches"][name]
         if name in ("bdi_compress", "bdi_decompress"):
-            k["launches"] += trained["launches"][name]
+            k["launches"] += trained["launches"][name] + dp["launches"][name]
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

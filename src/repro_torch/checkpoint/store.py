@@ -23,8 +23,9 @@ view under the dtype string JAX writes, so no ``ml_dtypes`` is needed;
 :func:`load_flat` returns such leaves as CPU bf16 tensors, every other
 leaf as a numpy array.  Tensors on the card are copied to the host once per
 leaf.  ``restore`` places each leaf on the device of the template leaf
-it replaces; ``target_shardings`` (re-sharding onto a mesh) waits for
-the port of the mesh code and is refused.
+it replaces or, given ``target_shardings`` (the elastic path,
+``launch/elastic.restore_elastic``), on the mesh of its sharding as a
+DTensor, whatever the layout of the job that saved it.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import shutil
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.core import bdi_exact as bx
 
@@ -48,20 +50,24 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def leaf_paths(tree, prefix: str = "") -> list[tuple[str, object]]:
+def leaf_paths(tree, prefix: str = "", is_leaf=None
+               ) -> list[tuple[str, object]]:
     """``(keystr, leaf)`` pairs in ``jax.tree_util.tree_flatten_with_path``
-    order."""
+    order; ``is_leaf(node)`` true stops the descent there, as JAX's
+    ``is_leaf`` does (a tree of ``PartitionSpec`` tuples)."""
     if tree is None:
         return []
+    if is_leaf is not None and is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         return [p for k in sorted(tree)
-                for p in leaf_paths(tree[k], f"{prefix}[{k!r}]")]
+                for p in leaf_paths(tree[k], f"{prefix}[{k!r}]", is_leaf)]
     if _is_namedtuple(tree):
         return [p for name, v in zip(tree._fields, tree)
-                for p in leaf_paths(v, f"{prefix}.{name}")]
+                for p in leaf_paths(v, f"{prefix}.{name}", is_leaf)]
     if isinstance(tree, (list, tuple)):
         return [p for i, v in enumerate(tree)
-                for p in leaf_paths(v, f"{prefix}[{i}]")]
+                for p in leaf_paths(v, f"{prefix}[{i}]", is_leaf)]
     return [(prefix, tree)]
 
 
@@ -185,20 +191,30 @@ def restore(ckpt_dir: str, tree_like, *, step: int | None = None,
             target_shardings=None):
     """Restore into the structure of ``tree_like``: each leaf becomes a
     tensor on the device of the template leaf it replaces (the CPU for a
-    template leaf that is not a tensor).  Returns ``(tree, manifest)``.
+    template leaf that is not a tensor).  ``target_shardings``: a tree of
+    ``distributed.axes.NamedSharding`` of the same structure (JAX's
+    elastic path); each leaf, read and checked against its SHA-256 as
+    always, is then placed with ``distribute_tensor`` on its sharding's
+    mesh and placements.  Returns ``(tree, manifest)``.
     """
-    if target_shardings is not None:
-        raise NotImplementedError(
-            "target_shardings: restoring onto a mesh needs the port of the "
-            "mesh code (distributed/sharding.py)")
     d, manifest = _manifest(ckpt_dir, step)
     by_path = {e["path"]: e for e in manifest["entries"]}
+    flat = leaf_paths(tree_like)
+    shardings = [s for _, s in leaf_paths(target_shardings)] \
+        if target_shardings is not None else [None] * len(flat)
+    if len(shardings) != len(flat):
+        raise ValueError(f"target_shardings has {len(shardings)} leaves, "
+                         f"the tree {len(flat)}")
     out = []
-    for key, like in leaf_paths(tree_like):
+    for (key, like), shd in zip(flat, shardings):
         v = _read(d, by_path[key])
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(v.copy())
-        out.append(t.to(like.device) if isinstance(like, torch.Tensor)
-                   else t)
+        if shd is not None:
+            t = distribute_tensor(t.to(shd.mesh.device_type), shd.mesh,
+                                  shd.placements)
+        elif isinstance(like, torch.Tensor):
+            t = t.to(like.device)
+        out.append(t)
     return _rebuild(tree_like, iter(out)), manifest
 
 

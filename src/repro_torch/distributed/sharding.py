@@ -1,0 +1,204 @@
+"""Parameter, batch and cache sharding rules for the production mesh
+(port of ``repro/distributed/sharding.py``).
+
+Axes: ``model`` = tensor/expert parallelism, ``data`` (+ ``pod``) = data
+parallelism; FSDP-style weight sharding over the data axes kicks in for
+params whose per-model-shard size exceeds a threshold (arctic-480b cannot
+replicate its experts across DP).  ZeRO-1: optimizer moments reuse the
+parameter specs (so they are at least as sharded as the weights).
+
+The rule table is path-pattern based (first match wins) on the keystr
+paths of ``checkpoint/store.leaf_paths``, which are JAX's, so the
+patterns are the JAX package's unchanged.  The rules read shapes and
+dtypes only: a tree of ``meta`` tensors (the model's init on
+``device="meta"``, whose draws allocate nothing) sizes any config,
+arctic-480b included.  A mesh is a ``DeviceMesh`` or an abstract mesh
+(``launch/elastic.abstract_mesh``).
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+
+from repro_torch.checkpoint.store import _rebuild, leaf_paths
+
+from .axes import NamedSharding, P, PartitionSpec, mesh_axes
+
+# (path regex, spec template) -- templates use "m" for the model axis, None
+# for replicated; applied to the *trailing* dims (leading scan/layer dims
+# padded with None). First match wins.
+_RULES: list[tuple[str, tuple]] = [
+    (r"embed.*\['w'\]", ("m", None)),
+    (r"lm_head.*\['w'\]", (None, "m")),
+    # attention
+    (r"\['attn'\]\['w[qkv]'\]\['w'\]", (None, "m", None)),
+    (r"\['attn'\]\['w[qkv]'\]\['b'\]", ("m", None)),
+    (r"\['attn'\]\['wo'\]\['w'\]", ("m", None, None)),
+    (r"\['cross'\]\['w[qkv]'\]\['w'\]", (None, "m", None)),
+    (r"\['cross'\]\['w[qkv]'\]\['b'\]", ("m", None)),
+    (r"\['cross'\]\['wo'\]\['w'\]", ("m", None, None)),
+    # MLA
+    (r"\['attn'\]\['wu[kv]'\]\['w'\]", (None, "m", None)),
+    (r"\['attn'\]\['wdkv'\]", (None, None)),
+    (r"\['attn'\]\['wkr'\]", (None, None)),
+    # MoE experts (EP over model)
+    (r"\['experts'\]\['(gate|up|down)'\]\['w'\]", ("m", None, None)),
+    (r"\['router'\]", (None, None)),
+    # dense MLPs (column/row parallel)
+    (r"\['(gate|up)'\]\['w'\]", (None, "m")),
+    (r"\['down'\]\['w'\]", ("m", None)),
+    # mamba
+    (r"\['mamba'\]\['in_proj'\]", (None, "m")),
+    (r"\['mamba'\]\['conv_w'\]", (None, "m")),
+    (r"\['mamba'\]\['conv_b'\]", ("m",)),
+    (r"\['mamba'\]\['x_proj'\]", ("m", None)),
+    (r"\['mamba'\]\['dt_proj'\]\['w'\]", (None, "m")),
+    (r"\['mamba'\]\['dt_proj'\]\['b'\]", ("m",)),
+    (r"\['mamba'\]\['a_log'\]", ("m", None)),
+    (r"\['mamba'\]\['d_skip'\]", ("m",)),
+    (r"\['mamba'\]\['out_proj'\]", ("m", None)),
+    # xLSTM cells
+    (r"\['mlstm'\]\['(up|gate_z)'\]", (None, "m")),
+    (r"\['mlstm'\]\['w[qkv]'\]", (None, "m")),
+    (r"\['mlstm'\]\['w_if'\]", (None, None)),
+    (r"\['mlstm'\]\['down'\]", ("m", None)),
+    (r"\['slstm'\]\['wx'\]", (None, "m")),
+    (r"\['slstm'\]\['r'\]", ("m", None, None)),
+    # norms & everything else: replicated
+    (r".*", ()),
+]
+
+FSDP_THRESHOLD_BYTES = 64 << 20      # shard over DP above 64MB/model-shard
+
+
+def _dp_axes(mesh) -> tuple[str, ...]:
+    names = mesh_axes(mesh)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, PartitionSpec)
+
+
+_MOMENT_SUFFIX = re.compile(r"(\['(deltas|base|scale|maskp|enc)'\])$")
+
+
+def _spec_for(path: str, shape: tuple[int, ...], mesh,
+              itemsize: int, fsdp: bool) -> PartitionSpec:
+    # BDI-compressed moment leaves (tile-last layout, optim/adamw.py):
+    # derive the spec from the underlying parameter's rule. deltas/maskp
+    # carry one extra trailing tile dim; base/scale/enc replace the last
+    # parameter dim with the tile count.
+    msuf = _MOMENT_SUFFIX.search(path)
+    extra_trailing = 0
+    if msuf:
+        if msuf.group(2) in ("deltas", "maskp"):
+            extra_trailing = 1
+        path = path[:msuf.start()]
+    for pat, template in _RULES:
+        if re.search(pat, path):
+            break
+    template = tuple(template) + (None,) * extra_trailing
+    if len(template) > len(shape):
+        return P(*([None] * len(shape)))
+    spec = [None] * (len(shape) - len(template)) + [
+        ("model" if s == "m" else s) for s in template]
+    sizes = mesh_axes(mesh)
+    msize = sizes.get("model", 1)
+    # drop model sharding if the dim does not divide
+    for i, s in enumerate(spec):
+        if s == "model" and shape[i] % msize != 0:
+            spec[i] = None
+
+    if fsdp:
+        dp = _dp_axes(mesh)
+        dp_size = int(np.prod([sizes[a] for a in dp])) if dp else 1
+        if dp_size > 1:
+            shard_elems = np.prod(shape) / max(
+                msize if "model" in spec else 1, 1)
+            if shard_elems * itemsize > FSDP_THRESHOLD_BYTES:
+                # shard the largest replicated dim divisible by dp_size
+                cands = [i for i, s in enumerate(spec)
+                         if s is None and shape[i] % dp_size == 0]
+                if cands:
+                    i = max(cands, key=lambda j: shape[j])
+                    spec[i] = dp if len(dp) > 1 else dp[0]
+    return P(*spec)
+
+
+def param_specs(shape_tree, mesh, *, fsdp: bool = True):
+    """Tree of PartitionSpec for a params/opt-state shape tree (tensors,
+    ``meta`` ones included: only shapes and dtypes are read)."""
+    specs = [_spec_for(path, tuple(leaf.shape), mesh, leaf.element_size(),
+                       fsdp)
+             for path, leaf in leaf_paths(shape_tree)]
+    return _rebuild(shape_tree, iter(specs))
+
+
+def spec_leaves(spec_tree) -> list[tuple[str, PartitionSpec]]:
+    """``(keystr, spec)`` pairs of a tree of specs (a spec is a tuple, so
+    a plain flatten would descend into it)."""
+    return leaf_paths(spec_tree, is_leaf=_is_spec)
+
+
+def param_shardings(shape_tree, mesh, *, fsdp: bool = True):
+    """Tree of :class:`axes.NamedSharding` (mesh, spec, placements)."""
+    specs = [s for _, s in spec_leaves(param_specs(shape_tree, mesh,
+                                                   fsdp=fsdp))]
+    return _rebuild(shape_tree, iter(NamedSharding(mesh, s) for s in specs))
+
+
+def batch_specs(batch_shape_tree, mesh):
+    """Batch dims shard over DP; everything else replicated."""
+    dp = _dp_axes(mesh)
+    dpa = dp if len(dp) > 1 else (dp[0] if dp else None)
+    sizes = mesh_axes(mesh)
+
+    def spec(leaf):
+        if len(leaf.shape) == 0:
+            return P()
+        dp_size = int(np.prod([sizes[a] for a in dp])) if dp else 1
+        if leaf.shape[0] % max(dp_size, 1) == 0 and dp_size > 1:
+            return P(*([dpa] + [None] * (len(leaf.shape) - 1)))
+        return P(*([None] * len(leaf.shape)))
+
+    return _rebuild(batch_shape_tree, iter(
+        spec(leaf) for _, leaf in leaf_paths(batch_shape_tree)))
+
+
+def cache_specs(cache_shape_tree, mesh, batch_axis: int = 1):
+    """Decode-cache sharding: batch over DP; KV-heads or T over model.
+
+    Cache arrays look like [L, B, T, K, Dh] (attention), [L, B, ...] (ssm).
+    Preference order for the model axis: K (head parallel) > T (sequence
+    parallel storage) > feature dim > replicated.
+    """
+    dp = _dp_axes(mesh)
+    dpa = dp if len(dp) > 1 else (dp[0] if dp else None)
+    sizes = mesh_axes(mesh)
+    dp_size = int(np.prod([sizes[a] for a in dp])) if dp else 1
+    msize = sizes.get("model", 1)
+
+    def spec(leaf):
+        nd = len(leaf.shape)
+        s: list = [None] * nd
+        if nd > batch_axis and leaf.shape[batch_axis] % max(dp_size, 1) == 0 \
+                and dp_size > 1:
+            s[batch_axis] = dpa
+        if msize > 1:
+            if nd == 5 and leaf.shape[3] % msize == 0:      # K heads
+                s[3] = "model"
+            elif nd == 5 and leaf.shape[2] % msize == 0:    # T
+                s[2] = "model"
+            elif nd >= 3:
+                for i in range(nd - 1, batch_axis, -1):
+                    if s[i] is None and leaf.shape[i] % msize == 0 \
+                            and leaf.shape[i] >= msize:
+                        s[i] = "model"
+                        break
+        return P(*s)
+
+    return _rebuild(cache_shape_tree, iter(
+        spec(leaf) for _, leaf in leaf_paths(cache_shape_tree)))

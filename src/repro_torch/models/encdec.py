@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._device import resolve_device
 
 from . import attention as A
 from . import layers as L
@@ -137,7 +138,8 @@ class EncDecCache(NamedTuple):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                enc_len: int = ENC_LEN_DECODE, dtype=torch.bfloat16,
-               device: torch.device | str = "cpu") -> EncDecCache:
+               device: torch.device | str | None = None) -> EncDecCache:
+    device = resolve_device(device)
     lyr, k, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
 
     def z(n):

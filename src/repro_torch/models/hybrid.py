@@ -22,6 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._device import resolve_device
 
 from . import attention as A
 from . import layers as L
@@ -130,7 +131,8 @@ class HybridCache(NamedTuple):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16,
-               device: torch.device | str = "cpu") -> HybridCache:
+               device: torch.device | str | None = None) -> HybridCache:
+    device = resolve_device(device)
     _, _, (n_g, n_l) = cache_slots(cfg)
     k, dh = cfg.n_kv_heads, cfg.head_dim
     di = cfg.ssm_expand * cfg.d_model

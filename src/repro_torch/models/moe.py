@@ -1,6 +1,6 @@
-"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``, its no-mesh
-path): top-k routing, capacity-bounded dispatch into an [E, C, D]
-buffer, per-expert SwiGLU, gate-weighted combine.  DeepSeek-style shared
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``): top-k
+routing, capacity-bounded dispatch into an [E, C, D] buffer, per-expert
+SwiGLU, gate-weighted combine.  DeepSeek-style shared
 experts (always on) ride beside the routed ones; arctic's dense residual
 FFN is added by the caller (``transformer._ffn_apply``).
 
@@ -21,8 +21,15 @@ Semantics kept from the JAX version, each of which decides bits:
   * the combine sums each token's k contributions in choice order,
     starting from 0, as the scatter-add ``out.at[tok].add`` does.
 
-The expert-parallel ``shard_map`` path waits for the mesh work: asking for
-it raises.
+Expert parallelism (JAX's ``shard_map`` path): under a mesh with a
+``model`` axis (``distributed/axes.use_mesh``), every rank holds the whole
+activation, routes the tokens of its data shard through its own experts
+``[midx * e_local, (midx + 1) * e_local)`` (sliced from the full stack
+every rank holds) with the capacity of a
+shard's token count, and the partial outputs are summed over the
+``model`` group; a data axis larger than one then gathers the shards'
+rows, so every rank returns the whole output, as JAX's global array
+holds it.  The shared experts stay outside, as in JAX.
 """
 
 from __future__ import annotations
@@ -30,6 +37,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import axes as AX
 
 from . import layers as L
 
@@ -149,17 +159,57 @@ def _moe_local(p: dict, x2d: torch.Tensor, top_k: int, n_experts: int,
     return out
 
 
+def _moe_sharded(p: dict, x2d: torch.Tensor, mesh, top_k: int,
+                 n_experts: int, capacity_factor: float) -> torch.Tensor:
+    """The expert-parallel path: this rank's data shard of ``x2d``
+    through its experts, summed over "model", the shards' rows gathered
+    over the data axes (pod-major).  Returns [T, D] in f32."""
+    sizes = AX.mesh_axes(mesh)
+    m = sizes["model"]
+    if n_experts % m:
+        raise ValueError(f"{n_experts} experts do not split over a model "
+                         f"axis of {m}")
+    e_local = n_experts // m
+    dp = AX.dp_axes()
+    dp_size = 1
+    for a in dp:
+        dp_size *= sizes[a]
+    t = x2d.shape[0]
+    if t % dp_size:
+        raise ValueError(f"{t} tokens do not split over {dp_size} data "
+                         "ranks")
+    t_loc = max(1, t // dp_size)
+    cap = _capacity(t_loc, top_k, n_experts, capacity_factor)
+    dpi = 0
+    for a in dp:                                    # major to minor
+        dpi = dpi * sizes[a] + mesh.get_local_rank(a)
+    midx = mesh.get_local_rank("model")
+    mine = slice(midx * e_local, (midx + 1) * e_local)   # of the full stack
+    pp = {"router": p["router"],
+          "experts": {k: {"w": v["w"][mine]} for k, v in p["experts"].items()}}
+    out = _moe_local(pp, x2d[dpi * t_loc:(dpi + 1) * t_loc], top_k,
+                     n_experts, midx * e_local, e_local, cap)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.get_group("model"))
+    for a in reversed(dp):                          # minor axis first
+        if sizes[a] > 1:
+            parts = [torch.empty_like(out) for _ in range(sizes[a])]
+            dist.all_gather(parts, out, group=mesh.get_group(a))
+            out = torch.cat(parts)
+    return out
+
+
 def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
-            capacity_factor: float = 1.25, mesh=None) -> torch.Tensor:
-    """[B, S, D] -> [B, S, D].  ``mesh``: the expert-parallel path, not
-    ported yet (raises)."""
-    if mesh is not None:
-        raise NotImplementedError("the expert-parallel MoE path waits for "
-                                  "the port's mesh")
+            capacity_factor: float = 1.25) -> torch.Tensor:
+    """[B, S, D] -> [B, S, D]; the expert-parallel path when a mesh with
+    a "model" axis is active (``distributed.axes.current_mesh``)."""
     b, s, d = x.shape
-    cap = _capacity(b * s, top_k, n_experts, capacity_factor)
-    out = _moe_local(p, x.reshape(b * s, d), top_k, n_experts, 0, n_experts,
-                     cap)
+    mesh = AX.current_mesh()
+    x2d = x.reshape(b * s, d)
+    if mesh is None or "model" not in AX.mesh_axes(mesh):
+        cap = _capacity(b * s, top_k, n_experts, capacity_factor)
+        out = _moe_local(p, x2d, top_k, n_experts, 0, n_experts, cap)
+    else:
+        out = _moe_sharded(p, x2d, mesh, top_k, n_experts, capacity_factor)
     y = out.reshape(b, s, d).to(x.dtype)
     if "shared" in p:
         y = y + L.mlp(p["shared"], x)

@@ -28,6 +28,8 @@ import math
 
 import torch
 
+from repro_torch.kernels._device import resolve_device
+
 from . import layers as L
 
 NEG_INF = -1e30
@@ -257,7 +259,8 @@ def mlstm_forward(p: dict, x: torch.Tensor, n_heads: int,
 
 
 def mlstm_init_state(b: int, n_heads: int, dh: int,
-                     device: torch.device | str = "cpu") -> dict:
+                     device: torch.device | str | None = None) -> dict:
+    device = resolve_device(device)
     return {"C": torch.zeros((b, n_heads, dh, dh), dtype=f32, device=device),
             "n": torch.zeros((b, n_heads, dh), dtype=f32, device=device),
             "m": torch.full((b, n_heads), -math.inf, dtype=f32,
@@ -305,7 +308,8 @@ def init_slstm(gen: torch.Generator, d: int, n_heads: int, *,
 
 
 def slstm_init_state(b: int, d: int,
-                     device: torch.device | str = "cpu") -> dict:
+                     device: torch.device | str | None = None) -> dict:
+    device = resolve_device(device)
     def full(v):
         return torch.full((b, d), v, dtype=f32, device=device)
     return {"h": full(0.0), "c": full(0.0), "n": full(1.0), "m": full(0.0)}

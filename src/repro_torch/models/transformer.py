@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._device import resolve_device
 
 from repro_torch.core.bdi_value import _pow2_scale
 
@@ -214,7 +215,8 @@ def cache_bytes(cache: NamedTuple) -> int:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16,
-               device: torch.device | str = "cpu") -> DecodeCache:
+               device: torch.device | str | None = None) -> DecodeCache:
+    device = resolve_device(device)
     check_family(cfg)
     _, _, (n_g, n_l) = cache_slots(cfg)
     k, dh = cfg.n_kv_heads, cfg.head_dim
@@ -235,7 +237,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
-                     device: torch.device | str = "cpu") -> QuantDecodeCache:
+                     device: torch.device | str | None = None
+                     ) -> QuantDecodeCache:
+    device = resolve_device(device)
     _, _, (_, n_l) = cache_slots(cfg)
     if n_l or cfg.attn_kind != "gqa":
         raise ValueError(f"{cfg.name}: the quantised cache takes all-global "

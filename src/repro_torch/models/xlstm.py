@@ -19,6 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._device import resolve_device
 
 from . import layers as L
 from . import params as P
@@ -98,9 +99,10 @@ class XLSTMCache(NamedTuple):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16,
-               device: torch.device | str = "cpu") -> XLSTMCache:
+               device: torch.device | str | None = None) -> XLSTMCache:
     """The O(1) decode state of every layer (both cells' leaves, as JAX's
     cache has them); ``max_len`` and ``dtype`` are unused."""
+    device = resolve_device(device)
     del max_len, dtype
     lyr, b, h, d = cfg.n_layers, batch, cfg.n_heads, cfg.d_model
     dh = cfg.ssm_expand * d // h

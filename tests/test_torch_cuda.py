@@ -652,3 +652,41 @@ def test_train_runs_on_card_through_the_tile_kernels(dev, tmp_path):
     assert_one_step_matches(load_ckpt(tmp_path / "cpu", "bdi8", 5),
                             load_ckpt(one, "bdi8", 6),
                             load_ckpt(tmp_path / "cpu", "bdi8", 6))
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 4096), torch.bfloat16),
+                                         ((300,), torch.float32),
+                                         ((5, 128), torch.float32)])
+def test_all_reduce_bdi_nccl_one_rank_bit_equal_cpu(dev, shape, dtype):
+    """``all_reduce_bdi`` on a one-rank NCCL mesh (tile kernels 4 and 5,
+    the all-gather a copy) against the same call on a one-rank gloo mesh
+    (the plain versions): mean and residual bit-equal."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import compress_comm as cc
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy((rng.standard_normal(shape) * 1e-3).astype(
+        np.float32)).to(dtype)
+    x[0] = 0.0                                   # a zero tile or more
+    r = torch.from_numpy((rng.standard_normal(shape) * 1e-6).astype(
+        np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        mesh = make_host_mesh(1, 1, device=d)
+        try:
+            assert dist.get_backend() == ("nccl" if d.type == "cuda"
+                                          else "gloo")
+            ops.reset_launches()
+            m, nr = cc.all_reduce_bdi(x.to(d), mesh.get_group("data"),
+                                      r.to(d))
+            out[d.type] = (m.cpu(), nr.cpu())
+            launched = (ops.LAUNCHES["bdi_compress"],
+                        ops.LAUNCHES["bdi_decompress"])
+            assert launched == ((1, 2) if d.type == "cuda" else (0, 0))
+        finally:
+            destroy_mesh()
+    (gm, gr), (cm, cr) = out["cuda"], out["cpu"]
+    assert gm.dtype == dtype and torch.equal(
+        gm.float().view(torch.int32), cm.float().view(torch.int32))
+    assert torch.equal(gr.view(torch.int32), cr.view(torch.int32))

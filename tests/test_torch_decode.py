@@ -336,7 +336,8 @@ QuantFields = ("kd", "kb", "ks", "vd", "vb", "vs")
 def test_decode_step_quant_matches_jax(exact_jax_pow2):
     jcfg, cfg, _, _, jp, tp = pair("yi-6b")
     toks = np.random.default_rng(31).integers(1, cfg.vocab, (2, 12))
-    jc, tc = JT.init_quant_cache(jcfg, 2, 16), T.init_quant_cache(cfg, 2, 16)
+    jc = JT.init_quant_cache(jcfg, 2, 16)
+    tc = T.init_quant_cache(cfg, 2, 16, device="cpu")
     step = jit_exact(lambda p, c, tok, t: JT.decode_step_quant(jcfg, p, c,
                                                                tok, t))
     for t in range(12):
@@ -355,7 +356,8 @@ def test_quant_decode_tracks_dense():
     _, cfg, _, m, _, tp = pair("yi-6b")
     toks = torch.from_numpy(
         np.random.default_rng(32).integers(1, cfg.vocab, (2, 12)))
-    dense, quant = m.init_cache(2, 16), T.init_quant_cache(cfg, 2, 16)
+    dense = m.init_cache(2, 16, device="cpu")
+    quant = T.init_quant_cache(cfg, 2, 16, device="cpu")
     for t in range(12):
         ld, dense = m.decode_step(tp, dense, toks[:, t], t)
         lq, quant = T.decode_step_quant(cfg, tp, quant, toks[:, t], t)

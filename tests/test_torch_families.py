@@ -253,7 +253,7 @@ def _init_caches(name: str):
     jcfg, cfg, jm, m, _, _, _ = pair(name)
     kw = {"enc_len": ENC} if cfg.is_encdec else {}
     return jm.init_cache(2, PROMPT + STEPS, **kw), m.init_cache(
-        2, PROMPT + STEPS, **kw)
+        2, PROMPT + STEPS, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("name", list(CASES))

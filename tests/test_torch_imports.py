@@ -33,7 +33,10 @@ def test_import_loads_neither_jax_nor_repro():
     assert "repro_torch.checkpoint.store" in mods
     for m in ("data.pipeline", "optim", "optim.adamw", "models.api",
               "models.transformer", "launch.train", "launch.train_lm",
-              "launch.compressed_checkpointing"):
+              "launch.compressed_checkpointing", "distributed",
+              "distributed.axes", "distributed.sharding",
+              "distributed.compress_comm", "launch.mesh",
+              "launch.elastic"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -100,5 +103,11 @@ def test_entry_points_raise_without_cuda():
         train_lm.main(steps=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         compressed_checkpointing.main()
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_model
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_host_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(cfg).init_cache(1, 4)             # caches default to cuda
     PagedKVEngine(cfg, params, device="cpu")        # explicit CPU is fine
     ReferencePagedKVEngine(cfg, params, device="cpu")

@@ -170,13 +170,6 @@ def test_aux_load_balance_loss_matches_jax(name):
         float(JM.aux_load_balance_loss(jb["ffn"], jx, **kw)), rtol=1e-6)
 
 
-def test_expert_parallel_path_raises():
-    cfg, _, tb = _block("deepseek-v2-lite-16b")
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        M.moe_ffn(tb["ffn"], torch.zeros(1, 1, cfg.d_model, dtype=torch.bfloat16),
-                  top_k=cfg.top_k, n_experts=cfg.n_experts, mesh=object())
-
-
 # ---------------------------------------------------------------------------
 # MLA
 # ---------------------------------------------------------------------------

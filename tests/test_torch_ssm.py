@@ -92,7 +92,7 @@ def test_mlstm_parallel_matches_recurrent():
     p = _f32_params(S.init_mlstm(_gen(0), d, h, device="cpu"))
     x = _normal((b, s, d), 1)
     y_par = S.mlstm_forward(p, x, h, chunk=8)
-    st = S.mlstm_init_state(b, h, (2 * d) // h)
+    st = S.mlstm_init_state(b, h, (2 * d) // h, "cpu")
     ys = []
     for t in range(s):
         y, st = S.mlstm_decode(p, x[:, t:t + 1], st, h)
@@ -138,7 +138,7 @@ def test_slstm_scan_matches_step():
     p = _f32_params(S.init_slstm(_gen(0), d, h, device="cpu"))
     x = _normal((b, s, d), 1)
     y_full = S.slstm_forward(p, x, h)
-    st = S.slstm_init_state(b, d)
+    st = S.slstm_init_state(b, d, "cpu")
     ys = []
     for t in range(s):
         y, st = S.slstm_decode(p, x[:, t:t + 1], st, h)
@@ -355,7 +355,7 @@ def test_mlstm_decode_matches_jax():
     jp, tp = jax_params("mlstm")
     dh = 2 * D // H
     jst = JS.mlstm_init_state(B, H, dh)
-    tst = S.mlstm_init_state(B, H, dh)
+    tst = S.mlstm_init_state(B, H, dh, "cpu")
     step = jit_exact(lambda p, x, st: JS.mlstm_decode(p, x, st, H))
     for i in range(2):
         jx, tx = bf16_pair((B, 1, D), 51 + i)
@@ -382,7 +382,7 @@ def test_slstm_forward_matches_jax():
 
 def test_slstm_decode_matches_jax():
     jp, tp = jax_params("slstm")
-    jst, tst = JS.slstm_init_state(B, D), S.slstm_init_state(B, D)
+    jst, tst = JS.slstm_init_state(B, D), S.slstm_init_state(B, D, "cpu")
     step = jit_exact(lambda p, x, st: JS.slstm_decode(p, x, st, H))
     for i in range(3):
         jx, tx = bf16_pair((B, 1, D), 54 + i)

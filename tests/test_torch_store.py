@@ -211,10 +211,3 @@ def test_prune_old_and_latest_step_as_in_jax(tmp_path):
     assert man["step"] == 20 and flat["x"].tolist() == [20] * 8
     with pytest.raises(FileNotFoundError):
         pstore.load_flat(str(tmp_path / "missing"))
-
-
-def test_restore_refuses_target_shardings(tmp_path):
-    pstore.save(str(tmp_path), 0, {"x": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pstore.restore(str(tmp_path), {"x": torch.zeros(3)},
-                       target_shardings={"x": object()})

@@ -46,9 +46,9 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      engine on ``cuda`` (kernels) and ``cpu`` (plain versions) — greedy
      tokens equal up to reported bf16 ties, host state exactly equal;
   5b. the same under ``zero``, ``raw``, ``fpc``, ``gbdi`` and ``adaptive``
-     (gbdi and adaptive also at full width, 2 layers); byte counts of
-     fpc and adaptive, which read exact bits, within 8 per page (stats)
-     and 64 per request;
+     (gbdi and adaptive also at full width, 2 layers, 12 decode steps);
+     byte counts of fpc and adaptive, which read exact bits, within 8 per
+     page (stats) and 64 per request;
   5c. ``gemma3-27b`` at full width and 2 layers under ``bdi`` (D 168,
      G 2: the attention kernel's generic instance), cuda vs cpu greedy
      parity, with shorter prompts and fewer steps than phase 5 (its CPU
@@ -83,9 +83,9 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
   8. multi-turn from the host tier: one conversation through a
      prefix-cached engine that caches decode pages, with a 64 MB
      ``TieredPageStore`` (yi-6b full width, phase 4's weights, bdi, page
-     16, chunk 32): a 1024-token opening prompt (seed 11), 4 turns of 32
+     16, chunk 32): a 1024-token opening prompt (seed 11), 3 turns of 32
      new tokens plus 8 fresh user tokens, ``recycle_device_pool()``
-     between turns, so turns 2-4 promote their history from host RAM;
+     between turns, so turns 2-3 promote their history from host RAM;
      then again with 8 MB of host RAM and a disk arena, so records spill
      and promote from disk.  Per turn: TTFT (synchronised), cached
      tokens (equal to the count rehearsed on the CPU), demotions,
@@ -155,7 +155,7 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      give the same bits); one moment leaf
      of 10b's bdi8 state through both tile kernels and their plain
      versions, bit-equal;
-  10d. the training twins on the card: ``launch.train_lm`` (yi-100m, 200
+  10d. the training twins on the card: ``launch.train_lm`` (yi-100m, 50
      steps, bdi8, a checkpoint every 50, loss drop > 0.5) and
      ``launch.compressed_checkpointing`` (resume at step 30 from the
      trained state);
@@ -227,7 +227,7 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      update, peak memory, the residual's norm relative to the
      gradient's; both tile kernels must launch inside the all-reduce
      (counted apart from the optimizer's), every loss be finite;
-  13b. full width, 2 layers: ``tree_all_reduce`` of one set of gradients
+  13b. full width, 1 layer: ``tree_all_reduce`` of one set of gradients
      and residuals on the card (NCCL, the tile kernels) and on the CPU
      (gloo, the plain versions): means and residuals bit-equal; one
      compressed DP step (the EC plan, f32 moments) from one state on
@@ -240,7 +240,21 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      ``launch.elastic.restore_elastic`` onto a one-rank mesh on the card:
      every leaf a DTensor on the mesh, bit-equal; ``reshard_plan`` of
      yi-6b at full width, (16, 16) -> (2, 2): leaves flagged, the
-     largest growth.
+     largest growth;
+  14. the dry run (``repro_torch.launch.dryrun``) against the card: one
+     yi-6b train step at full width and depth (bf16 moments, 8 x 128 in
+     2 microbatches, bf16 accumulation: with f32 the allocator's
+     fragmentation left it out of memory at 67.8 GiB allocated of 79.2)
+     traced on ``meta`` at mesh (1, 1),
+     then built and run on the card under ``FlopCounterMode``, and once
+     more plain: FLOPs equal, argument bytes within the allocator's 512
+     bytes a tensor, the predicted peak (arguments + temp) not under
+     either measured peak by more than 10%; both gaps logged;
+  14b. the dry run's CLI in three processes, started after phase 1 (they
+     need no card): xlstm-350m long_500k, yi-6b train_4k, and the same
+     with ``--multi-pod``; each exits 0 with 256 (512) devices and
+     positive traced FLOPs; its row is logged.
+     No kernel launches in phases 14-14b.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -262,6 +276,11 @@ SRC = Path(__file__).resolve().parent / "src"
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 F32_FLOPS = 67e12                   # H100 SXM f32 outside the tensor cores
 ATTN_ATOL = 1e-4                    # kernel vs plain, f32 attention
+TRAIN_LM_STEPS = 50                 # phase 10d (the twin's default is 200)
+WIDE_5B_STEPS = 12                  # phase 5b at full width (5: 24)
+ALLOC_ROUND = 512                   # the caching allocator's block unit
+DRYRUN_CELLS = (("xlstm-350m", "long_500k", False),
+                ("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True))
 ATTN_RTOL = 1e-4
 
 
@@ -1333,7 +1352,7 @@ def parity_scheduler(dev, cfg, params, page: int, lo: int, hi: int,
 # phases 8, 8b, 8c, 8d: the host/disk tier, snapshot/restore, faults
 # ---------------------------------------------------------------------------
 
-TURN_PROMPT, TURN_GEN, TURN_USER, TURNS = 1024, 32, 8, 4
+TURN_PROMPT, TURN_GEN, TURN_USER, TURNS = 1024, 32, 8, 3
 
 
 def rows_by_position(eng, sched) -> dict:
@@ -2532,7 +2551,7 @@ def phase_train_twins(dev) -> dict:
     """Phase 10d: the training twins on the card."""
     from repro_torch.launch import compressed_checkpointing, train_lm
     t0 = time.perf_counter()
-    lm = train_lm.main(steps=200, device="cuda")
+    lm = train_lm.main(steps=TRAIN_LM_STEPS, device="cuda")
     t_lm = time.perf_counter() - t0
     _finite_losses("train_lm", lm["losses"])
     cc = compressed_checkpointing.main(device="cuda")
@@ -3506,7 +3525,7 @@ def phase_dp_train(dev, cfg) -> dict:
 
 
 def phase_dp_parity(dev, cfg) -> dict:
-    """Phase 13b: full width, 2 layers: ``tree_all_reduce`` of one set of
+    """Phase 13b: full width, 1 layer: ``tree_all_reduce`` of one set of
     gradients and residuals on the card (NCCL, the tile kernels) and on
     the CPU (gloo, the plain versions), means and residuals bit-equal;
     then one compressed DP step from one state on both, params within one
@@ -3519,12 +3538,12 @@ def phase_dp_parity(dev, cfg) -> dict:
     from repro_torch.models import params as P
     from repro_torch.models.api import get_model
     from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
-    two = at_depth(cfg, 2)
-    model = get_model(two)
-    gpu = model_on(dev, two)
+    one = at_depth(cfg, 1)
+    model = get_model(one)
+    gpu = model_on(dev, one)
     cpu_dev = torch.device("cpu")
     cpu = P.tree_map(lambda t: t.to(cpu_dev, copy=True), gpu)
-    batch = dp_batches(dev, two, 64, 2, 1)[0]
+    batch = dp_batches(dev, one, 64, 2, 1)[0]
     grads = grads_of(model, gpu, batch)
     t0 = time.perf_counter()
     plan = cc.plan_compression(grads)
@@ -3682,6 +3701,146 @@ def phase_elastic(dev, cfg) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 14, 14b: the dry run against the card
+# ---------------------------------------------------------------------------
+
+def phase_dryrun(dev) -> dict:
+    """Phase 14: the dry run's prediction for one yi-6b train step at full
+    width and depth (bf16 moments, 8 x 128 in 2 microbatches, bf16
+    accumulation, mesh (1, 1)), traced on meta, against the same step
+    built and run on the card under ``FlopCounterMode``: FLOPs equal,
+    argument bytes within the allocator's rounding, the predicted peak
+    (arguments + temp) not under the measured one by more than 10%."""
+    import math
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.elastic import abstract_mesh
+    from repro_torch.models import frontends
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_arch("yi-6b")
+    shape = ShapeConfig("train_128", 128, 8, "train")
+    ocfg, n_micro = AdamWConfig(moment_dtype="bf16"), 2
+    pred = dryrun.trace(cfg, shape, abstract_mesh((1, 1), ("data", "model")),
+                        ocfg, n_micro, torch.bfloat16)
+    release(dev)
+    base = torch.cuda.memory_allocated(dev)
+    model = get_model(cfg)
+    params = model_on(dev, cfg)
+    opt = adamw_init(params, ocfg)
+    batch = frontends.make_batch(cfg, shape,
+                                 torch.Generator(device=dev).manual_seed(1),
+                                 dev)
+    sync(dev)
+    args = torch.cuda.memory_allocated(dev) - base
+    n_args = sum(1 for _ in _leaves(params)) + sum(1 for _ in _leaves(opt)) \
+        + len(batch)
+    step = dryrun.build_train_step(model, ocfg, n_micro, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc:
+        params, opt, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+    step_s = time.perf_counter() - t0
+    peak_fc = torch.cuda.max_memory_allocated(dev) - base
+    # the same step again, plain: the program a trainer runs
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, opt, metrics = step(params, opt, batch)
+    loss2 = float(metrics["loss"])
+    plain_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    predicted_peak = pred["argument_size_in_bytes"] \
+        + pred["temp_size_in_bytes"]
+    res = {"card": smi(), "cell": "yi-6b, 8 x 128, 2 microbatches, bf16 "
+           "moments, bf16 accumulation, mesh 1x1",
+           "trace_s": pred["trace_s"],
+           "flops": {"predicted": pred["traced_flops"],
+                     "measured": fc.get_total_flops()},
+           "argument_bytes": {"predicted": pred["argument_size_in_bytes"],
+                              "measured": args, "tensors": n_args},
+           "peak_bytes": {"predicted": predicted_peak,
+                          "measured_plain": peak,
+                          "measured_under_flop_counter": peak_fc,
+                          "gap_plain": (predicted_peak - peak) / peak,
+                          "gap_flop_counter": (predicted_peak - peak_fc)
+                          / peak_fc},
+           "temp_bytes_predicted": pred["temp_size_in_bytes"],
+           "losses": [loss, loss2],
+           "step_s": {"under_flop_counter": step_s, "plain": plain_s}}
+    log(f"phase 14: {json.dumps(res)}")
+    if res["flops"]["predicted"] != res["flops"]["measured"]:
+        raise AssertionError(f"phase 14: FLOPs differ: {res['flops']}")
+    if not 0 <= args - pred["argument_size_in_bytes"] <= ALLOC_ROUND * n_args:
+        raise AssertionError(f"phase 14: argument bytes: "
+                             f"{res['argument_bytes']}")
+    if predicted_peak < 0.9 * max(peak, peak_fc):
+        raise AssertionError(f"phase 14: the predicted peak is under the "
+                             f"measured one by more than 10%: "
+                             f"{res['peak_bytes']}")
+    if not all(map(math.isfinite, (loss, loss2))):
+        raise AssertionError(f"phase 14: losses {loss}, {loss2}")
+    del params, opt, batch, metrics
+    return res
+
+
+def start_dryrun_cli() -> list:
+    """Phase 14b's processes, started after the build (they need no card
+    and run beside the other phases): ``python -m
+    repro_torch.launch.dryrun`` on ``DRYRUN_CELLS``."""
+    import os
+    import tempfile
+    work = Path(tempfile.mkdtemp(prefix="dryrun_cli_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        out = work / f"{arch}_{shape}_{int(multi_pod)}.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(out)]
+        procs.append((cmd + ["--multi-pod"] * multi_pod, out, subprocess.Popen(
+            cmd + ["--multi-pod"] * multi_pod, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, env=env, cwd=SRC.parent)))
+    return procs
+
+
+def phase_dryrun_cli(procs: list) -> list:
+    """Phase 14b: the three rows of ``start_dryrun_cli``: each process
+    exits 0, its row has 256 (512 with ``--multi-pod``) devices and
+    positive traced FLOPs, and yi-6b's train_4k rank on two pods traces
+    half the FLOPs of one pod's (half the rows)."""
+    rows = []
+    try:
+        for cmd, out, proc in procs:
+            text, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 14b: {' '.join(cmd[2:])} exited "
+                                     f"{proc.returncode}: {text[-2000:]}")
+            rows.append(json.loads(out.read_text()))
+    finally:
+        for _, _, proc in procs:
+            proc.kill()
+            proc.wait()
+    for (_, _, multi_pod), row in zip(DRYRUN_CELLS, rows):
+        log("phase 14b: " + json.dumps(
+            {k: v for k, v in row.items() if k not in ("not_measured",)}
+            | {"collectives": {k: v for k, v in row["collectives"].items()
+                               if k != "leaves"}}))
+        if row["n_devices"] != (512 if multi_pod else 256) \
+                or row["traced_flops"] <= 0:
+            raise AssertionError(f"phase 14b: row {row['arch']} "
+                                 f"{row['shape']}: {row['n_devices']} "
+                                 f"devices, {row['traced_flops']} FLOPs")
+    if 2 * rows[2]["traced_flops"] != rows[1]["traced_flops"]:
+        raise AssertionError("phase 14b: yi-6b train_4k on two pods is not "
+                             "half a pod's FLOPs a rank")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -3723,6 +3882,7 @@ def main() -> int:
         t0 = time.perf_counter()
 
     phase_done("1 build")
+    cli = start_dryrun_cli()
     kernels = [phase_compress(dev, cfg, page)]
     phase_done("2 bdi_compress_kv")
     kernels += phase_gbdi(dev, cfg, page)
@@ -3795,7 +3955,7 @@ def main() -> int:
     for codec in ("zero", "raw", "fpc", "gbdi", "adaptive"):
         phase_parity(dev, tiny, page, 20, 140, 24, codec)
     for codec in ("gbdi", "adaptive"):
-        phase_parity(dev, wide, page, 20, 140, 24, codec)
+        phase_parity(dev, wide, page, 20, 140, WIDE_5B_STEPS, codec)
     phase_done("5b parity zero/raw/fpc/gbdi/adaptive")
     gemma = get_arch("gemma3-27b")
     gemma_wide = gemma.reduced(n_layers=2, d_model=5376, n_heads=32,
@@ -3850,11 +4010,16 @@ def main() -> int:
     dp = phase_dp_train(dev, cfg)
     phase_done("13 compressed DP training of yi-6b at full width")
     phase_dp_parity(dev, cfg)
-    phase_done("13b tree_all_reduce and one DP step, card vs cpu, 2 layers")
+    phase_done("13b tree_all_reduce and one DP step, card vs cpu, 1 layer")
     phase_moe_mesh(dev)
     phase_done("13c deepseek-v2-lite-16b's expert-parallel path at m = 1")
     phase_elastic(dev, cfg)
     phase_done("13d elastic restore onto a one-rank mesh, reshard_plan")
+    phase_dryrun(dev)
+    phase_done("14 the dry run's prediction against a yi-6b step on the card")
+    phase_dryrun_cli(cli)
+    phase_done("14b the dry run's CLI (started after phase 1, beside the "
+               "others)")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of

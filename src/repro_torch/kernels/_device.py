@@ -17,6 +17,10 @@ import torch
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` -> ``cuda``; a CUDA device must be capability 9.x.
 
+    ``meta`` comes back unchanged: tensors there have shapes and dtypes
+    and no data, so no op runs (the dry run, ``launch/dryrun.py``, traces
+    a step there); the kernel wrappers raise on them.
+
     Resolving a CUDA device also sets two process-wide cuBLAS switches:
     reduced-precision bf16 reductions off
     (``allow_bf16_reduced_precision_reduction``, default True), so a bf16
@@ -27,10 +31,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     f32 einsums run in full f32.
     """
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' or "
+                         "'meta'")
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass device='cpu' to run "
                            "the plain PyTorch versions on the CPU")

@@ -46,13 +46,23 @@ def _mesh(shape: tuple[int, ...], names: tuple[str, ...],
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
 
+def production_axes(multi_pod: bool = False
+                    ) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """The production mesh's sizes and axis names: (16, 16) over ("data",
+    "model"), or (2, 16, 16) with a "pod" axis.  ``make_production_mesh``
+    builds it; the dry run (``launch/dryrun.py``) lays it out as an
+    abstract mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device: str | torch.device | None = None
                          ) -> DeviceMesh:
-    """(16, 16) over ("data", "model"), or (2, 16, 16) with a "pod" axis:
-    builds only in a world of 256 (512) ranks, and raises otherwise."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The mesh of :func:`production_axes`: builds only in a world of 256
+    (512) ranks, and raises otherwise."""
+    shape, axes = production_axes(multi_pod)
     n = int(np.prod(shape))
     if not dist.is_initialized() or dist.get_world_size() != n:
         have = dist.get_world_size() if dist.is_initialized() else 1

@@ -62,12 +62,15 @@ def leaves(tree: dict) -> list[torch.Tensor]:
 def unflatten(tree: dict, flat) -> dict:
     """A tree of ``tree``'s structure whose leaves are ``flat``, in
     :func:`leaves` order."""
-    it = iter(flat)
+    return _build(tree, iter(flat))
 
-    def build(t: dict) -> dict:
-        return {k: build(t[k]) if isinstance(t[k], dict) else next(it)
-                for k in sorted(t)}
-    return build(tree)
+
+def _build(t: dict, it) -> dict:
+    # a module-level function: a nested one that calls itself is a
+    # reference cycle, which would keep ``flat`` (a step's gradients)
+    # alive until the collector runs
+    return {k: _build(t[k], it) if isinstance(t[k], dict) else next(it)
+            for k in sorted(t)}
 
 
 def to_device(tree: dict, device: torch.device) -> dict:

@@ -13,8 +13,10 @@ of ``repro/models/ssm.py``).
   and a stabiliser state.
 
 Plain functions on dicts of tensors; a Python ``for`` over time where
-JAX has ``lax.scan``.  bf16 follows the JAX package: the causal conv
-sums its ``conv`` products in bf16 in JAX's order, mLSTM's keys are
+JAX has ``lax.scan`` (its trips go through ``trips.steps``, so that the
+dry run counts them without running each).  bf16 follows the JAX
+package: the causal conv sums its ``conv`` products in bf16 in JAX's
+order, mLSTM's keys are
 divided by ``sqrt(dh)`` rounded to bf16, ``softplus`` is
 ``logaddexp(x, 0)`` (``torch.nn.functional.softplus`` switches to the
 identity above a threshold) and ``log_sigmoid`` is ``-softplus(-x)``,
@@ -31,6 +33,7 @@ import torch
 from repro_torch.kernels._device import resolve_device
 
 from . import layers as L
+from . import trips
 
 NEG_INF = -1e30
 f32 = torch.float32
@@ -148,11 +151,12 @@ def _scan_chunked(da, dbu, cmat, h0):
 
 
 def _scan_sequential(da, dbu, cmat, h0):
+    s = da.shape[1]
     h, ys = h0, []
-    for t in range(da.shape[1]):
+    for t in trips.steps(s):
         h = da[:, t] * h + dbu[:, t]                     # [B, di, n]
         ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]))
-    return h, torch.stack(ys, dim=1)
+    return h, trips.stack(ys, s, dim=1)
 
 
 def mamba_forward(p: dict, x: torch.Tensor, state: int,
@@ -337,10 +341,10 @@ def slstm_forward(p: dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, s, d = x.shape
     xw = L.linear(p["wx"], x)                            # [B, S, 4d]
     st, hs = slstm_init_state(b, d, x.device), []
-    for t in range(s):
+    for t in trips.steps(s):
         st, h = _slstm_step(p, st, xw[:, t], n_heads)
         hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype)
+    return trips.stack(hs, s, dim=1).to(x.dtype)
 
 
 def slstm_decode(p: dict, x: torch.Tensor, st: dict, n_heads: int

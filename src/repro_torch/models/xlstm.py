@@ -24,6 +24,7 @@ from repro_torch.kernels._device import resolve_device
 from . import layers as L
 from . import params as P
 from . import ssm as S
+from . import trips
 
 
 def layer_is_slstm(cfg: ArchConfig) -> np.ndarray:
@@ -155,7 +156,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
     cache = init_cache(cfg, b, max_len, device=tokens.device)
     logits = torch.zeros((b, cfg.vocab), dtype=torch.float32,
                          device=tokens.device)
-    for j in range(s):
+    for j in trips.steps(s):
         step, cache = decode_step(cfg, params, cache, tokens[:, j], 0)
         logits = step.float()
     return logits, cache

@@ -36,7 +36,7 @@ def test_import_loads_neither_jax_nor_repro():
               "launch.compressed_checkpointing", "distributed",
               "distributed.axes", "distributed.sharding",
               "distributed.compress_comm", "launch.mesh",
-              "launch.elastic"):
+              "launch.elastic", "launch.dryrun", "models.trips"):
         assert f"repro_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -255,6 +255,23 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      with ``--multi-pod``; each exits 0 with 256 (512) devices and
      positive traced FLOPs; its row is logged.
      No kernel launches in phases 14-14b.
+  15. tensor-parallel serving: internvl2-76b's language model at full
+     width (d_model 8192, 64 heads, 8 KV heads, d_ff 28672, vocab
+     128256), 8 of its 80 layers, on a ``(1, 2)`` mesh of two rank
+     processes on the one card over gloo (NCCL refuses two ranks on one
+     device: two more processes try it first and must fail).  Each rank
+     draws the whole model from seed 15 on the card a layer at a time
+     and keeps its shards (``init_params(local=sharding.local_params)``),
+     then serves 4 prompts of 128 tokens and 16 greedy tokens through
+     ``launch.serve.dense_generate`` after a short warm-up; the backend,
+     prefill ms, ms a step, collectives and bytes a step (``tp.COUNTS``)
+     and peak memory per rank are printed, labelled as gloo through the
+     host on one card, not a TP speed.  After the ranks exit, the same
+     weights whole in this process: the ranks' tokens and logits equal
+     each other's; against the whole model, every logits row within 2
+     bf16 ULPs of its array's largest |value| (``tests/test_torch_tensor_
+     parallel.py``'s bound) while its sequence's tokens agree, tokens
+     equal up to reported one-ULP ties.  No kernel launches.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -3841,6 +3858,198 @@ def phase_dryrun_cli(procs: list) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor-parallel serving, two ranks on one card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_LAYERS = 8                   # of internvl2-76b's 80
+TP_BATCH, TP_PROMPT, TP_GEN = 4, 128, 16
+TP_SEED = 15
+TP_ULPS = 2
+
+
+def tp_cfg():
+    from repro_torch.configs.registry import get_arch
+    cfg = get_arch("internvl2-76b")
+    return at_depth(cfg, TP_LAYERS)
+
+
+def tp_prompts(vocab: int):
+    import torch
+    return torch.randint(1, vocab, (TP_BATCH, TP_PROMPT),
+                         generator=torch.Generator().manual_seed(TP_SEED + 1))
+
+
+def nccl_rank(rank: int, work: str) -> None:
+    """A rank that asks NCCL for a two-rank group on this card; writes
+    what happened."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(Path(work) / "nccl_rendezvous"), TP_RANKS), rank=rank,
+            world_size=TP_RANKS, device_id=dev)
+        dist.all_reduce(torch.ones(1, device=dev))
+        torch.cuda.synchronize()
+        said = "ok"
+    except Exception as e:          # the refusal is the expected outcome
+        said = f"{type(e).__name__}: {e}"
+    (Path(work) / f"nccl_{rank}.txt").write_text(said)
+
+
+def tp_rank(rank: int, work: str) -> None:
+    """One rank of phase 15: its shards of the model, then warm-up and
+    timed ``dense_generate``; writes ``tp_<rank>.json`` and ``.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._device import resolve_device
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models.transformer import init_params
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(dev)
+    cfg = tp_cfg()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(work) / "rendezvous"), TP_RANKS), rank=rank,
+        world_size=TP_RANKS)
+    try:
+        mesh = make_host_mesh(1, TP_RANKS)
+        with use_mesh(mesh):
+            t0 = time.perf_counter()
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev,
+                local=lambda t: SH.local_params(t, mesh))
+            sync(dev)
+            init_s = time.perf_counter() - t0
+            prompts = tp_prompts(cfg.vocab)
+            dense_generate(cfg, params, prompts[:, :16], 3)     # warm-up
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = dense_generate(cfg, params, prompts, TP_GEN,
+                                 keep_logits=True)
+            peak = torch.cuda.max_memory_allocated(dev)
+        ran = {k: v for k, v in ops.LAUNCHES.items() if v}
+        res = {"rank": rank, "backend": dist.get_backend(),
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in _leaves(params)),
+               "init_s": init_s, "prefill_ms": out["prefill_s"] * 1e3,
+               "ms_a_step": [s * 1e3 for s in out["decode_s"]],
+               "collectives": out["collectives"],
+               "cache_bytes": out["cache_bytes"], "peak_bytes": peak,
+               "kernel_launches": ran}
+        torch.save({"tokens": out["tokens"], "logits": out["logits"]},
+                   Path(work) / f"tp_{rank}.pt")
+        (Path(work) / f"tp_{rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh()
+
+
+def _spawn(call: str, log_path: Path):
+    import os
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.{call}"],
+        stdout=open(log_path, "w"), stderr=subprocess.STDOUT, env=env,
+        cwd=Path(__file__).resolve().parent)
+
+
+def _wait_all(procs: list, what: str, timeout: float) -> None:
+    try:
+        for p, log_path in procs:
+            if p.wait(timeout=timeout) != 0:
+                raise AssertionError(f"phase 15: {what} exited {p.returncode}"
+                                     f": {log_path.read_text()[-3000:]}")
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_tensor_parallel(dev) -> dict:
+    """Phase 15 (see the module docstring)."""
+    import tempfile
+
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.parity import GreedyParity, bf16_ulp
+    work = Path(tempfile.mkdtemp(prefix="tp15_"))
+    nccl = [(_spawn(f"nccl_rank({r}, {str(work)!r})", work / f"nccl_{r}.log"),
+             work / f"nccl_{r}.log") for r in range(TP_RANKS)]
+    _wait_all(nccl, "an NCCL probe rank", 300)
+    said = [(work / f"nccl_{r}.txt").read_text() for r in range(TP_RANKS)]
+    log(f"phase 15: NCCL with {TP_RANKS} ranks on one card: {said[0]}")
+    if any(s == "ok" for s in said):
+        raise AssertionError("phase 15: NCCL took two ranks on one card")
+    t0 = time.perf_counter()
+    ranks = [(_spawn(f"tp_rank({r}, {str(work)!r})", work / f"tp_{r}.log"),
+              work / f"tp_{r}.log") for r in range(TP_RANKS)]
+    _wait_all(ranks, "a TP rank", 900)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"tp_{r}.json").read_text())
+           for r in range(TP_RANKS)]
+    got = [torch.load(work / f"tp_{r}.pt") for r in range(TP_RANKS)]
+    for r, rr in enumerate(res):
+        step = rr["ms_a_step"]
+        log(f"phase 15 rank {r} (gloo through the host on one card, not a "
+            f"TP speed): " + json.dumps(
+                rr | {"ms_a_step": {"median": sorted(step)[len(step) // 2],
+                                    "min": min(step), "max": max(step)}}))
+        if rr["backend"] != "gloo" or rr["kernel_launches"]:
+            raise AssertionError(f"phase 15: rank {r}: {rr}")
+    for g in got[1:]:
+        if g["tokens"] != got[0]["tokens"] or not torch.equal(
+                g["logits"], got[0]["logits"]):
+            raise AssertionError("phase 15: the ranks disagree")
+    # the same weights, whole, in this process
+    cfg = tp_cfg()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(TP_SEED),
+                         dev)
+    prompts = tp_prompts(cfg.vocab)
+    dense_generate(cfg, params, prompts[:, :16], 3)             # warm-up
+    for k in ops.LAUNCHES:
+        ops.LAUNCHES[k] = 0
+    whole = dense_generate(cfg, params, prompts, TP_GEN, keep_logits=True)
+    no_kernel_launched("15")
+    del params
+    par = GreedyParity()
+    tp_logits, worst = got[0]["logits"], 0.0
+    for j in range(TP_GEN):
+        live = [b for b in range(TP_BATCH) if b not in par.stopped]
+        if live:
+            a, w = tp_logits[j, live], whole["logits"][j, live]
+            gap = float((a - w).abs().max()) / bf16_ulp(
+                float(w.abs().max()))
+            worst = max(worst, gap)
+            if gap > TP_ULPS:
+                raise AssertionError(f"phase 15: step {j} logits {gap:.2f} "
+                                     f"ULPs from the whole model's")
+        par.check(j, {b: whole["tokens"][b][j] for b in range(TP_BATCH)},
+                  {b: got[0]["tokens"][b][j] for b in range(TP_BATCH)},
+                  lambda sid, j=j: tp_logits[j, sid],
+                  lambda sid, j=j: whole["logits"][j, sid])
+    step = [s * 1e3 for s in whole["decode_s"]]
+    out = {"card": smi(), "cell": f"internvl2-76b full width, "
+           f"{TP_LAYERS} layers, {TP_BATCH} x {TP_PROMPT} + {TP_GEN}, "
+           f"(1, {TP_RANKS}) over gloo on one card",
+           "ranks_wall_s": ranks_s, "tokens_equal": par.compared,
+           "ties": [t.__dict__ for t in par.ties],
+           "worst_logit_gap_ulps": worst,
+           "whole": {"prefill_ms": whole["prefill_s"] * 1e3,
+                     "ms_a_step_median": sorted(step)[len(step) // 2],
+                     "cache_bytes": whole["cache_bytes"]}}
+    log(f"phase 15: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4020,6 +4229,9 @@ def main() -> int:
     phase_dryrun_cli(cli)
     phase_done("14b the dry run's CLI (started after phase 1, beside the "
                "others)")
+    phase_tensor_parallel(dev)
+    phase_done("15 tensor-parallel serving of internvl2-76b at full width, "
+               "8 layers, two ranks on one card")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of

@@ -2,8 +2,9 @@
 ``repro/distributed/axes.py``).
 
 A launcher activates a ``DeviceMesh`` with :func:`use_mesh`; code that
-has a mesh-parallel path (``models/moe.py``'s expert parallelism) reads
-it back with :func:`current_mesh`.  With no mesh active, :func:`shard`
+has a mesh-parallel path (``models/moe.py``'s expert parallelism, the
+tensor-parallel layers through ``distributed/tp.py``) reads it back with
+:func:`current_mesh`.  With no mesh active, :func:`shard`
 returns its tensor unchanged, so model code never branches.
 
 Axis conventions, as in the JAX package:
@@ -149,13 +150,29 @@ def named_sharding(*spec) -> NamedSharding:
     return NamedSharding(mesh, resolve(spec))
 
 
-def shard(x: torch.Tensor, *spec) -> torch.Tensor:
+def local_shape(shape: tuple[int, ...], spec: tuple, mesh) -> tuple:
+    """The shape of one rank's block of a global ``shape`` laid out as
+    ``spec`` on ``mesh``: each dim divided by the sizes of the axes it
+    names."""
+    sizes = mesh_axes(mesh)
+    out = []
+    for n, s in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        for a in () if s is None else (s if isinstance(s, tuple) else (s,)):
+            n //= sizes[a]
+        out.append(n)
+    return tuple(out)
+
+
+def shard(x: torch.Tensor, *spec, global_shape: tuple | None = None
+          ) -> torch.Tensor:
     """Lay ``x`` out as ``spec`` says when a mesh is active; unchanged
     otherwise.  A DTensor is redistributed to the spec's placements.  A
-    plain tensor comes back unchanged where every mesh axis the spec
-    names has size 1 (every rank already holds the whole of it); any
-    other plain tensor raises: tensor-parallel activations are not in
-    the port."""
+    plain tensor is taken as this rank's block (the tensor-parallel
+    layers, ``distributed/tp.py``, hold plain blocks): it comes back
+    unchanged where every axis of size > 1 that the spec names is the
+    ``model`` axis and its shape is the block's of ``global_shape`` (the
+    global array's, needed then); a wrong shape raises.  A data axis
+    larger than one raises: DP x TP activations are not ported."""
     mesh = current_mesh()
     if mesh is None:
         return x
@@ -164,10 +181,19 @@ def shard(x: torch.Tensor, *spec) -> torch.Tensor:
         return x.redistribute(mesh, ns.placements)
     sizes = mesh_axes(mesh)
     split = [a for a in spec_axes(ns.spec) if sizes[a] > 1]
-    if split:
+    if any(a != MODEL for a in split):
         raise NotImplementedError(
-            f"shard: a plain tensor over mesh axes {split} of size > 1 "
-            "(tensor-parallel activations are not ported)")
+            f"shard: a plain tensor over mesh axes {split}: only the model "
+            "axis is laid out on plain tensors (DP x TP activations are not "
+            "ported, ROADMAP Queue 1 item 2)")
+    if split:
+        if global_shape is None:
+            raise TypeError("shard: a plain tensor split over the model axis "
+                            "needs the global_shape it is a block of")
+        want = local_shape(tuple(global_shape), ns.spec, mesh)
+        if tuple(x.shape) != want:
+            raise ValueError(f"shard: a block of {tuple(global_shape)} under "
+                             f"{ns.spec} is {want}, not {tuple(x.shape)}")
     return x
 
 

@@ -14,6 +14,11 @@ dtypes only: a tree of ``meta`` tensors (the model's init on
 ``device="meta"``, whose draws allocate nothing) sizes any config,
 arctic-480b included.  A mesh is a ``DeviceMesh`` or an abstract mesh
 (``launch/elastic.abstract_mesh``).
+
+Where JAX places a tree with ``device_put`` and each device then holds
+its block, a tensor-parallel rank of the port holds that block as a
+plain tensor: :func:`local_shards` cuts it out of the whole leaf
+(:func:`local_params` for the serving layout, ``fsdp=False``).
 """
 
 from __future__ import annotations
@@ -141,6 +146,51 @@ def spec_leaves(spec_tree) -> list[tuple[str, PartitionSpec]]:
     """``(keystr, spec)`` pairs of a tree of specs (a spec is a tuple, so
     a plain flatten would descend into it)."""
     return leaf_paths(spec_tree, is_leaf=_is_spec)
+
+
+def local_shards(tree, specs, mesh, coord: dict | None = None):
+    """This rank's block of every leaf of ``tree`` (a params tree, whether
+    made by the port or bridged from JAX by ``models/params.from_numpy``,
+    or a decode cache) laid out as ``specs`` (the tree of specs of
+    :func:`param_specs` or :func:`cache_specs`) on ``mesh``.
+
+    Along each dim that names mesh axes the leaf is cut into n contiguous
+    blocks, n the product of those axes' sizes, and block i is kept, i
+    this rank's coordinates on them read major to minor: the block JAX's
+    ``NamedSharding`` gives the device at those coordinates.  ``coord``
+    maps axis names to coordinates; by default this rank's on a
+    ``DeviceMesh``.  A leaf cut anywhere comes back as a compact copy, so
+    that the whole one can be freed; the others as they are."""
+    sizes = mesh_axes(mesh)
+    if coord is None:
+        coord = {a: mesh.get_local_rank(a) for a in sizes}
+    leaves, spec_list = leaf_paths(tree), spec_leaves(specs)
+    if len(leaves) != len(spec_list):
+        raise ValueError("local_shards: the tree and its specs differ")
+    out = []
+    for (path, leaf), (_, spec) in zip(leaves, spec_list):
+        x = leaf
+        for d, s in enumerate(spec):
+            axes = () if s is None else (s if isinstance(s, tuple) else (s,))
+            n, i = 1, 0
+            for a in axes:
+                n, i = n * sizes[a], i * sizes[a] + coord[a]
+            if n == 1:
+                continue
+            if x.shape[d] % n:
+                raise ValueError(f"{path}: dim {d} of {tuple(leaf.shape)} "
+                                 f"does not split into {n} blocks")
+            b = x.shape[d] // n
+            x = x.narrow(d, i * b, b)
+        out.append(x if x is leaf else x.clone())
+    return _rebuild(tree, iter(out))
+
+
+def local_params(tree, mesh, coord: dict | None = None):
+    """:func:`local_shards` of a params tree (or a subtree keyed as in the
+    whole tree) under the serving layout, ``param_specs(fsdp=False)``."""
+    return local_shards(tree, param_specs(tree, mesh, fsdp=False), mesh,
+                        coord)
 
 
 def param_shardings(shape_tree, mesh, *, fsdp: bool = True):

@@ -6,11 +6,17 @@ is made here only for a one-rank mesh, in process, over a ``HashStore``
 (no TCP port); any larger mesh needs the caller (``torchrun``, or a
 test's spawner) to have made the group of the right size.  There is no
 fallback: on the card the group is NCCL, and a failure to make it
-raises.  :func:`destroy_mesh` tears the group down, so that a process
-can build one mesh after another.
+raises.  One exception, made by the caller and never chosen here: a
+gloo group on the card is taken when the world has more ranks than the
+machine has cards, since NCCL refuses two ranks on one device
+("Duplicate GPU detected : rank 0 and rank 1 both on CUDA device").
+Every mesh prints the backend it runs on.  :func:`destroy_mesh` tears
+the group down, so that a process can build one mesh after another.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -40,9 +46,17 @@ def _mesh(shape: tuple[int, ...], names: tuple[str, ...],
         raise RuntimeError(f"mesh {dict(zip(names, shape))} needs {n} ranks; "
                            f"the process group has {dist.get_world_size()}")
     backend = dist.get_backend()
-    if BACKEND[dev.type] not in backend.split(","):
+    shared = (dev.type == "cuda" and backend == "gloo"
+              and n > torch.cuda.device_count())
+    if BACKEND[dev.type] not in backend.split(",") and not shared:
         raise RuntimeError(f"a {dev.type} mesh needs a {BACKEND[dev.type]} "
-                           f"process group, not {backend!r}")
+                           f"process group, not {backend!r}"
+                           + (" (gloo is taken on the card only for more "
+                              "ranks than cards)" if backend == "gloo"
+                              else ""))
+    print(f"mesh {dict(zip(names, shape))}: {backend} on {dev.type}"
+          + (f", {n} ranks on {torch.cuda.device_count()} card(s)"
+             if shared else ""), file=sys.stderr, flush=True)
     return init_device_mesh(dev.type, shape, mesh_dim_names=names)
 
 

@@ -75,6 +75,7 @@ import torch
 
 from repro_torch import codecs
 from repro_torch.configs.registry import get_arch
+from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
 from repro_torch.models.api import get_model
 from repro_torch.models.transformer import cache_bytes
@@ -95,7 +96,15 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
     does, plus ``prefill_s``, ``decode_s`` (the seconds of each of the
     gen - 1 steps, each ending in the host read of its tokens),
     ``cache_bytes`` and, with ``keep_logits``, each token's logits
-    ``[gen, B, V]`` (f32, on the host)."""
+    ``[gen, B, V]`` (f32, on the host).
+
+    Under a ``(1, m)`` mesh (``distributed/axes.use_mesh``) ``params``
+    are this rank's shards (``distributed/sharding.local_params``): every
+    rank runs the loop, takes the argmax of the gathered logits and gets
+    the same tokens; ``cache_bytes`` is this rank's.  ``collectives``
+    counts the model axis's collectives (``distributed/tp.COUNTS``) of
+    the prefill and of one decode step, with the bytes of their inputs
+    (zeros at m = 1)."""
     model = get_model(cfg)
     dev = params["embed"]["w"].device
     batch = {"tokens": prompts.to(dev)}
@@ -106,12 +115,14 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
     b, s = prompts.shape
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    c0 = dict(tp.COUNTS)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, s + gen)
     toks = torch.argmax(logits, -1)
     out = [toks.tolist()]
     rows = [logits.float().cpu()] if keep_logits else []
     t1 = time.perf_counter()
+    c1 = dict(tp.COUNTS)
     step_s = []
     for t in range(s, s + gen - 1):
         ts = time.perf_counter()
@@ -122,9 +133,14 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
         if keep_logits:
             rows.append(logits.float().cpu())
     dt = time.perf_counter() - t0
+    steps = max(gen - 1, 1)
     res = {"tokens": [list(r) for r in zip(*out)],
            "tok_per_s": b * gen / dt, "prefill_s": t1 - t0,
-           "decode_s": step_s, "cache_bytes": cache_bytes(cache)}
+           "decode_s": step_s, "cache_bytes": cache_bytes(cache),
+           "collectives": {
+               "model_axis": tp.model_size(),
+               "prefill": {k: c1[k] - c0[k] for k in c0},
+               "per_step": {k: (tp.COUNTS[k] - c1[k]) / steps for k in c0}}}
     if keep_logits:
         res["logits"] = torch.stack(rows)
     return res

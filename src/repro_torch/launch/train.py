@@ -38,6 +38,7 @@ from repro_torch.checkpoint import store
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
 from repro_torch.models import params as P
 from repro_torch.models.api import ModelAPI, get_model
@@ -53,6 +54,7 @@ def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
     and backward (``fwd_bwd_s``) and of the update (``opt_s``), each
     ending in a read of its result, which waits for the device."""
     def step(params, opt_state, batch):
+        tp.refuse_training("train")
         t0 = time.perf_counter()
         leaves = [t.requires_grad_() for t in P.leaves(params)]
         loss = model.loss(params, batch)

@@ -12,7 +12,10 @@ Every family exposes:
 
 Encoder-decoder configs go to ``encdec``, ssm to ``xlstm``, hybrid to
 ``hybrid`` and the rest to ``transformer``, which refuses an attention
-kind it does not take.
+kind it does not take.  Under a mesh whose ``model`` axis is larger than
+one, every function refuses a config that tensor parallelism does not
+lay out (``distributed/tp.check_layout``: any family but the dense GQA
+decoders).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from types import ModuleType
 from typing import Callable, NamedTuple
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tp
 
 from . import encdec, hybrid, transformer, xlstm
 
@@ -52,7 +56,13 @@ def get_model(cfg: ArchConfig) -> ModelAPI:
     mod = family_module(cfg)
 
     def bind(fname):
-        return functools.partial(getattr(mod, fname), cfg)
+        fn = getattr(mod, fname)
+
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            tp.check_layout(cfg)
+            return fn(cfg, *args, **kw)
+        return call
 
     return ModelAPI(cfg=cfg, init=bind("init_params"),
                     forward=bind("forward"), loss=bind("loss_fn"),

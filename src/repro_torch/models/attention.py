@@ -14,6 +14,13 @@ which gives the masked softmax of the JAX version, whose masked scores
 weigh exactly 0.  The paged serving engine's attention lives with its
 callers: prefill (``serving/prefix_cache.prefix_chunk_attention``) and
 decode (the paged-attention kernel).
+
+Under tensor parallelism (a ``model`` axis larger than one,
+``distributed/tp.py``) the GQA functions run as they are on this rank's
+H/m query heads and K/m KV heads (its shards of wq, wk, wv, their biases
+and wo, and of the caches): query head h reads KV head h // (H/K) within
+the rank's block, as in the whole model.  Only the output projection
+communicates: :func:`_proj_out` is row-parallel.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.distributed import tp
 
 from . import layers as L
 
@@ -44,11 +53,11 @@ def init_gqa(gen: torch.Generator, d: int, n_heads: int, n_kv: int,
 
 def _proj_out(p: dict, ctx: torch.Tensor) -> torch.Tensor:
     """ctx [B, S, H, Dh] -> [B, S, D]: contracts (H, Dh) against wo
-    [H, Dh, D], accumulating in f32 and rounding once (see L.linear)."""
+    [H, Dh, D], accumulating in f32 and rounding once (see L.linear); the
+    heads split over the model axis (``tp.row_parallel``)."""
     w = p["wo"]["w"]
-    y = torch.matmul(ctx.reshape(*ctx.shape[:-2], -1),
-                     w.reshape(-1, w.shape[-1]))
-    return y.to(ctx.dtype)
+    return tp.row_parallel(ctx.reshape(*ctx.shape[:-2], -1),
+                           w.reshape(-1, w.shape[-1]))
 
 
 def gqa_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,

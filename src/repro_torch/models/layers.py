@@ -16,6 +16,15 @@ bf16 semantics follow the JAX package:
     each chunk's logits in the backward (``torch.utils.checkpoint``, as
     ``jax.checkpoint`` there), so one chunk's f32 logits are live at a
     time.
+
+Under a mesh whose ``model`` axis is larger than one (tensor
+parallelism, ``distributed/tp.py``), a layer's params are this rank's
+shards under the rule table and the layers issue GSPMD's collectives:
+``mlp``'s down projection is row-parallel (its f32 partial summed over
+the ranks, then rounded), ``embed`` looks up this rank's rows of the
+vocab and sums, and ``lm_logits``/``last_logits`` gather the vocab
+columns, so every rank returns the whole ``[..., V]``.  With a model
+axis of one each is the plain form above.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed import tp
 
 
 def _dense_init(gen: torch.Generator, shape: tuple[int, ...],
@@ -99,7 +110,7 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     # x / (1 + exp(-x)) differs from it in the last f32 bit far more often
     h = (g * torch.sigmoid(g)).to(x.dtype)
     h = h * linear(p["up"], x)
-    return linear(p["down"], h)
+    return tp.row_parallel(h, p["down"]["w"])
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, *,
@@ -110,7 +121,7 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, *,
 
 
 def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, p["w"])
+    return tp.vocab_embed(p["w"], tokens)
 
 
 def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
@@ -119,7 +130,7 @@ def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
 
 
 def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return linear(p, x)
+    return tp.gather_vocab(linear(p, x))
 
 
 def last_logits(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -29,7 +29,11 @@ every rank holds) with the capacity of a
 shard's token count, and the partial outputs are summed over the
 ``model`` group; a data axis larger than one then gathers the shards'
 rows, so every rank returns the whole output, as JAX's global array
-holds it.  The shared experts stay outside, as in JAX.
+holds it.  The shared experts stay outside, as in JAX, where GSPMD runs
+them tensor-parallel under the rule table: with a model axis larger than
+one each rank takes its columns of their gate and up and its rows of
+their down (:func:`_local_mlp`) through ``layers.mlp``'s row-parallel
+path.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed import axes as AX
+from repro_torch.distributed import tp
 
 from . import layers as L
 
@@ -198,6 +203,25 @@ def _moe_sharded(p: dict, x2d: torch.Tensor, mesh, top_k: int,
     return out
 
 
+def _local_mlp(p: dict) -> dict:
+    """This rank's shard of a dense MLP held whole (the shared experts):
+    columns of gate and up, rows of down, block ``model_rank`` of
+    ``model_size``, as the rule table lays them out; the MLP itself with
+    a model axis of one."""
+    m = tp.model_size()
+    if m == 1:
+        return p
+    if p["gate"]["w"].shape[-1] % m:
+        raise NotImplementedError(
+            f"shared experts of width {p['gate']['w'].shape[-1]} do not "
+            f"split over a model axis of {m} ({tp.ROADMAP_ITEM})")
+    f = p["gate"]["w"].shape[-1] // m
+    mine = slice(tp.model_rank() * f, (tp.model_rank() + 1) * f)
+    return {"gate": {"w": p["gate"]["w"][:, mine]},
+            "up": {"w": p["up"]["w"][:, mine]},
+            "down": {"w": p["down"]["w"][mine]}}
+
+
 def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
             capacity_factor: float = 1.25) -> torch.Tensor:
     """[B, S, D] -> [B, S, D]; the expert-parallel path when a mesh with
@@ -212,7 +236,7 @@ def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
         out = _moe_sharded(p, x2d, mesh, top_k, n_experts, capacity_factor)
     y = out.reshape(b, s, d).to(x.dtype)
     if "shared" in p:
-        y = y + L.mlp(p["shared"], x)
+        y = y + L.mlp(_local_mlp(p["shared"]), x)
     return y
 
 

@@ -23,6 +23,15 @@ layers and full-length caches for global ones — and picks a layer's
 pool with a Python ``if`` where JAX has ``lax.cond``; MLA caches the
 latent.  The caches are written in place, as the JAX package's donated
 ``jit`` updates them.
+
+Tensor parallelism (a ``(1, m)`` mesh active, ``distributed/tp.py``):
+the dense GQA configs serve with each rank holding its shards of the
+params (``distributed/sharding.local_params``) and of the caches (the
+K/m KV heads that ``cache_specs`` gives it); ``prefill``, ``decode_step``,
+``decode_step_quant`` and ``forward`` return the whole logits on every
+rank.  Every entry point refuses a config or mesh this slice does not lay
+out (``tp.check_layout``), and ``loss_fn`` refuses the model axis:
+training under TP is not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
 
 from repro_torch.core.bdi_value import _pow2_scale
@@ -100,20 +110,28 @@ def _init_block(cfg: ArchConfig, gen: torch.Generator,
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
-                device: torch.device | str) -> dict:
+                device: torch.device | str, local=None) -> dict:
     """Random params on ``device`` from ``gen`` (a generator on that
-    device); the JAX init's tree and distributions, not its numbers."""
+    device); the JAX init's tree and distributions, not its numbers.
+
+    ``local``: a function of a subtree keyed as in the whole tree (such as
+    ``distributed/sharding.local_params`` on a mesh), applied to the
+    embedding, to each layer's block and to the head as each is drawn, so
+    that a tensor-parallel rank keeps its shards and never holds more of
+    the whole model than one layer.  The draws are the same either way."""
     check_family(cfg)
     device = torch.device(device)
-    embed = L.init_embed(gen, cfg.vocab, cfg.d_model, device=device)
-    blocks = P.init_stacked(lambda: _init_block(cfg, gen, device),
+    keep = local or (lambda t: t)
+    embed = keep({"embed": L.init_embed(gen, cfg.vocab, cfg.d_model,
+                                        device=device)})["embed"]
+    blocks = P.init_stacked(lambda: keep(_init_block(cfg, gen, device)),
                             cfg.n_layers)
     return {
         "embed": embed,
         "blocks": blocks,
         "final_norm": L.init_rmsnorm(cfg.d_model, device),
-        "lm_head": L.init_lm_head(gen, cfg.d_model, cfg.vocab,
-                                  device=device),
+        "lm_head": keep({"lm_head": L.init_lm_head(
+            gen, cfg.d_model, cfg.vocab, device=device)})["lm_head"],
     }
 
 
@@ -173,10 +191,12 @@ def _hidden(cfg: ArchConfig, params: dict, batch: dict,
 def forward(cfg: ArchConfig, params: dict, batch: dict,
             remat: bool = True) -> torch.Tensor:
     """Teacher-forcing forward -> logits [B, S, V]."""
+    tp.check_layout(cfg)
     return L.lm_logits(params["lm_head"], _hidden(cfg, params, batch, remat))
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    tp.refuse_training(f"{cfg.name}: loss_fn")
     x = _hidden(cfg, params, batch)
     return L.chunked_cross_entropy(params["lm_head"], x, batch["targets"],
                                    batch.get("loss_mask"))
@@ -209,7 +229,8 @@ class QuantDecodeCache(NamedTuple):
 
 
 def cache_bytes(cache: NamedTuple) -> int:
-    """Bytes of a decode cache of any family (a NamedTuple of tensors)."""
+    """Bytes of a decode cache of any family (a NamedTuple of tensors):
+    this rank's under tensor parallelism."""
     return sum(t.numel() * t.element_size() for t in cache)
 
 
@@ -218,8 +239,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device | str | None = None) -> DecodeCache:
     device = resolve_device(device)
     check_family(cfg)
+    tp.check_layout(cfg)
     _, _, (n_g, n_l) = cache_slots(cfg)
-    k, dh = cfg.n_kv_heads, cfg.head_dim
+    k, dh = cfg.n_kv_heads // tp.model_size(), cfg.head_dim
 
     def z(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -244,7 +266,9 @@ def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
     if n_l or cfg.attn_kind != "gqa":
         raise ValueError(f"{cfg.name}: the quantised cache takes all-global "
                          "GQA archs only")
-    lyr, k, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    tp.check_layout(cfg)
+    lyr, dh = cfg.n_layers, cfg.head_dim
+    k = cfg.n_kv_heads // tp.model_size()
 
     def z(*shape, dtype=torch.float32, fill=0.0):
         return torch.full(shape, fill, dtype=dtype, device=device)
@@ -272,6 +296,7 @@ def decode_step_quant(cfg: ArchConfig, params: dict, cache: QuantDecodeCache,
     """:func:`decode_step` over the quantised cache: the new token's K/V
     are quantised on the write path (in place at ``t``) and the cache is
     dequantised inside attention (its first t + 1 rows)."""
+    tp.check_layout(cfg)
     t = int(t)
     x = L.embed(params["embed"], token[:, None])
     f32 = torch.float32
@@ -308,6 +333,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: DecodeCache,
                 ) -> tuple[torch.Tensor, DecodeCache]:
     """One decode step: token [B] at position ``t`` -> (logits [B, V],
     the cache, updated in place)."""
+    tp.check_layout(cfg)
     t = int(t)
     x = L.embed(params["embed"], token[:, None])
     is_g, slots, _ = cache_slots(cfg)
@@ -339,6 +365,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
     cache -> (last logits [B, V], cache).  A GQA layer projects K/V once,
     for its cache and its attention; a local layer's ring takes the last
     min(window, S) positions at slot ``position % window``."""
+    tp.check_layout(cfg)
     x = _embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     if s > max_len:

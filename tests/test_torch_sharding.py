@@ -184,8 +184,17 @@ def test_shard_follows_the_mesh(mesh1):
             x, mesh1, ns.placements), None, None)
         assert isinstance(d, DTensor) and torch.equal(d.full_tensor(), x)
     with AX.use_mesh(EL.abstract_mesh((1, 2), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
+        # a plain tensor over a model axis of 2 is this rank's block: the
+        # block's shape is taken, any other raises
+        assert AX.shard(x, None, AX.MODEL, global_shape=(3, 8)) is x
+        assert AX.shard(x, AX.DP, None, global_shape=(3, 4)) is x
+        with pytest.raises(ValueError, match=r"is \(3, 2\), not \(3, 4\)"):
+            AX.shard(x, None, AX.MODEL, global_shape=(3, 4))
+        with pytest.raises(TypeError, match="global_shape"):
             AX.shard(x, None, AX.MODEL)
+    with AX.use_mesh(EL.abstract_mesh((2, 2), ("data", "model"))):
+        with pytest.raises(NotImplementedError, match="DP x TP"):
+            AX.shard(x, AX.DP, AX.MODEL, global_shape=(6, 8))
     assert AX.current_mesh() is None
 
 

@@ -272,6 +272,29 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      bf16 ULPs of its array's largest |value| (``tests/test_torch_tensor_
      parallel.py``'s bound) while its sequence's tokens agree, tokens
      equal up to reported one-ULP ties.  No kernel launches.
+  16. tensor-parallel training: phase 15's model (no frontend embeds)
+     on two gloo rank processes of the one card, each drawing its shards
+     as phase 15's do and taking 3 steps of ``launch.train.make_train_
+     step`` on 4 x 128 tokens of phase 10's stream (the same batch on
+     both ranks) under bdi8 moments (lr 3e-4, clip 1.0): the model
+     axis's collectives forward and backward through ``distributed/
+     tp.py`` (the vocab-parallel loss, the column-parallel input
+     gradients, the clip norm's sum), the moments stored and loaded by
+     tile kernels 4 and 5 on each rank's shards.  Printed a rank,
+     labelled gloo through the host on one card, not a TP speed: ms a
+     step split into forward+backward and update, collectives and bytes
+     a step (``tp.COUNTS``), tile launches, peak memory.  Each rank must
+     launch both tile kernels and no other, the ranks' losses and norms
+     be equal and the norms and their moments bit-equal after every
+     step.  After the ranks exit, the same weights and batches train
+     whole in this process: the first loss within rtol 1e-4, the 3
+     within 1e-2 (phase 10c's bdi8 bound); after step 1, on every 16th
+     row of each rank's shard of every leaf (block leaves at their first
+     and last layer), the params before the step bit-equal, the loaded
+     moments within relative error 2e-2, the params >= 98% within one
+     bf16 ULP and every element within 2 lr + 1 ULP (a first step from
+     zero moments, ``_one_step_gap``).  The kernel launches of both
+     ranks go into the ``kernels`` line.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -3963,7 +3986,7 @@ def _wait_all(procs: list, what: str, timeout: float) -> None:
     try:
         for p, log_path in procs:
             if p.wait(timeout=timeout) != 0:
-                raise AssertionError(f"phase 15: {what} exited {p.returncode}"
+                raise AssertionError(f"{what} exited {p.returncode}"
                                      f": {log_path.read_text()[-3000:]}")
     finally:
         for p, _ in procs:
@@ -3984,7 +4007,7 @@ def phase_tensor_parallel(dev) -> dict:
     work = Path(tempfile.mkdtemp(prefix="tp15_"))
     nccl = [(_spawn(f"nccl_rank({r}, {str(work)!r})", work / f"nccl_{r}.log"),
              work / f"nccl_{r}.log") for r in range(TP_RANKS)]
-    _wait_all(nccl, "an NCCL probe rank", 300)
+    _wait_all(nccl, "phase 15: an NCCL probe rank", 300)
     said = [(work / f"nccl_{r}.txt").read_text() for r in range(TP_RANKS)]
     log(f"phase 15: NCCL with {TP_RANKS} ranks on one card: {said[0]}")
     if any(s == "ok" for s in said):
@@ -3992,7 +4015,7 @@ def phase_tensor_parallel(dev) -> dict:
     t0 = time.perf_counter()
     ranks = [(_spawn(f"tp_rank({r}, {str(work)!r})", work / f"tp_{r}.log"),
               work / f"tp_{r}.log") for r in range(TP_RANKS)]
-    _wait_all(ranks, "a TP rank", 900)
+    _wait_all(ranks, "phase 15: a TP rank", 900)
     ranks_s = time.perf_counter() - t0
     res = [json.loads((work / f"tp_{r}.json").read_text())
            for r in range(TP_RANKS)]
@@ -4047,6 +4070,348 @@ def phase_tensor_parallel(dev) -> dict:
                      "ms_a_step_median": sorted(step)[len(step) // 2],
                      "cache_bytes": whole["cache_bytes"]}}
     log(f"phase 15: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training under tensor parallelism, two ranks on one card
+# ---------------------------------------------------------------------------
+
+TPT_STEPS = 3
+TPT_BATCH, TPT_SEQ = 4, 128
+TPT_MOMENTS = "bdi8"
+TPT_FIRST_RTOL = 1e-4           # the first loss, one state on both sides
+TPT_LOSS_RTOL = 1e-2            # phase 10c's bdi8 trajectory bound
+TPT_ULP_SHARE = 0.98            # params within 1 ULP after step 1 (see
+TPT_MOMENT_RTOL = 2e-2          # _one_step_gap); moments: test_torch_train
+TPT_ROW_STRIDE = 16             # rows of each shard compared after step 1
+
+
+def tpt_cfg():
+    """Phase 15's model without frontend embeddings (the CPU tests train
+    with them)."""
+    return at_depth(tp_cfg(), TP_LAYERS, n_frontend_embeds=0)
+
+
+def tpt_ocfg():
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=3e-4, grad_clip=1.0, moment_dtype=TPT_MOMENTS)
+
+
+def tpt_batches(cfg, dev) -> list:
+    """``TPT_STEPS`` batches of phase 10's stream (``train()``'s: seed 0),
+    every rank the same."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    it = DataIterator(cfg, ShapeConfig("train", TPT_SEQ, TPT_BATCH, "train"),
+                      DataConfig(seed=0))
+    return [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()
+             if k != "embeds"} for _ in range(TPT_STEPS)]
+
+
+def _is_norm(path: str) -> bool:
+    return "norm" in path or "['ln" in path
+
+
+def _sample(t, path: str, n_layers: int):
+    """Rows of a shard (a param leaf, or a moment store's tensors, whose
+    leading dims are the param's) compared after step 1: block leaves at
+    their first and last layer, every ``TPT_ROW_STRIDE``-th row of the
+    next dim; the embedding and the head every ``TPT_ROW_STRIDE``-th row;
+    the norms whole.  The whole state of a rank is ~20 GB, which would
+    have to cross the host between the processes."""
+    if _is_norm(path):
+        return t
+    if path.startswith("['blocks']"):
+        return t[[0, n_layers - 1]][:, ::TPT_ROW_STRIDE]
+    return t[::TPT_ROW_STRIDE]
+
+
+def _block_view(t, spec, rank: int):
+    """Rank ``rank``'s block of a whole tensor under a model-axis spec, as
+    a view (``sharding.local_shards`` without its copy)."""
+    for d, s in enumerate(spec):
+        if s == "model":
+            b = t.shape[d] // TP_RANKS
+            t = t.narrow(d, rank * b, b)
+    return t
+
+
+def tpt_state(params: dict, state: dict | None, n_layers: int,
+              rank: int | None = None) -> dict:
+    """``_sample`` of every param leaf and of its two moments (loaded to
+    f32; none with ``state`` None), on the host.  ``rank``: cut the whole
+    tree to that rank's block first (the reference run)."""
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.elastic import abstract_mesh
+    from repro_torch.optim import adamw
+    mesh = abstract_mesh((1, TP_RANKS), ("data", "model"))
+
+    def cut(t, path):
+        if rank is not None:
+            t = _block_view(t, SH._spec_for(path, tuple(t.shape), mesh,
+                                            t.element_size(), False), rank)
+        return _sample(t, path, n_layers)
+    stores = {k: adamw._store_leaves(state[k]) for k in ("m", "v")
+              } if state is not None else {}
+    out = {}
+    for i, (path, p) in enumerate(leaf_paths(params)):
+        pc = cut(p.detach(), path)
+        out[f"param{path}"] = pc.to("cpu", copy=True)
+        for k, leaves in stores.items():
+            s = leaves[i]
+            if isinstance(s, dict):
+                s = {n: cut(x, f"{path}['{n}']") for n, x in s.items()}
+            else:
+                s = cut(s, path)
+            out[f"{k}{path}"] = adamw._load(s, pc.shape).to("cpu",
+                                                             copy=True)
+    return out
+
+
+def tpt_norms(params: dict, state: dict) -> dict:
+    """The replicated leaves (the norms) and their moments, on the host."""
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.optim.adamw import _store_leaves
+    out = {}
+    for (path, p), m_s, v_s in zip(leaf_paths(params),
+                                   _store_leaves(state["m"]),
+                                   _store_leaves(state["v"])):
+        if _is_norm(path):
+            for k, t in (("param", p), ("m", m_s), ("v", v_s)):
+                parts = t.items() if isinstance(t, dict) else [("", t)]
+                for n, x in parts:
+                    out[f"{k}{path}{n}"] = x.detach().to("cpu", copy=True)
+    return out
+
+
+def tp_train_rank(rank: int, work: str) -> None:
+    """One rank of phase 16: its shards of the model (phase 15's init),
+    ``TPT_STEPS`` steps of ``launch.train.make_train_step`` under bdi8
+    moments; writes ``tpt_<rank>.json`` and ``tpt_<rank>.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._device import resolve_device
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init, opt_state_bytes
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(dev)
+    cfg, ocfg = tpt_cfg(), tpt_ocfg()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(work) / "rendezvous_train"), TP_RANKS), rank=rank,
+        world_size=TP_RANKS)
+    try:
+        mesh = make_host_mesh(1, TP_RANKS)
+        with use_mesh(mesh):
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev,
+                local=lambda t: SH.local_params(t, mesh))
+            state = adamw_init(params, ocfg)
+            batches = tpt_batches(cfg, dev)
+            step = make_train_step(get_model(cfg), ocfg)
+            start = tpt_state(params, None, cfg.n_layers)
+            sync(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            mets, norms, sample = [], [], None
+            for i, batch in enumerate(batches):
+                params, state, met = step(params, state, batch)
+                mets.append(met)
+                norms.append(tpt_norms(params, state))
+                if i == 0:
+                    launches = dict(ops.LAUNCHES)
+                    sample = tpt_state(params, state, cfg.n_layers)
+                    ops.LAUNCHES.update(launches)   # the sample's loads
+            peak = torch.cuda.max_memory_allocated(dev)
+        res = {"rank": rank, "backend": dist.get_backend(),
+               "param_bytes": sum(t.numel() * t.element_size()
+                                  for t in _leaves(params)),
+               "opt_state_bytes": opt_state_bytes(state, ocfg),
+               "losses": [m["loss"] for m in mets],
+               "grad_norms": [m["grad_norm"] for m in mets],
+               "fwd_bwd_ms": [m["fwd_bwd_s"] * 1e3 for m in mets],
+               "opt_ms": [m["opt_s"] * 1e3 for m in mets],
+               "collectives": [m["collectives"] for m in mets],
+               "peak_bytes": peak,
+               "kernel_launches": {k: v for k, v in ops.LAUNCHES.items()
+                                   if v}}
+        torch.save({"start": start, "sample": sample, "norms": norms},
+                   Path(work) / f"tpt_{rank}.pt")
+        (Path(work) / f"tpt_{rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh()
+
+
+def _one_step_gap(got: dict, want: dict, start: dict) -> dict:
+    """The sampled state after step 1 against the whole model's.  From
+    zero moments AdamW moves an element by lr g / (|g| + eps) + lr wd p
+    (about lr sign(g)), so two runs whose gradients differ land at most 2
+    lr + 1 ULP apart, and exactly where a gradient is near 0 or near eps
+    next to its difference.  By param leaf: the share within one bf16 ULP
+    (test_torch_train's bound is 99% of a leaf, from states at steps 5 and
+    9; here 98%: the TP run's gradients differ from the whole model's by
+    1-2% relative at every layer, where its loss agrees to 1e-5, and the
+    first step turns that into 1.2-1.8% of the down projection's elements
+    off by more than an ULP on the card), the share the two steps moved
+    apart from ``start`` (the params before the step, the same on both
+    sides) and the largest gap less 1 ULP, over lr; by moment leaf the
+    relative Frobenius error (block leaves also at their first and last
+    layer)."""
+    import torch
+    lr = tpt_ocfg().lr
+    by_leaf = {}
+    for k, a in got.items():
+        b = want[k]
+        if a.shape != b.shape:
+            raise AssertionError(f"phase 16: {k}: {tuple(a.shape)} vs "
+                                 f"{tuple(b.shape)}")
+        a, b = a.float(), b.float()
+        if k.startswith("param"):
+            path = k[len("param"):]
+            mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+            ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+            gap = (a - b).abs()
+            p0 = start[k].float()
+            apart = torch.sign(a - p0) != torch.sign(b - p0)
+            by_leaf.setdefault(path, {}).update(
+                within_1_ulp=float((gap <= ulp).float().mean()),
+                moved_apart=float(apart.float().mean()),
+                max_gap_over_lr=float(((gap - ulp) / lr).max()))
+        else:
+            err = lambda x, y: float((x - y).norm()          # noqa: E731
+                                     / y.norm().clamp(min=1e-30))
+            leaf = by_leaf.setdefault(k[1:], {})
+            leaf[f"{k[0]}_err"] = err(a, b)
+            if k[1:].startswith("['blocks']"):    # layer 0, the last layer
+                leaf[f"{k[0]}_err_by_layer"] = [err(a[0], b[0]),
+                                                err(a[1], b[1])]
+    worst = {"within_1_ulp": min(by_leaf, key=lambda p: by_leaf[p].get(
+        "within_1_ulp", 1.0))}
+    for n in ("max_gap_over_lr", "m_err", "v_err"):
+        worst[n] = max(by_leaf, key=lambda p: by_leaf[p].get(n, 0.0))
+    return {"worst": {n: [p, by_leaf[p][n]] for n, p in worst.items()},
+            "by_leaf": by_leaf}
+
+
+def phase_tp_train(dev) -> dict:
+    """Phase 16 (see the module docstring)."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    work = Path(tempfile.mkdtemp(prefix="tp16_"))
+    t0 = time.perf_counter()
+    ranks = [(_spawn(f"tp_train_rank({r}, {str(work)!r})",
+                     work / f"tpt_{r}.log"), work / f"tpt_{r}.log")
+             for r in range(TP_RANKS)]
+    _wait_all(ranks, "phase 16: a TP training rank", 600)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"tpt_{r}.json").read_text())
+           for r in range(TP_RANKS)]
+    got = [torch.load(work / f"tpt_{r}.pt") for r in range(TP_RANKS)]
+    for r, rr in enumerate(res):
+        log(f"phase 16 rank {r} (gloo through the host on one card, not a "
+            f"TP speed): {json.dumps(rr)}")
+        ran = rr["kernel_launches"]
+        if rr["backend"] != "gloo" or set(ran) != {"bdi_compress",
+                                                   "bdi_decompress"}:
+            raise AssertionError(f"phase 16: rank {r}: backend "
+                                 f"{rr['backend']}, launches {ran}")
+        if not all(math.isfinite(x) for x in rr["losses"]):
+            raise AssertionError(f"phase 16: rank {r}: {rr['losses']}")
+    if res[1]["losses"] != res[0]["losses"] or \
+            res[1]["grad_norms"] != res[0]["grad_norms"]:
+        raise AssertionError("phase 16: the ranks' losses or norms differ")
+    for i in range(TPT_STEPS):
+        for k, a in got[0]["norms"][i].items():
+            if not torch.equal(a, got[1]["norms"][i][k]):
+                raise AssertionError(f"phase 16: step {i}: {k} differs "
+                                     f"between the ranks")
+    # the same weights and batches, whole, in this process
+    cfg, ocfg = tpt_cfg(), tpt_ocfg()
+    t1 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(TP_SEED),
+                         dev)
+    state = adamw_init(params, ocfg)
+    step = make_train_step(get_model(cfg), ocfg)
+    start = [tpt_state(params, None, cfg.n_layers, rank=r)
+             for r in range(TP_RANKS)]
+    for r in range(TP_RANKS):
+        for k, t in start[r].items():
+            if not torch.equal(t, got[r]["start"][k]):
+                raise AssertionError(f"phase 16: rank {r}'s {k} is not "
+                                     f"its block of the whole model's")
+    batches = tpt_batches(cfg, dev)
+    whole, want = [], None
+    for i, batch in enumerate(batches):
+        params, state, met = step(params, state, batch)
+        whole.append(met)
+        if i == 0:
+            want = [tpt_state(params, state, cfg.n_layers, rank=r)
+                    for r in range(TP_RANKS)]
+    whole_s = time.perf_counter() - t1
+    del params, state
+    release(dev)
+    gaps = [_one_step_gap(got[r]["sample"], want[r], start[r])
+            for r in range(TP_RANKS)]
+    losses = [m["loss"] for m in whole]
+    tp_losses = res[0]["losses"]
+    if abs(tp_losses[0] - losses[0]) > TPT_FIRST_RTOL * abs(losses[0]) or \
+            any(abs(a - b) > TPT_LOSS_RTOL * abs(b)
+                for a, b in zip(tp_losses, losses)):
+        raise AssertionError(f"phase 16: losses {tp_losses} against the "
+                             f"whole model's {losses}")
+    for r, g in enumerate(gaps):
+        log(f"phase 16: rank {r} after step 1 against the whole model: "
+            f"{json.dumps(g)}")
+    for r, g in enumerate(gaps):
+        w = {n: v for n, (_, v) in g["worst"].items()}
+        if (w["within_1_ulp"] < TPT_ULP_SHARE
+                or w["max_gap_over_lr"] > 2.0
+                or max(w["m_err"], w["v_err"]) > TPT_MOMENT_RTOL):
+            raise AssertionError(f"phase 16: rank {r} after step 1: "
+                                 f"{g['worst']}")
+    rest = slice(1, None)
+    mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
+    out = {"card": smi(), "cell": f"internvl2-76b full width, "
+           f"{TP_LAYERS} layers, {TPT_STEPS} steps of {TPT_BATCH} x "
+           f"{TPT_SEQ}, {TPT_MOMENTS} moments, (1, {TP_RANKS}) over gloo "
+           f"on one card",
+           "ranks_wall_s": ranks_s, "whole_wall_s": whole_s,
+           "losses_tp": tp_losses, "losses_whole": losses,
+           "grad_norms_tp": res[0]["grad_norms"],
+           "grad_norms_whole": [m["grad_norm"] for m in whole],
+           "after_step_1": [g["worst"] for g in gaps],
+           "tp_ms_a_step": {f"rank{r}": {
+               "fwd_bwd": mean(rr["fwd_bwd_ms"][rest]),
+               "opt": mean(rr["opt_ms"][rest]),
+               "first_step": rr["fwd_bwd_ms"][0] + rr["opt_ms"][0]}
+               for r, rr in enumerate(res)},
+           "whole_ms_a_step": {
+               "fwd_bwd": mean([m["fwd_bwd_s"] * 1e3 for m in whole[rest]]),
+               "opt": mean([m["opt_s"] * 1e3 for m in whole[rest]])},
+           "collectives_a_step": res[0]["collectives"][-1],
+           "tile_launches": {f"rank{r}": rr["kernel_launches"]
+                             for r, rr in enumerate(res)},
+           "peak_gb_a_rank": [rr["peak_bytes"] / 1e9 for rr in res],
+           "launches": {k: sum(rr["kernel_launches"].get(k, 0)
+                               for rr in res)
+                        for k in ("bdi_compress", "bdi_decompress")}}
+    log(f"phase 16: {json.dumps(out)}")
     return out
 
 
@@ -4232,11 +4597,15 @@ def main() -> int:
     phase_tensor_parallel(dev)
     phase_done("15 tensor-parallel serving of internvl2-76b at full width, "
                "8 layers, two ranks on one card")
+    tp_trained = phase_tp_train(dev)
+    phase_done("16 tensor-parallel training of internvl2-76b at full width, "
+               "8 layers, two ranks on one card, bdi8 moments")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of
-    # phases 10 and 13 (the compressed all-reduce), and for the serving
-    # kernels phases 9 and 9b, each counted from 0 over its own run
+    # phases 10, 13 (the compressed all-reduce) and 16 (both ranks), and
+    # for the serving kernels phases 9 and 9b, each counted from 0 over
+    # its own run
     path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
             "gbdi_compress_kv": gbdi, "gbdi_decompress_kv": gbdi,
             "bdi_compress": tile, "bdi_decompress": tile}
@@ -4245,7 +4614,9 @@ def main() -> int:
         if name in path:
             k["launches"] = path[name]["launches"][name]
         if name in ("bdi_compress", "bdi_decompress"):
-            k["launches"] += trained["launches"][name] + dp["launches"][name]
+            k["launches"] += (trained["launches"][name]
+                              + dp["launches"][name]
+                              + tp_trained["launches"][name])
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

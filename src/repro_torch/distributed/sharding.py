@@ -90,6 +90,16 @@ def _is_spec(x) -> bool:
 _MOMENT_SUFFIX = re.compile(r"(\['(deltas|base|scale|maskp|enc)'\])$")
 
 
+def rule_template(path: str) -> tuple:
+    """The rule table's template of a params leaf's path (the first
+    pattern that matches): ``"m"`` for a dim sharded over ``model``,
+    applied to the trailing dims."""
+    for pat, template in _RULES:
+        if re.search(pat, path):
+            return tuple(template)
+    raise AssertionError("the last rule matches every path")
+
+
 def _spec_for(path: str, shape: tuple[int, ...], mesh,
               itemsize: int, fsdp: bool) -> PartitionSpec:
     # BDI-compressed moment leaves (tile-last layout, optim/adamw.py):
@@ -102,10 +112,7 @@ def _spec_for(path: str, shape: tuple[int, ...], mesh,
         if msuf.group(2) in ("deltas", "maskp"):
             extra_trailing = 1
         path = path[:msuf.start()]
-    for pat, template in _RULES:
-        if re.search(pat, path):
-            break
-    template = tuple(template) + (None,) * extra_trailing
+    template = rule_template(path) + (None,) * extra_trailing
     if len(template) > len(shape):
         return P(*([None] * len(shape)))
     spec = [None] * (len(shape) - len(template)) + [

@@ -52,9 +52,17 @@ def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
     update (in place, see ``optim/adamw.py``).  ``metrics`` holds Python
     floats: ``loss``, ``grad_norm``, and the host seconds of the forward
     and backward (``fwd_bwd_s``) and of the update (``opt_s``), each
-    ending in a read of its result, which waits for the device."""
+    ending in a read of its result, which waits for the device, and
+    ``collectives``: the model axis's collectives the step issued and the
+    bytes of their inputs (``distributed/tp.COUNTS``; zeros at m = 1).
+
+    Under a ``(1, m)`` mesh (``distributed/axes.use_mesh``) ``params``
+    and ``opt_state`` are this rank's shards (``distributed/sharding.
+    local_params``, ``adamw_init`` of them) and every rank takes the
+    same batch: the loss is the same on every rank, the gradients are
+    this rank's shards and ``grad_norm`` is the global norm."""
     def step(params, opt_state, batch):
-        tp.refuse_training("train")
+        c0 = dict(tp.COUNTS)
         t0 = time.perf_counter()
         leaves = [t.requires_grad_() for t in P.leaves(params)]
         loss = model.loss(params, batch)
@@ -69,7 +77,8 @@ def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
         gnorm = float(m["grad_norm"])
         return params, opt_state, {
             "loss": loss, "grad_norm": gnorm, "fwd_bwd_s": t1 - t0,
-            "opt_s": time.perf_counter() - t1}
+            "opt_s": time.perf_counter() - t1,
+            "collectives": {k: tp.COUNTS[k] - c0[k] for k in c0}}
     return step
 
 
@@ -82,7 +91,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``'s
     latest checkpoint).  Returns the JAX driver's dict (``first_loss``,
     ``final_loss``, ``steps_run``, ``losses``, ``params``) plus
-    ``opt_state`` and ``step_s``, each step's ``(fwd_bwd_s, opt_s)``."""
+    ``opt_state`` and ``step_s``, each step's ``(fwd_bwd_s, opt_s)``.
+    Runs no mesh: under a model axis it raises (the train step runs
+    there, :func:`make_train_step`)."""
+    tp.refuse_model_axis("launch/train.train()")
     dev = resolve_device(device)
     cfg = get_arch(arch)
     if smoke:

@@ -19,8 +19,11 @@ Under tensor parallelism (a ``model`` axis larger than one,
 ``distributed/tp.py``) the GQA functions run as they are on this rank's
 H/m query heads and K/m KV heads (its shards of wq, wk, wv, their biases
 and wo, and of the caches): query head h reads KV head h // (H/K) within
-the rank's block, as in the whole model.  Only the output projection
-communicates: :func:`_proj_out` is row-parallel.
+the rank's block, as in the whole model.  In the forward only the output
+projection communicates: :func:`_proj_out` is row-parallel.  The
+full-sequence q/k/v projections are column-parallel
+(``layers.column_linear``), whose backward sums each input gradient's
+partial over the ranks; a bias's gradient is local.
 """
 
 from __future__ import annotations
@@ -64,8 +67,8 @@ def gqa_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
            theta: float = 1e4) -> tuple[torch.Tensor, torch.Tensor]:
     """K/V projection + K-rope: x [B, T, D] -> (k roped, v), each
     [B, T, K, Dh].  ``positions`` is [T] (shared) or [B, T] (per row)."""
-    k = L.linear(p["wk"], x)
-    v = L.linear(p["wv"], x)
+    k = L.column_linear(p["wk"], x)
+    v = L.column_linear(p["wv"], x)
     if theta > 0:
         cos, sin = L.rope_angles(positions, k.shape[-1], theta)
         if positions.dim() == 1:
@@ -126,7 +129,7 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     """
     b, s, _ = x.shape
     kvp = positions if kv_positions is None else kv_positions
-    q = L.linear(p["wq"], x)                         # [B, S, H, Dh]
+    q = L.column_linear(p["wq"], x)                  # [B, S, H, Dh]
     dh = q.shape[-1]
     if theta > 0:
         cos, sin = L.rope_angles(positions, dh, theta)

@@ -20,11 +20,15 @@ bf16 semantics follow the JAX package:
 Under a mesh whose ``model`` axis is larger than one (tensor
 parallelism, ``distributed/tp.py``), a layer's params are this rank's
 shards under the rule table and the layers issue GSPMD's collectives:
-``mlp``'s down projection is row-parallel (its f32 partial summed over
-the ranks, then rounded), ``embed`` looks up this rank's rows of the
-vocab and sums, and ``lm_logits``/``last_logits`` gather the vocab
-columns, so every rank returns the whole ``[..., V]``.  With a model
-axis of one each is the plain form above.
+``mlp``'s gate and up are column-parallel (:func:`column_linear`: no
+collective forward, the input gradient's partial summed backward) and
+its down projection row-parallel (its f32 partial summed over the
+ranks, then rounded), ``embed`` looks up this rank's rows of the vocab
+and sums, ``lm_logits``/``last_logits`` gather the vocab columns, so
+every rank returns the whole ``[..., V]``, and ``chunked_cross_entropy``
+never gathers them: each chunk's loss is the vocab-parallel
+cross-entropy of this rank's columns (``tp.vocab_cross_entropy``).  With
+a model axis of one each is the plain form above.
 """
 
 from __future__ import annotations
@@ -77,6 +81,17 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def column_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """:func:`linear` of a weight whose output dims are split over the
+    ``model`` axis (q/k/v, the MLP's gate and up, the LM head): the same
+    product through ``tp.column_parallel``, whose backward sums the input
+    gradient over the ranks; the bias (this rank's block) adds locally."""
+    y = tp.column_parallel(x, p["w"])
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
 def rope_angles(positions: torch.Tensor, dim: int, theta: float = 1e4
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """positions [...] -> cos/sin f32 [..., dim/2]."""
@@ -105,11 +120,11 @@ def init_mlp(gen: torch.Generator, d: int, f: int, *, dtype=torch.bfloat16,
 
 
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    g = linear(p["gate"], x).to(torch.float32)
+    g = column_linear(p["gate"], x).to(torch.float32)
     # x * sigmoid(x), the form jax.nn.silu computes: F.silu's
     # x / (1 + exp(-x)) differs from it in the last f32 bit far more often
     h = (g * torch.sigmoid(g)).to(x.dtype)
-    h = h * linear(p["up"], x)
+    h = h * column_linear(p["up"], x)
     return tp.row_parallel(h, p["down"]["w"])
 
 
@@ -166,7 +181,10 @@ def chunked_cross_entropy(head_p: dict, x: torch.Tensor,
     The sequence is cut into equal chunks (padded at the end, as the JAX
     version pads), each chunk's logits computed under
     ``torch.utils.checkpoint`` so that only one chunk's f32 logits are
-    live in the forward and the backward.
+    live in the forward and the backward.  Under a model axis a chunk's
+    logits are this rank's vocab columns and its loss the vocab-parallel
+    cross-entropy (``tp.vocab_cross_entropy``); the recompute issues its
+    all-reduces again, on every rank alike.
     """
     b, s, _ = x.shape
     if mask is None:
@@ -181,9 +199,11 @@ def chunked_cross_entropy(head_p: dict, x: torch.Tensor,
     mask = mask.to(torch.float32)
 
     def one(xi, ti, mi):
-        nll = _nll(linear(head_p, xi), ti)
+        logits = column_linear(head_p, xi).to(torch.float32)
+        nll = tp.vocab_cross_entropy(logits, ti)
         return (nll * mi).sum(), mi.sum()
 
+    one = tp.under_mesh(one)           # the recompute's thread
     parts = [checkpoint(one, x[:, i * c:(i + 1) * c],
                         targets[:, i * c:(i + 1) * c],
                         mask[:, i * c:(i + 1) * c], use_reentrant=False)

@@ -25,13 +25,17 @@ latent.  The caches are written in place, as the JAX package's donated
 ``jit`` updates them.
 
 Tensor parallelism (a ``(1, m)`` mesh active, ``distributed/tp.py``):
-the dense GQA configs serve with each rank holding its shards of the
-params (``distributed/sharding.local_params``) and of the caches (the
-K/m KV heads that ``cache_specs`` gives it); ``prefill``, ``decode_step``,
-``decode_step_quant`` and ``forward`` return the whole logits on every
-rank.  Every entry point refuses a config or mesh this slice does not lay
-out (``tp.check_layout``), and ``loss_fn`` refuses the model axis:
-training under TP is not ported.
+the dense GQA configs serve and train with each rank holding its shards
+of the params (``distributed/sharding.local_params``) and of the caches
+(the K/m KV heads that ``cache_specs`` gives it); ``prefill``,
+``decode_step``, ``decode_step_quant`` and ``forward`` return the whole
+logits on every rank, and ``loss_fn`` the same loss on every rank, its
+gradients being this rank's shards (a replicated leaf's, the norms',
+equal on every rank).  Each layer's recompute in the backward issues its
+attention's sum again (the MLP's is past the recompute's last saved
+tensor), in the same order on every rank, as JAX's remat does; it runs
+under the caller's mesh (``tp.under_mesh``).  Every entry point refuses
+a config or mesh this slice does not lay out (``tp.check_layout``).
 """
 
 from __future__ import annotations
@@ -181,8 +185,8 @@ def _hidden(cfg: ArchConfig, params: dict, batch: dict,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for bp, w in zip(P.unstack(params["blocks"]), layer_windows(cfg)):
         if remat:
-            x = checkpoint(_block_forward, cfg, bp, x, positions, int(w),
-                           use_reentrant=False)
+            x = checkpoint(tp.under_mesh(_block_forward), cfg, bp, x,
+                           positions, int(w), use_reentrant=False)
         else:
             x = _block_forward(cfg, bp, x, positions, int(w))
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -196,7 +200,7 @@ def forward(cfg: ArchConfig, params: dict, batch: dict,
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
-    tp.refuse_training(f"{cfg.name}: loss_fn")
+    tp.check_layout(cfg)
     x = _hidden(cfg, params, batch)
     return L.chunked_cross_entropy(params["lm_head"], x, batch["targets"],
                                    batch.get("loss_mask"))

@@ -30,6 +30,15 @@ kernels write and read it; JAX's state holds
 enters the port (a checkpoint, a state handed to or taken from the JAX
 package), so states and checkpoints cross the packages.
 
+Under tensor parallelism (a ``(1, m)`` mesh, ``distributed/tp.py``)
+every tree here is this rank's shards: the moments are those of the
+local params (equal to ``local_shards`` of the whole state, as JAX places
+it with the params' specs), compressed and decompressed tile by tile on
+the shard, and the clip norm sums, over the ``model`` axis, the sum of
+squares of each leaf the rule table shards (``tp.sharded_leaves``),
+the replicated ones counting once.  Under ``bdi8``/``q8`` a tile that
+would straddle two shards raises (``tp.check_moments``).
+
 Unlike the JAX version, :func:`adamw_update` writes the new params and
 moments into the tensors it is given (at yi-6b's full width a second
 copy of params and moments would not fit beside the gradients).  Leaves
@@ -47,6 +56,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.core import bdi_value as bv
+from repro_torch.distributed import tp
 from repro_torch.kernels import ops, ref
 from repro_torch.models import params as P
 
@@ -173,6 +183,7 @@ def _load(s, shape) -> torch.Tensor:
 def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
     """Zero moments for ``params`` (on each leaf's device; shapes only,
     so a tree of ``meta`` tensors sizes a state without allocating)."""
+    tp.check_moments(params, cfg.moment_dtype)
     step_dev = P.leaves(params)[0].device
     return {
         "step": torch.zeros((), dtype=torch.int32, device=step_dev),
@@ -207,8 +218,18 @@ def _sumsq(g: torch.Tensor) -> torch.Tensor:
     return total
 
 
-def _global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(_sumsq(g) for g in grads))
+def _global_norm(grads: list[torch.Tensor],
+                 sharded: list[bool] | None = None) -> torch.Tensor:
+    """sqrt of the leaves' sums of squares added in leaf order, where a
+    leaf marked in ``sharded`` adds its sum over the ``model`` axis (one
+    all-reduce of those leaves' stacked sums; JAX issues one a leaf)."""
+    sq = [_sumsq(g) for g in grads]
+    idx = [i for i, s in enumerate(sharded or ()) if s]
+    if idx:
+        summed = tp.reduce_from_model(torch.stack([sq[i] for i in idx]))
+        for j, i in enumerate(idx):
+            sq[i] = summed[j]
+    return torch.sqrt(sum(sq))
 
 
 def _copy_into(dst, src) -> None:
@@ -224,9 +245,10 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
     """One AdamW step.  Writes the new params and moments into ``params``
     and ``state``'s tensors and returns ``(params, state', metrics)``,
     ``state'`` holding the new step counter."""
+    tp.check_moments(params, cfg.moment_dtype)
     step = state["step"] + 1
     gs = P.leaves(grads)
-    gnorm = _global_norm(gs)
+    gnorm = _global_norm(gs, tp.sharded_leaves(params))
     scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
                         / (gnorm + 1e-9), max=1.0) if cfg.grad_clip else 1.0
     stepf = step.to(torch.float32)

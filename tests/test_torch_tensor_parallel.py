@@ -482,19 +482,31 @@ def _abstract(model: int, data: int = 1):
 
 
 def test_training_under_a_model_axis_is_refused():
+    """Training runs under a model axis (``tests/test_torch_tp_train.py``)
+    but for what this slice does not lay out: ``bdi8`` moments whose tile
+    of 128 straddles two shards (reduced yi-6b's d_ff of 128 at m = 2), a
+    data axis beside the model axis, and ``launch/train.train()``, which
+    runs no mesh.  Each raises naming the ROADMAP item."""
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.optim import AdamWConfig, adamw_init
     cfg = case_cfg("yi-6b")
     params = case_params("yi-6b")
     batch = {k: torch.from_numpy(v) for k, v in TP.make_train_batch(
         cfg, ShapeConfig("t", 8, 2, "train"), TP.DataConfig(seed=3),
         step=0).items()}
     with _abstract(2):
+        local = SH.local_params(params, AX.current_mesh(),
+                                coord={"data": 0, "model": 0})
+        with pytest.raises(NotImplementedError,
+                           match="straddle.*ROADMAP Queue 1 item 2"):
+            adamw_init(local, AdamWConfig(moment_dtype="bdi8"))
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 2"):
-            get_model(cfg).loss(params, batch)
-        from repro_torch.launch.train import make_train_step
-        from repro_torch.optim import AdamWConfig, adamw_init
+            train("yi-6b", steps=1, device="cpu")
+    with _abstract(2, data=2):
         step = make_train_step(get_model(cfg), AdamWConfig())
-        with pytest.raises(NotImplementedError, match="training under"):
+        with pytest.raises(NotImplementedError,
+                           match="beside data axes.*ROADMAP Queue 1 item 2"):
             step(params, adamw_init(params, AdamWConfig()), batch)
     assert float(get_model(cfg).loss(params, batch)) > 0     # no mesh
 

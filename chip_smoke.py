@@ -214,7 +214,9 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      finite, falling losses, ms a step, peak memory.
      Phases 12-12e assert that none of the seven kernels launched.
   13. the distributed layer's main path, compressed DP training: yi-6b
-     at full width and depth on a one-rank NCCL mesh
+     at full width, ``DP_LAYERS`` = 8 of its 32 layers (full depth until
+     PR 27; the EC plan's host percentile over every gradient value was
+     ~60 s of it) on a one-rank NCCL mesh
      (``launch.mesh.make_host_mesh(1, 1)``; on one card the all-gather
      and all-reduce are copies), ``compress_comm.make_dp_train_step``
      with bdi8 moments, 4 steps of 8 x 128 from phase 10's stream and
@@ -295,6 +297,35 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      bf16 ULP and every element within 2 lr + 1 ULP (a first step from
      zero moments, ``_one_step_gap``).  The kernel launches of both
      ranks go into the ``kernels`` line.
+  17. DP x TP: phase 16's model at ``DPT_LAYERS`` = 4 layers (training 8
+     would need ~78 GB for the four ranks, and a decode step gathers
+     every FSDP block through the host, ~13 s at 8 layers) on a ``(2,
+     2)`` mesh of four gloo rank processes of the one card, laid out as
+     JAX's dry run lays out a production cell (params by the rule table
+     with ``fsdp=True`` at its real 64 MiB: each rank draws the model a
+     layer at a time and keeps its FSDP blocks,
+     ``local_params(fsdp=True, layers=)``; batches by ``batch_specs``,
+     each rank its rows).  It serves 4 prompts of 128 tokens (2 a data
+     group) and 16 greedy tokens, then trains from the same params for 3
+     steps of 4 x 128 under bdi8 moments (ZeRO-1: each rank keeps its
+     blocks' moments, stored and loaded by kernels 4 and 5).  Before the
+     ranks start, ``dpt_predict`` computes from the shapes each leaf's
+     spec, a rank's param and moment bytes, the collectives of a serving
+     step and a train step by axis and the tile launches; each rank must
+     match them exactly.  Printed a rank, labelled gloo through the host
+     on one card, not a DP or TP speed: the placement, bytes, peaks,
+     prefill ms, ms a step, forward+backward and update ms, collectives
+     and bytes a step by axis, tile launches.  The four ranks' tokens,
+     logits, losses, norms and replicated leaves must be equal, and the
+     params whole over data bit-equal across the data ranks.  After the
+     ranks exit, the same weights whole in this process: served tokens
+     and logits as phase 15's bounds; training as phase 16's (first loss
+     rtol 1e-4, 3 losses 1e-2, after step 1 on every 16th row of each
+     rank's blocks: the params before the step bit-equal, moments within
+     2e-2, params >= 98% within one bf16 ULP, all within 2 lr + 1 ULP).
+     Kernels 4 and 5 are held against their plain versions on those rows
+     of every moment store of each rank (launches not counted); the four
+     ranks' launches go into the ``kernels`` line.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -3409,6 +3440,7 @@ def phase_train_families(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 DP_SEQ, DP_BATCH, DP_STEPS = 128, 8, 4
+DP_LAYERS = 8                   # phase 13's depth, of yi-6b's 32
 
 
 def dp_batches(dev, cfg, seq: int, batch: int, n: int) -> list:
@@ -3508,10 +3540,10 @@ def dp_run(dev, cfg, batches: list, *, compress: bool, moment_dtype: str,
 
 
 def phase_dp_train(dev, cfg) -> dict:
-    """Phase 13: yi-6b at full width and depth, compressed DP training on
-    a one-rank NCCL mesh with bdi8 moments, 4 steps of 8 x 128 from phase
-    10's stream and init; the EC plan from step 1's gradients; the same 4
-    steps with ``compress=False``."""
+    """Phase 13: yi-6b at full width and ``cfg``'s depth (``DP_LAYERS``),
+    compressed DP training on a one-rank NCCL mesh with bdi8 moments, 4
+    steps of 8 x 128 from phase 10's stream and init; the EC plan from
+    step 1's gradients; the same 4 steps with ``compress=False``."""
     import torch
     from repro_torch.checkpoint.store import leaf_paths
     from repro_torch.distributed import compress_comm as cc
@@ -3995,6 +4027,33 @@ def _wait_all(procs: list, what: str, timeout: float) -> None:
                 p.wait()
 
 
+def _served_parity(name: str, tokens, logits, whole: dict, ulps: float
+                   ) -> tuple:
+    """``tokens``/``logits`` of a sharded run against the whole model's
+    (``dense_generate`` with ``keep_logits``): every live row's logits
+    within ``ulps`` bf16 ULPs of its array's largest |value| while its
+    sequence's tokens agree, tokens equal up to reported one-ULP ties.
+    Returns (the parity record, the worst gap in ULPs)."""
+    from repro_torch.serving.parity import GreedyParity, bf16_ulp
+    par, worst = GreedyParity(), 0.0
+    gen = logits.shape[0]
+    for j in range(gen):
+        live = [b for b in range(TP_BATCH) if b not in par.stopped]
+        if live:
+            a, w = logits[j, live], whole["logits"][j, live]
+            gap = float((a - w).abs().max()) / bf16_ulp(
+                float(w.abs().max()))
+            worst = max(worst, gap)
+            if gap > ulps:
+                raise AssertionError(f"{name}: step {j} logits {gap:.2f} "
+                                     f"ULPs from the whole model's")
+        par.check(j, {b: whole["tokens"][b][j] for b in range(TP_BATCH)},
+                  {b: tokens[b][j] for b in range(TP_BATCH)},
+                  lambda sid, j=j: logits[j, sid],
+                  lambda sid, j=j: whole["logits"][j, sid])
+    return par, worst
+
+
 def phase_tensor_parallel(dev) -> dict:
     """Phase 15 (see the module docstring)."""
     import tempfile
@@ -4003,7 +4062,6 @@ def phase_tensor_parallel(dev) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import dense_generate
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving.parity import GreedyParity, bf16_ulp
     work = Path(tempfile.mkdtemp(prefix="tp15_"))
     nccl = [(_spawn(f"nccl_rank({r}, {str(work)!r})", work / f"nccl_{r}.log"),
              work / f"nccl_{r}.log") for r in range(TP_RANKS)]
@@ -4043,22 +4101,8 @@ def phase_tensor_parallel(dev) -> dict:
     whole = dense_generate(cfg, params, prompts, TP_GEN, keep_logits=True)
     no_kernel_launched("15")
     del params
-    par = GreedyParity()
-    tp_logits, worst = got[0]["logits"], 0.0
-    for j in range(TP_GEN):
-        live = [b for b in range(TP_BATCH) if b not in par.stopped]
-        if live:
-            a, w = tp_logits[j, live], whole["logits"][j, live]
-            gap = float((a - w).abs().max()) / bf16_ulp(
-                float(w.abs().max()))
-            worst = max(worst, gap)
-            if gap > TP_ULPS:
-                raise AssertionError(f"phase 15: step {j} logits {gap:.2f} "
-                                     f"ULPs from the whole model's")
-        par.check(j, {b: whole["tokens"][b][j] for b in range(TP_BATCH)},
-                  {b: got[0]["tokens"][b][j] for b in range(TP_BATCH)},
-                  lambda sid, j=j: tp_logits[j, sid],
-                  lambda sid, j=j: whole["logits"][j, sid])
+    par, worst = _served_parity("phase 15", got[0]["tokens"],
+                                got[0]["logits"], whole, TP_ULPS)
     step = [s * 1e3 for s in whole["decode_s"]]
     out = {"card": smi(), "cell": f"internvl2-76b full width, "
            f"{TP_LAYERS} layers, {TP_BATCH} x {TP_PROMPT} + {TP_GEN}, "
@@ -4087,10 +4131,11 @@ TPT_MOMENT_RTOL = 2e-2          # _one_step_gap); moments: test_torch_train
 TPT_ROW_STRIDE = 16             # rows of each shard compared after step 1
 
 
-def tpt_cfg():
-    """Phase 15's model without frontend embeddings (the CPU tests train
-    with them)."""
-    return at_depth(tp_cfg(), TP_LAYERS, n_frontend_embeds=0)
+def tpt_cfg(n_layers: int = TP_LAYERS):
+    """Phase 15's model at ``n_layers`` layers, without frontend
+    embeddings (the CPU tests train with them): phase 16's at 8, phase
+    17's at ``DPT_LAYERS``."""
+    return at_depth(tp_cfg(), n_layers, n_frontend_embeds=0)
 
 
 def tpt_ocfg():
@@ -4128,46 +4173,55 @@ def _sample(t, path: str, n_layers: int):
     return t[::TPT_ROW_STRIDE]
 
 
-def _block_view(t, spec, rank: int):
-    """Rank ``rank``'s block of a whole tensor under a model-axis spec, as
-    a view (``sharding.local_shards`` without its copy)."""
-    for d, s in enumerate(spec):
-        if s == "model":
-            b = t.shape[d] // TP_RANKS
-            t = t.narrow(d, rank * b, b)
-    return t
-
-
 def tpt_state(params: dict, state: dict | None, n_layers: int,
-              rank: int | None = None) -> dict:
+              coord: dict | None = None, owners: list | None = None,
+              shape: tuple = (1, TP_RANKS)) -> dict:
     """``_sample`` of every param leaf and of its two moments (loaded to
-    f32; none with ``state`` None), on the host.  ``rank``: cut the whole
-    tree to that rank's block first (the reference run)."""
+    f32; none with ``state`` None), on the host.  ``coord``: cut the
+    whole tree to the blocks of the rank at those coordinates of a
+    ``shape`` mesh first (the reference run): a param by its spec
+    (``fsdp=True``), a moment store's parts by the
+    param's spec on their leading dims (the last param dim is the tile
+    count, cut in whole tiles), narrowed along ``owners`` (a ZeRO-1
+    leaf's owner dim, by leaf) where the param is whole over data."""
     from repro_torch.checkpoint.store import leaf_paths
     from repro_torch.distributed import sharding as SH
-    from repro_torch.launch.elastic import abstract_mesh
     from repro_torch.optim import adamw
-    mesh = abstract_mesh((1, TP_RANKS), ("data", "model"))
+    from repro_torch.launch.elastic import abstract_mesh
+    mesh = abstract_mesh(shape, ("data", "model"))
+    sizes = dict(zip(("data", "model"), shape))
 
-    def cut(t, path):
-        if rank is not None:
-            t = _block_view(t, SH._spec_for(path, tuple(t.shape), mesh,
-                                            t.element_size(), False), rank)
-        return _sample(t, path, n_layers)
+    def cut(t, spec, owner=None):
+        if coord is None:
+            return t
+        for d, s in enumerate(spec):
+            if s is not None:
+                b = t.shape[d] // sizes[s]
+                t = t.narrow(d, coord[s] * b, b)
+        if owner is not None and "data" not in spec:
+            b = t.shape[owner] // sizes["data"]
+            t = t.narrow(owner, coord["data"] * b, b)
+        return t
     stores = {k: adamw._store_leaves(state[k]) for k in ("m", "v")
               } if state is not None else {}
     out = {}
     for i, (path, p) in enumerate(leaf_paths(params)):
-        pc = cut(p.detach(), path)
+        spec = tuple(SH._spec_for(path, tuple(p.shape), mesh,
+                                  p.element_size(), True))
+        pc = _sample(cut(p.detach(), spec), path, n_layers)
         out[f"param{path}"] = pc.to("cpu", copy=True)
+        owner = None if owners is None or owners[i] < 0 else owners[i]
         for k, leaves in stores.items():
             s = leaves[i]
             if isinstance(s, dict):
-                s = {n: cut(x, f"{path}['{n}']") for n, x in s.items()}
+                s = {n: _sample(cut(x, spec, owner), f"{path}['{n}']",
+                                n_layers) for n, x in s.items()}
+                shape = s["deltas"].shape[:-2] + (
+                    s["deltas"].shape[-2] * 128,)
             else:
-                s = cut(s, path)
-            out[f"{k}{path}"] = adamw._load(s, pc.shape).to("cpu",
-                                                             copy=True)
+                s = _sample(cut(s, spec, owner), path, n_layers)
+                shape = s.shape
+            out[f"{k}{path}"] = adamw._load(s, shape).to("cpu", copy=True)
     return out
 
 
@@ -4273,7 +4327,7 @@ def _one_step_gap(got: dict, want: dict, start: dict) -> dict:
     for k, a in got.items():
         b = want[k]
         if a.shape != b.shape:
-            raise AssertionError(f"phase 16: {k}: {tuple(a.shape)} vs "
+            raise AssertionError(f"{k}: {tuple(a.shape)} vs "
                                  f"{tuple(b.shape)}")
         a, b = a.float(), b.float()
         if k.startswith("param"):
@@ -4348,7 +4402,7 @@ def phase_tp_train(dev) -> dict:
                          dev)
     state = adamw_init(params, ocfg)
     step = make_train_step(get_model(cfg), ocfg)
-    start = [tpt_state(params, None, cfg.n_layers, rank=r)
+    start = [tpt_state(params, None, cfg.n_layers, {"data": 0, "model": r})
              for r in range(TP_RANKS)]
     for r in range(TP_RANKS):
         for k, t in start[r].items():
@@ -4361,7 +4415,8 @@ def phase_tp_train(dev) -> dict:
         params, state, met = step(params, state, batch)
         whole.append(met)
         if i == 0:
-            want = [tpt_state(params, state, cfg.n_layers, rank=r)
+            want = [tpt_state(params, state, cfg.n_layers,
+                              {"data": 0, "model": r})
                     for r in range(TP_RANKS)]
     whole_s = time.perf_counter() - t1
     del params, state
@@ -4412,6 +4467,391 @@ def phase_tp_train(dev) -> dict:
                                for rr in res)
                         for k in ("bdi_compress", "bdi_decompress")}}
     log(f"phase 16: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: DP x TP (FSDP blocks, ZeRO-1 moments), four ranks on one card
+# ---------------------------------------------------------------------------
+
+DPT_SHAPE = (2, 2)                   # (data, model)
+DPT_RANKS = DPT_SHAPE[0] * DPT_SHAPE[1]
+DPT_LAYERS = 4
+
+
+def _dpt_mesh():
+    from repro_torch.launch.elastic import abstract_mesh
+    return abstract_mesh(DPT_SHAPE, ("data", "model"))
+
+
+def _dpt_coord(rank: int) -> dict:
+    return {"data": rank // DPT_SHAPE[1], "model": rank % DPT_SHAPE[1]}
+
+
+def dpt_predict(cfg) -> dict:
+    """What a rank holds and issues, from the shapes alone (meta tensors,
+    the rule table at its real threshold on an abstract ``(2, 2)`` mesh):
+    each leaf's spec, bytes of params a rank and of its bdi8 moments,
+    collectives a serving step and a train step by axis (``tp.COUNTS``:
+    all_reduce, all_gather, backward), tile launches a train step.  The
+    counts follow ``distributed/tp.py``: over ``data`` an all-gather of
+    each FSDP block at its use (a layer's and the head's again in their
+    recompute), a backward all-reduce of each leaf's gradient (9 a layer,
+    the embedding, the final norm, the head), the loss's sum, the clip
+    norm's sum, a ZeRO-1 gather a leaf whose moment alone is split; over
+    ``model`` PR 26's count (phase 16)."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw as AW
+    mesh = _dpt_mesh()
+    d = DPT_SHAPE[0]
+    ocfg = tpt_ocfg()
+    with use_mesh(mesh):
+        whole = init_params(cfg, torch.Generator(), "meta")
+        local = SH.local_params(whole, mesh, coord=_dpt_coord(0), fsdp=True)
+        fsdp = {path: dim is not None
+                for path, _, dim in tp.placement(whole, local)}
+        lay = AW.plan(local, whole, ocfg)
+    n = cfg.n_layers
+    layer = sum(f for p, f in fsdp.items() if p.startswith("['blocks']"))
+    emb, head = fsdp["['embed']['w']"], fsdp["['lm_head']['w']"]
+    zero1 = sum(x.owner is not None and x.data is None for x in lay)
+    blocks = []
+    for (_, t), x in zip(leaf_paths(local), lay):
+        shape = list(t.shape)
+        if x.owner is not None and x.data is None:
+            shape[x.owner] //= d
+        blocks.append(torch.empty(shape, dtype=t.dtype, device="meta"))
+    stores = [AW._zero_store(b, ocfg.moment_dtype) for b in blocks]
+    moments = 2 * sum(x.numel() * x.element_size() for z in stores
+                      for x in (z.values() if isinstance(z, dict) else [z]))
+    groups = sum(len(AW._groups(b)) for b in blocks
+                 if AW._tiled(tuple(b.shape), ocfg.moment_dtype))
+    backward = 5 * n + 1
+    return {"specs": {p: str(SH._spec_for(p, tuple(t.shape), mesh,
+                                          t.element_size(), True))
+                      for p, t in leaf_paths(whole)},
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for _, t in leaf_paths(local)),
+            "moment_bytes": moments, "zero1_leaves": zero1,
+            "serve_collectives_a_step": {
+                "model": [2 * n + 1, 1, 0],
+                "data": [0, layer * n + emb + head + 1, 0]},
+            "train_collectives_a_step": {
+                "model": [(1 + 2 * n + 2) + (n + 2) + backward + 1, 0,
+                          backward],
+                "data": [(9 * n + 3) + 1 + any(fsdp.values()),
+                         emb + 2 * layer * n + 2 * head + zero1,
+                         9 * n + 3]},
+            "tile_launches_a_step": 4 * groups}
+
+
+def dpt_tiles_vs_plain(params: dict, state: dict, n_layers: int) -> int:
+    """Kernels 4 and 5 against their plain versions on the sampled rows
+    of every bdi8 moment store of this rank (``_sample``): decompress,
+    then compress what it gave; bit-equal or raise.  Returns the tiles
+    held; the launches made here are not the main path's (the caller
+    restores ``ops.LAUNCHES``)."""
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.kernels import bdi_compress, bdi_decompress, ref
+    from repro_torch.optim import adamw
+    n = 0
+    for k in ("m", "v"):
+        for (path, _), s in zip(leaf_paths(params),
+                                adamw._store_leaves(state[k])):
+            if not isinstance(s, dict) or "maskp" not in s:
+                continue
+            x = {name: _sample(t, path, n_layers) for name, t in s.items()}
+            p = ref.PackedTiles(x["deltas"].reshape(-1, 128),
+                                x["base"].reshape(-1, 1),
+                                x["scale"].reshape(-1, 1),
+                                x["maskp"].reshape(-1, 16), None)
+            tiles = bdi_decompress.bdi_decompress(p)
+            pairs = [("decompress", tiles, ref.decompress_ref(p))]
+            got, want = bdi_compress.bdi_compress(tiles), \
+                ref.compress_ref(tiles)
+            pairs += [(f"compress {f}", a, b)
+                      for f, a, b in zip(got._fields, got, want)]
+            for name, a, b in pairs:
+                if not torch_equal_bits(a, b):
+                    raise AssertionError(f"phase 17: {k}{path}: {name} "
+                                         f"differs from the plain version")
+            n += p.deltas.shape[0]
+    return n
+
+
+def torch_equal_bits(a, b) -> bool:
+    import torch
+    if a is None or b is None:
+        return a is b
+    return bool(torch.equal(bits(a), bits(b)))
+
+
+def dp_tp_rank(rank: int, work: str) -> None:
+    """One rank of phase 17 on the ``(2, 2)`` mesh: its FSDP blocks of
+    ``tpt_cfg(DPT_LAYERS)``'s model (drawn a layer at a time), serving
+    its rows of the prompts, then ``TPT_STEPS`` train steps from the same
+    params under bdi8 moments (ZeRO-1 blocks); writes ``dpt_<rank>.json``
+    and ``.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._device import resolve_device
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params, whole_shapes
+    from repro_torch.optim import adamw, adamw_init, opt_state_bytes
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(work) / "rendezvous_dptp"), DPT_RANKS), rank=rank,
+        world_size=DPT_RANKS)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        mesh = make_host_mesh(*DPT_SHAPE)
+        with use_mesh(mesh):
+            cfg, ocfg = tpt_cfg(DPT_LAYERS), tpt_ocfg()
+            t0 = time.perf_counter()
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev,
+                local=lambda t: SH.local_params(t, mesh, fsdp=True,
+                                                layers=cfg.n_layers))
+            sync(dev)
+            whole = whole_shapes(cfg)
+            res.update(init_s=time.perf_counter() - t0, placement=[
+                [path, list(p.shape), dim] for (path, _, dim), (_, p) in zip(
+                    tp.placement(whole, params), leaf_paths(params))],
+                param_bytes=sum(t.numel() * t.element_size()
+                                for t in _leaves(params)))
+            # no warm-up: a step is seconds of weight gathers through the
+            # host, which a warm-up would only repeat
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = dense_generate(cfg, params, tp_prompts(cfg.vocab), TP_GEN,
+                                 keep_logits=True)
+            res.update(serve_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       prefill_ms=out["prefill_s"] * 1e3,
+                       ms_a_step=[s * 1e3 for s in out["decode_s"]],
+                       serve_collectives=out["collectives"],
+                       cache_bytes=out["cache_bytes"])
+            served = {"tokens": out["tokens"], "logits": out["logits"]}
+            del out
+            state = adamw_init(params, ocfg, whole=whole)
+            owners = [-1 if x.owner is None else x.owner
+                      for x in adamw.plan(params, whole, ocfg)]
+            batches = tpt_batches(cfg, dev)
+            step = make_train_step(get_model(cfg), ocfg)
+            start = tpt_state(params, None, cfg.n_layers)
+            sync(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            mets, norms, sample, held = [], [], None, 0
+            for i, batch in enumerate(batches):
+                params, state, met = step(params, state, batch)
+                mets.append(met)
+                norms.append(tpt_norms(params, state))
+                if i == 0:
+                    launches = dict(ops.LAUNCHES)
+                    sample = tpt_state(params, state, cfg.n_layers)
+                    held = dpt_tiles_vs_plain(params, state, cfg.n_layers)
+                    ops.LAUNCHES.update(launches)   # the sample's, plain's
+            peak = torch.cuda.max_memory_allocated(dev)
+        res.update(
+            opt_state_bytes=opt_state_bytes(state, ocfg), owners=owners,
+            losses=[m["loss"] for m in mets],
+            grad_norms=[m["grad_norm"] for m in mets],
+            fwd_bwd_ms=[m["fwd_bwd_s"] * 1e3 for m in mets],
+            opt_ms=[m["opt_s"] * 1e3 for m in mets],
+            collectives=[m["collectives"] for m in mets],
+            train_peak_bytes=peak, tiles_held_vs_plain=held,
+            kernel_launches={k: v for k, v in ops.LAUNCHES.items() if v})
+        torch.save({"served": served, "start": start, "sample": sample,
+                    "norms": norms}, Path(work) / f"dpt_{rank}.pt")
+        (Path(work) / f"dpt_{rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh()
+
+
+def phase_dp_tp(dev) -> dict:
+    """Phase 17 (see the module docstring)."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    cfg, ocfg = tpt_cfg(DPT_LAYERS), tpt_ocfg()
+    pred = dpt_predict(cfg)
+    log(f"phase 17 prediction (shapes, rule table at 64 MiB, (2, 2)): "
+        f"{json.dumps(pred)}")
+    work = Path(tempfile.mkdtemp(prefix="dptp17_"))
+    t0 = time.perf_counter()
+    ranks = [(_spawn(f"dp_tp_rank({r}, {str(work)!r})",
+                     work / f"dpt_{r}.log"), work / f"dpt_{r}.log")
+             for r in range(DPT_RANKS)]
+    _wait_all(ranks, "phase 17: a DP x TP rank", 900)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"dpt_{r}.json").read_text())
+           for r in range(DPT_RANKS)]
+    got = [torch.load(work / f"dpt_{r}.pt") for r in range(DPT_RANKS)]
+    for r, rr in enumerate(res):
+        step = rr["ms_a_step"]
+        log(f"phase 17 rank {r} (gloo through the host on one card, not a "
+            f"DP or TP speed): " + json.dumps(
+                rr | {"ms_a_step": {"median": sorted(step)[len(step) // 2],
+                                    "min": min(step), "max": max(step)}}))
+        ran = rr["kernel_launches"]
+        if rr["backend"] != "gloo" or set(ran) != {"bdi_compress",
+                                                   "bdi_decompress"}:
+            raise AssertionError(f"phase 17: rank {r}: backend "
+                                 f"{rr['backend']}, launches {ran}")
+        if not all(math.isfinite(x) for x in rr["losses"]):
+            raise AssertionError(f"phase 17: rank {r}: {rr['losses']}")
+        want = pred["tile_launches_a_step"] * TPT_STEPS // 2
+        if ran != {"bdi_compress": want, "bdi_decompress": want}:
+            raise AssertionError(f"phase 17: rank {r}: launches {ran}, "
+                                 f"predicted {want} each")
+        for key, meas in (("serve_collectives_a_step", [
+                rr["serve_collectives"]["prefill"],
+                rr["serve_collectives"]["per_step"]]),
+                ("train_collectives_a_step", rr["collectives"])):
+            for c in meas:
+                for axis, counts in pred[key].items():
+                    if [c[axis][k] for k in ("all_reduce", "all_gather",
+                                             "backward")] != counts:
+                        raise AssertionError(
+                            f"phase 17: rank {r}: {key} over {axis} "
+                            f"{c[axis]}, predicted {counts}")
+        for key, pkey in (("param_bytes", "param_bytes"),
+                          ("opt_state_bytes", "moment_bytes")):
+            if rr[key] != pred[pkey]:
+                raise AssertionError(f"phase 17: rank {r}: {key} {rr[key]}"
+                                     f", predicted {pred[pkey]}")
+    for r in range(1, DPT_RANKS):
+        if res[r]["losses"] != res[0]["losses"] or \
+                res[r]["grad_norms"] != res[0]["grad_norms"]:
+            raise AssertionError("phase 17: the ranks' losses or norms "
+                                 "differ")
+        if got[r]["served"]["tokens"] != got[0]["served"]["tokens"] or \
+                not torch.equal(got[r]["served"]["logits"],
+                                got[0]["served"]["logits"]):
+            raise AssertionError("phase 17: the ranks' serving differs")
+        for i in range(TPT_STEPS):
+            for k, a in got[0]["norms"][i].items():
+                if not torch.equal(a, got[r]["norms"][i][k]):
+                    raise AssertionError(f"phase 17: step {i}: {k} differs "
+                                         f"between ranks 0 and {r}")
+    # the blocks whole over data, the same on the two data ranks
+    fsdp = {path for path, _, dim in res[0]["placement"] if dim is not None}
+    for j in range(DPT_SHAPE[1]):
+        a, b = got[j]["sample"], got[DPT_SHAPE[1] + j]["sample"]
+        for k in a:
+            if k.startswith("param") and k[len("param"):] not in fsdp:
+                if not torch.equal(bits(a[k]), bits(b[k])):
+                    raise AssertionError(f"phase 17: {k} differs between "
+                                         f"the data ranks of model {j}")
+    # the same weights, prompts and batches, whole, in this process:
+    # serving, then training from the same params
+    t1 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(TP_SEED),
+                         dev)
+    prompts = tp_prompts(cfg.vocab)
+    dense_generate(cfg, params, prompts[:, :16], 3)             # warm-up
+    whole = dense_generate(cfg, params, prompts, TP_GEN, keep_logits=True)
+    par, worst = _served_parity("phase 17", got[0]["served"]["tokens"],
+                                got[0]["served"]["logits"], whole, TP_ULPS)
+    state = adamw_init(params, ocfg)
+    step = make_train_step(get_model(cfg), ocfg)
+    owners = res[0]["owners"]
+    start = [tpt_state(params, None, cfg.n_layers, _dpt_coord(r),
+                       shape=DPT_SHAPE) for r in range(DPT_RANKS)]
+    for r in range(DPT_RANKS):
+        for k, t in start[r].items():
+            if not torch.equal(t, got[r]["start"][k]):
+                raise AssertionError(f"phase 17: rank {r}'s {k} is not "
+                                     f"its block of the whole model's")
+    mets, want = [], None
+    for i, batch in enumerate(tpt_batches(cfg, dev)):
+        params, state, met = step(params, state, batch)
+        mets.append(met)
+        if i == 0:
+            want = [tpt_state(params, state, cfg.n_layers, _dpt_coord(r),
+                              owners, DPT_SHAPE) for r in range(DPT_RANKS)]
+    whole_s = time.perf_counter() - t1
+    del params, state
+    release(dev)
+    gaps = [_one_step_gap(got[r]["sample"], want[r], start[r])
+            for r in range(DPT_RANKS)]
+    losses = [m["loss"] for m in mets]
+    ours = res[0]["losses"]
+    if abs(ours[0] - losses[0]) > TPT_FIRST_RTOL * abs(losses[0]) or \
+            any(abs(a - b) > TPT_LOSS_RTOL * abs(b)
+                for a, b in zip(ours, losses)):
+        raise AssertionError(f"phase 17: losses {ours} against the whole "
+                             f"model's {losses}")
+    for r, g in enumerate(gaps):
+        log(f"phase 17: rank {r} after step 1 against the whole model: "
+            f"{json.dumps(g['worst'])}")
+        w = {n: v for n, (_, v) in g["worst"].items()}
+        if (w["within_1_ulp"] < TPT_ULP_SHARE
+                or w["max_gap_over_lr"] > 2.0
+                or max(w["m_err"], w["v_err"]) > TPT_MOMENT_RTOL):
+            raise AssertionError(f"phase 17: rank {r} after step 1: "
+                                 f"{g['worst']}")
+    rest = slice(1, None)
+    mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
+    out = {"card": smi(), "cell": f"internvl2-76b full width, "
+           f"{cfg.n_layers} layers, (2, 2) over gloo on one card, FSDP and "
+           f"ZeRO-1 at 64 MiB: serving {TP_BATCH} x {TP_PROMPT} + {TP_GEN}, "
+           f"then {TPT_STEPS} train steps of {TPT_BATCH} x {TPT_SEQ} under "
+           f"{ocfg.moment_dtype} moments",
+           "ranks_wall_s": ranks_s, "whole_wall_s": whole_s,
+           "tokens_equal": par.compared,
+           "ties": [t.__dict__ for t in par.ties],
+           "worst_logit_gap_ulps": worst,
+           "losses": ours, "losses_whole": losses,
+           "grad_norms": res[0]["grad_norms"],
+           "grad_norms_whole": [m["grad_norm"] for m in mets],
+           "after_step_1": [g["worst"] for g in gaps],
+           "ms_a_step": {f"rank{r}": {
+               "prefill": rr["prefill_ms"],
+               "decode_median": sorted(rr["ms_a_step"])[
+                   len(rr["ms_a_step"]) // 2],
+               "fwd_bwd": mean(rr["fwd_bwd_ms"][rest]),
+               "opt": mean(rr["opt_ms"][rest]),
+               "first_step": rr["fwd_bwd_ms"][0] + rr["opt_ms"][0]}
+               for r, rr in enumerate(res)},
+           "whole_ms_a_step": {
+               "prefill": whole["prefill_s"] * 1e3,
+               "decode_median": sorted(whole["decode_s"])[
+                   len(whole["decode_s"]) // 2] * 1e3,
+               "fwd_bwd": mean([m["fwd_bwd_s"] * 1e3 for m in mets[rest]]),
+               "opt": mean([m["opt_s"] * 1e3 for m in mets[rest]])},
+           "collectives_a_step": {"serve": res[0]["serve_collectives"][
+               "per_step"], "train": res[0]["collectives"][-1]},
+           "peak_gb_a_rank": {"serve": [rr["serve_peak_bytes"] / 1e9
+                                        for rr in res],
+                              "train": [rr["train_peak_bytes"] / 1e9
+                                        for rr in res]},
+           "tiles_held_vs_plain": [rr["tiles_held_vs_plain"] for rr in res],
+           "launches": {k: sum(rr["kernel_launches"].get(k, 0)
+                               for rr in res)
+                        for k in ("bdi_compress", "bdi_decompress")}}
+    log(f"phase 17: {json.dumps(out)}")
     return out
 
 
@@ -4581,7 +5021,7 @@ def main() -> int:
     phase_done("12d the three families, card vs cpu, 2 layers")
     phase_train_families(dev)
     phase_done("12e train the three families at full width")
-    dp = phase_dp_train(dev, cfg)
+    dp = phase_dp_train(dev, at_depth(cfg, DP_LAYERS))
     phase_done("13 compressed DP training of yi-6b at full width")
     phase_dp_parity(dev, cfg)
     phase_done("13b tree_all_reduce and one DP step, card vs cpu, 1 layer")
@@ -4600,10 +5040,13 @@ def main() -> int:
     tp_trained = phase_tp_train(dev)
     phase_done("16 tensor-parallel training of internvl2-76b at full width, "
                "8 layers, two ranks on one card, bdi8 moments")
+    dpt = phase_dp_tp(dev)
+    phase_done("17 DP x TP serving and training (bdi8) of internvl2-76b at "
+               "full width, 4 layers, four ranks on one card")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of
-    # phases 10, 13 (the compressed all-reduce) and 16 (both ranks), and
+    # phases 10, 13 (the compressed all-reduce), 16 and 17 (every rank), and
     # for the serving kernels phases 9 and 9b, each counted from 0 over
     # its own run
     path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
@@ -4616,7 +5059,8 @@ def main() -> int:
         if name in ("bdi_compress", "bdi_decompress"):
             k["launches"] += (trained["launches"][name]
                               + dp["launches"][name]
-                              + tp_trained["launches"][name])
+                              + tp_trained["launches"][name]
+                              + dpt["launches"][name])
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

@@ -167,12 +167,13 @@ def shard(x: torch.Tensor, *spec, global_shape: tuple | None = None
           ) -> torch.Tensor:
     """Lay ``x`` out as ``spec`` says when a mesh is active; unchanged
     otherwise.  A DTensor is redistributed to the spec's placements.  A
-    plain tensor is taken as this rank's block (the tensor-parallel
-    layers, ``distributed/tp.py``, hold plain blocks): it comes back
-    unchanged where every axis of size > 1 that the spec names is the
-    ``model`` axis and its shape is the block's of ``global_shape`` (the
-    global array's, needed then); a wrong shape raises.  A data axis
-    larger than one raises: DP x TP activations are not ported."""
+    plain tensor is taken as this rank's block (the tensor- and
+    data-parallel layers, ``distributed/tp.py``, hold plain blocks): it
+    comes back unchanged where every axis of size > 1 that the spec names
+    is the ``model`` or the ``data`` axis and its shape is the block's of
+    ``global_shape`` (the global array's, needed then); a wrong shape
+    raises.  A ``pod`` axis larger than one raises: the multi-pod mesh is
+    not laid out on plain tensors."""
     mesh = current_mesh()
     if mesh is None:
         return x
@@ -181,15 +182,15 @@ def shard(x: torch.Tensor, *spec, global_shape: tuple | None = None
         return x.redistribute(mesh, ns.placements)
     sizes = mesh_axes(mesh)
     split = [a for a in spec_axes(ns.spec) if sizes[a] > 1]
-    if any(a != MODEL for a in split):
+    if any(a not in (MODEL, "data") for a in split):
         raise NotImplementedError(
             f"shard: a plain tensor over mesh axes {split}: only the model "
-            "axis is laid out on plain tensors (DP x TP activations are not "
-            "ported, ROADMAP Queue 1 item 2)")
+            "and data axes are laid out on plain tensors (the pod axis is "
+            "not ported, ROADMAP Queue 1 item 2)")
     if split:
         if global_shape is None:
-            raise TypeError("shard: a plain tensor split over the model axis "
-                            "needs the global_shape it is a block of")
+            raise TypeError(f"shard: a plain tensor split over {split} needs "
+                            "the global_shape it is a block of")
         want = local_shape(tuple(global_shape), ns.spec, mesh)
         if tuple(x.shape) != want:
             raise ValueError(f"shard: a block of {tuple(global_shape)} under "

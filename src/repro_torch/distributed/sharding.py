@@ -16,9 +16,11 @@ arctic-480b included.  A mesh is a ``DeviceMesh`` or an abstract mesh
 (``launch/elastic.abstract_mesh``).
 
 Where JAX places a tree with ``device_put`` and each device then holds
-its block, a tensor-parallel rank of the port holds that block as a
-plain tensor: :func:`local_shards` cuts it out of the whole leaf
-(:func:`local_params` for the serving layout, ``fsdp=False``).
+its block, a rank of the port holds that block as a plain tensor:
+:func:`local_shards` cuts it out of the whole leaf (:func:`local_params`
+for the serving layout, ``fsdp=False``, or the training one, ``fsdp=True``;
+:func:`local_batch` a batch's rows).  ``FSDP_THRESHOLD_BYTES`` is read at
+each call.
 """
 
 from __future__ import annotations
@@ -193,11 +195,31 @@ def local_shards(tree, specs, mesh, coord: dict | None = None):
     return _rebuild(tree, iter(out))
 
 
-def local_params(tree, mesh, coord: dict | None = None):
+def local_params(tree, mesh, coord: dict | None = None, *,
+                 fsdp: bool = False, layers: int | None = None):
     """:func:`local_shards` of a params tree (or a subtree keyed as in the
-    whole tree) under the serving layout, ``param_specs(fsdp=False)``."""
-    return local_shards(tree, param_specs(tree, mesh, fsdp=False), mesh,
-                        coord)
+    whole tree) under ``param_specs(fsdp=fsdp)``: the serving layout by
+    default, the training layout of JAX's dry run (FSDP blocks over the
+    data axes) with ``fsdp=True``.  ``layers``: the leaves under
+    ``['blocks']`` are one layer of a stack of that many (an init that
+    cuts each layer as it is drawn), so that FSDP reads the stacked
+    leaf's bytes; a spec that splits the layers themselves raises."""
+    if layers is None:
+        return local_shards(tree, param_specs(tree, mesh, fsdp=fsdp), mesh,
+                            coord)
+    specs = []
+    for path, leaf in leaf_paths(tree):
+        if not path.startswith("['blocks']"):
+            specs.append(_spec_for(path, tuple(leaf.shape), mesh,
+                                   leaf.element_size(), fsdp))
+            continue
+        spec = _spec_for(path, (layers, *leaf.shape), mesh,
+                         leaf.element_size(), fsdp)
+        if spec[0] is not None:
+            raise NotImplementedError(f"{path}: {spec} splits the layers; "
+                                      "a layer is not cut on its own")
+        specs.append(P(*spec[1:]))
+    return local_shards(tree, _rebuild(tree, iter(specs)), mesh, coord)
 
 
 def param_shardings(shape_tree, mesh, *, fsdp: bool = True):
@@ -223,6 +245,13 @@ def batch_specs(batch_shape_tree, mesh):
 
     return _rebuild(batch_shape_tree, iter(
         spec(leaf) for _, leaf in leaf_paths(batch_shape_tree)))
+
+
+def local_batch(batch: dict, mesh, coord: dict | None = None) -> dict:
+    """This rank's rows of a batch (a dict of arrays with the batch first)
+    under :func:`batch_specs`: dim 0 cut over the data axes, or the whole
+    batch where its rows do not divide them, as JAX replicates it."""
+    return local_shards(batch, batch_specs(batch, mesh), mesh, coord)
 
 
 def cache_specs(cache_shape_tree, mesh, batch_axis: int = 1):

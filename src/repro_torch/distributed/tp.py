@@ -1,5 +1,6 @@
-"""Tensor parallelism over the mesh's ``model`` axis: the one module that
-issues that axis's collectives, forward and backward.
+"""Tensor and data parallelism over the mesh's ``model`` and ``data``
+axes: the one module that issues those axes' collectives, forward and
+backward.
 
 The JAX package has no counterpart.  There the models call ``shard(x,
 DP, None, MODEL)`` at every layer boundary, the launcher places the
@@ -52,20 +53,59 @@ Training (``jax.value_and_grad`` of the loss under the same mesh):
     in one ``all-reduce`` of the stacked scalars (:func:`sharded_leaves`
     says which leaves, from the rule table by path).
 
-The layers call these functions at every m: with no mesh, or a model
-axis of one, each is the plain single-device form.  The collectives go
-through ``torch.distributed`` on the mesh's ``model`` group, whatever
-its backend (NCCL; or gloo, which takes CUDA tensors for ``all_reduce``
-and ``all_gather``): no host copy and no branch on the backend.  A
-collective that fails raises.
+Data axis (a ``(d, m)`` mesh with d > 1, laid out as JAX's dry run lays
+out every production cell: params by ``param_shardings(fsdp=True)``,
+batches by ``batch_specs``).  The HLO of a dense GQA train step under a
+``(2, 2)`` mesh holds, beside the model axis's collectives above:
 
-:data:`COUNTS` counts the collectives issued here and the bytes of their
-inputs (``backward``: those of them issued by a backward pass), for the
-serving loop's and the train step's reports (``launch/serve.
-dense_generate``, ``launch/train.make_train_step``).
+  * each rank computes on its rows of the batch (dim 0 split over
+    ``data``); a batch whose rows do not divide d stays whole on every
+    rank, as ``batch_specs`` replicates it (:func:`whole_rows`);
+  * an all-gather over ``data`` of each FSDP weight block (a leaf above
+    ``sharding.FSDP_THRESHOLD_BYTES`` a model shard) just before its
+    product, forward and again in the layer's recompute, which JAX widens
+    to f32 first (the same values): :func:`fsdp_gather`, reached through
+    :func:`weight` at the weight's one use;
+  * every weight gradient's f32 partial over the rank's rows summed over
+    ``data`` (f32 all-reduces, no reduce-scatter), rounded once to the
+    weight's dtype afterwards and, for an FSDP leaf, cut to the rank's
+    block: the backward of :func:`fsdp_gather`, and of :func:`weight` for
+    a leaf replicated over ``data`` (its partial summed, not cut);
+  * the loss's sum and token count summed over ``data`` before the
+    division (the global mean): :func:`reduce_from_data`;
+  * the clip norm's sums of squares over each axis that splits a leaf;
+  * the logits: a caller of ``prefill``/``decode_step``/``forward`` gets
+    the whole batch's (JAX's ``out_shardings=None``), :func:`gather_vocab`
+    gathering the rows over ``data`` after the columns over ``model``.
+
+The weight products therefore take f32 weights (a gathered or widened
+leaf) as well as bf16 ones: the product runs on the bf16 values as
+before, and the weight gradient leaves it in f32, for the data axis's
+sum to round once.  A rank's params carry no layout of their own; a
+model's entry points find it by comparing each leaf's shape with the
+rule table's blocks of the whole model (:func:`placement`) and wrap the
+leaves split over ``data`` as :class:`Fsdp`.
+
+The layers call these functions at every mesh: with no mesh, or axes
+of one, each is the plain single-device form.  The collectives go
+through ``torch.distributed`` on the mesh's ``model`` or ``data`` group,
+whatever its backend (NCCL; or gloo, which takes CUDA tensors for
+``all_reduce`` and ``all_gather``): no host copy and no branch on the
+backend.  A collective that fails raises.
+
+:data:`COUNTS` counts the collectives issued here, by axis, and the
+bytes of their inputs (``backward``: those of them issued by a backward
+pass), for the serving loop's and the train step's reports (``launch/
+serve.dense_generate``, ``launch/train.make_train_step``);
+``optim/adamw.py`` adds the ZeRO-1 gathers of updated blocks.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
+import threading
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -74,19 +114,34 @@ import torch.nn.functional as F
 from repro_torch.checkpoint.store import leaf_paths
 
 from . import axes as AX
+from . import sharding as SH
 from .sharding import rule_template
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 2"
-COUNTS = {"all_reduce": 0, "all_gather": 0, "bytes": 0, "backward": 0}
+AXES = ("model", "data")
+COUNTS = {a: {"all_reduce": 0, "all_gather": 0, "bytes": 0, "backward": 0}
+          for a in AXES}
 _TILE = 128                            # optim/adamw.py's moment tile
+_rows = threading.local()
+
+
+def axis_size(axis: str) -> int:
+    """Size of the active mesh's ``axis`` (1 with no mesh or no such
+    axis)."""
+    mesh = AX.current_mesh()
+    if mesh is None:
+        return 1
+    return int(AX.mesh_axes(mesh).get(axis, 1))
 
 
 def model_size() -> int:
     """Size of the active mesh's ``model`` axis (1 with no mesh)."""
-    mesh = AX.current_mesh()
-    if mesh is None:
-        return 1
-    return int(AX.mesh_axes(mesh).get("model", 1))
+    return axis_size("model")
+
+
+def data_size() -> int:
+    """Size of the active mesh's ``data`` axis (1 with no mesh)."""
+    return axis_size("data")
 
 
 def model_rank() -> int:
@@ -96,34 +151,97 @@ def model_rank() -> int:
     return int(AX.current_mesh().get_local_rank("model"))
 
 
+def data_rank() -> int:
+    """This rank's coordinate on the ``data`` axis (0 with no mesh)."""
+    if data_size() == 1:
+        return 0
+    return int(AX.current_mesh().get_local_rank("data"))
+
+
 def model_group():
     """The process group of this rank's ``model`` axis."""
     return AX.current_mesh().get_group("model")
 
 
-def _count(op: str, t: torch.Tensor, backward: bool = False) -> None:
-    COUNTS[op] += 1
-    COUNTS["bytes"] += t.numel() * t.element_size()
-    COUNTS["backward"] += backward
+def data_group():
+    """The process group of this rank's ``data`` axis."""
+    return AX.current_mesh().get_group("data")
+
+
+def counts() -> dict:
+    """A copy of :data:`COUNTS`."""
+    return {a: dict(c) for a, c in COUNTS.items()}
+
+
+def counts_since(before: dict) -> dict:
+    """What :data:`COUNTS` gained since ``before`` (:func:`counts`)."""
+    return {a: {k: COUNTS[a][k] - before[a][k] for k in c}
+            for a, c in before.items()}
+
+
+def _count(axis: str, op: str, t: torch.Tensor,
+           backward: bool = False) -> None:
+    c = COUNTS[axis]
+    c[op] += 1
+    c["bytes"] += t.numel() * t.element_size()
+    c["backward"] += backward
 
 
 def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None,
-                backward: bool = False) -> torch.Tensor:
-    dist.all_reduce(t, op=op, group=group or model_group())
-    _count("all_reduce", t, backward)
+                backward: bool = False, axis: str = "model") -> torch.Tensor:
+    dist.all_reduce(t, op=op,
+                    group=group or AX.current_mesh().get_group(axis))
+    _count(axis, "all_reduce", t, backward)
     return t
 
 
+def all_reduce(t: torch.Tensor, axis: str) -> torch.Tensor:
+    """Sum ``t`` over ``axis``, in place (no gradient)."""
+    return _all_reduce(t, axis=axis)
+
+
+def all_gather(t: torch.Tensor, dim: int, axis: str,
+               group=None) -> torch.Tensor:
+    """The blocks of ``t`` over ``axis`` (this rank's among them),
+    concatenated along ``dim`` in the axis's order."""
+    group = group or AX.current_mesh().get_group(axis)
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    _count(axis, "all_gather", t)
+    return torch.cat(parts, dim=dim)
+
+
+def rows_split() -> bool:
+    """Whether this rank computes on its rows of the batch, the layout
+    under a data axis unless :func:`whole_rows` says otherwise."""
+    return data_size() > 1 and getattr(_rows, "split", True)
+
+
+@contextlib.contextmanager
+def whole_rows(whole: bool = True):
+    """Within, every rank of a data axis holds the whole batch (rows that
+    do not divide it, which ``batch_specs`` replicates): the loss and the
+    gradients are not summed over ``data``, nor the logits gathered."""
+    prev = getattr(_rows, "split", True)
+    _rows.split = not whole
+    try:
+        yield
+    finally:
+        _rows.split = prev
+
+
 def under_mesh(fn):
-    """``fn`` run under the mesh active now, wherever it is called: the
-    active mesh is per thread (``axes.use_mesh``), and on the card
-    autograd runs the backward, and with it a checkpoint's recompute, on
-    a thread of its own.  The backward functions here take the group from
-    the forward's context instead."""
+    """``fn`` run under the mesh (and the rows' layout) active now,
+    wherever it is called: both are per thread (``axes.use_mesh``), and
+    on the card autograd runs the backward, and with it a checkpoint's
+    recompute, on a thread of its own.  The backward functions here take
+    the groups from the forward's context instead."""
     mesh = AX.current_mesh()
+    whole = not getattr(_rows, "split", True)
 
     def run(*args, **kw):
-        with AX.use_mesh(mesh):
+        with AX.use_mesh(mesh), whole_rows(whole):
             return fn(*args, **kw)
     return run
 
@@ -132,13 +250,13 @@ class _Sum(torch.autograd.Function):
     """All-reduce (SUM) forward, in place; the gradient passes unchanged."""
 
     @staticmethod
-    def forward(ctx, partial):
+    def forward(ctx, partial, axis):
         ctx.mark_dirty(partial)
-        return _all_reduce(partial)
+        return _all_reduce(partial, axis=axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 def reduce_from_model(partial: torch.Tensor) -> torch.Tensor:
@@ -149,8 +267,154 @@ def reduce_from_model(partial: torch.Tensor) -> torch.Tensor:
                         f"{partial.dtype}")
     if model_size() == 1:
         return partial
-    return _Sum.apply(partial)
+    return _Sum.apply(partial, "model")
 
+
+def reduce_from_data(partial: torch.Tensor) -> torch.Tensor:
+    """Sum an f32 partial over this rank's rows over the ``data`` axis, in
+    place (the loss's sum and count); unchanged where the rows are not
+    split.  Its gradient is the incoming one, on every rank."""
+    if partial.dtype != torch.float32:
+        raise TypeError(f"reduce_from_data sums f32 partials, not "
+                        f"{partial.dtype}")
+    if not rows_split():
+        return partial
+    return _Sum.apply(partial, "data")
+
+
+# ---------------------------------------------------------------------------
+# weights: FSDP blocks and leaves replicated over the data axis
+# ---------------------------------------------------------------------------
+
+class Fsdp(NamedTuple):
+    """A weight's block split over ``data`` along ``dim`` (an FSDP leaf,
+    or one layer of a stacked one), read whole through :func:`weight` at
+    its use."""
+    block: torch.Tensor
+    dim: int
+
+
+class _DataLeaf(torch.autograd.Function):
+    """A leaf whole over ``data`` (its blocks gathered along ``dim``, or
+    itself with ``dim`` None) widened to f32.  Backward: the f32
+    gradient, this rank's rows' partial, summed over ``data``, rounded
+    once to the leaf's dtype, cut to this rank's block."""
+
+    @staticmethod
+    def forward(ctx, w, dim):
+        ctx.dim, ctx.dtype = dim, w.dtype
+        ctx.group, ctx.rank = data_group(), data_rank()
+        ctx.summed = rows_split()
+        if dim is None:
+            return w.to(torch.float32, copy=True)
+        return all_gather(w, dim, "data").to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the gradient of the leaf's one use, summed in place where it is
+        # a contiguous f32 buffer (a model shard's f32 partial is GBs)
+        s = g
+        if g.dtype != torch.float32 or not g.is_contiguous():
+            s = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+            s.copy_(g)
+        if ctx.summed:
+            _all_reduce(s, group=ctx.group, backward=True, axis="data")
+        if ctx.dim is not None:
+            n = s.shape[ctx.dim] // dist.get_world_size(ctx.group)
+            s = s.narrow(ctx.dim, ctx.rank * n, n)
+        return s.to(ctx.dtype), None
+
+
+def fsdp_gather(block: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole (over ``data``) of this rank's FSDP ``block``, split
+    along ``dim``: an all-gather over ``data`` just before the product
+    that reads it (again in a layer's recompute, in the same order on
+    every rank).  Where the block needs a gradient the result is in f32
+    (the gathered bf16 values) and its gradient, an f32 partial, is
+    summed over ``data``, rounded once and cut to the block; otherwise it
+    keeps the block's dtype."""
+    if torch.is_grad_enabled() and block.requires_grad:
+        return _DataLeaf.apply(block, dim)
+    return all_gather(block, dim, "data")
+
+
+def weight(w) -> torch.Tensor:
+    """A weight at its use: an :class:`Fsdp` block gathered
+    (:func:`fsdp_gather`); under split rows, a leaf replicated over
+    ``data`` that needs a gradient widened to f32, its gradient's partial
+    summed over ``data`` and rounded once; otherwise the tensor itself."""
+    if isinstance(w, Fsdp):
+        return fsdp_gather(w.block, w.dim)
+    if rows_split() and torch.is_grad_enabled() and w.requires_grad:
+        return _DataLeaf.apply(w, None)
+    return w
+
+
+@functools.lru_cache(maxsize=64)
+def _placement(key: tuple, sizes: tuple, threshold: int) -> tuple:
+    mesh = _Sizes(dict(sizes))
+    out = []
+    for path, whole, itemsize, local in key:
+        base = SH._spec_for(path, whole, mesh, itemsize, False)
+        full = SH._spec_for(path, whole, mesh, itemsize, True)
+        model = mesh.shape.get("model", 1) > 1 and "model" in base
+        if local == AX.local_shape(whole, base, mesh):
+            out.append((path, model, None))
+        elif local == AX.local_shape(whole, full, mesh):
+            dim = list(full).index("data")
+            if path.startswith("['blocks']") and dim == 0:
+                raise NotImplementedError(
+                    f"{path}: the rule table splits the layers over data; "
+                    f"a layer's block is not gathered ({ROADMAP_ITEM})")
+            out.append((path, model, dim))
+        else:
+            raise ValueError(f"{path}: {local} is no rank's block of {whole} "
+                             f"under the rule table ({base} or {full})")
+    return tuple(out)
+
+
+class _Sizes:
+    """The axis sizes of a mesh, as the rule table reads them."""
+
+    def __init__(self, shape: dict):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+def placement(whole: dict, params: dict) -> tuple:
+    """For each leaf of this rank's ``params`` (``jax.tree.leaves``
+    order): ``(path, split over model, dim split over data)``, the last
+    the dim of an FSDP block (``sharding.param_specs(fsdp=True)``) or None
+    for a leaf whole over ``data`` (as ``fsdp=False`` places every leaf).
+    ``whole`` is the whole model's tree (``meta`` tensors do); a leaf of
+    neither shape raises."""
+    sizes = tuple(AX.mesh_axes(AX.current_mesh()).items())
+    key = tuple((path, tuple(w.shape), w.element_size(), tuple(p.shape))
+                for (path, w), (_, p) in zip(leaf_paths(whole),
+                                             leaf_paths(params)))
+    if len(key) != len(leaf_paths(params)):
+        raise ValueError("placement: params and the whole tree differ")
+    return _placement(key, sizes, SH.FSDP_THRESHOLD_BYTES)
+
+
+def fsdp_view(tree: dict, dims: dict, prefix: str = "", lead: int = 0
+              ) -> dict:
+    """``tree`` with every leaf whose path (``prefix`` + its keys) is in
+    ``dims`` as ``Fsdp(leaf, dims[path] - lead)``: ``lead`` 1 for one
+    layer of the stacked blocks."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}['{k}']"
+        if isinstance(v, dict):
+            out[k] = fsdp_view(v, dims, path, lead)
+        else:
+            out[k] = Fsdp(v, dims[path] - lead) if path in dims else v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# products
+# ---------------------------------------------------------------------------
 
 def _partial_f32(x2d: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
     """x2d @ w2d accumulated and kept in f32.  On the card
@@ -162,102 +426,107 @@ def _partial_f32(x2d: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
     return torch.mm(x2d.to(torch.float32), w2d.to(torch.float32))
 
 
-class _PartialF32(torch.autograd.Function):
-    """:func:`_partial_f32` of bf16 operands, whose gradients round once
-    to the operands' dtype, as ``layers.linear``'s do."""
+class _Product(torch.autograd.Function):
+    """x2d [N, K] @ w2d [K, M] on bf16 values (``w2d`` bf16, or f32 holding
+    bf16 values: a gathered or widened leaf), f32 accumulated.
+    ``out_f32``: the f32 partial of a row-parallel product (the caller
+    sums it over ``model`` and rounds), else rounded once to x's dtype.
+    Backward: the input gradient rounds once to x's dtype, its f32
+    partial summed over ``model`` first where ``sum_dx`` (a
+    column-parallel product); the weight gradient rounds once to the
+    weight's dtype, so a widened weight's stays in f32."""
 
     @staticmethod
-    def forward(ctx, x2d, w2d):
-        ctx.save_for_backward(x2d, w2d)
-        return _partial_f32(x2d, w2d)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2d, w2d = ctx.saved_tensors
-        g = g.to(x2d.dtype)           # bf16 values: the sum's rounding
-        dx = torch.mm(g, w2d.t()) if ctx.needs_input_grad[0] else None
-        dw = torch.mm(x2d.t(), g) if ctx.needs_input_grad[1] else None
-        return dx, dw
-
-
-def row_parallel(x: torch.Tensor, w2d: torch.Tensor) -> torch.Tensor:
-    """x [..., K] @ w2d [K, N] -> [..., N] in x's dtype, where K is split
-    over the ``model`` axis (this rank's heads or d_ff columns): the f32
-    partial summed over the ranks, then rounded once.  With a model axis
-    of one, the plain product that rounds once (``layers.linear``)."""
-    if model_size() == 1:
-        return torch.matmul(x, w2d)
-    # the partial and the sum are two nodes: a layer's recompute stops
-    # after the last node that saves tensors, so it issues the MLP's sum
-    # no more (as XLA's remat does not), the attention's again
-    part = _PartialF32.apply(x.reshape(-1, x.shape[-1]), w2d)
-    return reduce_from_model(part).to(x.dtype).reshape(*x.shape[:-1], -1)
-
-
-class _ColumnParallel(torch.autograd.Function):
-    """x2d [N, K] @ w2d [K, M/m], no collective.  Backward: the input
-    gradient's f32 partial summed over the ranks and rounded once; the
-    weight gradient local."""
-
-    @staticmethod
-    def forward(ctx, x2d, w2d):
-        ctx.save_for_backward(x2d, w2d)
-        ctx.group = model_group()
-        return torch.mm(x2d, w2d)
+    def forward(ctx, x2d, w2d, out_f32, sum_dx):
+        wb = w2d.to(x2d.dtype)
+        ctx.save_for_backward(x2d, wb)
+        ctx.out_f32, ctx.wide = out_f32, w2d.dtype != x2d.dtype
+        ctx.group = model_group() if sum_dx else None
+        return _partial_f32(x2d, wb) if out_f32 else torch.mm(x2d, wb)
 
     @staticmethod
     def backward(ctx, g):
-        x2d, w2d = ctx.saved_tensors
+        x2d, wb = ctx.saved_tensors
+        if ctx.out_f32:
+            g = g.to(x2d.dtype)       # bf16 values: the sum's rounding
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _all_reduce(_partial_f32(g, w2d.t()), group=ctx.group,
-                             backward=True).to(x2d.dtype)
+            if ctx.group is not None:
+                dx = _all_reduce(_partial_f32(g, wb.t()), group=ctx.group,
+                                 backward=True).to(x2d.dtype)
+            else:
+                dx = torch.mm(g, wb.t())
         if ctx.needs_input_grad[1]:
-            dw = torch.mm(x2d.t(), g)
-        return dx, dw
+            dw = _partial_f32(x2d.t(), g) if ctx.wide else \
+                torch.mm(x2d.t(), g)
+        return dx, dw, None, None
 
 
-def column_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def row_parallel(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., K] @ w [*k, N] -> [..., N] in x's dtype (K the product of
+    ``k``), where K is split over the ``model`` axis (this rank's heads
+    or d_ff columns): the f32 partial summed over the ranks, then rounded
+    once.  With a model axis of one, the plain product that rounds once
+    (``layers.linear``).  ``w``: a tensor or an :class:`Fsdp` block."""
+    w = weight(w)
+    w2d = w.reshape(-1, w.shape[-1])
+    if model_size() == 1 and w.dtype == x.dtype:
+        return torch.matmul(x, w2d)
+    x2d = x.reshape(-1, x.shape[-1])
+    if model_size() == 1:
+        y = _Product.apply(x2d, w2d, False, False)
+    else:
+        # the partial and the sum are two nodes: a layer's recompute stops
+        # after the last node that saves tensors, so it issues the MLP's
+        # sum no more (as XLA's remat does not), the attention's again
+        part = _Product.apply(x2d, w2d, True, False)
+        y = reduce_from_model(part).to(x.dtype)
+    return y.reshape(*x.shape[:-1], -1)
+
+
+def column_parallel(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ w [K, *out] -> [..., *out] in x's dtype, f32
     accumulated and rounded once (``layers.linear``'s product), where
     ``out`` is this rank's heads or columns.  The forward issues nothing;
-    under a model axis the backward sums the input gradient's partial."""
+    under a model axis the backward sums the input gradient's partial.
+    ``w``: a tensor or an :class:`Fsdp` block."""
+    w = weight(w)
     w2d = w.reshape(w.shape[0], -1)
-    if model_size() == 1:
+    if model_size() == 1 and w.dtype == x.dtype:
         y = torch.matmul(x, w2d)
     else:
-        y = _ColumnParallel.apply(x.reshape(-1, x.shape[-1]), w2d)
+        y = _Product.apply(x.reshape(-1, x.shape[-1]), w2d, False,
+                           model_size() > 1)
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
-def vocab_embed(w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def vocab_embed(w, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the embedding table for ``tokens``, where this rank holds
-    rows [r V/m, (r + 1) V/m) of it (``w``): the tokens outside read 0,
-    and the f32 sum over the ranks is exact.  The backward scatters into
-    this rank's rows only."""
-    m = model_size()
-    if m == 1:
-        return F.embedding(tokens, w)
+    rows [r V/m, (r + 1) V/m) of it (``w``, a tensor or an :class:`Fsdp`
+    block): the tokens outside read 0, and the f32 sum over the ranks is
+    exact.  The backward scatters into this rank's rows only."""
+    dt = w.block.dtype if isinstance(w, Fsdp) else w.dtype
+    w = weight(w)
+    if model_size() == 1:
+        return F.embedding(tokens, w).to(dt)
     lo = model_rank() * w.shape[0]
     mine = (tokens >= lo) & (tokens < lo + w.shape[0])
     rows = F.embedding(torch.where(mine, tokens - lo, 0), w)
     part = torch.where(mine[..., None], rows.to(torch.float32), 0.0)
-    return reduce_from_model(part).to(w.dtype)
+    return reduce_from_model(part).to(dt)
 
 
 def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
-    """This rank's vocab columns ``[..., V/m]`` -> the whole ``[..., V]``
-    on every rank, the ranks' blocks in model-axis order.  Forward only:
-    the loss reads the columns where they are (:func:`vocab_cross_
-    entropy`)."""
-    m = model_size()
-    if m == 1:
-        return logits
-    logits = logits.contiguous()
-    parts = [torch.empty_like(logits) for _ in range(m)]
-    dist.all_gather(parts, logits, group=model_group())
-    _count("all_gather", logits)
-    return torch.cat(parts, dim=-1)
+    """This rank's vocab columns ``[..., V/m]`` of its rows -> the whole
+    batch's ``[B, ..., V]`` on every rank, the blocks in axis order: the
+    columns over ``model``, then the rows over ``data`` where they are
+    split.  Forward only: the loss reads the columns where they are
+    (:func:`vocab_cross_entropy`)."""
+    if model_size() > 1:
+        logits = all_gather(logits, -1, "model")
+    if rows_split():
+        logits = all_gather(logits, 0, "data")
+    return logits
 
 
 class _VocabCE(torch.autograd.Function):
@@ -320,24 +589,24 @@ def check_layout(cfg) -> None:
     """Raise unless this slice lays ``cfg`` out over the active mesh:
     the dense GQA decoders (yi, qwen2.5, gemma3, internvl2's language
     model) with heads, KV heads, d_ff and the vocab each dividing the
-    model axis, on a mesh whose data axes are 1.  Where the rule table
-    would drop ``model`` from a leaf (a dim that does not divide), JAX
-    replicates it (K/V, and a cache sharded over T): not laid out here."""
-    m = model_size()
-    if m == 1:
+    model axis, beside a data axis of any size, on a mesh without a
+    ``pod`` axis.  Where the rule table would drop ``model`` from a leaf
+    (a dim that does not divide), JAX replicates it (K/V, and a cache
+    sharded over T): not laid out here."""
+    m, d = model_size(), data_size()
+    if m == 1 and d == 1:
         return
     sizes = AX.mesh_axes(AX.current_mesh())
-    dp = {a: sizes[a] for a in ("pod", "data") if sizes.get(a, 1) > 1}
-    if dp:
+    if sizes.get("pod", 1) > 1:
         raise NotImplementedError(
-            f"{cfg.name}: a model axis of {m} beside data axes {dp}: DP x TP "
-            f"(and FSDP) is not ported ({ROADMAP_ITEM})")
+            f"{cfg.name}: a pod axis of {sizes['pod']} (the multi-pod mesh) "
+            f"is not laid out ({ROADMAP_ITEM})")
     if (cfg.attn_kind != "gqa" or cfg.is_moe or cfg.is_encdec
             or cfg.family in ("ssm", "hybrid")):
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism is ported for the dense GQA "
-            f"decoders only, not for MLA, MoE, the recurrent or the "
-            f"encoder-decoder families ({ROADMAP_ITEM})")
+            f"{cfg.name}: tensor and data parallelism are ported for the "
+            f"dense GQA decoders only, not for MLA, MoE, the recurrent or "
+            f"the encoder-decoder families ({ROADMAP_ITEM})")
     dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
             "d_ff": cfg.d_ff, "vocab": cfg.vocab}
     odd = {k: v for k, v in dims.items() if v % m}
@@ -356,7 +625,9 @@ def check_moments(params, moment_dtype: str) -> None:
     tile dim and JAX gathers: it all-reduces the tile statistics (max,
     min, the base predicate) and all-gathers the deltas and masks of
     every such leaf, around each compress.  Not laid out here.  ``params``
-    is this rank's tree; f32 and bf16 moments have no tiles."""
+    is this rank's tree; f32 and bf16 moments have no tiles.  The same
+    straddle over ``data`` is refused where the update's blocks are cut
+    (``optim/adamw.py``)."""
     m = model_size()
     if m == 1 or moment_dtype not in ("bdi8", "q8"):
         return
@@ -374,11 +645,12 @@ def check_moments(params, moment_dtype: str) -> None:
 
 
 def refuse_model_axis(what: str) -> None:
-    """Raise under a model axis larger than one: ``what`` (``launch/
-    train.train``, its checkpoints and driver loop) runs no mesh, as
-    JAX's ``train()`` runs none."""
-    if model_size() > 1:
+    """Raise under a model or data axis larger than one: ``what``
+    (``launch/train.train``, its checkpoints and driver loop) runs no
+    mesh, as JAX's ``train()`` runs none."""
+    if model_size() > 1 or data_size() > 1:
         raise NotImplementedError(
-            f"{what} under a model axis of {model_size()}: the training "
-            f"driver and its checkpoints run no mesh; the train step does "
-            f"(launch/train.make_train_step) ({ROADMAP_ITEM})")
+            f"{what} under a model axis of {model_size()} and a data axis "
+            f"of {data_size()}: the training driver and its checkpoints run "
+            f"no mesh; the train step does (launch/train.make_train_step) "
+            f"({ROADMAP_ITEM})")

@@ -27,9 +27,8 @@ a shape and a dtype and no data:
 No op of the model executes anywhere, as JAX's dry run compiles and
 runs nothing: it needs no card and gives the same rows on any host.  It
 traces one data-parallel rank's program with the model axis unsharded
-(the port trains under neither tensor parallelism nor FSDP, and the
-dry run does not trace its tensor-parallel serving rank, ROADMAP Queue 1
-item 2): FLOPs and temp bytes are a DP rank's with whole weights, while the
+(no TP or FSDP rank is traced, ROADMAP Queue 1 item 2): FLOPs and temp
+bytes are a DP rank's with whole weights, while the
 argument bytes follow the rule table.  The row says so (``scope``).
 Where a microbatch's rows do not divide over the data axes, a rank runs
 each microbatch at the rows rounded up, as XLA pads a dimension it
@@ -101,9 +100,10 @@ NOT_MEASURED = {
     "seq_depth": "XLA's while-loop nesting; the port's loops are Python "
                  "(models/trips)",
     "generated_code_size_in_bytes": "XLA's executable; the port has none",
-    "collectives.tensor_parallel_fsdp": "the port trains under neither "
-                                        "TP nor FSDP, and no TP rank is "
-                                        "traced (ROADMAP Queue 1 item 2)",
+    "collectives.tensor_parallel_fsdp": "no TP or FSDP rank is traced; "
+                                        "the dry run traces one "
+                                        "data-parallel rank (ROADMAP "
+                                        "Queue 1 item 2)",
 }
 SCOPE = ("argument, output and alias bytes: a rank's share under the rule "
          "table (sharding.py) on the mesh; traced_flops and "

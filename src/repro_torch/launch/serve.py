@@ -75,6 +75,8 @@ import torch
 
 from repro_torch import codecs
 from repro_torch.configs.registry import get_arch
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
 from repro_torch.models.api import get_model
@@ -98,51 +100,61 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
     ``cache_bytes`` and, with ``keep_logits``, each token's logits
     ``[gen, B, V]`` (f32, on the host).
 
-    Under a ``(1, m)`` mesh (``distributed/axes.use_mesh``) ``params``
-    are this rank's shards (``distributed/sharding.local_params``): every
-    rank runs the loop, takes the argmax of the gathered logits and gets
-    the same tokens; ``cache_bytes`` is this rank's.  ``collectives``
-    counts the model axis's collectives (``distributed/tp.COUNTS``) of
-    the prefill and of one decode step, with the bytes of their inputs
-    (zeros at m = 1)."""
+    Under a ``(d, m)`` mesh (``distributed/axes.use_mesh``) ``params``
+    are this rank's blocks (``distributed/sharding.local_params``, either
+    layout) and ``prompts`` the whole batch: every rank runs its rows
+    (``sharding.local_batch``; rows that do not divide d stay whole),
+    takes the argmax of the whole batch's gathered logits and gets the
+    same tokens; ``cache_bytes`` is this rank's.  ``collectives`` counts,
+    by mesh axis (``distributed/tp.COUNTS``), the collectives of the
+    prefill and of one decode step, with the bytes of their inputs
+    (zeros without a mesh)."""
     model = get_model(cfg)
     dev = params["embed"]["w"].device
-    batch = {"tokens": prompts.to(dev)}
+    b, s = prompts.shape
+    d = tp.data_size()
+
+    def rows(t: torch.Tensor) -> torch.Tensor:
+        if d == 1:
+            return t.to(dev)
+        return SH.local_batch({"t": t}, AX.current_mesh())["t"].to(dev)
+    batch = {"tokens": rows(prompts)}
     if cfg.is_encdec:
         if enc_embeds is None:
             raise ValueError(f"{cfg.name}: the encoder needs enc_embeds")
-        batch["enc_embeds"] = enc_embeds.to(dev)
-    b, s = prompts.shape
+        batch["enc_embeds"] = rows(enc_embeds)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    c0 = dict(tp.COUNTS)
+    c0 = tp.counts()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, batch, s + gen)
-    toks = torch.argmax(logits, -1)
-    out = [toks.tolist()]
-    rows = [logits.float().cpu()] if keep_logits else []
-    t1 = time.perf_counter()
-    c1 = dict(tp.COUNTS)
-    step_s = []
-    for t in range(s, s + gen - 1):
-        ts = time.perf_counter()
-        logits, cache = model.decode_step(params, cache, toks, t)
+    with tp.whole_rows(d > 1 and b % d != 0):
+        logits, cache = model.prefill(params, batch, s + gen)
         toks = torch.argmax(logits, -1)
-        out.append(toks.tolist())           # the step's one host sync
-        step_s.append(time.perf_counter() - ts)
-        if keep_logits:
-            rows.append(logits.float().cpu())
+        out = [toks.tolist()]
+        rows_kept = [logits.float().cpu()] if keep_logits else []
+        t1 = time.perf_counter()
+        pre, c1 = tp.counts_since(c0), tp.counts()
+        step_s = []
+        for t in range(s, s + gen - 1):
+            ts = time.perf_counter()
+            logits, cache = model.decode_step(params, cache, rows(toks), t)
+            toks = torch.argmax(logits, -1)
+            out.append(toks.tolist())           # the step's one host sync
+            step_s.append(time.perf_counter() - ts)
+            if keep_logits:
+                rows_kept.append(logits.float().cpu())
     dt = time.perf_counter() - t0
     steps = max(gen - 1, 1)
     res = {"tokens": [list(r) for r in zip(*out)],
            "tok_per_s": b * gen / dt, "prefill_s": t1 - t0,
            "decode_s": step_s, "cache_bytes": cache_bytes(cache),
            "collectives": {
-               "model_axis": tp.model_size(),
-               "prefill": {k: c1[k] - c0[k] for k in c0},
-               "per_step": {k: (tp.COUNTS[k] - c1[k]) / steps for k in c0}}}
+               "model_axis": tp.model_size(), "data_axis": d,
+               "prefill": pre,
+               "per_step": {a: {k: v / steps for k, v in c.items()}
+                            for a, c in tp.counts_since(c1).items()}}}
     if keep_logits:
-        res["logits"] = torch.stack(rows)
+        res["logits"] = torch.stack(rows_kept)
     return res
 
 

@@ -38,6 +38,8 @@ from repro_torch.checkpoint import store
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
 from repro_torch.models import params as P
@@ -53,32 +55,47 @@ def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
     floats: ``loss``, ``grad_norm``, and the host seconds of the forward
     and backward (``fwd_bwd_s``) and of the update (``opt_s``), each
     ending in a read of its result, which waits for the device, and
-    ``collectives``: the model axis's collectives the step issued and the
-    bytes of their inputs (``distributed/tp.COUNTS``; zeros at m = 1).
+    ``collectives``: by mesh axis (``model``, ``data``), the collectives
+    the step issued and the bytes of their inputs (``distributed/
+    tp.COUNTS``; zeros without a mesh).
 
-    Under a ``(1, m)`` mesh (``distributed/axes.use_mesh``) ``params``
-    and ``opt_state`` are this rank's shards (``distributed/sharding.
-    local_params``, ``adamw_init`` of them) and every rank takes the
-    same batch: the loss is the same on every rank, the gradients are
-    this rank's shards and ``grad_norm`` is the global norm."""
+    Under a ``(d, m)`` mesh (``distributed/axes.use_mesh``) ``params``
+    and ``opt_state`` are this rank's blocks (``distributed/sharding.
+    local_params``, ``fsdp=True`` for JAX's training layout; ``adamw_init``
+    of them, with ``whole=`` the model's shapes under a data axis) and
+    every rank takes the whole batch, which the step cuts to its rows
+    (``sharding.local_batch``; rows that do not divide d stay whole): the
+    loss is the global mean on every rank, the gradients are this rank's
+    blocks and ``grad_norm`` is the global norm."""
+    meta = {}
+
     def step(params, opt_state, batch):
-        c0 = dict(tp.COUNTS)
+        c0 = tp.counts()
         t0 = time.perf_counter()
-        leaves = [t.requires_grad_() for t in P.leaves(params)]
-        loss = model.loss(params, batch)
-        # a leaf the loss does not reach (xLSTM's idle cell in a block)
-        # gets a zero gradient, as jax.grad gives it
-        grads = P.unflatten(params, torch.autograd.grad(
-            loss, leaves, allow_unused=True, materialize_grads=True))
+        whole, d, rows = None, tp.data_size(), 0
+        if d > 1:
+            if "params" not in meta:
+                meta["params"] = model.init(torch.Generator(), "meta")
+            whole = meta["params"]
+            rows = next(iter(batch.values())).shape[0]
+            batch = SH.local_batch(batch, AX.current_mesh())
+        with tp.whole_rows(d > 1 and rows % d != 0):
+            leaves = [t.requires_grad_() for t in P.leaves(params)]
+            loss = model.loss(params, batch)
+            # a leaf the loss does not reach (xLSTM's idle cell in a block)
+            # gets a zero gradient, as jax.grad gives it
+            grads = P.unflatten(params, torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True))
         loss = float(loss.detach())
         t1 = time.perf_counter()
-        params, opt_state, m = adamw_update(params, grads, opt_state, ocfg)
+        params, opt_state, m = adamw_update(params, grads, opt_state, ocfg,
+                                            whole=whole)
         del grads
         gnorm = float(m["grad_norm"])
         return params, opt_state, {
             "loss": loss, "grad_norm": gnorm, "fwd_bwd_s": t1 - t0,
             "opt_s": time.perf_counter() - t1,
-            "collectives": {k: tp.COUNTS[k] - c0[k] for k in c0}}
+            "collectives": tp.counts_since(c0)}
     return step
 
 
@@ -92,8 +109,8 @@ def train(arch: str, *, smoke: bool = True, steps: int = 100,
     latest checkpoint).  Returns the JAX driver's dict (``first_loss``,
     ``final_loss``, ``steps_run``, ``losses``, ``params``) plus
     ``opt_state`` and ``step_s``, each step's ``(fwd_bwd_s, opt_s)``.
-    Runs no mesh: under a model axis it raises (the train step runs
-    there, :func:`make_train_step`)."""
+    Runs no mesh: under a model or data axis it raises (the train step
+    runs there, :func:`make_train_step`)."""
     tp.refuse_model_axis("launch/train.train()")
     dev = resolve_device(device)
     cfg = get_arch(arch)

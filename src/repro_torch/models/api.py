@@ -12,10 +12,10 @@ Every family exposes:
 
 Encoder-decoder configs go to ``encdec``, ssm to ``xlstm``, hybrid to
 ``hybrid`` and the rest to ``transformer``, which refuses an attention
-kind it does not take.  Under a mesh whose ``model`` axis is larger than
-one, every function refuses a config that tensor parallelism does not
-lay out (``distributed/tp.check_layout``: any family but the dense GQA
-decoders).
+kind it does not take.  Under a mesh whose ``model`` or ``data`` axis
+is larger than one, every function refuses a config or mesh that tensor
+and data parallelism do not lay out (``distributed/tp.check_layout``:
+any family but the dense GQA decoders, a ``pod`` axis).
 """
 
 from __future__ import annotations

@@ -23,7 +23,9 @@ the rank's block, as in the whole model.  In the forward only the output
 projection communicates: :func:`_proj_out` is row-parallel.  The
 full-sequence q/k/v projections are column-parallel
 (``layers.column_linear``), whose backward sums each input gradient's
-partial over the ranks; a bias's gradient is local.
+partial over the ranks; a bias's gradient is local.  Under a data axis
+they run on this rank's rows, each weight read through ``tp.weight``
+(an FSDP block gathered over ``data`` at its use).
 """
 
 from __future__ import annotations
@@ -58,9 +60,7 @@ def _proj_out(p: dict, ctx: torch.Tensor) -> torch.Tensor:
     """ctx [B, S, H, Dh] -> [B, S, D]: contracts (H, Dh) against wo
     [H, Dh, D], accumulating in f32 and rounding once (see L.linear); the
     heads split over the model axis (``tp.row_parallel``)."""
-    w = p["wo"]["w"]
-    return tp.row_parallel(ctx.reshape(*ctx.shape[:-2], -1),
-                           w.reshape(-1, w.shape[-1]))
+    return tp.row_parallel(ctx.reshape(*ctx.shape[:-2], -1), p["wo"]["w"])
 
 
 def gqa_kv(p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -174,9 +174,9 @@ def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     """
     b = x.shape[0]
     tc = k_cache.shape[1]
-    q = L.linear(p["wq"], x)                         # [B, 1, H, Dh]
-    k_new = L.linear(p["wk"], x)                     # [B, 1, K, Dh]
-    v_new = L.linear(p["wv"], x)
+    q = L.column_linear(p["wq"], x)                  # [B, 1, H, Dh]
+    k_new = L.column_linear(p["wk"], x)              # [B, 1, K, Dh]
+    v_new = L.column_linear(p["wv"], x)
     dh = q.shape[-1]
     if theta > 0:
         q = _rope_at(q, t, theta)

@@ -29,6 +29,14 @@ every rank returns the whole ``[..., V]``, and ``chunked_cross_entropy``
 never gathers them: each chunk's loss is the vocab-parallel
 cross-entropy of this rank's columns (``tp.vocab_cross_entropy``).  With
 a model axis of one each is the plain form above.
+
+Under a data axis larger than one the layers take this rank's rows of
+the batch, and every weight is read through ``tp.weight`` at its use:
+an FSDP block (``tp.Fsdp``) is gathered over ``data`` just before its
+product, and a weight's gradient is summed over ``data`` in f32 and
+rounded once; ``chunked_cross_entropy`` sums its loss and token count
+over ``data`` (the global mean) and ``lm_logits`` returns the whole
+batch's logits.
 """
 
 from __future__ import annotations
@@ -57,7 +65,7 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
     x = x.to(torch.float32)
     var = (x * x).mean(dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * p["w"].to(torch.float32)
+    out = x * torch.rsqrt(var + eps) * tp.weight(p["w"]).to(torch.float32)
     return out.to(dt)
 
 
@@ -85,10 +93,11 @@ def column_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     """:func:`linear` of a weight whose output dims are split over the
     ``model`` axis (q/k/v, the MLP's gate and up, the LM head): the same
     product through ``tp.column_parallel``, whose backward sums the input
-    gradient over the ranks; the bias (this rank's block) adds locally."""
+    gradient over the ranks; the bias (this rank's block) adds locally.
+    The weight may be an FSDP block (``tp.Fsdp``)."""
     y = tp.column_parallel(x, p["w"])
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        y = y + tp.weight(p["b"]).to(y.dtype)
     return y
 
 
@@ -145,7 +154,7 @@ def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
 
 
 def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return tp.gather_vocab(linear(p, x))
+    return tp.gather_vocab(column_linear(p, x))
 
 
 def last_logits(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -210,4 +219,6 @@ def chunked_cross_entropy(head_p: dict, x: torch.Tensor,
              for i in range(n_chunks)]
     nll = torch.stack([p[0] for p in parts]).sum()
     cnt = torch.stack([p[1] for p in parts]).sum()
+    if tp.rows_split():                # the sums of every rank's rows
+        nll, cnt = tp.reduce_from_data(torch.stack([nll, cnt]))
     return nll / cnt.clamp(min=1.0)

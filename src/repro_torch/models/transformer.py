@@ -36,10 +36,23 @@ attention's sum again (the MLP's is past the recompute's last saved
 tensor), in the same order on every rank, as JAX's remat does; it runs
 under the caller's mesh (``tp.under_mesh``).  Every entry point refuses
 a config or mesh this slice does not lay out (``tp.check_layout``).
+
+DP x TP (a ``(d, m)`` mesh, d > 1): the entry points take this rank's
+rows of the batch (``distributed/sharding.local_batch``; the prompt's
+tokens, a decode step's tokens, the cache's rows) and its blocks of the
+params under either layout of the rule table (``local_params``, with
+``fsdp=True`` the training layout of JAX's dry run); the logits they
+return are the whole batch's, ``loss_fn`` the global mean.  Each leaf
+split over ``data`` (:func:`placed` finds them by shape against the
+whole model's, :func:`whole_shapes`) is gathered at its one use in a
+layer (``tp.weight``): q/k/v, wo, gate/up/down, the embedding and the
+LM head, inside the layer loop and again in a layer's recompute.  At d
+= 1 nothing changes and no data collective is issued.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -120,16 +133,18 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 
     ``local``: a function of a subtree keyed as in the whole tree (such as
     ``distributed/sharding.local_params`` on a mesh), applied to the
-    embedding, to each layer's block and to the head as each is drawn, so
-    that a tensor-parallel rank keeps its shards and never holds more of
-    the whole model than one layer.  The draws are the same either way."""
+    embedding, to each layer's block (keyed ``{"blocks": block}``, one
+    layer, ``local_params(layers=)``) and to the head as each is drawn, so
+    that a rank keeps its blocks and never holds more of the whole model
+    than one layer.  The draws are the same either way."""
     check_family(cfg)
     device = torch.device(device)
     keep = local or (lambda t: t)
     embed = keep({"embed": L.init_embed(gen, cfg.vocab, cfg.d_model,
                                         device=device)})["embed"]
-    blocks = P.init_stacked(lambda: keep(_init_block(cfg, gen, device)),
-                            cfg.n_layers)
+    blocks = P.init_stacked(
+        lambda: keep({"blocks": _init_block(cfg, gen, device)})["blocks"],
+        cfg.n_layers)
     return {
         "embed": embed,
         "blocks": blocks,
@@ -179,11 +194,34 @@ def _embed_inputs(cfg: ArchConfig, params: dict,
     return x
 
 
+@functools.lru_cache(maxsize=8)
+def whole_shapes(cfg: ArchConfig) -> dict:
+    """The whole model's params as ``meta`` tensors (shapes and dtypes,
+    nothing allocated)."""
+    return init_params(cfg, torch.Generator(), "meta")
+
+
+def placed(cfg: ArchConfig, params: dict) -> tuple[dict, list[dict]]:
+    """``(params, layers)``: this rank's params and their per-layer views
+    (``params.unstack``), where under a data axis each leaf split over
+    ``data`` is a ``tp.Fsdp`` block, which the layers read through
+    ``tp.weight``."""
+    if tp.data_size() == 1:
+        return params, P.unstack(params["blocks"])
+    dims = {path: d for path, _, d in tp.placement(whole_shapes(cfg), params)
+            if d is not None}
+    top = tp.fsdp_view({k: v for k, v in params.items() if k != "blocks"},
+                       dims)
+    return top, [tp.fsdp_view(bp, dims, "['blocks']", lead=1)
+                 for bp in P.unstack(params["blocks"])]
+
+
 def _hidden(cfg: ArchConfig, params: dict, batch: dict,
             remat: bool = True) -> torch.Tensor:
+    params, layers = placed(cfg, params)
     x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for bp, w in zip(P.unstack(params["blocks"]), layer_windows(cfg)):
+    for bp, w in zip(layers, layer_windows(cfg)):
         if remat:
             x = checkpoint(tp.under_mesh(_block_forward), cfg, bp, x,
                            positions, int(w), use_reentrant=False)
@@ -196,14 +234,15 @@ def forward(cfg: ArchConfig, params: dict, batch: dict,
             remat: bool = True) -> torch.Tensor:
     """Teacher-forcing forward -> logits [B, S, V]."""
     tp.check_layout(cfg)
-    return L.lm_logits(params["lm_head"], _hidden(cfg, params, batch, remat))
+    x = _hidden(cfg, params, batch, remat)
+    return L.lm_logits(placed(cfg, params)[0]["lm_head"], x)
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
     tp.check_layout(cfg)
     x = _hidden(cfg, params, batch)
-    return L.chunked_cross_entropy(params["lm_head"], x, batch["targets"],
-                                   batch.get("loss_mask"))
+    return L.chunked_cross_entropy(placed(cfg, params)[0]["lm_head"], x,
+                                   batch["targets"], batch.get("loss_mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -302,14 +341,15 @@ def decode_step_quant(cfg: ArchConfig, params: dict, cache: QuantDecodeCache,
     dequantised inside attention (its first t + 1 rows)."""
     tp.check_layout(cfg)
     t = int(t)
+    params, layers = placed(cfg, params)
     x = L.embed(params["embed"], token[:, None])
     f32 = torch.float32
-    for i, bp in enumerate(P.unstack(params["blocks"])):
+    for i, bp in enumerate(layers):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         a = bp["attn"]
-        q = A._rope_at(L.linear(a["wq"], h), t, cfg.rope_theta)
-        k_new = A._rope_at(L.linear(a["wk"], h), t, cfg.rope_theta)
-        v_new = L.linear(a["wv"], h)
+        q = A._rope_at(L.column_linear(a["wq"], h), t, cfg.rope_theta)
+        k_new = A._rope_at(L.column_linear(a["wk"], h), t, cfg.rope_theta)
+        v_new = L.column_linear(a["wv"], h)
         b, _, hh, dh = q.shape
         for (dd, bb, ss), new in (((cache.kd, cache.kb, cache.ks), k_new),
                                   ((cache.vd, cache.vb, cache.vs), v_new)):
@@ -339,9 +379,10 @@ def decode_step(cfg: ArchConfig, params: dict, cache: DecodeCache,
     the cache, updated in place)."""
     tp.check_layout(cfg)
     t = int(t)
+    params, layers = placed(cfg, params)
     x = L.embed(params["embed"], token[:, None])
     is_g, slots, _ = cache_slots(cfg)
-    for i, bp in enumerate(P.unstack(params["blocks"])):
+    for i, bp in enumerate(layers):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         s = int(slots[i])
         if cfg.attn_kind == "mla":
@@ -370,6 +411,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
     for its cache and its attention; a local layer's ring takes the last
     min(window, S) positions at slot ``position % window``."""
     tp.check_layout(cfg)
+    params, layers = placed(cfg, params)
     x = _embed_inputs(cfg, params, batch)
     b, s, _ = x.shape
     if s > max_len:
@@ -378,8 +420,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     cache = init_cache(cfg, b, max_len, device=x.device)
     is_g, slots, _ = cache_slots(cfg)
-    for i, (bp, w) in enumerate(zip(P.unstack(params["blocks"]),
-                                    layer_windows(cfg))):
+    for i, (bp, w) in enumerate(zip(layers, layer_windows(cfg))):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         sl = int(slots[i])
         kv = None

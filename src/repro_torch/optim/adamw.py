@@ -39,6 +39,13 @@ squares of each leaf the rule table shards (``tp.sharded_leaves``),
 the replicated ones counting once.  Under ``bdi8``/``q8`` a tile that
 would straddle two shards raises (``tp.check_moments``).
 
+Under a ``(d, m)`` mesh (ZeRO-1, :func:`plan`) each rank keeps the
+moments of one block of each leaf, whole tiles only: an FSDP leaf's data
+block, or a block of a leaf whole over ``data`` whose moment the rule
+table splits, which the rank updates alone and all-gathers over
+``data`` afterwards; the clip norm sums a leaf's squares over each axis
+that splits it.  The update itself stays local and elementwise.
+
 Unlike the JAX version, :func:`adamw_update` writes the new params and
 moments into the tensors it is given (at yi-6b's full width a second
 copy of params and moments would not fit beside the gradients).  Leaves
@@ -52,10 +59,14 @@ along the last dim, so the numbers are the same.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.checkpoint.store import leaf_paths
 from repro_torch.core import bdi_value as bv
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tp
 from repro_torch.kernels import ops, ref
 from repro_torch.models import params as P
@@ -180,15 +191,96 @@ def _load(s, shape) -> torch.Tensor:
     return tiles.reshape(shape)
 
 
-def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
+class Leaf(NamedTuple):
+    """Where a leaf lies under a data axis: split over ``model`` (its
+    squares summed over it); ``data``, the dim of its FSDP block (its
+    squares summed over ``data``) or None; ``owner``, the dim along which
+    this rank updates and stores the moments of 1/d of the leaf, or None
+    (every rank updates the whole leaf, bit for bit alike)."""
+    model: bool
+    data: int | None
+    owner: int | None
+
+
+def plan(params: dict, whole: dict | None, cfg: AdamWConfig
+         ) -> list[Leaf] | None:
+    """Each leaf's :class:`Leaf` under the active mesh's data axis (None
+    without one).  ``whole``: the whole params' shapes (``meta`` tensors).
+
+    ZeRO-1 on whole tiles: a rank owns one block of each parameter and
+    keeps the moments of exactly that block: an FSDP leaf's data block
+    (``sharding.param_specs(fsdp=True)``); for a leaf whole over ``data``
+    whose rule-table spec or whose moment's (f32 and bf16 moments have
+    the leaf's shape) splits it over ``data``, that dim's block, which it
+    updates and then all-gathers over ``data``.  A rank thus stores at
+    most the rule table's share of every moment leaf, and the blocks
+    gathered give JAX's whole state.  Refused, naming the ROADMAP item: a
+    ``bdi8``/``q8`` tile that would straddle two blocks (a tiled last dim
+    whose tile count does not divide d)."""
+    d = tp.data_size()
+    if d == 1:
+        return None
+    if whole is None:
+        raise TypeError("under a data axis the optimizer needs the whole "
+                        "params' shapes (whole=, a tree of meta tensors)")
+    mesh = AX.current_mesh()
+    kind = cfg.moment_dtype
+    out = []
+    for (path, model, data), (_, w), p in zip(
+            tp.placement(whole, params), leaf_paths(whole),
+            P.leaves(params)):
+        spec = SH._spec_for(path, tuple(w.shape), mesh, w.element_size(),
+                            True)
+        owner = list(spec).index("data") if "data" in spec else None
+        store = _zero_store(w, kind)
+        if owner is None and not isinstance(store, dict):
+            # a moment of the leaf's shape (f32 or bf16) that the rule
+            # table splits, the leaf not; a tile store never is (its
+            # bytes are at most the leaf's)
+            mspec = SH._spec_for(f"['m']{path}", tuple(w.shape), mesh,
+                                 store.element_size(), True)
+            if "data" in mspec:
+                owner = list(mspec).index("data")
+        shard = list(p.shape)             # the leaf's model shard
+        if data is not None:
+            shard[data] *= d
+        if owner == len(shard) - 1 and _tiled(shard, kind) and \
+                (shard[-1] // d) % _TILE:
+            raise NotImplementedError(
+                f"{path}: {shard[-1] // _TILE} {kind} moment tiles of {_TILE} "
+                f"do not divide the data axis of {d}; a tile would straddle "
+                f"two blocks, which is not laid out ({tp.ROADMAP_ITEM})")
+        out.append(Leaf(model, data, owner))
+    return out
+
+
+def _block(p: torch.Tensor, leaf: Leaf | None) -> torch.Tensor:
+    """The part of a rank's leaf ``p`` whose moments it keeps: the 1/d
+    block along the owner dim of a leaf whole over ``data``, else ``p``."""
+    if leaf is None or leaf.owner is None or leaf.data is not None:
+        return p
+    n = p.shape[leaf.owner] // tp.data_size()
+    return p.narrow(leaf.owner, tp.data_rank() * n, n)
+
+
+def adamw_init(params: dict, cfg: AdamWConfig,
+               whole: dict | None = None) -> dict:
     """Zero moments for ``params`` (on each leaf's device; shapes only,
-    so a tree of ``meta`` tensors sizes a state without allocating)."""
+    so a tree of ``meta`` tensors sizes a state without allocating).
+    Under a data axis, ``whole`` (the whole params' shapes) is needed:
+    the moments are those of this rank's blocks (:func:`plan`)."""
     tp.check_moments(params, cfg.moment_dtype)
-    step_dev = P.leaves(params)[0].device
+    lay = plan(params, whole, cfg)
+    leaves = P.leaves(params)
+    blocks = [_block(p, None if lay is None else lay[i])
+              for i, p in enumerate(leaves)]
+    step_dev = leaves[0].device
     return {
         "step": torch.zeros((), dtype=torch.int32, device=step_dev),
-        "m": P.tree_map(lambda p: _zero_store(p, cfg.moment_dtype), params),
-        "v": P.tree_map(lambda p: _zero_store(p, cfg.moment_dtype), params),
+        "m": P.unflatten(params, [_zero_store(b, cfg.moment_dtype)
+                                  for b in blocks]),
+        "v": P.unflatten(params, [_zero_store(b, cfg.moment_dtype)
+                                  for b in blocks]),
     }
 
 
@@ -219,14 +311,19 @@ def _sumsq(g: torch.Tensor) -> torch.Tensor:
 
 
 def _global_norm(grads: list[torch.Tensor],
-                 sharded: list[bool] | None = None) -> torch.Tensor:
+                 axes: list[tuple[str, ...]] | None = None) -> torch.Tensor:
     """sqrt of the leaves' sums of squares added in leaf order, where a
-    leaf marked in ``sharded`` adds its sum over the ``model`` axis (one
-    all-reduce of those leaves' stacked sums; JAX issues one a leaf)."""
+    leaf split over an axis (``axes``, by leaf) adds its sum over that
+    axis: one all-reduce of those leaves' stacked sums over ``model``,
+    then one over ``data`` (JAX issues tuples of them)."""
     sq = [_sumsq(g) for g in grads]
-    idx = [i for i, s in enumerate(sharded or ()) if s]
-    if idx:
-        summed = tp.reduce_from_model(torch.stack([sq[i] for i in idx]))
+    for axis in tp.AXES:
+        idx = [i for i, a in enumerate(axes or ()) if axis in a]
+        if not idx:
+            continue
+        both = torch.stack([sq[i] for i in idx])
+        summed = tp.reduce_from_model(both) if axis == "model" else \
+            tp.all_reduce(both, "data")
         for j, i in enumerate(idx):
             sq[i] = summed[j]
     return torch.sqrt(sum(sq))
@@ -241,14 +338,23 @@ def _copy_into(dst, src) -> None:
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
+def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
+                 whole: dict | None = None):
     """One AdamW step.  Writes the new params and moments into ``params``
     and ``state``'s tensors and returns ``(params, state', metrics)``,
-    ``state'`` holding the new step counter."""
+    ``state'`` holding the new step counter.  Under a data axis (``whole``
+    as for :func:`adamw_init`) a rank updates its blocks (:func:`plan`)
+    and all-gathers over ``data`` those of the leaves whole over it."""
     tp.check_moments(params, cfg.moment_dtype)
+    lay = plan(params, whole, cfg)
     step = state["step"] + 1
     gs = P.leaves(grads)
-    gnorm = _global_norm(gs, tp.sharded_leaves(params))
+    if lay is None:
+        axes = [("model",) if s else () for s in tp.sharded_leaves(params)]
+    else:
+        axes = [("model",) * leaf.model + ("data",) * (leaf.data is not None)
+                for leaf in lay]
+    gnorm = _global_norm(gs, axes)
     scale = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
                         / (gnorm + 1e-9), max=1.0) if cfg.grad_clip else 1.0
     stepf = step.to(torch.float32)
@@ -269,11 +375,15 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig):
         _copy_into(m_s, _store(m, kind))
         _copy_into(v_s, _store(v, kind))
 
-    for p, g, m_s, v_s in zip(P.leaves(params), gs,
-                              _store_leaves(state["m"]),
-                              _store_leaves(state["v"])):
-        for r0, r1 in _groups(p):
-            upd(*(_rows(t, r0, r1) for t in (p, g, m_s, v_s)))
+    for i, (p, g, m_s, v_s) in enumerate(zip(P.leaves(params), gs,
+                                             _store_leaves(state["m"]),
+                                             _store_leaves(state["v"]))):
+        leaf = None if lay is None else lay[i]
+        pb, gb = _block(p, leaf), _block(g, leaf)
+        for r0, r1 in _groups(pb):
+            upd(*(_rows(t, r0, r1) for t in (pb, gb, m_s, v_s)))
+        if pb is not p:
+            p.copy_(tp.all_gather(pb, leaf.owner, "data"))
     return params, {"step": step, "m": state["m"], "v": state["v"]}, {
         "grad_norm": gnorm, "clip_scale": scale}
 

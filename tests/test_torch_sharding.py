@@ -193,7 +193,14 @@ def test_shard_follows_the_mesh(mesh1):
         with pytest.raises(TypeError, match="global_shape"):
             AX.shard(x, None, AX.MODEL)
     with AX.use_mesh(EL.abstract_mesh((2, 2), ("data", "model"))):
-        with pytest.raises(NotImplementedError, match="DP x TP"):
+        # DP x TP: a block over the data and the model axes is taken too
+        assert AX.shard(x, AX.DP, AX.MODEL, global_shape=(6, 8)) is x
+        with pytest.raises(ValueError, match=r"is \(3, 4\), not \(3, 2\)"):
+            AX.shard(x[:, :2], AX.DP, AX.MODEL, global_shape=(6, 8))
+    with AX.use_mesh(EL.abstract_mesh((2, 1, 2), ("pod", "data", "model"))):
+        with pytest.raises(NotImplementedError,
+                           match="pod axis is not ported.*ROADMAP Queue 1 "
+                                 "item 2"):
             AX.shard(x, AX.DP, AX.MODEL, global_shape=(6, 8))
     assert AX.current_mesh() is None
 

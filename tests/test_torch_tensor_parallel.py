@@ -171,8 +171,9 @@ def port_run(cfg, params: dict, toks: np.ndarray, emb) -> dict:
     out["greedy/tokens"] = np.asarray(g["tokens"])
     out["greedy/logits"] = g["logits"].numpy()
     out["greedy/collectives"] = np.asarray(
-        [g["collectives"]["per_step"][k] for k in ("all_reduce",
-                                                   "all_gather")])
+        [g["collectives"]["per_step"]["model"][k] for k in ("all_reduce",
+                                                            "all_gather")]
+        + [sum(g["collectives"]["per_step"]["data"].values())])
     return out
 
 
@@ -453,10 +454,11 @@ def test_greedy_tokens_match_jax(records, case):
         print(f"{case}: {par.compared} tokens equal, ties {par.ties}")
         assert par.compared >= 0.75 * want.size, par
         # one all-reduce after each attention and MLP, one for the
-        # embedding, one gather of the logits, every step
+        # embedding, one gather of the logits, every step; nothing over
+        # the data axis of one
         np.testing.assert_array_equal(
             port[f"{case}/greedy/collectives"],
-            [2 * case_cfg(case).n_layers + 1, 1])
+            [2 * case_cfg(case).n_layers + 1, 1, 0])
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -477,16 +479,18 @@ def test_tensor_parallel_matches_one_rank(records, case):
 # refusals (an abstract mesh: each raises before any collective)
 # ---------------------------------------------------------------------------
 
-def _abstract(model: int, data: int = 1):
-    return AX.use_mesh(EL.abstract_mesh((data, model), ("data", "model")))
+def _abstract(model: int):
+    return AX.use_mesh(EL.abstract_mesh((1, model), ("data", "model")))
 
 
 def test_training_under_a_model_axis_is_refused():
     """Training runs under a model axis (``tests/test_torch_tp_train.py``)
-    but for what this slice does not lay out: ``bdi8`` moments whose tile
-    of 128 straddles two shards (reduced yi-6b's d_ff of 128 at m = 2), a
-    data axis beside the model axis, and ``launch/train.train()``, which
-    runs no mesh.  Each raises naming the ROADMAP item."""
+    and beside a data axis (``tests/test_torch_dp_tp.py``) but for what
+    is not laid out: ``bdi8`` moments whose tile of 128 straddles two
+    shards (reduced yi-6b's d_ff of 128 at m = 2), a pod axis beside the
+    data and model axes (the multi-pod mesh), and ``launch/train.
+    train()``, which runs no mesh.  Each raises naming the ROADMAP
+    item."""
     from repro_torch.launch.train import make_train_step, train
     from repro_torch.optim import AdamWConfig, adamw_init
     cfg = case_cfg("yi-6b")
@@ -503,26 +507,29 @@ def test_training_under_a_model_axis_is_refused():
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 2"):
             train("yi-6b", steps=1, device="cpu")
-    with _abstract(2, data=2):
+    with AX.use_mesh(EL.abstract_mesh((2, 1, 2),
+                                      ("pod", "data", "model"))):
         step = make_train_step(get_model(cfg), AdamWConfig())
         with pytest.raises(NotImplementedError,
-                           match="beside data axes.*ROADMAP Queue 1 item 2"):
-            step(params, adamw_init(params, AdamWConfig()), batch)
+                           match="pod axis.*ROADMAP Queue 1 item 2"):
+            step(params, {}, batch)
     assert float(get_model(cfg).loss(params, batch)) > 0     # no mesh
 
 
 @pytest.mark.parametrize("what", ["kv_heads", "family", "data_axis"])
 def test_layouts_this_slice_does_not_take_are_refused(what):
     """KV heads that do not divide m (JAX would replicate K/V and shard
-    the cache over T), an MLA/MoE config, a data axis beside the model
-    axis: each entry point raises and names the ROADMAP item."""
-    cfg, model, data = case_cfg("yi-6b"), 2, 1
+    the cache over T), an MLA/MoE config, a second data axis (a pod axis
+    beside the data and model axes, the multi-pod mesh; one data axis is
+    laid out, ``tests/test_torch_dp_tp.py``): each entry point raises and
+    names the ROADMAP item."""
+    cfg, axes = case_cfg("yi-6b"), ((1, 2), ("data", "model"))
     if what == "kv_heads":
         cfg = get_arch("yi-6b").reduced(n_kv_heads=1)
     elif what == "family":
         cfg = get_arch("deepseek-v2-lite-16b").reduced()
     else:
-        data = 2
+        axes = ((2, 2, 2), ("pod", "data", "model"))
     m = get_model(cfg)
     toks = torch.ones((2, 4), dtype=torch.int64)
     calls = [lambda: m.prefill({}, {"tokens": toks}, 8),
@@ -531,7 +538,7 @@ def test_layouts_this_slice_does_not_take_are_refused(what):
              lambda: m.forward({}, {"tokens": toks})]
     if what != "family":
         calls.append(lambda: T.init_quant_cache(cfg, 2, 8, device="cpu"))
-    with _abstract(model, data):
+    with AX.use_mesh(EL.abstract_mesh(*axes)):
         for call in calls:
             with pytest.raises(NotImplementedError,
                                match="ROADMAP Queue 1 item 2"):
@@ -544,12 +551,13 @@ def test_layouts_this_slice_does_not_take_are_refused(what):
 
 def test_collectives_are_plain_ops_without_a_model_axis():
     """At m = 1 each function of ``tp.py`` is the single-device form and
-    issues nothing (the counters stay)."""
-    before = dict(tp.COUNTS)
+    issues nothing (the counters stay); beside a data axis too, where
+    every rank holds the whole batch (``tp.whole_rows``)."""
+    before = tp.counts()
     x = torch.randn(3, 5, 8).to(torch.bfloat16)
     w = torch.randn(8, 6).to(torch.bfloat16)
     for mesh in (None, EL.abstract_mesh((2, 1), ("data", "model"))):
-        with AX.use_mesh(mesh):
+        with AX.use_mesh(mesh), tp.whole_rows():
             assert tp.model_size() == 1 and tp.model_rank() == 0
             assert torch.equal(tp.row_parallel(x, w), torch.matmul(x, w))
             toks = torch.tensor([[0, 5, 7]])
@@ -557,6 +565,6 @@ def test_collectives_are_plain_ops_without_a_model_axis():
             assert tp.gather_vocab(x) is x
             p = torch.ones(3)
             assert tp.reduce_from_model(p) is p
-    assert tp.COUNTS == before
+    assert tp.counts() == before
     with pytest.raises(TypeError, match="f32"):
         tp.reduce_from_model(x)

@@ -232,8 +232,10 @@ def port_train(case: str, md: str, mesh) -> dict:
         out[f"loss/{i}"] = np.float32(met["loss"])
         out[f"grad_norm/{i}"] = np.float32(met["grad_norm"])
         out[f"collectives/{i}"] = np.asarray(
-            [met["collectives"][k] for k in ("all_reduce", "backward",
-                                             "all_gather")])
+            [met["collectives"]["model"][k] for k in ("all_reduce",
+                                                      "backward",
+                                                      "all_gather")]
+            + [sum(met["collectives"]["data"].values())])
         for path, p in store.leaf_paths(params):
             if _is_norm(path):
                 out[f"norm/{i}{path}"] = _bits(p)
@@ -592,7 +594,7 @@ def test_collectives_of_a_step(records, case):
             for i in range(STEPS):
                 np.testing.assert_array_equal(
                     port[f"{case}/{md}/collectives/{i}"],
-                    [total, backward, 0])
+                    [total, backward, 0, 0])
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -621,22 +623,21 @@ def test_vocab_cross_entropy_matches_whole(records, world):
 # refusals (an abstract mesh: each raises before any collective)
 # ---------------------------------------------------------------------------
 
-def _abstract(model: int, data: int = 1):
-    return AX.use_mesh(EL.abstract_mesh((data, model), ("data", "model")))
-
-
 @pytest.mark.parametrize("what", ["straddling_tiles", "data_axis",
                                   "train_driver", "family"])
 def test_what_training_under_tp_still_refuses(records, what):
     """Each raises naming the ROADMAP item: ``bdi8``/``q8`` moments of
     reduced yi-6b at d_ff 128 under m = 2 (one tile of gate and up split
-    over the two shards, where JAX's step gathers), a data axis beside the
-    model axis, ``launch/train.train()`` under a mesh, and the loss of a
-    family this slice does not lay out."""
+    over the two shards, where JAX's step gathers), a second data axis (a
+    pod axis beside the data and model axes, the multi-pod mesh; one data
+    axis is laid out, ``tests/test_torch_dp_tp.py``), ``launch/train.
+    train()`` under a mesh, and the loss of a family this slice does not
+    lay out."""
     cfg = get_arch("yi-6b").reduced()
     batch = _torch_batch(case_batches(cfg)[0])
-    data, model = (2, 2) if what == "data_axis" else (1, 2)
-    with _abstract(model, data):
+    axes = ((2, 2, 2), ("pod", "data", "model")) if what == "data_axis" \
+        else ((1, 2), ("data", "model"))
+    with AX.use_mesh(EL.abstract_mesh(*axes)):
         mesh = AX.current_mesh()
         if what == "straddling_tiles":
             assert int(records["jax"][2]["straddle/all_gathers"]) > 0
@@ -651,8 +652,7 @@ def test_what_training_under_tp_still_refuses(records, what):
                 adamw_init(local, AdamWConfig(moment_dtype=md))
         elif what == "data_axis":
             with pytest.raises(NotImplementedError,
-                               match=r"beside data axes.*ROADMAP Queue 1 "
-                                     r"item 2"):
+                               match=r"pod axis.*ROADMAP Queue 1 item 2"):
                 get_model(cfg).loss({}, batch)
         elif what == "train_driver":
             with pytest.raises(NotImplementedError,

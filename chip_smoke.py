@@ -306,7 +306,9 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      layer at a time and keeps its FSDP blocks,
      ``local_params(fsdp=True, layers=)``; batches by ``batch_specs``,
      each rank its rows).  It serves 4 prompts of 128 tokens (2 a data
-     group) and 16 greedy tokens, then trains from the same params for 3
+     group) and ``DPT_GEN`` = 8 greedy tokens (16 until phase 18 came:
+     a decode step gathers every FSDP block through the host, ~6.6 s),
+     then trains from the same params for 3
      steps of 4 x 128 under bdi8 moments (ZeRO-1: each rank keeps its
      blocks' moments, stored and loaded by kernels 4 and 5).  Before the
      ranks start, ``dpt_predict`` computes from the shapes each leaf's
@@ -326,6 +328,30 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      Kernels 4 and 5 are held against their plain versions on those rows
      of every moment store of each rank (launches not counted); the four
      ranks' launches go into the ``kernels`` line.
+  18. The model axis where the KV heads do not divide it: yi-6b at full
+     width (32 heads, 4 KV heads, d_ff 11008, vocab 64000, seed 0) on a
+     ``(1, 8)`` mesh of eight gloo rank processes of the one card, the
+     smallest model axis on which its KV heads stay whole (wk, wv on
+     every rank, each rank's 4 query heads reading their KV head) and
+     the decode cache is sharded over T (``cache_specs``: 18 of 144 rows
+     a rank).  Each rank draws the model a layer at a time and keeps its
+     shards, serves 4 prompts of 128 tokens and 16 greedy tokens at
+     ``REP_LAYERS`` = 8 layers (decode: the query heads gathered, the T
+     blocks' softmax combined by a MAX and a SUM all-reduce, the new
+     token's K/V written on the rank that holds its row), then trains 3
+     steps of 4 x 128 at ``REP_TRAIN_LAYERS`` = 4 under bdi8, where
+     gate, up (86 tiles) and lm_head (500) straddle the shards: every
+     rank keeps their whole moments, updated from the gradient gathered
+     over the model axis, through kernels 4 and 5.  ``rep_predict``
+     computes from the shapes a rank's bytes (params, cache, moments),
+     the straddling leaves, the collectives of a prefill, a decode step
+     and a train step, the row writes a step by rank and the tile
+     launches; each rank must match them.  The eight ranks' tokens,
+     logits, losses, norms, wk, wv and straddling moments must be equal;
+     against the same weights whole in this process, phase 17's bounds.
+     Kernels 4 and 5 are held against their plain versions on sampled
+     rows of every moment store of each rank, the whole straddling ones
+     included; the eight ranks' launches go into the ``kernels`` line.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -4175,7 +4201,8 @@ def _sample(t, path: str, n_layers: int):
 
 def tpt_state(params: dict, state: dict | None, n_layers: int,
               coord: dict | None = None, owners: list | None = None,
-              shape: tuple = (1, TP_RANKS)) -> dict:
+              shape: tuple = (1, TP_RANKS), wide: list | None = None
+              ) -> dict:
     """``_sample`` of every param leaf and of its two moments (loaded to
     f32; none with ``state`` None), on the host.  ``coord``: cut the
     whole tree to the blocks of the rank at those coordinates of a
@@ -4183,7 +4210,9 @@ def tpt_state(params: dict, state: dict | None, n_layers: int,
     (``fsdp=True``), a moment store's parts by the
     param's spec on their leading dims (the last param dim is the tile
     count, cut in whole tiles), narrowed along ``owners`` (a ZeRO-1
-    leaf's owner dim, by leaf) where the param is whole over data."""
+    leaf's owner dim, by leaf) where the param is whole over data; a
+    moment whose tiles straddle the model shards (``wide``, by leaf)
+    whole over model."""
     from repro_torch.checkpoint.store import leaf_paths
     from repro_torch.distributed import sharding as SH
     from repro_torch.optim import adamw
@@ -4211,10 +4240,11 @@ def tpt_state(params: dict, state: dict | None, n_layers: int,
         pc = _sample(cut(p.detach(), spec), path, n_layers)
         out[f"param{path}"] = pc.to("cpu", copy=True)
         owner = None if owners is None or owners[i] < 0 else owners[i]
+        mspec = spec[:-1] + (None,) if wide and wide[i] else spec
         for k, leaves in stores.items():
             s = leaves[i]
             if isinstance(s, dict):
-                s = {n: _sample(cut(x, spec, owner), f"{path}['{n}']",
+                s = {n: _sample(cut(x, mspec, owner), f"{path}['{n}']",
                                 n_layers) for n, x in s.items()}
                 shape = s["deltas"].shape[:-2] + (
                     s["deltas"].shape[-2] * 128,)
@@ -4477,6 +4507,7 @@ def phase_tp_train(dev) -> dict:
 DPT_SHAPE = (2, 2)                   # (data, model)
 DPT_RANKS = DPT_SHAPE[0] * DPT_SHAPE[1]
 DPT_LAYERS = 4
+DPT_GEN = 8                          # greedy tokens (~6.6 s a decode step)
 
 
 def _dpt_mesh():
@@ -4550,7 +4581,8 @@ def dpt_predict(cfg) -> dict:
             "tile_launches_a_step": 4 * groups}
 
 
-def dpt_tiles_vs_plain(params: dict, state: dict, n_layers: int) -> int:
+def dpt_tiles_vs_plain(params: dict, state: dict, n_layers: int,
+                       phase: str = "17") -> int:
     """Kernels 4 and 5 against their plain versions on the sampled rows
     of every bdi8 moment store of this rank (``_sample``): decompress,
     then compress what it gave; bit-equal or raise.  Returns the tiles
@@ -4578,8 +4610,9 @@ def dpt_tiles_vs_plain(params: dict, state: dict, n_layers: int) -> int:
                       for f, a, b in zip(got._fields, got, want)]
             for name, a, b in pairs:
                 if not torch_equal_bits(a, b):
-                    raise AssertionError(f"phase 17: {k}{path}: {name} "
-                                         f"differs from the plain version")
+                    raise AssertionError(f"phase {phase}: {k}{path}: "
+                                         f"{name} differs from the plain "
+                                         f"version")
             n += p.deltas.shape[0]
     return n
 
@@ -4637,8 +4670,8 @@ def dp_tp_rank(rank: int, work: str) -> None:
             # no warm-up: a step is seconds of weight gathers through the
             # host, which a warm-up would only repeat
             torch.cuda.reset_peak_memory_stats(dev)
-            out = dense_generate(cfg, params, tp_prompts(cfg.vocab), TP_GEN,
-                                 keep_logits=True)
+            out = dense_generate(cfg, params, tp_prompts(cfg.vocab),
+                                 DPT_GEN, keep_logits=True)
             res.update(serve_peak_bytes=torch.cuda.max_memory_allocated(dev),
                        prefill_ms=out["prefill_s"] * 1e3,
                        ms_a_step=[s * 1e3 for s in out["decode_s"]],
@@ -4771,7 +4804,7 @@ def phase_dp_tp(dev) -> dict:
                          dev)
     prompts = tp_prompts(cfg.vocab)
     dense_generate(cfg, params, prompts[:, :16], 3)             # warm-up
-    whole = dense_generate(cfg, params, prompts, TP_GEN, keep_logits=True)
+    whole = dense_generate(cfg, params, prompts, DPT_GEN, keep_logits=True)
     par, worst = _served_parity("phase 17", got[0]["served"]["tokens"],
                                 got[0]["served"]["logits"], whole, TP_ULPS)
     state = adamw_init(params, ocfg)
@@ -4816,7 +4849,7 @@ def phase_dp_tp(dev) -> dict:
     mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
     out = {"card": smi(), "cell": f"internvl2-76b full width, "
            f"{cfg.n_layers} layers, (2, 2) over gloo on one card, FSDP and "
-           f"ZeRO-1 at 64 MiB: serving {TP_BATCH} x {TP_PROMPT} + {TP_GEN}, "
+           f"ZeRO-1 at 64 MiB: serving {TP_BATCH} x {TP_PROMPT} + {DPT_GEN}, "
            f"then {TPT_STEPS} train steps of {TPT_BATCH} x {TPT_SEQ} under "
            f"{ocfg.moment_dtype} moments",
            "ranks_wall_s": ranks_s, "whole_wall_s": whole_s,
@@ -4852,6 +4885,392 @@ def phase_dp_tp(dev) -> dict:
                                for rr in res)
                         for k in ("bdi_compress", "bdi_decompress")}}
     log(f"phase 17: {json.dumps(out)}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the model axis where yi-6b's KV heads do not divide it (K/V
+# replicated, the cache over T, bdi8 tiles across shards), eight ranks
+# ---------------------------------------------------------------------------
+
+REP_SHAPE = (1, 8)                   # (data, model)
+REP_RANKS = REP_SHAPE[0] * REP_SHAPE[1]
+REP_LAYERS, REP_TRAIN_LAYERS = 8, 4  # serving, training, of yi-6b's 32
+REP_SEED = 0
+
+
+def rep_cfg(n_layers: int):
+    from repro_torch.configs.registry import get_arch
+    return at_depth(get_arch("yi-6b"), n_layers)
+
+
+def rep_predict() -> dict:
+    """What a rank of phase 18 holds and issues, from the shapes alone
+    (meta tensors on an abstract ``(1, 8)`` mesh): bytes of a rank's
+    params (serving and training depth), of its dense cache, of its bdi8
+    moments; the leaves whose moment tiles straddle the shards; the
+    collectives of a prefill, of a decode step and of a train step over
+    the model axis (``tp.COUNTS``: all_reduce, all_gather, backward,
+    writes); tile launches a train step.  The counts follow
+    ``distributed/tp.py`` with query heads split (32 over 8) and K/V
+    whole (4 KV heads): a decode step gathers the query heads and
+    combines the T blocks (MAX, then one SUM) a layer beside wo's and
+    the MLP's sums, the embedding's sum and the logits' gather; the rank
+    holding row t writes each layer's K and V; a train step issues PR
+    26's count plus wk's and wv's weight-gradient sums a layer, and one
+    gather a straddling leaf's gradient; a moment group (``adamw._
+    groups`` of the whole-over-model moment) is two decompresses and two
+    compresses."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.launch.elastic import abstract_mesh
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.optim import adamw as AW
+    from repro_torch.optim import adamw_init, opt_state_bytes
+    mesh = abstract_mesh(REP_SHAPE, ("data", "model"))
+    ocfg = tpt_ocfg()
+    nbytes = lambda tree: sum(t.numel() * t.element_size()   # noqa: E731
+                              for t in _leaves(tree))
+    out = {}
+    with use_mesh(mesh):
+        for key, n in (("serve", REP_LAYERS), ("train", REP_TRAIN_LAYERS)):
+            whole = init_params(rep_cfg(n), torch.Generator(), "meta")
+            local = SH.local_params(whole, mesh, coord={"data": 0,
+                                                        "model": 0})
+            out[f"param_bytes_{key}"] = nbytes(local)
+        cache = init_cache(rep_cfg(REP_LAYERS), TP_BATCH, TP_PROMPT + TP_GEN,
+                           device="meta")
+        out["cache_bytes"] = sum(t.numel() * t.element_size() for t in cache)
+        out["cache_block"] = list(cache.full_k.shape)
+        wide = tp.check_moments(local, ocfg.moment_dtype)
+        state = adamw_init(local, ocfg)
+        out["moment_bytes"] = opt_state_bytes(state, ocfg)
+        shapes = [AW._wide(p.shape, w)
+                  for (_, p), w in zip(leaf_paths(local), wide)]
+    out["straddling"] = [p for (p, _), w in zip(leaf_paths(local), wide)
+                         if w]
+    groups = [len(AW._groups(torch.empty(sh, device="meta")))
+              for sh in shapes if AW._tiled(sh, ocfg.moment_dtype)]
+    wide_groups = sum(len(AW._groups(torch.empty(sh, device="meta")))
+                      for sh, w in zip(shapes, wide) if w)
+    n, m = REP_LAYERS, REP_SHAPE[1]
+    nt = REP_TRAIN_LAYERS
+    backward = 5 * nt + 1 + 2 * nt
+    rows = (TP_PROMPT + TP_GEN) // m
+    # the decode steps' positions TP_PROMPT .. TP_PROMPT + TP_GEN - 2
+    writers = sorted({t // rows for t in range(TP_PROMPT,
+                                               TP_PROMPT + TP_GEN - 1)})
+    out.update({
+        "prefill_model": [2 * n + 1, 1, 0, 0],
+        "decode_step_model": [4 * n + 1, n + 1, 0],
+        "decode_writes_a_step": {str(r): 2 * n * sum(
+            t // rows == r for t in range(TP_PROMPT, TP_PROMPT + TP_GEN - 1))
+            / (TP_GEN - 1) for r in writers},
+        "train_step_model": [(1 + 2 * nt + 2) + (nt + 2) + backward + 1,
+                             len(out["straddling"]), backward],
+        "tile_launches_a_step": 4 * sum(groups),
+        "tile_launches_a_step_straddling": 4 * wide_groups})
+    return out
+
+
+def rep_rank(rank: int, work: str) -> None:
+    """One rank of phase 18 on the ``(1, 8)`` mesh: its shards of yi-6b
+    at ``REP_LAYERS`` (drawn a layer at a time), serving, then
+    ``TPT_STEPS`` train steps of the model at ``REP_TRAIN_LAYERS`` under
+    bdi8; writes ``rep_<rank>.json`` and ``.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._device import resolve_device
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw, adamw_init, opt_state_bytes
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(work) / "rendezvous_rep"), REP_RANKS), rank=rank,
+        world_size=REP_RANKS)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        mesh = make_host_mesh(*REP_SHAPE)
+        with use_mesh(mesh):
+            cfg, ocfg = rep_cfg(REP_LAYERS), tpt_ocfg()
+            t0 = time.perf_counter()
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(REP_SEED), dev,
+                local=lambda t: SH.local_params(t, mesh))
+            sync(dev)
+            res.update(init_s=time.perf_counter() - t0,
+                       param_bytes_serve=sum(t.numel() * t.element_size()
+                                             for t in _leaves(params)))
+            prompts = tp_prompts(cfg.vocab)
+            dense_generate(cfg, params, prompts[:, :13], 3)      # warm-up
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = dense_generate(cfg, params, prompts, TP_GEN,
+                                 keep_logits=True)
+            res.update(serve_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                       prefill_ms=out["prefill_s"] * 1e3,
+                       ms_a_step=[s * 1e3 for s in out["decode_s"]],
+                       serve_collectives=out["collectives"],
+                       cache_bytes=out["cache_bytes"])
+            served = {"tokens": out["tokens"], "logits": out["logits"]}
+            del out, params
+            torch.cuda.empty_cache()
+            cfg = rep_cfg(REP_TRAIN_LAYERS)
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(REP_SEED), dev,
+                local=lambda t: SH.local_params(t, mesh))
+            res["param_bytes_train"] = sum(t.numel() * t.element_size()
+                                           for t in _leaves(params))
+            wide = tp.check_moments(params, ocfg.moment_dtype)
+            state = adamw_init(params, ocfg)
+            batches = tpt_batches(cfg, dev)
+            step = make_train_step(get_model(cfg), ocfg)
+            start = tpt_state(params, None, cfg.n_layers)
+            sync(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            mets, norms, sample, held = [], [], None, 0
+            for i, batch in enumerate(batches):
+                params, state, met = step(params, state, batch)
+                mets.append(met)
+                norms.append(tpt_norms(params, state))
+                if i == 0:
+                    launches = dict(ops.LAUNCHES)
+                    sample = tpt_state(params, state, cfg.n_layers)
+                    held = dpt_tiles_vs_plain(params, state, cfg.n_layers,
+                                              "18")
+                    ops.LAUNCHES.update(launches)   # the sample's, plain's
+            peak = torch.cuda.max_memory_allocated(dev)
+        res.update(
+            opt_state_bytes=opt_state_bytes(state, ocfg), wide=wide,
+            moment_shapes={p: list(s["deltas"].shape) for (p, _), s, w in
+                           zip(leaf_paths(params),
+                               adamw._store_leaves(state["m"]), wide) if w},
+            losses=[m["loss"] for m in mets],
+            grad_norms=[m["grad_norm"] for m in mets],
+            fwd_bwd_ms=[m["fwd_bwd_s"] * 1e3 for m in mets],
+            opt_ms=[m["opt_s"] * 1e3 for m in mets],
+            collectives=[m["collectives"] for m in mets],
+            train_peak_bytes=peak, tiles_held_vs_plain=held,
+            kernel_launches={k: v for k, v in ops.LAUNCHES.items() if v})
+        torch.save({"served": served, "start": start, "sample": sample,
+                    "norms": norms}, Path(work) / f"rep_{rank}.pt")
+        (Path(work) / f"rep_{rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh()
+
+
+def phase_replicated(dev) -> dict:
+    """Phase 18 (see the module docstring)."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    ocfg = tpt_ocfg()
+    pred = rep_predict()
+    log(f"phase 18 prediction (shapes, (1, 8)): {json.dumps(pred)}")
+    work = Path(tempfile.mkdtemp(prefix="rep18_"))
+    t0 = time.perf_counter()
+    ranks = [(_spawn(f"rep_rank({r}, {str(work)!r})",
+                     work / f"rep_{r}.log"), work / f"rep_{r}.log")
+             for r in range(REP_RANKS)]
+    _wait_all(ranks, "phase 18: a rank", 600)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"rep_{r}.json").read_text())
+           for r in range(REP_RANKS)]
+    got = [torch.load(work / f"rep_{r}.pt") for r in range(REP_RANKS)]
+    want = pred["tile_launches_a_step"] * TPT_STEPS
+    for r, rr in enumerate(res):
+        step = rr["ms_a_step"]
+        log(f"phase 18 rank {r} (gloo through the host on one card, not a "
+            f"TP speed): " + json.dumps(
+                rr | {"ms_a_step": {"median": sorted(step)[len(step) // 2],
+                                    "min": min(step), "max": max(step)}}))
+        ran = rr["kernel_launches"]
+        if rr["backend"] != "gloo" or ran != {"bdi_compress": want // 2,
+                                              "bdi_decompress": want // 2}:
+            raise AssertionError(f"phase 18: rank {r}: backend "
+                                 f"{rr['backend']}, launches {ran}, "
+                                 f"predicted {want // 2} each")
+        if not all(math.isfinite(x) for x in rr["losses"]):
+            raise AssertionError(f"phase 18: rank {r}: {rr['losses']}")
+        for key, pkey in (("param_bytes_serve", "param_bytes_serve"),
+                          ("param_bytes_train", "param_bytes_train"),
+                          ("cache_bytes", "cache_bytes"),
+                          ("opt_state_bytes", "moment_bytes")):
+            if rr[key] != pred[pkey]:
+                raise AssertionError(f"phase 18: rank {r}: {key} {rr[key]}"
+                                     f", predicted {pred[pkey]}")
+        wide = [p for p in rr["moment_shapes"]]
+        if wide != pred["straddling"]:
+            raise AssertionError(f"phase 18: rank {r}: straddling {wide}, "
+                                 f"predicted {pred['straddling']}")
+        c = rr["serve_collectives"]
+        model = lambda x, keys: [x["model"][k] for k in keys]  # noqa: E731
+        checks = [
+            ("prefill", model(c["prefill"], ("all_reduce", "all_gather",
+                                             "backward", "writes")),
+             pred["prefill_model"]),
+            ("decode step", model(c["per_step"], ("all_reduce",
+                                                  "all_gather",
+                                                  "backward")),
+             pred["decode_step_model"]),
+            ("decode writes", c["per_step"]["model"]["writes"],
+             pred["decode_writes_a_step"].get(str(r), 0.0))]
+        checks += [(f"train step {i}", model(m, ("all_reduce", "all_gather",
+                                                 "backward")),
+                    pred["train_step_model"])
+                   for i, m in enumerate(rr["collectives"])]
+        checks += [(f"{name} over data", sum(x["data"].values()), 0)
+                   for name, x in [("prefill", c["prefill"]),
+                                   ("decode step", c["per_step"])]
+                   + [(f"train step {i}", m)
+                      for i, m in enumerate(rr["collectives"])]]
+        for name, a, b in checks:
+            if a != b:
+                raise AssertionError(f"phase 18: rank {r}: {name} "
+                                     f"collectives {a}, predicted {b}")
+    for r in range(1, REP_RANKS):
+        if res[r]["losses"] != res[0]["losses"] or \
+                res[r]["grad_norms"] != res[0]["grad_norms"]:
+            raise AssertionError("phase 18: the ranks' losses or norms "
+                                 "differ")
+        if got[r]["served"]["tokens"] != got[0]["served"]["tokens"] or \
+                not torch.equal(got[r]["served"]["logits"],
+                                got[0]["served"]["logits"]):
+            raise AssertionError("phase 18: the ranks' serving differs")
+        for i in range(TPT_STEPS):
+            for k, a in got[0]["norms"][i].items():
+                if not torch.equal(a, got[r]["norms"][i][k]):
+                    raise AssertionError(f"phase 18: step {i}: {k} differs "
+                                         f"between ranks 0 and {r}")
+        # the whole-over-model leaves and moments (K/V's projections, the
+        # straddling leaves' moments), the same bits on every rank
+        for k, a in got[0]["sample"].items():
+            b = got[r]["sample"][k]
+            if ("['wk']" in k or "['wv']" in k or k[0] in "mv" and any(
+                    k[1:] == p for p in pred["straddling"])) and \
+                    not torch.equal(bits(a), bits(b)):
+                raise AssertionError(f"phase 18: {k} differs between "
+                                     f"ranks 0 and {r}")
+    # the same weights, prompts and batches, whole, in this process
+    t1 = time.perf_counter()
+    cfg = rep_cfg(REP_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        REP_SEED), dev)
+    prompts = tp_prompts(cfg.vocab)
+    dense_generate(cfg, params, prompts[:, :13], 3)             # warm-up
+    whole = dense_generate(cfg, params, prompts, TP_GEN, keep_logits=True)
+    par, worst = _served_parity("phase 18", got[0]["served"]["tokens"],
+                                got[0]["served"]["logits"], whole, TP_ULPS)
+    del params
+    release(dev)
+    cfg = rep_cfg(REP_TRAIN_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        REP_SEED), dev)
+    state = adamw_init(params, ocfg)
+    step = make_train_step(get_model(cfg), ocfg)
+    wide = res[0]["wide"]
+    start = [tpt_state(params, None, cfg.n_layers, {"data": 0, "model": r},
+                       shape=REP_SHAPE) for r in range(REP_RANKS)]
+    for r in range(REP_RANKS):
+        for k, t in start[r].items():
+            if not torch.equal(t, got[r]["start"][k]):
+                raise AssertionError(f"phase 18: rank {r}'s {k} is not "
+                                     f"its block of the whole model's")
+    mets, want_s = [], None
+    for i, batch in enumerate(tpt_batches(cfg, dev)):
+        params, state, met = step(params, state, batch)
+        mets.append(met)
+        if i == 0:
+            want_s = [tpt_state(params, state, cfg.n_layers,
+                                {"data": 0, "model": r}, shape=REP_SHAPE,
+                                wide=wide) for r in range(REP_RANKS)]
+    whole_s = time.perf_counter() - t1
+    del params, state
+    release(dev)
+    gaps = [_one_step_gap(got[r]["sample"], want_s[r], start[r])
+            for r in range(REP_RANKS)]
+    losses = [m["loss"] for m in mets]
+    ours = res[0]["losses"]
+    if abs(ours[0] - losses[0]) > TPT_FIRST_RTOL * abs(losses[0]) or \
+            any(abs(a - b) > TPT_LOSS_RTOL * abs(b)
+                for a, b in zip(ours, losses)):
+        raise AssertionError(f"phase 18: losses {ours} against the whole "
+                             f"model's {losses}")
+    for r, g in enumerate(gaps):
+        w = {n: v for n, (_, v) in g["worst"].items()}
+        if (w["within_1_ulp"] < TPT_ULP_SHARE
+                or w["max_gap_over_lr"] > 2.0
+                or max(w["m_err"], w["v_err"]) > TPT_MOMENT_RTOL):
+            raise AssertionError(f"phase 18: rank {r} after step 1: "
+                                 f"{g['worst']}")
+    rest = slice(1, None)
+    mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
+    out = {"card": smi(), "cell": f"yi-6b full width, (1, 8) over gloo on "
+           f"one card (32 heads split, 4 KV heads whole, the cache over T): "
+           f"serving {TP_BATCH} x {TP_PROMPT} + {TP_GEN} at {REP_LAYERS} "
+           f"layers, then {TPT_STEPS} train steps of {TPT_BATCH} x "
+           f"{TPT_SEQ} at {REP_TRAIN_LAYERS} layers under "
+           f"{ocfg.moment_dtype} moments",
+           "ranks_wall_s": ranks_s, "whole_wall_s": whole_s,
+           "tokens_equal": par.compared,
+           "ties": [t.__dict__ for t in par.ties],
+           "worst_logit_gap_ulps": worst,
+           "losses": ours, "losses_whole": losses,
+           "grad_norms": res[0]["grad_norms"],
+           "grad_norms_whole": [m["grad_norm"] for m in mets],
+           "after_step_1_worst_rank": min(
+               (g["worst"] for g in gaps),
+               key=lambda w: w["within_1_ulp"][1]),
+           "moment_shapes": res[0]["moment_shapes"],
+           "ms_a_step": {f"rank{r}": {
+               "init_s": rr["init_s"], "prefill": rr["prefill_ms"],
+               "decode_median": sorted(rr["ms_a_step"])[
+                   len(rr["ms_a_step"]) // 2],
+               "fwd_bwd": mean(rr["fwd_bwd_ms"][rest]),
+               "opt": mean(rr["opt_ms"][rest]),
+               "first_step": rr["fwd_bwd_ms"][0] + rr["opt_ms"][0]}
+               for r, rr in enumerate(res)},
+           "whole_ms_a_step": {
+               "prefill": whole["prefill_s"] * 1e3,
+               "decode_median": sorted(whole["decode_s"])[
+                   len(whole["decode_s"]) // 2] * 1e3,
+               "fwd_bwd": mean([m["fwd_bwd_s"] * 1e3 for m in mets[rest]]),
+               "opt": mean([m["opt_s"] * 1e3 for m in mets[rest]])},
+           "collectives_a_step": {
+               "prefill": res[0]["serve_collectives"]["prefill"],
+               "decode": res[0]["serve_collectives"]["per_step"],
+               "train": res[0]["collectives"][-1]},
+           "peak_gb_a_rank": {"serve": [rr["serve_peak_bytes"] / 1e9
+                                        for rr in res],
+                              "train": [rr["train_peak_bytes"] / 1e9
+                                        for rr in res]},
+           "tiles_held_vs_plain": [rr["tiles_held_vs_plain"] for rr in res],
+           "launches": {k: sum(rr["kernel_launches"].get(k, 0)
+                               for rr in res)
+                        for k in ("bdi_compress", "bdi_decompress")},
+           "launches_straddling": pred["tile_launches_a_step_straddling"]
+           * TPT_STEPS * REP_RANKS}
+    log(f"phase 18: {json.dumps(out)}")
     return out
 
 
@@ -5043,10 +5462,14 @@ def main() -> int:
     dpt = phase_dp_tp(dev)
     phase_done("17 DP x TP serving and training (bdi8) of internvl2-76b at "
                "full width, 4 layers, four ranks on one card")
+    rep = phase_replicated(dev)
+    phase_done("18 yi-6b on a model axis of 8 (K/V whole, the cache over "
+               "T, bdi8 tiles across shards), eight ranks on one card")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of
-    # phases 10, 13 (the compressed all-reduce), 16 and 17 (every rank), and
+    # phases 10, 13 (the compressed all-reduce), 16, 17 and 18 (every
+    # rank), and
     # for the serving kernels phases 9 and 9b, each counted from 0 over
     # its own run
     path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
@@ -5060,7 +5483,8 @@ def main() -> int:
             k["launches"] += (trained["launches"][name]
                               + dp["launches"][name]
                               + tp_trained["launches"][name]
-                              + dpt["launches"][name])
+                              + dpt["launches"][name]
+                              + rep["launches"][name])
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

@@ -49,9 +49,34 @@ Training (``jax.value_and_grad`` of the loss under the same mesh):
   * the embedding's backward scatters into this rank's rows only;
   * the clip norm: one f32[] ``all-reduce`` per leaf sharded over
     ``model`` (that leaf's local sum of squares); the replicated leaves
-    (the norms) add theirs once.  ``optim/adamw._global_norm`` sums them
-    in one ``all-reduce`` of the stacked scalars (:func:`sharded_leaves`
-    says which leaves, from the rule table by path).
+    (the norms, and any leaf the rule table keeps whole) add theirs once.
+    ``optim/adamw._global_norm`` sums them in one ``all-reduce`` of the
+    stacked scalars (:func:`sharded_leaves` says which leaves, from the
+    rule table's spec after it drops the axis from a dim that does not
+    divide it).
+
+Heads that do not divide the model axis (JAX's production mesh: yi's 4
+KV heads, qwen2.5's 40 heads at m = 16).  The rule table then drops
+``model`` from wk and wv (and from wq, wo and the QKV biases where the
+heads do not divide) and ``cache_specs`` shards the decode cache over T
+instead of its KV heads.  A model's entry points mark those leaves
+:class:`Whole` (:func:`model_whole`), and the HLO of GSPMD's program
+holds, per layer:
+
+  * split Q, whole K/V: every rank computes all KV heads from the
+    replicated residual stream and its query heads read theirs
+    (``models/attention.heads_kv``); the input gradient's partial of
+    k and v is summed like q's, and wk's and wv's weight gradients are
+    f32 partials summed over ``model`` and rounded once (an f32 tuple
+    all-reduce): :class:`_ModelSum`, reached through :func:`weight`;
+  * whole Q (and wo): attention runs whole on every rank, with no sum
+    forward or backward;
+  * decode over a cache sharded over T: the query heads gathered over
+    ``model`` (:func:`all_gather`), every head scored against this
+    rank's rows, a MAX all-reduce of the row maxima and a SUM all-reduce
+    of the weighted values and sums of exp (:func:`softmax_over_rows`),
+    then this rank's heads for wo; the new token's K/V written on the
+    one rank that holds row t (:func:`write_row`).
 
 Data axis (a ``(d, m)`` mesh with d > 1, laid out as JAX's dry run lays
 out every production cell: params by ``param_shardings(fsdp=True)``,
@@ -84,7 +109,8 @@ before, and the weight gradient leaves it in f32, for the data axis's
 sum to round once.  A rank's params carry no layout of their own; a
 model's entry points find it by comparing each leaf's shape with the
 rule table's blocks of the whole model (:func:`placement`) and wrap the
-leaves split over ``data`` as :class:`Fsdp`.
+leaves split over ``data`` as :class:`Fsdp` and those kept whole over
+``model`` as :class:`Whole` (:func:`layout_view`).
 
 The layers call these functions at every mesh: with no mesh, or axes
 of one, each is the plain single-device form.  The collectives go
@@ -95,9 +121,12 @@ backend.  A collective that fails raises.
 
 :data:`COUNTS` counts the collectives issued here, by axis, and the
 bytes of their inputs (``backward``: those of them issued by a backward
-pass), for the serving loop's and the train step's reports (``launch/
+pass; ``writes``: decode-cache rows written into this rank's T block),
+for the serving loop's and the train step's reports (``launch/
 serve.dense_generate``, ``launch/train.make_train_step``);
-``optim/adamw.py`` adds the ZeRO-1 gathers of updated blocks.
+``optim/adamw.py`` adds the ZeRO-1 gathers of updated blocks and the
+gathers of the gradients of leaves whose moment tiles straddle the
+model shards (:func:`check_moments`).
 """
 
 from __future__ import annotations
@@ -119,8 +148,8 @@ from .sharding import rule_template
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 2"
 AXES = ("model", "data")
-COUNTS = {a: {"all_reduce": 0, "all_gather": 0, "bytes": 0, "backward": 0}
-          for a in AXES}
+COUNTS = {a: {"all_reduce": 0, "all_gather": 0, "bytes": 0, "backward": 0,
+              "writes": 0} for a in AXES}
 _TILE = 128                            # optim/adamw.py's moment tile
 _rows = threading.local()
 
@@ -338,11 +367,53 @@ def fsdp_gather(block: torch.Tensor, dim: int) -> torch.Tensor:
     return all_gather(block, dim, "data")
 
 
+class Whole(NamedTuple):
+    """A leaf the rule table would split over ``model`` but keeps whole,
+    since the dim does not divide the axis (wk and wv where the KV heads
+    do not divide it; wq, wo and every attention leaf where the heads do
+    not): ``w`` a tensor or an :class:`Fsdp` block.  ``partial``: each
+    rank reads only its query heads' part of it (K/V under split Q), so
+    its gradient is a partial, summed over ``model`` (:class:`_ModelSum`);
+    otherwise every rank computes with the whole of it alike."""
+    w: object
+    partial: bool
+
+
+class _ModelSum(torch.autograd.Function):
+    """A leaf whole over ``model`` that this rank reads for its own heads
+    only, widened to f32.  Backward: its f32 gradient partial summed over
+    ``model`` and rounded once to the leaf's dtype (f32 for a leaf widened
+    over ``data`` already, whose node sums over ``data`` and rounds), as
+    JAX's HLO sums wk's and wv's (an f32 tuple all-reduce, then one
+    convert)."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.dtype, ctx.group = w.dtype, model_group()
+        return w.to(torch.float32, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = g
+        if g.dtype != torch.float32 or not g.is_contiguous():
+            s = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+            s.copy_(g)
+        _all_reduce(s, group=ctx.group, backward=True)
+        return s.to(ctx.dtype)
+
+
 def weight(w) -> torch.Tensor:
     """A weight at its use: an :class:`Fsdp` block gathered
     (:func:`fsdp_gather`); under split rows, a leaf replicated over
     ``data`` that needs a gradient widened to f32, its gradient's partial
-    summed over ``data`` and rounded once; otherwise the tensor itself."""
+    summed over ``data`` and rounded once; a :class:`Whole` leaf read by
+    this rank's heads only, its gradient's partial summed over ``model``
+    too; otherwise the tensor itself."""
+    if isinstance(w, Whole):
+        t = weight(w.w)
+        if w.partial and torch.is_grad_enabled() and t.requires_grad:
+            return _ModelSum.apply(t)
+        return t
     if isinstance(w, Fsdp):
         return fsdp_gather(w.block, w.dim)
     if rows_split() and torch.is_grad_enabled() and w.requires_grad:
@@ -381,6 +452,12 @@ class _Sizes:
         self.axis_names = tuple(shape)
 
 
+def model_axis() -> _Sizes:
+    """The active mesh's model axis alone, as the rule table reads a mesh
+    (``sharding.cache_specs`` of a cache whose rows are this rank's)."""
+    return _Sizes({"model": model_size()})
+
+
 def placement(whole: dict, params: dict) -> tuple:
     """For each leaf of this rank's ``params`` (``jax.tree.leaves``
     order): ``(path, split over model, dim split over data)``, the last
@@ -397,18 +474,40 @@ def placement(whole: dict, params: dict) -> tuple:
     return _placement(key, sizes, SH.FSDP_THRESHOLD_BYTES)
 
 
-def fsdp_view(tree: dict, dims: dict, prefix: str = "", lead: int = 0
-              ) -> dict:
+_KV = "['blocks']['attn']['w{}']"
+
+
+def model_whole(lay: tuple) -> dict:
+    """``{path: partial}`` for each leaf of a :func:`placement` that the
+    rule table would split over ``model`` but keeps whole (the dim does
+    not divide the axis): ``partial`` for wk's and wv's leaves where wq is
+    split (each rank's query heads read their KV heads of the whole K/V;
+    :class:`Whole`).  Empty with a model axis of one."""
+    if model_size() == 1:
+        return {}
+    split = {path: model for path, model, _ in lay}
+    q = split.get(_KV.format("q") + "['w']", False)
+    return {path: q and path.startswith((_KV.format("k"), _KV.format("v")))
+            for path, model, _ in lay
+            if not model and "m" in rule_template(path)}
+
+
+def layout_view(tree: dict, dims: dict, whole: dict | None = None,
+                prefix: str = "", lead: int = 0) -> dict:
     """``tree`` with every leaf whose path (``prefix`` + its keys) is in
-    ``dims`` as ``Fsdp(leaf, dims[path] - lead)``: ``lead`` 1 for one
-    layer of the stacked blocks."""
+    ``dims`` as ``Fsdp(leaf, dims[path] - lead)`` (``lead`` 1 for one
+    layer of the stacked blocks), and every one in ``whole``
+    (:func:`model_whole`) as ``Whole(leaf, whole[path])``."""
+    whole = whole or {}
     out = {}
     for k, v in tree.items():
         path = f"{prefix}['{k}']"
         if isinstance(v, dict):
-            out[k] = fsdp_view(v, dims, path, lead)
-        else:
-            out[k] = Fsdp(v, dims[path] - lead) if path in dims else v
+            out[k] = layout_view(v, dims, whole, path, lead)
+            continue
+        if path in dims:
+            v = Fsdp(v, dims[path] - lead)
+        out[k] = Whole(v, whole[path]) if path in whole else v
     return out
 
 
@@ -466,14 +565,17 @@ def row_parallel(x: torch.Tensor, w) -> torch.Tensor:
     """x [..., K] @ w [*k, N] -> [..., N] in x's dtype (K the product of
     ``k``), where K is split over the ``model`` axis (this rank's heads
     or d_ff columns): the f32 partial summed over the ranks, then rounded
-    once.  With a model axis of one, the plain product that rounds once
-    (``layers.linear``).  ``w``: a tensor or an :class:`Fsdp` block."""
+    once.  With a model axis of one, or for a :class:`Whole` leaf (wo
+    where the heads do not divide the axis: every rank has every head),
+    the plain product that rounds once (``layers.linear``).  ``w``: a
+    tensor, an :class:`Fsdp` block or a :class:`Whole` leaf."""
+    plain = model_size() == 1 or isinstance(w, Whole)
     w = weight(w)
     w2d = w.reshape(-1, w.shape[-1])
-    if model_size() == 1 and w.dtype == x.dtype:
+    if plain and w.dtype == x.dtype:
         return torch.matmul(x, w2d)
     x2d = x.reshape(-1, x.shape[-1])
-    if model_size() == 1:
+    if plain:
         y = _Product.apply(x2d, w2d, False, False)
     else:
         # the partial and the sum are two nodes: a layer's recompute stops
@@ -489,14 +591,17 @@ def column_parallel(x: torch.Tensor, w) -> torch.Tensor:
     accumulated and rounded once (``layers.linear``'s product), where
     ``out`` is this rank's heads or columns.  The forward issues nothing;
     under a model axis the backward sums the input gradient's partial.
-    ``w``: a tensor or an :class:`Fsdp` block."""
+    ``w``: a tensor, an :class:`Fsdp` block or a :class:`Whole` leaf: one
+    read by this rank's heads only (``partial``) is a column product too,
+    all of whose columns the rank computes; one read whole on every rank
+    the plain product, no sum either way."""
+    sums = model_size() > 1 and not (isinstance(w, Whole) and not w.partial)
     w = weight(w)
     w2d = w.reshape(w.shape[0], -1)
-    if model_size() == 1 and w.dtype == x.dtype:
+    if not sums and w.dtype == x.dtype:
         y = torch.matmul(x, w2d)
     else:
-        y = _Product.apply(x.reshape(-1, x.shape[-1]), w2d, False,
-                           model_size() > 1)
+        y = _Product.apply(x.reshape(-1, x.shape[-1]), w2d, False, sums)
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
@@ -527,6 +632,38 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     if rows_split():
         logits = all_gather(logits, 0, "data")
     return logits
+
+
+def softmax_over_rows(scores: torch.Tensor, v: torch.Tensor
+                      ) -> torch.Tensor:
+    """Attention whose cache rows are split over ``model`` (a decode cache
+    sharded over T): ``scores`` f32 [B, K, G, n] of every query head
+    against this rank's n rows (n may be 0; masked rows at ``-1e30``),
+    ``v`` f32 [B, n, K, Dh] those rows' values -> the softmax-weighted
+    values over every rank's rows, f32 [B, K, G, Dh], on every rank.  A
+    MAX all-reduce of the row maxima, then one SUM all-reduce of the
+    weighted values and the sum of exp stacked, then the division, as
+    JAX's decode HLO combines its T blocks."""
+    if scores.shape[-1]:
+        mx = scores.amax(dim=-1)
+    else:
+        mx = scores.new_full(scores.shape[:-1], -1e30)
+    mx = _all_reduce(mx, op=dist.ReduceOp.MAX)
+    e = torch.exp(scores - mx[..., None])
+    part = torch.cat([torch.einsum("bkgt,btkd->bkgd", e, v),
+                      e.sum(dim=-1, keepdim=True)], dim=-1)
+    part = _all_reduce(part)
+    return part[..., :-1] / part[..., -1:]
+
+
+def write_row(cache: torch.Tensor, t: int, row: torch.Tensor) -> None:
+    """Write ``row`` [B, ...] at position ``t`` of a cache [B, T/m, ...]
+    whose rows are split over ``model`` (rank r holds [r T/m, (r + 1)
+    T/m)), on the one rank that holds row t (counted in ``writes``)."""
+    lo = model_rank() * cache.shape[1]
+    if lo <= t < lo + cache.shape[1]:
+        cache[:, t - lo] = row.to(cache.dtype)
+        COUNTS["model"]["writes"] += 1
 
 
 class _VocabCE(torch.autograd.Function):
@@ -576,23 +713,32 @@ def vocab_cross_entropy(logits: torch.Tensor,
     return _VocabCE.apply(logits, targets)
 
 
-def sharded_leaves(tree) -> list[bool]:
-    """For each leaf of a params tree (``jax.tree.leaves`` order), whether
-    the rule table shards it over ``model`` (read from its path, not from
-    its local shape); all False with a model axis of one."""
-    m = model_size()
-    return [m > 1 and "m" in rule_template(path)
-            for path, _ in leaf_paths(tree)]
+def sharded_leaves(whole: dict, params: dict) -> list[bool]:
+    """For each leaf of this rank's ``params`` (``jax.tree.leaves``
+    order), whether the rule table shards it over ``model`` once it has
+    dropped the axis from a dim that does not divide it (``placement``
+    against the whole model's shapes ``whole``): a replicated wk adds its
+    squares to the clip norm once, not once a rank.  All False with a
+    model axis of one."""
+    if model_size() == 1:
+        return [False] * len(leaf_paths(params))
+    return [model for _, model, _ in placement(whole, params)]
 
 
 def check_layout(cfg) -> None:
     """Raise unless this slice lays ``cfg`` out over the active mesh:
     the dense GQA decoders (yi, qwen2.5, gemma3, internvl2's language
-    model) with heads, KV heads, d_ff and the vocab each dividing the
-    model axis, beside a data axis of any size, on a mesh without a
-    ``pod`` axis.  Where the rule table would drop ``model`` from a leaf
-    (a dim that does not divide), JAX replicates it (K/V, and a cache
-    sharded over T): not laid out here."""
+    model) beside a data axis of any size, on a mesh without a ``pod``
+    axis, with d_ff and the vocab dividing the model axis.  Where the
+    heads or KV heads do not divide it, the rule table keeps those leaves
+    whole, as JAX does: K/V replicated (each rank's query heads read
+    their KV heads of the whole K/V), Q and wo too where the heads do not
+    divide, and the decode cache sharded over T (``cache_specs``; a
+    cache whose T does not divide the axis is refused where it is made,
+    ``models/transformer.init_cache``).  Refused, naming the ROADMAP
+    item: a pod axis, MLA, MoE, the recurrent and encoder-decoder
+    families, a d_ff or vocab that does not divide the model axis, and
+    ring caches (gemma3's local layers) whose KV heads do not divide it."""
     m, d = model_size(), data_size()
     if m == 1 and d == 1:
         return
@@ -607,41 +753,42 @@ def check_layout(cfg) -> None:
             f"{cfg.name}: tensor and data parallelism are ported for the "
             f"dense GQA decoders only, not for MLA, MoE, the recurrent or "
             f"the encoder-decoder families ({ROADMAP_ITEM})")
-    dims = {"n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
-            "d_ff": cfg.d_ff, "vocab": cfg.vocab}
-    odd = {k: v for k, v in dims.items() if v % m}
+    odd = {k: v for k, v in (("d_ff", cfg.d_ff), ("vocab", cfg.vocab))
+           if v % m}
     if odd:
         raise NotImplementedError(
             f"{cfg.name}: {odd} do not divide the model axis of {m}; the "
-            f"rule table would replicate those leaves (and shard the cache "
-            f"over T), which is not laid out ({ROADMAP_ITEM})")
+            f"rule table would replicate the MLP or the vocab, which is not "
+            f"laid out ({ROADMAP_ITEM})")
+    if cfg.local_ratio > 0 and cfg.n_kv_heads % m:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_kv_heads} KV heads do not divide the model "
+            f"axis of {m}; its ring caches would be sharded over their "
+            f"window, which is not laid out ({ROADMAP_ITEM})")
 
 
-def check_moments(params, moment_dtype: str) -> None:
-    """Raise where a ``bdi8``/``q8`` moment tile would straddle two shards:
-    a leaf whose last dim is sharded over ``model`` and whole tiles of 128
-    (so JAX stores it tiled) but whose tile count does not divide the
-    model axis.  The rule table then drops ``model`` from the moment's
-    tile dim and JAX gathers: it all-reduces the tile statistics (max,
-    min, the base predicate) and all-gathers the deltas and masks of
-    every such leaf, around each compress.  Not laid out here.  ``params``
-    is this rank's tree; f32 and bf16 moments have no tiles.  The same
-    straddle over ``data`` is refused where the update's blocks are cut
-    (``optim/adamw.py``)."""
+def check_moments(params, moment_dtype: str) -> list[bool]:
+    """For each leaf of this rank's ``params``, whether its
+    ``bdi8``/``q8`` moment tiles straddle two model shards: a leaf whose
+    last dim is sharded over ``model`` and whole tiles of 128 (so JAX
+    stores it tiled) but whose tile count does not divide the model axis.
+    The rule table then drops ``model`` from the moment's tile dim and
+    every rank holds the leaf's whole moments (``optim/adamw.py`` updates
+    them from the gradient gathered over ``model``).  f32 and bf16 moments
+    have no tiles; all False then, and with a model axis of one.  The
+    same straddle over ``data`` is refused where the update's blocks are
+    cut (``optim/adamw.plan``)."""
     m = model_size()
-    if m == 1 or moment_dtype not in ("bdi8", "q8"):
-        return
+    out = []
     for path, leaf in leaf_paths(params):
         tpl = rule_template(path)
-        if not tpl or tpl[-1] != "m" or leaf.dim() < len(tpl):
-            continue
-        whole = leaf.shape[-1] * m
-        if whole % _TILE == 0 and leaf.shape[-1] % _TILE:
-            raise NotImplementedError(
-                f"{path}: {whole // _TILE} {moment_dtype} moment tiles of "
-                f"{_TILE} do not divide the model axis of {m}; a tile would "
-                f"straddle two shards, which is not laid out "
-                f"({ROADMAP_ITEM})")
+        straddles = False
+        if m > 1 and moment_dtype in ("bdi8", "q8") and tpl \
+                and tpl[-1] == "m" and leaf.dim() >= len(tpl):
+            straddles = (leaf.shape[-1] * m) % _TILE == 0 \
+                and leaf.shape[-1] % _TILE != 0
+        out.append(straddles)
+    return out
 
 
 def refuse_model_axis(what: str) -> None:

@@ -108,11 +108,23 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
     same tokens; ``cache_bytes`` is this rank's.  ``collectives`` counts,
     by mesh axis (``distributed/tp.COUNTS``), the collectives of the
     prefill and of one decode step, with the bytes of their inputs
-    (zeros without a mesh)."""
+    (zeros without a mesh), and ``writes``, the cache rows a step wrote
+    into this rank's block of a cache sharded over T.  Where the KV heads
+    do not divide the model axis the cache is sharded over T, so its
+    ``s + gen`` rows must divide the axis too: else this raises, naming
+    the ROADMAP item, and picks no layout of its own."""
     model = get_model(cfg)
     dev = params["embed"]["w"].device
     b, s = prompts.shape
-    d = tp.data_size()
+    d, m = tp.data_size(), tp.model_size()
+    tp.check_layout(cfg)
+    if m > 1 and cfg.n_kv_heads % m and (s + gen) % m:
+        raise NotImplementedError(
+            f"{cfg.name}: a prompt of {s} plus {gen} new tokens make a cache "
+            f"of {s + gen} rows, which do not divide the model axis of {m}; "
+            f"its {cfg.n_kv_heads} KV heads do not either, so cache_specs "
+            f"would split the head dim, which is not laid out "
+            f"({tp.ROADMAP_ITEM})")
 
     def rows(t: torch.Tensor) -> torch.Tensor:
         if d == 1:

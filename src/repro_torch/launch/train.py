@@ -73,10 +73,11 @@ def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
         c0 = tp.counts()
         t0 = time.perf_counter()
         whole, d, rows = None, tp.data_size(), 0
-        if d > 1:
+        if d > 1 or tp.model_size() > 1:
             if "params" not in meta:
                 meta["params"] = model.init(torch.Generator(), "meta")
             whole = meta["params"]
+        if d > 1:
             rows = next(iter(batch.values())).shape[0]
             batch = SH.local_batch(batch, AX.current_mesh())
         with tp.whole_rows(d > 1 and rows % d != 0):

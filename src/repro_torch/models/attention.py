@@ -19,8 +19,13 @@ Under tensor parallelism (a ``model`` axis larger than one,
 ``distributed/tp.py``) the GQA functions run as they are on this rank's
 H/m query heads and K/m KV heads (its shards of wq, wk, wv, their biases
 and wo, and of the caches): query head h reads KV head h // (H/K) within
-the rank's block, as in the whole model.  In the forward only the output
-projection communicates: :func:`_proj_out` is row-parallel.  The
+the rank's block, as in the whole model.  Where the KV heads do not
+divide m, wk and wv are whole (``tp.Whole``): the rank computes every KV
+head and its query heads read theirs (:func:`heads_kv`), and the decode
+cache holds the rank's rows of T (:func:`attend_rows`); where the heads
+do not divide m either, attention runs whole on every rank.  In the
+forward only the output projection communicates: :func:`_proj_out` is
+row-parallel (plain where wo is whole).  The
 full-sequence q/k/v projections are column-parallel
 (``layers.column_linear``), whose backward sums each input gradient's
 partial over the ranks; a bias's gradient is local.  Under a data axis
@@ -140,6 +145,7 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
         k, v = kv
     else:
         k, v = gqa_kv(p, x if kv_x is None else kv_x, kvp, theta=theta)
+    k, v = heads_kv(p, q, k, v)
     h, kh = q.shape[2], k.shape[2]
     ctx = _chunked_attn(q.reshape(b, s, kh, h // kh, dh), k, v, positions,
                         kvp, causal, window)
@@ -157,6 +163,63 @@ def _ring_slot(pos, tc: int):
     """The ring slot of position(s) ``pos`` (an int or an integer tensor):
     floor modulo, so a position below 0 maps into [0, tc) too."""
     return pos % tc
+
+
+def heads_kv(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K/V [..., K', Dh] for the query heads ``q`` [..., h, Dh] of this
+    rank, query head i reading KV head i // (h / K'): ``k``/``v`` as they
+    are, but where K/V are whole over the model axis and Q split
+    (``tp.Whole`` wk read by this rank's heads only) the KV heads that
+    rank r's query heads [r h, (r + 1) h) read, h // (H/K) each: one KV
+    head where its group holds all of them, else one a query head."""
+    w = p["wk"]["w"]
+    if not (isinstance(w, tp.Whole) and w.partial):
+        return k, v
+    h, kh = q.shape[-2], k.shape[-2]
+    g = h * tp.model_size() // kh              # query heads a KV head
+    lo = tp.model_rank() * h
+    if g % h == 0:
+        return k.narrow(-2, lo // g, 1), v.narrow(-2, lo // g, 1)
+    idx = torch.arange(lo, lo + h, device=k.device) // g
+    return k.index_select(-2, idx), v.index_select(-2, idx)
+
+
+def rows_split(p: dict) -> bool:
+    """Whether a GQA layer's decode cache holds this rank's rows of T (K/V
+    whole over the model axis: ``cache_specs`` shards the cache over T)."""
+    return isinstance(p["wk"]["w"], tp.Whole)
+
+
+def rows_upto(tb: int, t: int) -> int:
+    """How many of this rank's ``tb`` rows of a cache sharded over T lie
+    at or before position ``t``."""
+    return min(max(t + 1 - tp.model_rank() * tb, 0), tb)
+
+
+def attend_rows(p: dict, q: torch.Tensor, kk: torch.Tensor,
+                vv: torch.Tensor, valid: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """Decode attention over a cache sharded over T: ``q`` [B, 1, h, Dh]
+    this rank's query heads (every head where Q is whole), ``kk``/``vv``
+    f32 [B, n, K, Dh] this rank's n rows up to the step's position
+    (``valid`` [n] masks more) -> the context [B, 1, h, Dh] in q's dtype.
+    The query heads are gathered over the model axis where Q is split,
+    every head scores this rank's rows, ``tp.softmax_over_rows`` combines
+    the ranks, and each rank keeps its own heads for wo."""
+    split = p["wk"]["w"].partial
+    qa = tp.all_gather(q, 2, "model") if split else q
+    b, _, h, dh = qa.shape
+    kh = kk.shape[2]
+    qg = qa.reshape(b, kh, h // kh, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32),
+                          kk) / math.sqrt(dh)
+    if valid is not None:
+        scores = torch.where(valid, scores, scores.new_tensor(NEG_INF))
+    ctx = tp.softmax_over_rows(scores, vv).to(q.dtype).reshape(b, 1, h, dh)
+    if split:
+        ctx = ctx.narrow(2, tp.model_rank() * q.shape[2], q.shape[2])
+    return ctx
 
 
 def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
@@ -181,6 +244,17 @@ def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     if theta > 0:
         q = _rope_at(q, t, theta)
         k_new = _rope_at(k_new, t, theta)
+    if rows_split(p):
+        tp.write_row(k_cache, t, k_new[:, 0])
+        tp.write_row(v_cache, t, v_new[:, 0])
+        n = rows_upto(tc, t)
+        valid = None
+        if window > 0:
+            pos = tp.model_rank() * tc + torch.arange(n, device=x.device)
+            valid = pos > t - window
+        ctx = attend_rows(p, q, k_cache[:, :n].to(torch.float32),
+                          v_cache[:, :n].to(torch.float32), valid)
+        return _proj_out(p, ctx), k_cache, v_cache
     slot = _ring_slot(t, tc) if ring else t
     k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
@@ -209,14 +283,15 @@ def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
 
 def gqa_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       cache_len: int, *, ring: bool, theta: float = 1e4,
-                      kv: tuple[torch.Tensor, torch.Tensor] | None = None
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
+                      kv: tuple[torch.Tensor, torch.Tensor] | None = None,
+                      start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     """A prompt's K/V laid out as a decode cache [B, cache_len, K, Dh].
 
     ``kv``: (k roped, v) from :func:`gqa_kv`, so that a caller that also
     runs attention projects once.  A ring takes the last min(cache_len,
-    S) positions at slot ``position % cache_len``; a full cache the first
-    cache_len rows.
+    S) positions at slot ``position % cache_len``; a full cache the
+    cache_len rows from position ``start`` (a rank's block of a cache
+    sharded over T), those past the prompt zero.
     """
     k, v = kv if kv is not None else gqa_kv(p, x, positions, theta=theta)
     b, s, kh, dh = k.shape
@@ -228,9 +303,9 @@ def gqa_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
         kc[:, idx] = k[:, s - take:]
         vc[:, idx] = v[:, s - take:]
     else:
-        n = min(cache_len, s)
-        kc[:, :n] = k[:, :n]
-        vc[:, :n] = v[:, :n]
+        n = max(0, min(cache_len, s - start))
+        kc[:, :n] = k[:, start:start + n]
+        vc[:, :n] = v[:, start:start + n]
     return kc, vc
 
 

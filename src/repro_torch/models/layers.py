@@ -27,8 +27,13 @@ ranks, then rounded), ``embed`` looks up this rank's rows of the vocab
 and sums, ``lm_logits``/``last_logits`` gather the vocab columns, so
 every rank returns the whole ``[..., V]``, and ``chunked_cross_entropy``
 never gathers them: each chunk's loss is the vocab-parallel
-cross-entropy of this rank's columns (``tp.vocab_cross_entropy``).  With
-a model axis of one each is the plain form above.
+cross-entropy of this rank's columns (``tp.vocab_cross_entropy``).  A
+leaf the rule table keeps whole over the model axis (``tp.Whole``: wq,
+wk, wv, their biases, wo where the heads do not divide it) is the plain
+product in :func:`column_linear` and ``tp.row_parallel``, no sum forward
+or backward, but for wk's and wv's under split query heads, whose input
+gradient and weight gradient are partials summed over the ranks.  With a
+model axis of one each is the plain form above.
 
 Under a data axis larger than one the layers take this rank's rows of
 the batch, and every weight is read through ``tp.weight`` at its use:

@@ -27,7 +27,10 @@ latent.  The caches are written in place, as the JAX package's donated
 Tensor parallelism (a ``(1, m)`` mesh active, ``distributed/tp.py``):
 the dense GQA configs serve and train with each rank holding its shards
 of the params (``distributed/sharding.local_params``) and of the caches
-(the K/m KV heads that ``cache_specs`` gives it); ``prefill``,
+(``cache_specs``: the K/m KV heads, or, where the KV heads do not divide
+m and the rule table keeps K/V whole, its T/m rows of every KV head,
+which ``prefill`` keeps of the K/V it computed and decode attends over
+with the ranks' softmax statistics combined); ``prefill``,
 ``decode_step``, ``decode_step_quant`` and ``forward`` return the whole
 logits on every rank, and ``loss_fn`` the same loss on every rank, its
 gradients being this rank's shards (a replicated leaf's, the norms',
@@ -60,7 +63,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.checkpoint.store import leaf_paths
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import axes as AX
+from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
 
@@ -205,14 +211,17 @@ def placed(cfg: ArchConfig, params: dict) -> tuple[dict, list[dict]]:
     """``(params, layers)``: this rank's params and their per-layer views
     (``params.unstack``), where under a data axis each leaf split over
     ``data`` is a ``tp.Fsdp`` block, which the layers read through
-    ``tp.weight``."""
-    if tp.data_size() == 1:
+    ``tp.weight``, and under a model axis each attention leaf kept whole
+    over it (heads or KV heads that do not divide it) a ``tp.Whole``."""
+    m = tp.model_size()
+    if tp.data_size() == 1 and cfg.n_kv_heads % m == 0:
         return params, P.unstack(params["blocks"])
-    dims = {path: d for path, _, d in tp.placement(whole_shapes(cfg), params)
-            if d is not None}
-    top = tp.fsdp_view({k: v for k, v in params.items() if k != "blocks"},
-                       dims)
-    return top, [tp.fsdp_view(bp, dims, "['blocks']", lead=1)
+    lay = tp.placement(whole_shapes(cfg), params)
+    dims = {path: d for path, _, d in lay if d is not None}
+    whole = tp.model_whole(lay)
+    top = tp.layout_view({k: v for k, v in params.items() if k != "blocks"},
+                         dims, whole)
+    return top, [tp.layout_view(bp, dims, whole, "['blocks']", lead=1)
                  for bp in P.unstack(params["blocks"])]
 
 
@@ -277,6 +286,32 @@ def cache_bytes(cache: NamedTuple) -> int:
     return sum(t.numel() * t.element_size() for t in cache)
 
 
+def _blocks(cfg: ArchConfig, whole: NamedTuple) -> list[tuple]:
+    """This rank's block shape of each leaf of a decode cache whose rows
+    are this rank's already (``whole``: ``meta`` tensors of the whole
+    cache over the model axis): ``sharding.cache_specs`` on the model axis
+    alone, which splits the KV heads, or T where they do not divide it.
+    Any other split (T does not divide the axis either: ``cache_specs``
+    would split ``Dh``) raises, naming the ROADMAP item."""
+    m = tp.model_size()
+    if m == 1:
+        return [tuple(t.shape) for t in whole]
+    axis = tp.model_axis()
+    out = []
+    for (path, t), (_, spec) in zip(leaf_paths(whole), SH.spec_leaves(
+            SH.cache_specs(whole, axis))):
+        if t.numel() and t.dim() >= 4 and \
+                [i for i, a in enumerate(spec) if a == "model"] not in (
+                    [2], [3]):
+            raise NotImplementedError(
+                f"{cfg.name}: the cache's {path} {tuple(t.shape)} splits "
+                f"neither its KV heads nor its T over the model axis of {m} "
+                f"(cache_specs gives {spec}); a prompt plus new tokens that "
+                f"divide the axis are laid out ({tp.ROADMAP_ITEM})")
+        out.append(AX.local_shape(tuple(t.shape), spec, axis))
+    return out
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16,
                device: torch.device | str | None = None) -> DecodeCache:
@@ -284,21 +319,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     check_family(cfg)
     tp.check_layout(cfg)
     _, _, (n_g, n_l) = cache_slots(cfg)
-    k, dh = cfg.n_kv_heads // tp.model_size(), cfg.head_dim
+    k, dh = cfg.n_kv_heads, cfg.head_dim
 
     def z(*shape):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.empty(shape, dtype=dtype, device="meta")
     if cfg.attn_kind == "mla":
-        return DecodeCache(
+        whole = DecodeCache(
             full_k=z(0), full_v=z(0), ring_k=z(0), ring_v=z(0),
             mla_c=z(cfg.n_layers, batch, max_len, cfg.kv_lora_rank),
             mla_kr=z(cfg.n_layers, batch, max_len, cfg.qk_rope_dim))
-    w = min(max(cfg.window, 1), max_len)
-    return DecodeCache(
-        full_k=z(n_g, batch, max_len, k, dh),
-        full_v=z(n_g, batch, max_len, k, dh),
-        ring_k=z(n_l, batch, w, k, dh), ring_v=z(n_l, batch, w, k, dh),
-        mla_c=z(0), mla_kr=z(0))
+    else:
+        w = min(max(cfg.window, 1), max_len)
+        whole = DecodeCache(
+            full_k=z(n_g, batch, max_len, k, dh),
+            full_v=z(n_g, batch, max_len, k, dh),
+            ring_k=z(n_l, batch, w, k, dh), ring_v=z(n_l, batch, w, k, dh),
+            mla_c=z(0), mla_kr=z(0))
+    return DecodeCache(*(torch.zeros(s, dtype=dtype, device=device)
+                         for s in _blocks(cfg, whole)))
 
 
 def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -310,16 +348,15 @@ def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
         raise ValueError(f"{cfg.name}: the quantised cache takes all-global "
                          "GQA archs only")
     tp.check_layout(cfg)
-    lyr, dh = cfg.n_layers, cfg.head_dim
-    k = cfg.n_kv_heads // tp.model_size()
-
-    def z(*shape, dtype=torch.float32, fill=0.0):
-        return torch.full(shape, fill, dtype=dtype, device=device)
-    return QuantDecodeCache(
-        kd=z(lyr, batch, max_len, k, dh, dtype=torch.int8),
-        kb=z(lyr, batch, max_len, k), ks=z(lyr, batch, max_len, k, fill=1.0),
-        vd=z(lyr, batch, max_len, k, dh, dtype=torch.int8),
-        vb=z(lyr, batch, max_len, k), vs=z(lyr, batch, max_len, k, fill=1.0))
+    rows = (cfg.n_layers, batch, max_len, cfg.n_kv_heads)
+    deltas = torch.empty((*rows, cfg.head_dim), dtype=torch.int8,
+                         device="meta")
+    stat = torch.empty(rows, device="meta")
+    whole = QuantDecodeCache(deltas, stat, stat, deltas, stat, stat)
+    return QuantDecodeCache(*(
+        torch.full(s, fill, dtype=t.dtype, device=device)
+        for s, t, fill in zip(_blocks(cfg, whole), whole,
+                              (0, 0.0, 1.0, 0, 0.0, 1.0))))
 
 
 def _quant_vec(x: torch.Tensor):
@@ -351,21 +388,29 @@ def decode_step_quant(cfg: ArchConfig, params: dict, cache: QuantDecodeCache,
         k_new = A._rope_at(L.column_linear(a["wk"], h), t, cfg.rope_theta)
         v_new = L.column_linear(a["wv"], h)
         b, _, hh, dh = q.shape
+        split = A.rows_split(a)
         for (dd, bb, ss), new in (((cache.kd, cache.kb, cache.ks), k_new),
                                   ((cache.vd, cache.vb, cache.vs), v_new)):
             qd, qb, qs = _quant_vec(new[:, 0])            # [B, K, *]
-            dd[i, :, t], bb[i, :, t], ss[i, :, t] = qd, qb, qs
-        n = t + 1
+            if split:
+                for c, row in zip((dd[i], bb[i], ss[i]), (qd, qb, qs)):
+                    tp.write_row(c, t, row)
+            else:
+                dd[i, :, t], bb[i, :, t], ss[i, :, t] = qd, qb, qs
+        n = A.rows_upto(cache.kd.shape[2], t) if split else t + 1
         kk = (cache.kd[i, :, :n].to(f32) * cache.ks[i, :, :n, :, None]
               + cache.kb[i, :, :n, :, None])               # [B, n, K, Dh]
         vv = (cache.vd[i, :, :n].to(f32) * cache.vs[i, :, :n, :, None]
               + cache.vb[i, :, :n, :, None])
-        kh = kk.shape[2]
-        qg = q.reshape(b, kh, hh // kh, dh)
-        scores = torch.einsum("bkgd,btkd->bkgt", qg.to(f32), kk)
-        w = torch.softmax(scores / math.sqrt(dh), dim=-1)
-        ctx = torch.einsum("bkgt,btkd->bkgd", w, vv).to(x.dtype)
-        x = x + A._proj_out(a, ctx.reshape(b, 1, hh, dh))
+        if split:
+            x = x + A._proj_out(a, A.attend_rows(a, q, kk, vv))
+        else:
+            kh = kk.shape[2]
+            qg = q.reshape(b, kh, hh // kh, dh)
+            scores = torch.einsum("bkgd,btkd->bkgt", qg.to(f32), kk)
+            w = torch.softmax(scores / math.sqrt(dh), dim=-1)
+            ctx = torch.einsum("bkgt,btkd->bkgd", w, vv).to(x.dtype)
+            x = x + A._proj_out(a, ctx.reshape(b, 1, hh, dh))
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_apply(cfg, bp, h)
     return L.last_logits(params, x, cfg.norm_eps), cache
@@ -431,9 +476,11 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
             kv = A.gqa_kv(bp["attn"], h, positions, theta=cfg.rope_theta)
             k_pool, v_pool = ((cache.full_k, cache.full_v) if is_g[i]
                               else (cache.ring_k, cache.ring_v))
+            tb = k_pool.shape[2]
+            start = tp.model_rank() * tb if A.rows_split(bp["attn"]) else 0
             k_pool[sl], v_pool[sl] = A.gqa_prefill_cache(
-                bp["attn"], h, positions, k_pool.shape[2], ring=not is_g[i],
-                kv=kv)
+                bp["attn"], h, positions, tb, ring=not is_g[i], kv=kv,
+                start=start)
         x = x + _attn_forward(cfg, bp, h, positions, int(w), kv=kv)
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_apply(cfg, bp, h)

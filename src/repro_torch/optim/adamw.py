@@ -35,9 +35,16 @@ every tree here is this rank's shards: the moments are those of the
 local params (equal to ``local_shards`` of the whole state, as JAX places
 it with the params' specs), compressed and decompressed tile by tile on
 the shard, and the clip norm sums, over the ``model`` axis, the sum of
-squares of each leaf the rule table shards (``tp.sharded_leaves``),
-the replicated ones counting once.  Under ``bdi8``/``q8`` a tile that
-would straddle two shards raises (``tp.check_moments``).
+squares of each leaf the rule table shards (``tp.sharded_leaves``, which
+needs the whole params' shapes, ``whole=``), the replicated ones counting
+once.  Under ``bdi8``/``q8`` a leaf whose tiles would straddle two shards
+(``tp.check_moments``: its last dim split over ``model``, its tile count
+not) keeps its whole moments on every rank, as JAX's rule table drops
+``model`` from their tile dim: the update gathers the leaf's gradient
+over ``model`` (2 bytes an element, fewer than gathering the f32 slices
+of m and v or JAX's tile statistics, deltas and masks), updates the
+whole moments, compresses whole tiles (kernel 4 on the card) and steps
+this rank's columns of the param.
 
 Under a ``(d, m)`` mesh (ZeRO-1, :func:`plan`) each rank keeps the
 moments of one block of each leaf, whole tiles only: an FSDP leaf's data
@@ -158,12 +165,14 @@ def _store(x: torch.Tensor, kind: str):
             "maskp": p.maskp.view(*lead, _TILE // 8)}
 
 
-def _zero_store(p: torch.Tensor, kind: str):
-    """What :func:`_store` gives for zeros of ``p``'s shape (a zero tile
-    has base 0, scale 1, no mask bit), made without compressing."""
+def _zero_store(p: torch.Tensor, kind: str, shape: tuple | None = None):
+    """What :func:`_store` gives for zeros of ``p``'s shape, or of
+    ``shape`` on ``p``'s device (a zero tile has base 0, scale 1, no mask
+    bit), made without compressing."""
     if kind not in MOMENT_DTYPES:
         raise ValueError(kind)
-    dev, shape = p.device, tuple(p.shape)
+    dev = p.device
+    shape = tuple(p.shape) if shape is None else tuple(shape)
     if not _tiled(shape, kind):
         dt = torch.bfloat16 if kind == "bf16" else torch.float32
         return torch.zeros(shape, dtype=dt, device=dev)
@@ -202,6 +211,16 @@ class Leaf(NamedTuple):
     owner: int | None
 
 
+def _wide(shape, straddles: bool) -> tuple:
+    """A moment's shape for a rank's block ``shape`` of a leaf: whole over
+    ``model`` (the last dim times the axis) where its tiles straddle the
+    model shards (``tp.check_moments``), as the rule table keeps it."""
+    shape = tuple(shape)
+    if not straddles:
+        return shape
+    return (*shape[:-1], shape[-1] * tp.model_size())
+
+
 def plan(params: dict, whole: dict | None, cfg: AdamWConfig
          ) -> list[Leaf] | None:
     """Each leaf's :class:`Leaf` under the active mesh's data axis (None
@@ -226,9 +245,9 @@ def plan(params: dict, whole: dict | None, cfg: AdamWConfig
     mesh = AX.current_mesh()
     kind = cfg.moment_dtype
     out = []
-    for (path, model, data), (_, w), p in zip(
+    for (path, model, data), (_, w), p, wide in zip(
             tp.placement(whole, params), leaf_paths(whole),
-            P.leaves(params)):
+            P.leaves(params), tp.check_moments(params, kind)):
         spec = SH._spec_for(path, tuple(w.shape), mesh, w.element_size(),
                             True)
         owner = list(spec).index("data") if "data" in spec else None
@@ -241,8 +260,8 @@ def plan(params: dict, whole: dict | None, cfg: AdamWConfig
                                  store.element_size(), True)
             if "data" in mspec:
                 owner = list(mspec).index("data")
-        shard = list(p.shape)             # the leaf's model shard
-        if data is not None:
+        shard = list(_wide(p.shape, wide))  # the leaf's moment, whole
+        if data is not None:                 # over data
             shard[data] *= d
         if owner == len(shard) - 1 and _tiled(shard, kind) and \
                 (shard[-1] // d) % _TILE:
@@ -269,19 +288,19 @@ def adamw_init(params: dict, cfg: AdamWConfig,
     so a tree of ``meta`` tensors sizes a state without allocating).
     Under a data axis, ``whole`` (the whole params' shapes) is needed:
     the moments are those of this rank's blocks (:func:`plan`)."""
-    tp.check_moments(params, cfg.moment_dtype)
+    wide = tp.check_moments(params, cfg.moment_dtype)
     lay = plan(params, whole, cfg)
     leaves = P.leaves(params)
     blocks = [_block(p, None if lay is None else lay[i])
               for i, p in enumerate(leaves)]
     step_dev = leaves[0].device
-    return {
-        "step": torch.zeros((), dtype=torch.int32, device=step_dev),
-        "m": P.unflatten(params, [_zero_store(b, cfg.moment_dtype)
-                                  for b in blocks]),
-        "v": P.unflatten(params, [_zero_store(b, cfg.moment_dtype)
-                                  for b in blocks]),
-    }
+
+    def zeros():
+        return P.unflatten(params, [
+            _zero_store(b, cfg.moment_dtype, _wide(b.shape, w))
+            for b, w in zip(blocks, wide)])
+    return {"step": torch.zeros((), dtype=torch.int32, device=step_dev),
+            "m": zeros(), "v": zeros()}
 
 
 # -- the update ----------------------------------------------------------------
@@ -345,12 +364,19 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     ``state'`` holding the new step counter.  Under a data axis (``whole``
     as for :func:`adamw_init`) a rank updates its blocks (:func:`plan`)
     and all-gathers over ``data`` those of the leaves whole over it."""
-    tp.check_moments(params, cfg.moment_dtype)
+    wide = tp.check_moments(params, cfg.moment_dtype)
     lay = plan(params, whole, cfg)
     step = state["step"] + 1
     gs = P.leaves(grads)
-    if lay is None:
-        axes = [("model",) if s else () for s in tp.sharded_leaves(params)]
+    if lay is None and tp.model_size() > 1:
+        if whole is None:
+            raise TypeError("under a model axis the optimizer needs the "
+                            "whole params' shapes (whole=, a tree of meta "
+                            "tensors) for the clip norm")
+        axes = [("model",) if s else ()
+                for s in tp.sharded_leaves(whole, params)]
+    elif lay is None:
+        axes = None
     else:
         axes = [("model",) * leaf.model + ("data",) * (leaf.data is not None)
                 for leaf in lay]
@@ -363,24 +389,32 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
     kind = cfg.moment_dtype
 
     def upd(p, g, m_s, v_s):
+        # g and the moments may be whole over model where p is this
+        # rank's columns (a straddling leaf): the moments update whole,
+        # the param its columns
         g = g.to(torch.float32) * scale
-        m = cfg.b1 * _load(m_s, p.shape) + (1 - cfg.b1) * g
-        v = cfg.b2 * _load(v_s, p.shape) + (1 - cfg.b2) * g * g
+        m = cfg.b1 * _load(m_s, g.shape) + (1 - cfg.b1) * g
+        v = cfg.b2 * _load(v_s, g.shape) + (1 - cfg.b2) * g * g
+        _copy_into(m_s, _store(m, kind))
+        _copy_into(v_s, _store(v, kind))
+        if g.shape != p.shape:
+            w = p.shape[-1]
+            m, v = (t.narrow(-1, tp.model_rank() * w, w) for t in (m, v))
         mh = m / b1c
         vh = v / b2c
         delta = mh / (torch.sqrt(vh) + cfg.eps)
         if cfg.weight_decay:
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - cfg.lr * delta).to(p.dtype))
-        _copy_into(m_s, _store(m, kind))
-        _copy_into(v_s, _store(v, kind))
 
     for i, (p, g, m_s, v_s) in enumerate(zip(P.leaves(params), gs,
                                              _store_leaves(state["m"]),
                                              _store_leaves(state["v"]))):
         leaf = None if lay is None else lay[i]
         pb, gb = _block(p, leaf), _block(g, leaf)
-        for r0, r1 in _groups(pb):
+        if wide[i]:                       # every rank its whole moments
+            gb = tp.all_gather(gb, -1, "model")
+        for r0, r1 in _groups(gb):
             upd(*(_rows(t, r0, r1) for t in (pb, gb, m_s, v_s)))
         if pb is not p:
             p.copy_(tp.all_gather(pb, leaf.owner, "data"))

@@ -483,14 +483,16 @@ def _abstract(model: int):
     return AX.use_mesh(EL.abstract_mesh((1, model), ("data", "model")))
 
 
-def test_training_under_a_model_axis_is_refused():
-    """Training runs under a model axis (``tests/test_torch_tp_train.py``)
-    and beside a data axis (``tests/test_torch_dp_tp.py``) but for what
-    is not laid out: ``bdi8`` moments whose tile of 128 straddles two
-    shards (reduced yi-6b's d_ff of 128 at m = 2), a pod axis beside the
-    data and model axes (the multi-pod mesh), and ``launch/train.
-    train()``, which runs no mesh.  Each raises naming the ROADMAP
-    item."""
+def test_training_under_a_model_axis_is_refused(monkeypatch):
+    """Training runs under a model axis (``tests/test_torch_tp_train.py``,
+    ``tests/test_torch_tp_replicated.py``: moment tiles that straddle the
+    model shards too) and beside a data axis (``tests/test_torch_dp_
+    tp.py``) but for what is not laid out: ``bdi8`` moments whose tile of
+    128 straddles two data blocks (reduced yi-6b at d_model 256 on a data
+    axis of 4, FSDP at a threshold of 64 KiB, test-only: down's and wo's 2
+    tiles of D over 4 blocks), a pod axis beside the data and model axes
+    (the multi-pod mesh), and ``launch/train.train()``, which runs no
+    mesh.  Each raises naming the ROADMAP item."""
     from repro_torch.launch.train import make_train_step, train
     from repro_torch.optim import AdamWConfig, adamw_init
     cfg = case_cfg("yi-6b")
@@ -498,12 +500,17 @@ def test_training_under_a_model_axis_is_refused():
     batch = {k: torch.from_numpy(v) for k, v in TP.make_train_batch(
         cfg, ShapeConfig("t", 8, 2, "train"), TP.DataConfig(seed=3),
         step=0).items()}
-    with _abstract(2):
-        local = SH.local_params(params, AX.current_mesh(),
+    wide = get_arch("yi-6b").reduced(d_model=256, d_ff=256, vocab=256)
+    monkeypatch.setattr(SH, "FSDP_THRESHOLD_BYTES", 64 << 10)
+    with AX.use_mesh(EL.abstract_mesh((4, 1), ("data", "model"))):
+        whole = T.init_params(wide, torch.Generator(), "meta")
+        local = SH.local_params(whole, AX.current_mesh(), fsdp=True,
                                 coord={"data": 0, "model": 0})
         with pytest.raises(NotImplementedError,
                            match="straddle.*ROADMAP Queue 1 item 2"):
-            adamw_init(local, AdamWConfig(moment_dtype="bdi8"))
+            adamw_init(local, AdamWConfig(moment_dtype="bdi8"), whole=whole)
+    monkeypatch.undo()
+    with _abstract(2):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1 item 2"):
             train("yi-6b", steps=1, device="cpu")
@@ -518,14 +525,17 @@ def test_training_under_a_model_axis_is_refused():
 
 @pytest.mark.parametrize("what", ["kv_heads", "family", "data_axis"])
 def test_layouts_this_slice_does_not_take_are_refused(what):
-    """KV heads that do not divide m (JAX would replicate K/V and shard
-    the cache over T), an MLA/MoE config, a second data axis (a pod axis
-    beside the data and model axes, the multi-pod mesh; one data axis is
-    laid out, ``tests/test_torch_dp_tp.py``): each entry point raises and
-    names the ROADMAP item."""
+    """KV heads that do not divide m where they are laid out no further
+    (K/V replicated with the cache over T is, ``tests/test_torch_tp_
+    replicated.py``): gemma3's ring caches, which JAX would shard over
+    their window, and a cache whose T does not divide m either
+    (``cache_specs`` would split the head dim); an MLA/MoE config; a
+    second data axis (a pod axis beside the data and model axes, the
+    multi-pod mesh; one data axis is laid out, ``tests/test_torch_dp_
+    tp.py``): each entry point raises and names the ROADMAP item."""
     cfg, axes = case_cfg("yi-6b"), ((1, 2), ("data", "model"))
     if what == "kv_heads":
-        cfg = get_arch("yi-6b").reduced(n_kv_heads=1)
+        cfg = get_arch("gemma3-27b").reduced(n_kv_heads=1)
     elif what == "family":
         cfg = get_arch("deepseek-v2-lite-16b").reduced()
     else:
@@ -536,7 +546,10 @@ def test_layouts_this_slice_does_not_take_are_refused(what):
              lambda: m.decode_step({}, None, toks[:, 0], 4),
              lambda: m.init_cache(2, 8, device="cpu"),
              lambda: m.forward({}, {"tokens": toks})]
-    if what != "family":
+    if what == "kv_heads":
+        calls.append(lambda: T.init_quant_cache(get_arch("yi-6b").reduced(
+            n_kv_heads=1), 2, 7, device="cpu"))
+    elif what != "family":
         calls.append(lambda: T.init_quant_cache(cfg, 2, 8, device="cpu"))
     with AX.use_mesh(EL.abstract_mesh(*axes)):
         for call in calls:

@@ -89,7 +89,7 @@ from repro_torch.models import params as P
 from repro_torch.models import transformer as T
 from repro_torch.models.api import get_model
 from repro_torch.optim import AdamWConfig, adamw_init
-from repro_torch.optim.adamw import _load, _store_leaves
+from repro_torch.optim.adamw import _load, _store_leaves, plan
 from test_torch_decode import _ulp, exact_pow2_scale
 from test_torch_train import STEP_MOMENT_RTOL, STEP_ULP_SHARE, TRAJ_RTOL
 
@@ -625,31 +625,39 @@ def test_vocab_cross_entropy_matches_whole(records, world):
 
 @pytest.mark.parametrize("what", ["straddling_tiles", "data_axis",
                                   "train_driver", "family"])
-def test_what_training_under_tp_still_refuses(records, what):
-    """Each raises naming the ROADMAP item: ``bdi8``/``q8`` moments of
-    reduced yi-6b at d_ff 128 under m = 2 (one tile of gate and up split
-    over the two shards, where JAX's step gathers), a second data axis (a
-    pod axis beside the data and model axes, the multi-pod mesh; one data
-    axis is laid out, ``tests/test_torch_dp_tp.py``), ``launch/train.
-    train()`` under a mesh, and the loss of a family this slice does not
-    lay out."""
+def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
+    """Each raises naming the ROADMAP item: ``bdi8``/``q8`` moment tiles
+    that straddle two data blocks (reduced yi-6b at d_model 256 on a
+    ``(4, 2)`` mesh, FSDP at a threshold of 64 KiB, test-only: wo's 2
+    tiles of D over 4 blocks; tiles that straddle the model shards, one
+    of gate and up at d_ff 128 under m = 2, where JAX's step gathers, are
+    laid out, ``tests/test_torch_tp_replicated.py``), a second data axis
+    (a pod axis beside the data and model axes, the multi-pod mesh; one
+    data axis is laid out, ``tests/test_torch_dp_tp.py``), ``launch/
+    train.train()`` under a mesh, and the loss of a family this slice
+    does not lay out."""
     cfg = get_arch("yi-6b").reduced()
     batch = _torch_batch(case_batches(cfg)[0])
     axes = ((2, 2, 2), ("pod", "data", "model")) if what == "data_axis" \
+        else ((4, 2), ("data", "model")) if what == "straddling_tiles" \
         else ((1, 2), ("data", "model"))
     with AX.use_mesh(EL.abstract_mesh(*axes)):
         mesh = AX.current_mesh()
         if what == "straddling_tiles":
             assert int(records["jax"][2]["straddle/all_gathers"]) > 0
-            local = SH.local_params(T.init_params(
-                cfg, torch.Generator().manual_seed(0), "cpu"), mesh,
-                coord={"data": 0, "model": 0})
+            monkeypatch.setattr(SH, "FSDP_THRESHOLD_BYTES", 64 << 10)
+            whole = T.init_params(get_arch("yi-6b").reduced(
+                d_model=256, d_ff=256, vocab=256), torch.Generator(), "meta")
+            local = SH.local_params(whole, mesh, fsdp=True,
+                                    coord={"data": 0, "model": 0})
             for md in ("bdi8", "q8"):
                 with pytest.raises(NotImplementedError,
-                                   match=r"ROADMAP Queue 1 item 2"):
-                    adamw_init(local, AdamWConfig(moment_dtype=md))
+                                   match=r"straddle two blocks.*ROADMAP "
+                                         r"Queue 1 item 2"):
+                    adamw_init(local, AdamWConfig(moment_dtype=md),
+                               whole=whole)
             for md in ("f32", "bf16"):           # no tiles, no limit
-                adamw_init(local, AdamWConfig(moment_dtype=md))
+                assert plan(local, whole, AdamWConfig(moment_dtype=md))
         elif what == "data_axis":
             with pytest.raises(NotImplementedError,
                                match=r"pod axis.*ROADMAP Queue 1 item 2"):

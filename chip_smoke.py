@@ -263,7 +263,7 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      processes on the one card over gloo (NCCL refuses two ranks on one
      device: two more processes try it first and must fail).  Each rank
      draws the whole model from seed 15 on the card a layer at a time
-     and keeps its shards (``init_params(local=sharding.local_params)``),
+     and keeps its shards (``init_params(local=sharding.Local(mesh))``),
      then serves 4 prompts of 128 tokens and 16 greedy tokens through
      ``launch.serve.dense_generate`` after a short warm-up; the backend,
      prefill ms, ms a step, collectives and bytes a step (``tp.COUNTS``)
@@ -297,20 +297,22 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      bf16 ULP and every element within 2 lr + 1 ULP (a first step from
      zero moments, ``_one_step_gap``).  The kernel launches of both
      ranks go into the ``kernels`` line.
-  17. DP x TP: phase 16's model at ``DPT_LAYERS`` = 4 layers (training 8
+  17. DP x TP: phase 16's model at ``DPT_LAYERS`` = 2 layers (training 8
      would need ~78 GB for the four ranks, and a decode step gathers
-     every FSDP block through the host, ~13 s at 8 layers) on a ``(2,
-     2)`` mesh of four gloo rank processes of the one card, laid out as
-     JAX's dry run lays out a production cell (params by the rule table
-     with ``fsdp=True`` at its real 64 MiB: each rank draws the model a
-     layer at a time and keeps its FSDP blocks,
-     ``local_params(fsdp=True, layers=)``; batches by ``batch_specs``,
+     every FSDP block through the host, ~13 s at 8 layers; 4 until phase
+     19 came: the rule table makes the same leaves FSDP blocks at 2 as
+     at 4) on a ``(2, 2)`` mesh of four gloo rank processes of the one
+     card, laid out as JAX's dry run lays out a production cell (params
+     by the rule table with ``fsdp=True`` at its real 64 MiB: each rank
+     draws the model a layer at a time and keeps its FSDP blocks,
+     ``sharding.Local(fsdp=True, layers=)``; batches by ``batch_specs``,
      each rank its rows).  It serves 4 prompts of 128 tokens (2 a data
-     group) and ``DPT_GEN`` = 8 greedy tokens (16 until phase 18 came:
-     a decode step gathers every FSDP block through the host, ~6.6 s),
-     then trains from the same params for 3
-     steps of 4 x 128 under bdi8 moments (ZeRO-1: each rank keeps its
-     blocks' moments, stored and loaded by kernels 4 and 5).  Before the
+     group) and ``DPT_GEN`` = 2 greedy tokens (16 until phase 18 came, 8
+     until phase 19: a decode step gathers every FSDP block through the
+     host, ~6.3 s, most of it the embedding and the head), then trains
+     from the same params for ``DPT_STEPS`` = 2 steps (3 until phase 19)
+     of 4 x 128 under bdi8 moments (ZeRO-1: each rank keeps its blocks'
+     moments, stored and loaded by kernels 4 and 5).  Before the
      ranks start, ``dpt_predict`` computes from the shapes each leaf's
      spec, a rank's param and moment bytes, the collectives of a serving
      step and a train step by axis and the tile launches; each rank must
@@ -322,7 +324,7 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      params whole over data bit-equal across the data ranks.  After the
      ranks exit, the same weights whole in this process: served tokens
      and logits as phase 15's bounds; training as phase 16's (first loss
-     rtol 1e-4, 3 losses 1e-2, after step 1 on every 16th row of each
+     rtol 1e-4, 2 losses 1e-2, after step 1 on every 16th row of each
      rank's blocks: the params before the step bit-equal, moments within
      2e-2, params >= 98% within one bf16 ULP, all within 2 lr + 1 ULP).
      Kernels 4 and 5 are held against their plain versions on those rows
@@ -336,9 +338,10 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      the decode cache is sharded over T (``cache_specs``: 18 of 144 rows
      a rank).  Each rank draws the model a layer at a time and keeps its
      shards, serves 4 prompts of 128 tokens and 16 greedy tokens at
-     ``REP_LAYERS`` = 8 layers (decode: the query heads gathered, the T
-     blocks' softmax combined by a MAX and a SUM all-reduce, the new
-     token's K/V written on the rank that holds its row), then trains 3
+     ``REP_LAYERS`` = 4 layers (8 until phase 19; decode: the query
+     heads gathered, the T blocks' softmax combined by a MAX and a SUM
+     all-reduce, the new token's K/V written on the rank that holds its
+     row), then trains 3
      steps of 4 x 128 at ``REP_TRAIN_LAYERS`` = 4 under bdi8, where
      gate, up (86 tiles) and lm_head (500) straddle the shards: every
      rank keeps their whole moments, updated from the gradient gathered
@@ -352,6 +355,38 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      Kernels 4 and 5 are held against their plain versions on sampled
      rows of every moment store of each rank, the whole straddling ones
      included; the eight ranks' launches go into the ``kernels`` line.
+  19. The model axis for the MoE and MLA decoders: four gloo rank
+     processes of the one card on a ``(1, 4)`` mesh run, in turn,
+     deepseek-v2-lite-16b at full width (d_model 2048, 16 MLA heads,
+     latent 512, 64 experts top-6 and 2 shared, vocab 102400, seed 0):
+     each rank draws the model a layer at a time and keeps its shards,
+     its 16 experts a layer among them (``sharding.Local``), serves 4
+     prompts of 128 tokens and 16 greedy tokens at ``MOE_LAYERS`` = 8
+     (each rank its 4 heads, the latent cache split over its last dim
+     and gathered at use, its experts' outputs summed over the axis),
+     then trains 3 steps of 4 x 128 from phase 10's stream at
+     ``MOE_TRAIN_LAYERS`` = 4 under bdi8 (the experts' moment tiles on
+     the rank's experts, the shared experts' gate and up straddling the
+     shards, through kernels 4 and 5); then arctic-480b at full width
+     (d_model 7168, 56/8 heads, 128 experts top-2, a dense residual FFN,
+     vocab 32000) at ``ARC_LAYERS`` = 1, 2 prompts of 64 tokens and 8
+     greedy tokens, each rank holding 32 experts (~7.0 GB of params,
+     against ~28 GB whole).  ``moe_predict`` computes from the shapes a
+     rank's bytes (params, caches, moments), the straddling leaves, the
+     collectives and their bytes of a prefill, a decode step and a train
+     step by axis, and the tile launches; each rank must match them.
+     The four ranks' tokens, logits, losses, norms and expert choices
+     must be equal; against the same weights whole in this process,
+     phase 18's bounds, the whole model's first train step routed as
+     the ranks routed (``RouteReplay``: at a random init bf16-level
+     differences in the router's input flip near-tied expert choices,
+     and each flip moves an expert's gradient; the whole model's router
+     must choose exactly the ranks' experts on the ranks' inputs, its
+     own inputs lie within 2 bf16 ULPs of the ranks' and at most 3% of
+     its own choices differ from theirs).
+     Kernels 4 and 5 are held against their plain versions on sampled
+     rows of every moment store of each rank; the four ranks' launches
+     go into the ``kernels`` line.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -4006,7 +4041,7 @@ def tp_rank(rank: int, work: str) -> None:
             t0 = time.perf_counter()
             params = init_params(
                 cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev,
-                local=lambda t: SH.local_params(t, mesh))
+                local=SH.Local(mesh))
             sync(dev)
             init_s = time.perf_counter() - t0
             prompts = tp_prompts(cfg.vocab)
@@ -4053,8 +4088,8 @@ def _wait_all(procs: list, what: str, timeout: float) -> None:
                 p.wait()
 
 
-def _served_parity(name: str, tokens, logits, whole: dict, ulps: float
-                   ) -> tuple:
+def _served_parity(name: str, tokens, logits, whole: dict, ulps: float,
+                   batch: int = TP_BATCH) -> tuple:
     """``tokens``/``logits`` of a sharded run against the whole model's
     (``dense_generate`` with ``keep_logits``): every live row's logits
     within ``ulps`` bf16 ULPs of its array's largest |value| while its
@@ -4064,7 +4099,7 @@ def _served_parity(name: str, tokens, logits, whole: dict, ulps: float
     par, worst = GreedyParity(), 0.0
     gen = logits.shape[0]
     for j in range(gen):
-        live = [b for b in range(TP_BATCH) if b not in par.stopped]
+        live = [b for b in range(batch) if b not in par.stopped]
         if live:
             a, w = logits[j, live], whole["logits"][j, live]
             gap = float((a - w).abs().max()) / bf16_ulp(
@@ -4073,8 +4108,8 @@ def _served_parity(name: str, tokens, logits, whole: dict, ulps: float
             if gap > ulps:
                 raise AssertionError(f"{name}: step {j} logits {gap:.2f} "
                                      f"ULPs from the whole model's")
-        par.check(j, {b: whole["tokens"][b][j] for b in range(TP_BATCH)},
-                  {b: tokens[b][j] for b in range(TP_BATCH)},
+        par.check(j, {b: whole["tokens"][b][j] for b in range(batch)},
+                  {b: tokens[b][j] for b in range(batch)},
                   lambda sid, j=j: logits[j, sid],
                   lambda sid, j=j: whole["logits"][j, sid])
     return par, worst
@@ -4169,8 +4204,8 @@ def tpt_ocfg():
     return AdamWConfig(lr=3e-4, grad_clip=1.0, moment_dtype=TPT_MOMENTS)
 
 
-def tpt_batches(cfg, dev) -> list:
-    """``TPT_STEPS`` batches of phase 10's stream (``train()``'s: seed 0),
+def tpt_batches(cfg, dev, steps: int = TPT_STEPS) -> list:
+    """``steps`` batches of phase 10's stream (``train()``'s: seed 0),
     every rank the same."""
     import torch
     from repro_torch.configs.base import ShapeConfig
@@ -4178,7 +4213,7 @@ def tpt_batches(cfg, dev) -> list:
     it = DataIterator(cfg, ShapeConfig("train", TPT_SEQ, TPT_BATCH, "train"),
                       DataConfig(seed=0))
     return [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()
-             if k != "embeds"} for _ in range(TPT_STEPS)]
+             if k != "embeds"} for _ in range(steps)]
 
 
 def _is_norm(path: str) -> bool:
@@ -4298,7 +4333,7 @@ def tp_train_rank(rank: int, work: str) -> None:
         with use_mesh(mesh):
             params = init_params(
                 cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev,
-                local=lambda t: SH.local_params(t, mesh))
+                local=SH.Local(mesh))
             state = adamw_init(params, ocfg)
             batches = tpt_batches(cfg, dev)
             step = make_train_step(get_model(cfg), ocfg)
@@ -4506,8 +4541,9 @@ def phase_tp_train(dev) -> dict:
 
 DPT_SHAPE = (2, 2)                   # (data, model)
 DPT_RANKS = DPT_SHAPE[0] * DPT_SHAPE[1]
-DPT_LAYERS = 4
-DPT_GEN = 8                          # greedy tokens (~6.6 s a decode step)
+DPT_LAYERS = 2                       # the rule table's blocks as at 4
+DPT_GEN = 2                          # greedy tokens (~6.3 s a decode step)
+DPT_STEPS = 2                        # train steps (~22 s each)
 
 
 def _dpt_mesh():
@@ -4627,7 +4663,7 @@ def torch_equal_bits(a, b) -> bool:
 def dp_tp_rank(rank: int, work: str) -> None:
     """One rank of phase 17 on the ``(2, 2)`` mesh: its FSDP blocks of
     ``tpt_cfg(DPT_LAYERS)``'s model (drawn a layer at a time), serving
-    its rows of the prompts, then ``TPT_STEPS`` train steps from the same
+    its rows of the prompts, then ``DPT_STEPS`` train steps from the same
     params under bdi8 moments (ZeRO-1 blocks); writes ``dpt_<rank>.json``
     and ``.pt``."""
     sys.path.insert(0, str(SRC))
@@ -4658,8 +4694,7 @@ def dp_tp_rank(rank: int, work: str) -> None:
             t0 = time.perf_counter()
             params = init_params(
                 cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev,
-                local=lambda t: SH.local_params(t, mesh, fsdp=True,
-                                                layers=cfg.n_layers))
+                local=SH.Local(mesh, fsdp=True, layers=cfg.n_layers))
             sync(dev)
             whole = whole_shapes(cfg)
             res.update(init_s=time.perf_counter() - t0, placement=[
@@ -4682,7 +4717,7 @@ def dp_tp_rank(rank: int, work: str) -> None:
             state = adamw_init(params, ocfg, whole=whole)
             owners = [-1 if x.owner is None else x.owner
                       for x in adamw.plan(params, whole, ocfg)]
-            batches = tpt_batches(cfg, dev)
+            batches = tpt_batches(cfg, dev, DPT_STEPS)
             step = make_train_step(get_model(cfg), ocfg)
             start = tpt_state(params, None, cfg.n_layers)
             sync(dev)
@@ -4754,7 +4789,7 @@ def phase_dp_tp(dev) -> dict:
                                  f"{rr['backend']}, launches {ran}")
         if not all(math.isfinite(x) for x in rr["losses"]):
             raise AssertionError(f"phase 17: rank {r}: {rr['losses']}")
-        want = pred["tile_launches_a_step"] * TPT_STEPS // 2
+        want = pred["tile_launches_a_step"] * DPT_STEPS // 2
         if ran != {"bdi_compress": want, "bdi_decompress": want}:
             raise AssertionError(f"phase 17: rank {r}: launches {ran}, "
                                  f"predicted {want} each")
@@ -4783,7 +4818,7 @@ def phase_dp_tp(dev) -> dict:
                 not torch.equal(got[r]["served"]["logits"],
                                 got[0]["served"]["logits"]):
             raise AssertionError("phase 17: the ranks' serving differs")
-        for i in range(TPT_STEPS):
+        for i in range(DPT_STEPS):
             for k, a in got[0]["norms"][i].items():
                 if not torch.equal(a, got[r]["norms"][i][k]):
                     raise AssertionError(f"phase 17: step {i}: {k} differs "
@@ -4818,7 +4853,7 @@ def phase_dp_tp(dev) -> dict:
                 raise AssertionError(f"phase 17: rank {r}'s {k} is not "
                                      f"its block of the whole model's")
     mets, want = [], None
-    for i, batch in enumerate(tpt_batches(cfg, dev)):
+    for i, batch in enumerate(tpt_batches(cfg, dev, DPT_STEPS)):
         params, state, met = step(params, state, batch)
         mets.append(met)
         if i == 0:
@@ -4850,7 +4885,7 @@ def phase_dp_tp(dev) -> dict:
     out = {"card": smi(), "cell": f"internvl2-76b full width, "
            f"{cfg.n_layers} layers, (2, 2) over gloo on one card, FSDP and "
            f"ZeRO-1 at 64 MiB: serving {TP_BATCH} x {TP_PROMPT} + {DPT_GEN}, "
-           f"then {TPT_STEPS} train steps of {TPT_BATCH} x {TPT_SEQ} under "
+           f"then {DPT_STEPS} train steps of {TPT_BATCH} x {TPT_SEQ} under "
            f"{ocfg.moment_dtype} moments",
            "ranks_wall_s": ranks_s, "whole_wall_s": whole_s,
            "tokens_equal": par.compared,
@@ -4895,7 +4930,7 @@ def phase_dp_tp(dev) -> dict:
 
 REP_SHAPE = (1, 8)                   # (data, model)
 REP_RANKS = REP_SHAPE[0] * REP_SHAPE[1]
-REP_LAYERS, REP_TRAIN_LAYERS = 8, 4  # serving, training, of yi-6b's 32
+REP_LAYERS, REP_TRAIN_LAYERS = 4, 4  # serving (8 until phase 19), training
 REP_SEED = 0
 
 
@@ -5009,7 +5044,7 @@ def rep_rank(rank: int, work: str) -> None:
             t0 = time.perf_counter()
             params = init_params(
                 cfg, torch.Generator(device=dev).manual_seed(REP_SEED), dev,
-                local=lambda t: SH.local_params(t, mesh))
+                local=SH.Local(mesh))
             sync(dev)
             res.update(init_s=time.perf_counter() - t0,
                        param_bytes_serve=sum(t.numel() * t.element_size()
@@ -5030,7 +5065,7 @@ def rep_rank(rank: int, work: str) -> None:
             cfg = rep_cfg(REP_TRAIN_LAYERS)
             params = init_params(
                 cfg, torch.Generator(device=dev).manual_seed(REP_SEED), dev,
-                local=lambda t: SH.local_params(t, mesh))
+                local=SH.Local(mesh))
             res["param_bytes_train"] = sum(t.numel() * t.element_size()
                                            for t in _leaves(params))
             wide = tp.check_moments(params, ocfg.moment_dtype)
@@ -5274,6 +5309,586 @@ def phase_replicated(dev) -> dict:
     return out
 
 
+MOE_SHAPE = (1, 4)                   # (data, model)
+MOE_RANKS = MOE_SHAPE[0] * MOE_SHAPE[1]
+MOE_DS, MOE_ARC = "deepseek-v2-lite-16b", "arctic-480b"
+MOE_LAYERS, MOE_TRAIN_LAYERS = 8, 4  # deepseek serving, training, of 27
+MOE_GEN = 16
+ARC_LAYERS, ARC_BATCH, ARC_PROMPT, ARC_GEN = 1, 2, 64, 8   # arctic, of 35
+MOE_SEED = 0
+MOE_ROUTE_ULPS = 2.0                 # the ranks' router inputs, bf16 ULPs
+MOE_FLIP_SHARE = 0.03                # of step 1's expert choices
+
+
+def moe_cfg(arch: str, n_layers: int):
+    from repro_torch.configs.registry import get_arch
+    return at_depth(get_arch(arch), n_layers)
+
+
+def arc_prompts(vocab: int, batch: int = ARC_BATCH, n: int = ARC_PROMPT):
+    import torch
+    return torch.randint(1, vocab, (batch, n),
+                         generator=torch.Generator().manual_seed(MOE_SEED + 2))
+
+
+class RouteReplay:
+    """Wraps ``models/moe``'s ``_route``.  With ``replay`` None it keeps
+    the expert choices of each call and the router inputs of the first
+    ``keep_inputs`` calls.  Else call i < len(replay) chooses the ranks'
+    ``replay[i]`` (the gates of those experts from this model's own
+    probabilities, normalised as ``_route`` does), after checking that
+    this model's router on the ranks' input ``inputs[i]`` chooses exactly
+    those; later calls route themselves.  At a random init the routing is
+    near uniform: the ranks' router inputs differ from the whole model's
+    by bf16 roundings, which flip near-tied choices, and an expert's
+    gradient moves with each token it gains or loses.  So phase 19 trains
+    the whole model's first step on the ranks' choices (those of its
+    forward and of its recompute), and records how many of its own would
+    have differed (``flips``) and how far its router inputs lie from the
+    ranks' (``input_ulps``, bf16 ULPs of the input's largest |value|);
+    :meth:`check` holds both to the rounding they come from."""
+
+    def __init__(self, replay: list | None = None, inputs: list | None = None,
+                 keep_inputs: int = 0):
+        from repro_torch.models import moe as M
+        self.M, self.saved = M, M._route
+        self.replay, self.given, self.keep = replay, inputs, keep_inputs
+        self.routes, self.inputs, self.flips = [], [], []
+        self.choices, self.input_ulps = 0, 0.0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.serving.parity import bf16_ulp
+        M, route = self.M, self.saved
+
+        def logged(router, x2d, top_k, n_experts):
+            out = route(router, x2d, top_k, n_experts)
+            if len(self.routes) < self.keep:
+                self.inputs.append(x2d.detach().to("cpu", copy=True))
+            self.routes.append(out[1].cpu())
+            return out
+
+        def replayed(router, x2d, top_k, n_experts):
+            call = len(self.routes)
+            self.routes.append(None)
+            if call >= len(self.replay):
+                return route(router, x2d, top_k, n_experts)
+            idx = self.replay[call].to(x2d.device)
+            theirs = self.given[call].to(x2d.device)
+            with torch.no_grad():
+                if not torch.equal(M._top_k(M._probs(router, theirs),
+                                            top_k)[1], idx):
+                    raise AssertionError(
+                        f"phase 19: route call {call}: the router on the "
+                        f"ranks' input chooses otherwise than the ranks")
+                gap = (x2d.float() - theirs.float()).abs().max()
+                self.input_ulps = max(self.input_ulps, float(gap) / bf16_ulp(
+                    float(theirs.float().abs().max())))
+            probs = M._probs(router, x2d)
+            own = M._top_k(probs, top_k)[1]
+            self.choices += idx.numel()
+            self.flips += (own != idx).sum(dim=-1).tolist()
+            gates = torch.gather(probs, -1, idx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+            return gates.to(torch.float32), idx
+
+        M._route = logged if self.replay is None else replayed
+        return self
+
+    def __exit__(self, *exc):
+        self.M._route = self.saved
+
+    def check(self) -> None:
+        """Raise unless the replay hid rounding alone: every router input
+        within ``MOE_ROUTE_ULPS`` of the ranks' and at most
+        ``MOE_FLIP_SHARE`` of the choices flipped."""
+        flipped = sum(self.flips)
+        if self.input_ulps > MOE_ROUTE_ULPS or \
+                flipped > MOE_FLIP_SHARE * self.choices:
+            raise AssertionError(
+                f"phase 19: the router inputs lie {self.input_ulps} bf16 "
+                f"ULPs from the ranks' (at most {MOE_ROUTE_ULPS}) and "
+                f"{flipped} of {self.choices} choices flipped (at most "
+                f"{MOE_FLIP_SHARE:.0%})")
+
+
+def _serve_prediction(cfg, b: int, s: int, gen: int, m: int) -> dict:
+    """Model-axis collectives (``tp.COUNTS``: all_reduce, all_gather,
+    backward, writes, bytes) of ``dense_generate``'s prefill and of a
+    decode step (averaged over its gen - 1 steps), an MoE decoder whose
+    heads and KV heads divide m: a layer sums attention's wo, the routed
+    experts and the shared experts' or dense FFN's down projection (f32
+    [tokens, D] each), MLA gathers its latent and rope key blocks (f32
+    [B, t + 1, (r + dr) / m]) a decode step; the embedding's sum (f32)
+    and the last position's logits gathered (bf16 [B, 1, V/m])."""
+    n, d = cfg.n_layers, cfg.d_model
+    mla = cfg.attn_kind == "mla"
+    head = b * (cfg.vocab // m) * 2
+    steps = gen - 1
+    dec = (1 + 3 * n) * b * d * 4 * steps + head * steps
+    if mla:
+        w = (cfg.kv_lora_rank + cfg.qk_rope_dim) // m
+        dec += n * sum(b * (t + 1) * w * 4 for t in range(s, s + steps))
+    return {"prefill": [3 * n + 1, 1, 0, 0,
+                        (1 + 3 * n) * b * s * d * 4 + head],
+            "decode_step": [3 * n + 1, 1 + 2 * n * mla, 0, 0, dec / steps]}
+
+
+def _train_prediction(cfg, b: int, s: int, m: int, sharded: int,
+                      straddling_bytes: list) -> list:
+    """Model-axis collectives of a train step of an MLA/MoE decoder with
+    shared experts (deepseek), as ``distributed/tp.py`` issues them: the
+    forward's embedding sum, wo's, the experts' and the shared down's
+    sums a layer, the loss's MAX and SUM; the recompute's loss and each
+    layer's wo and experts' sums; backward a layer the input gradients
+    of wq, of wuk and wuv for the latent, the rope key's, the router's
+    (``[D, E]``), the FFN input's and the shared gate's and up's, then
+    the head's; the clip norm's one sum of the ``sharded`` leaves'
+    squares; one gather a straddling leaf's bf16 gradient.  Returns
+    [all_reduce, all_gather, backward, bytes]."""
+    n, d, tok = cfg.n_layers, cfg.d_model, b * s
+    r, dr, e = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.n_experts
+    x = tok * d * 4
+    backward = 8 * n + 1
+    forward = x + 3 * n * x + 3 * tok * 4
+    recompute = 3 * tok * 4 + 2 * n * x
+    grads = n * (4 * x + 2 * tok * r * 4 + tok * dr * 4 + d * e * 4) + x
+    return [(1 + 3 * n + 2) + (2 + 2 * n) + backward + 1,
+            len(straddling_bytes), backward,
+            forward + recompute + grads + sharded * 4
+            + sum(straddling_bytes)]
+
+
+def moe_predict() -> dict:
+    """What a rank of phase 19 holds and issues, from the shapes alone
+    (meta tensors on an abstract ``(1, 4)`` mesh): bytes of a rank's
+    params (deepseek serving and training depth, arctic), of its decode
+    caches, of its bdi8 moments; the leaves whose moment tiles straddle
+    the shards; the collectives and their bytes of a prefill, a decode
+    step and a train step over the model axis (:func:`_serve_prediction`,
+    :func:`_train_prediction`) and none over data; tile launches a train
+    step (a moment group is two decompresses and two compresses)."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.launch.elastic import abstract_mesh
+    from repro_torch.models.transformer import init_cache, init_params
+    from repro_torch.optim import adamw as AW
+    from repro_torch.optim import adamw_init, opt_state_bytes
+    ds_serve = moe_cfg(MOE_DS, MOE_LAYERS)
+    ds_train = moe_cfg(MOE_DS, MOE_TRAIN_LAYERS)
+    arc = moe_cfg(MOE_ARC, ARC_LAYERS)
+    ds_batch = (TP_BATCH, TP_PROMPT, MOE_GEN)
+    arc_batch = (ARC_BATCH, ARC_PROMPT, ARC_GEN)
+    train_batch = (TPT_BATCH, TPT_SEQ)
+    mesh = abstract_mesh(MOE_SHAPE, ("data", "model"))
+    m = MOE_SHAPE[1]
+    ocfg = tpt_ocfg()
+    coord = {"data": 0, "model": 0}
+    nbytes = lambda tree: sum(t.numel() * t.element_size()   # noqa: E731
+                              for t in _leaves(tree))
+    out = {}
+    with use_mesh(mesh):
+        for key, cfg in (("ds_serve", ds_serve), ("ds_train", ds_train),
+                         ("arc", arc)):
+            local = init_params(cfg, torch.Generator(), "meta",
+                                local=SH.Local(mesh, coord))
+            out[f"param_bytes_{key}"] = nbytes(local)
+        for key, cfg, (b, s, g) in (("ds", ds_serve, ds_batch),
+                                    ("arc", arc, arc_batch)):
+            out[f"cache_bytes_{key}"] = sum(
+                t.numel() * t.element_size()
+                for t in init_cache(cfg, b, s + g, device="meta"))
+            out[key] = _serve_prediction(cfg, b, s, g, m)
+        whole = init_params(ds_train, torch.Generator(), "meta")
+        wide = tp.check_moments(local_t := init_params(
+            ds_train, torch.Generator(), "meta",
+            local=SH.Local(mesh, coord)), ocfg.moment_dtype)
+        out["moment_bytes"] = opt_state_bytes(adamw_init(local_t, ocfg),
+                                              ocfg)
+        sharded = sum(tp.sharded_leaves(whole, local_t))
+        shapes = [AW._wide(p.shape, w)
+                  for (_, p), w in zip(leaf_paths(local_t), wide)]
+    leaves = leaf_paths(local_t)
+    out["straddling"] = [p for (p, _), w in zip(leaves, wide) if w]
+    out["train_step"] = _train_prediction(
+        ds_train, *train_batch, m, sharded,
+        [t.numel() * t.element_size() for (_, t), w in zip(leaves, wide)
+         if w])
+    groups = [len(AW._groups(torch.empty(sh, device="meta")))
+              for sh in shapes if AW._tiled(sh, ocfg.moment_dtype)]
+    out["tile_launches_a_step"] = 4 * sum(groups)
+    out["tile_launches_a_step_straddling"] = 4 * sum(
+        len(AW._groups(torch.empty(sh, device="meta")))
+        for sh, w in zip(shapes, wide) if w)
+    return out
+
+
+def _moe_serve(cfg, params, prompts, gen: int, dev) -> tuple[dict, dict]:
+    """A rank's warm-up and timed ``dense_generate``: (its numbers, its
+    tokens and logits)."""
+    import torch
+    from repro_torch.launch.serve import dense_generate
+    dense_generate(cfg, params, prompts[:, :13], 3)              # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = dense_generate(cfg, params, prompts, gen, keep_logits=True)
+    return ({"serve_peak_bytes": torch.cuda.max_memory_allocated(dev),
+             "prefill_ms": out["prefill_s"] * 1e3,
+             "ms_a_step": [s * 1e3 for s in out["decode_s"]],
+             "serve_collectives": out["collectives"],
+             "cache_bytes": out["cache_bytes"]},
+            {"tokens": out["tokens"], "logits": out["logits"]})
+
+
+def moe_rank(rank: int, work: str) -> None:
+    """One rank of phase 19 on the ``(1, 4)`` mesh: deepseek-v2-lite-16b
+    (its shards drawn a layer at a time, its experts an expert at a time)
+    serving at ``MOE_LAYERS``, ``TPT_STEPS`` bdi8 train steps at
+    ``MOE_TRAIN_LAYERS``, then arctic-480b serving at ``ARC_LAYERS``;
+    writes ``moe_<rank>.json`` and ``.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._device import resolve_device
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw, adamw_init, opt_state_bytes
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(work) / "rendezvous_moe"), MOE_RANKS), rank=rank,
+        world_size=MOE_RANKS)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    keep = {}
+    nbytes = lambda tree: sum(t.numel() * t.element_size()   # noqa: E731
+                              for t in _leaves(tree))
+    try:
+        mesh = make_host_mesh(*MOE_SHAPE)
+        with use_mesh(mesh):
+            gen = lambda: torch.Generator(device=dev).manual_seed(  # noqa
+                MOE_SEED)
+            cfg, ocfg = moe_cfg(MOE_DS, MOE_LAYERS), tpt_ocfg()
+            t0 = time.perf_counter()
+            params = init_params(cfg, gen(), dev, local=SH.Local(mesh))
+            sync(dev)
+            res["ds"] = {"init_s": time.perf_counter() - t0,
+                         "param_bytes_serve": nbytes(params),
+                         "experts_held": params["blocks"]["ffn"]["experts"][
+                             "gate"]["w"].shape[1]}
+            num, keep["ds_served"] = _moe_serve(cfg, params,
+                                                tp_prompts(cfg.vocab),
+                                                MOE_GEN, dev)
+            res["ds"].update(num)
+            del params
+            torch.cuda.empty_cache()
+            cfg = moe_cfg(MOE_DS, MOE_TRAIN_LAYERS)
+            params = init_params(cfg, gen(), dev, local=SH.Local(mesh))
+            res["ds"]["param_bytes_train"] = nbytes(params)
+            wide = tp.check_moments(params, ocfg.moment_dtype)
+            state = adamw_init(params, ocfg)
+            batches = tpt_batches(cfg, dev)
+            step = make_train_step(get_model(cfg), ocfg)
+            keep["start"] = tpt_state(params, None, cfg.n_layers)
+            sync(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            mets, keep["norms"], held = [], [], 0
+            first = 2 * cfg.n_layers          # step 1's forward, recompute
+            with RouteReplay(keep_inputs=first) as routes:
+                for i, batch in enumerate(batches):
+                    params, state, met = step(params, state, batch)
+                    mets.append(met)
+                    keep["norms"].append(tpt_norms(params, state))
+                    if i == 0:
+                        launches = dict(ops.LAUNCHES)
+                        keep["sample"] = tpt_state(params, state,
+                                                   cfg.n_layers)
+                        held = dpt_tiles_vs_plain(params, state,
+                                                  cfg.n_layers, "19")
+                        # the sample's and the plain versions' launches
+                        ops.LAUNCHES.update(launches)
+            keep["routes"] = routes.routes[:first]
+            keep["route_inputs"] = routes.inputs if rank == 0 else []
+            res["ds"].update(
+                train_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                opt_state_bytes=opt_state_bytes(state, ocfg), wide=wide,
+                moment_shapes={p: list(s["deltas"].shape) for (p, _), s, w
+                               in zip(leaf_paths(params),
+                                      adamw._store_leaves(state["m"]), wide)
+                               if w},
+                losses=[m["loss"] for m in mets],
+                grad_norms=[m["grad_norm"] for m in mets],
+                fwd_bwd_ms=[m["fwd_bwd_s"] * 1e3 for m in mets],
+                opt_ms=[m["opt_s"] * 1e3 for m in mets],
+                collectives=[m["collectives"] for m in mets],
+                tiles_held_vs_plain=held,
+                kernel_launches={k: v for k, v in ops.LAUNCHES.items()
+                                 if v})
+            del params, state, batches, step
+            torch.cuda.empty_cache()
+            cfg = moe_cfg(MOE_ARC, ARC_LAYERS)
+            t0 = time.perf_counter()
+            params = init_params(cfg, gen(), dev, local=SH.Local(mesh))
+            sync(dev)
+            res["arc"] = {"init_s": time.perf_counter() - t0,
+                          "param_bytes_serve": nbytes(params),
+                          "experts_held": params["blocks"]["ffn"][
+                              "experts"]["gate"]["w"].shape[1]}
+            num, keep["arc_served"] = _moe_serve(
+                cfg, params, arc_prompts(cfg.vocab), ARC_GEN, dev)
+            res["arc"].update(num)
+            del params
+        torch.save(keep, Path(work) / f"moe_{rank}.pt")
+        (Path(work) / f"moe_{rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh()
+
+
+def _moe_checks(r: int, rr: dict, pred: dict) -> None:
+    """A rank's bytes, collectives and launches against ``moe_predict``."""
+    model = lambda x: [x["model"][k] for k in ("all_reduce", "all_gather",
+                                               "backward", "writes",
+                                               "bytes")]
+    ds, arc = rr["ds"], rr["arc"]
+    checks = [("deepseek params serving", ds["param_bytes_serve"],
+               pred["param_bytes_ds_serve"]),
+              ("deepseek params training", ds["param_bytes_train"],
+               pred["param_bytes_ds_train"]),
+              ("arctic params", arc["param_bytes_serve"],
+               pred["param_bytes_arc"]),
+              ("deepseek cache", ds["cache_bytes"], pred["cache_bytes_ds"]),
+              ("arctic cache", arc["cache_bytes"], pred["cache_bytes_arc"]),
+              ("moments", ds["opt_state_bytes"], pred["moment_bytes"]),
+              ("straddling", list(ds["moment_shapes"]), pred["straddling"]),
+              ("experts held", [ds["experts_held"], arc["experts_held"]],
+               [64 // MOE_SHAPE[1], 128 // MOE_SHAPE[1]])]
+    for key, x in (("ds", ds), ("arc", arc)):
+        c = x["serve_collectives"]
+        checks += [(f"{key} prefill", model(c["prefill"]),
+                    pred[key]["prefill"]),
+                   (f"{key} decode step", model(c["per_step"]),
+                    pred[key]["decode_step"])]
+        checks += [(f"{key} {n} over data", sum(c[n]["data"].values()), 0)
+                   for n in ("prefill", "per_step")]
+    for i, c in enumerate(ds["collectives"]):
+        checks += [(f"train step {i}", [c["model"][k] for k in (
+            "all_reduce", "all_gather", "backward", "bytes")],
+            pred["train_step"]),
+            (f"train step {i} over data", sum(c["data"].values()), 0)]
+    want = pred["tile_launches_a_step"] * TPT_STEPS
+    checks.append(("tile launches", ds["kernel_launches"],
+                   {"bdi_compress": want // 2, "bdi_decompress": want // 2}))
+    for name, a, b in checks:
+        if a != b:
+            raise AssertionError(f"phase 19: rank {r}: {name} {a}, "
+                                 f"predicted {b}")
+
+
+def phase_moe_tp(dev) -> dict:
+    """Phase 19 (see the module docstring)."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    ocfg = tpt_ocfg()
+    card = smi()
+    pred = moe_predict()
+    log(f"phase 19 prediction (shapes, (1, 4)): {json.dumps(pred)}")
+    work = Path(tempfile.mkdtemp(prefix="moe19_"))
+    t0 = time.perf_counter()
+    ranks = [(_spawn(f"moe_rank({r}, {str(work)!r})",
+                     work / f"moe_{r}.log"), work / f"moe_{r}.log")
+             for r in range(MOE_RANKS)]
+    _wait_all(ranks, "phase 19: a rank", 900)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"moe_{r}.json").read_text())
+           for r in range(MOE_RANKS)]
+    got = [torch.load(work / f"moe_{r}.pt") for r in range(MOE_RANKS)]
+    median = lambda xs: sorted(xs)[len(xs) // 2]       # noqa: E731
+    for r, rr in enumerate(res):
+        shown = {k: {**v, "ms_a_step": {"median": median(v["ms_a_step"]),
+                                        "min": min(v["ms_a_step"]),
+                                        "max": max(v["ms_a_step"])}}
+                 for k, v in rr.items() if isinstance(v, dict)}
+        log(f"phase 19 rank {r} (gloo through the host on one card, not an "
+            f"EP speed; {card}): " + json.dumps(rr | shown))
+        if rr["backend"] != "gloo":
+            raise AssertionError(f"phase 19: rank {r}: {rr['backend']}")
+        if not all(math.isfinite(x) for x in rr["ds"]["losses"]):
+            raise AssertionError(f"phase 19: rank {r}: "
+                                 f"{rr['ds']['losses']}")
+        _moe_checks(r, rr, pred)
+    for r in range(1, MOE_RANKS):
+        a, b = res[r]["ds"], res[0]["ds"]
+        if a["losses"] != b["losses"] or a["grad_norms"] != b["grad_norms"]:
+            raise AssertionError("phase 19: the ranks' losses or norms "
+                                 "differ")
+        for key in ("ds_served", "arc_served"):
+            if got[r][key]["tokens"] != got[0][key]["tokens"] or \
+                    not torch.equal(got[r][key]["logits"],
+                                    got[0][key]["logits"]):
+                raise AssertionError(f"phase 19: the ranks' {key} differs")
+        for i in range(TPT_STEPS):
+            for k, x in got[0]["norms"][i].items():
+                if not torch.equal(x, got[r]["norms"][i][k]):
+                    raise AssertionError(f"phase 19: step {i}: {k} differs "
+                                         f"between ranks 0 and {r}")
+        if len(got[r]["routes"]) != len(got[0]["routes"]) or not all(
+                torch.equal(a, b) for a, b in zip(got[r]["routes"],
+                                                  got[0]["routes"])):
+            raise AssertionError(f"phase 19: rank {r} routed otherwise "
+                                 f"than rank 0")
+    # the same weights, prompts and batches, whole, in this process
+    t1 = time.perf_counter()
+    gen = lambda: torch.Generator(device=dev).manual_seed(MOE_SEED)  # noqa
+    cfg = moe_cfg(MOE_DS, MOE_LAYERS)
+    params = init_params(cfg, gen(), dev)
+    prompts = tp_prompts(cfg.vocab)
+    dense_generate(cfg, params, prompts[:, :13], 3)             # warm-up
+    ds_whole = dense_generate(cfg, params, prompts, MOE_GEN,
+                              keep_logits=True)
+    ds_par, ds_worst = _served_parity(
+        "phase 19 deepseek", got[0]["ds_served"]["tokens"],
+        got[0]["ds_served"]["logits"], ds_whole, TP_ULPS)
+    del params
+    release(dev)
+    cfg = moe_cfg(MOE_DS, MOE_TRAIN_LAYERS)
+    params = init_params(cfg, gen(), dev)
+    state = adamw_init(params, ocfg)
+    step = make_train_step(get_model(cfg), ocfg)
+    wide = res[0]["ds"]["wide"]
+    start = [tpt_state(params, None, cfg.n_layers, {"data": 0, "model": r},
+                       shape=MOE_SHAPE) for r in range(MOE_RANKS)]
+    for r in range(MOE_RANKS):
+        for k, t in start[r].items():
+            if not torch.equal(t, got[r]["start"][k]):
+                raise AssertionError(f"phase 19: rank {r}'s {k} is not "
+                                     f"its block of the whole model's")
+    mets, want_s = [], None
+    with RouteReplay(got[0]["routes"], got[0]["route_inputs"]) as replay:
+        for i, batch in enumerate(tpt_batches(cfg, dev)):
+            params, state, met = step(params, state, batch)
+            mets.append(met)
+            if i == 0:
+                want_s = [tpt_state(params, state, cfg.n_layers,
+                                    {"data": 0, "model": r},
+                                    shape=MOE_SHAPE, wide=wide)
+                          for r in range(MOE_RANKS)]
+    del params, state
+    release(dev)
+    if len(replay.routes) != TPT_STEPS * len(got[0]["routes"]):
+        raise AssertionError(f"phase 19: {len(replay.routes)} route calls "
+                             f"in {TPT_STEPS} steps, the ranks' first step "
+                             f"{len(got[0]['routes'])}")
+    replay.check()
+    cfg = moe_cfg(MOE_ARC, ARC_LAYERS)
+    params = init_params(cfg, gen(), dev)
+    prompts = arc_prompts(cfg.vocab)
+    dense_generate(cfg, params, prompts[:, :13], 3)             # warm-up
+    arc_whole = dense_generate(cfg, params, prompts, ARC_GEN,
+                               keep_logits=True)
+    arc_par, arc_worst = _served_parity(
+        "phase 19 arctic", got[0]["arc_served"]["tokens"],
+        got[0]["arc_served"]["logits"], arc_whole, TP_ULPS, ARC_BATCH)
+    del params
+    release(dev)
+    whole_s = time.perf_counter() - t1
+    gaps = [_one_step_gap(got[r]["sample"], want_s[r], got[r]["start"])
+            for r in range(MOE_RANKS)]
+    losses = [m["loss"] for m in mets]
+    ours = res[0]["ds"]["losses"]
+    if abs(ours[0] - losses[0]) > TPT_FIRST_RTOL * abs(losses[0]) or \
+            any(abs(a - b) > TPT_LOSS_RTOL * abs(b)
+                for a, b in zip(ours, losses)):
+        raise AssertionError(f"phase 19: losses {ours} against the whole "
+                             f"model's {losses}")
+    for r, g in enumerate(gaps):
+        w = {n: v for n, (_, v) in g["worst"].items()}
+        if (w["within_1_ulp"] < TPT_ULP_SHARE
+                or w["max_gap_over_lr"] > 2.0
+                or max(w["m_err"], w["v_err"]) > TPT_MOMENT_RTOL):
+            raise AssertionError(f"phase 19: rank {r} after step 1: "
+                                 f"{g['worst']}")
+    rest = slice(1, None)
+    mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
+    out = {"card": card, "cell": (
+        f"(1, 4) over gloo on one card: deepseek-v2-lite-16b full width "
+        f"(16 MLA heads, 64 experts top-6 + 2 shared, 16 a rank), serving "
+        f"{TP_BATCH} x {TP_PROMPT} + {MOE_GEN} at {MOE_LAYERS} layers, "
+        f"{TPT_STEPS} train steps of {TPT_BATCH} x {TPT_SEQ} at "
+        f"{MOE_TRAIN_LAYERS} layers under {ocfg.moment_dtype}; arctic-480b "
+        f"full width (56/8 heads, 128 experts top-2, 32 a rank, dense "
+        f"residual FFN), serving {ARC_BATCH} x {ARC_PROMPT} + {ARC_GEN} at "
+        f"{ARC_LAYERS} layer"),
+        "ranks_wall_s": ranks_s, "whole_wall_s": whole_s,
+        "deepseek_tokens_equal": ds_par.compared,
+        "deepseek_ties": [t.__dict__ for t in ds_par.ties],
+        "deepseek_worst_logit_gap_ulps": ds_worst,
+        "arctic_tokens_equal": arc_par.compared,
+        "arctic_ties": [t.__dict__ for t in arc_par.ties],
+        "arctic_worst_logit_gap_ulps": arc_worst,
+        "losses": ours, "losses_whole": losses,
+        "step_1_route_choices": replay.choices,
+        "step_1_choices_flipped": sum(replay.flips),
+        "step_1_tokens_flipped": sum(1 for n in replay.flips if n),
+        "step_1_router_input_gap_ulps": replay.input_ulps,
+        "grad_norms": res[0]["ds"]["grad_norms"],
+        "grad_norms_whole": [m["grad_norm"] for m in mets],
+        "after_step_1_worst_rank": min(
+            (g["worst"] for g in gaps), key=lambda w: w["within_1_ulp"][1]),
+        "ms": {f"rank{r}": {
+            "ds_init_s": rr["ds"]["init_s"],
+            "ds_prefill": rr["ds"]["prefill_ms"],
+            "ds_decode_median": median(rr["ds"]["ms_a_step"]),
+            "ds_fwd_bwd": mean(rr["ds"]["fwd_bwd_ms"][rest]),
+            "ds_opt": mean(rr["ds"]["opt_ms"][rest]),
+            "arc_init_s": rr["arc"]["init_s"],
+            "arc_prefill": rr["arc"]["prefill_ms"],
+            "arc_decode_median": median(rr["arc"]["ms_a_step"])}
+            for r, rr in enumerate(res)},
+        "whole_ms": {
+            "ds_prefill": ds_whole["prefill_s"] * 1e3,
+            "ds_decode_median": median(ds_whole["decode_s"]) * 1e3,
+            "ds_fwd_bwd": mean([m["fwd_bwd_s"] * 1e3 for m in mets[rest]]),
+            "ds_opt": mean([m["opt_s"] * 1e3 for m in mets[rest]]),
+            "arc_prefill": arc_whole["prefill_s"] * 1e3,
+            "arc_decode_median": median(arc_whole["decode_s"]) * 1e3},
+        "collectives_a_step": {
+            "ds_prefill": res[0]["ds"]["serve_collectives"]["prefill"],
+            "ds_decode": res[0]["ds"]["serve_collectives"]["per_step"],
+            "ds_train": res[0]["ds"]["collectives"][-1],
+            "arc_prefill": res[0]["arc"]["serve_collectives"]["prefill"],
+            "arc_decode": res[0]["arc"]["serve_collectives"]["per_step"]},
+        "peak_gb_a_rank": {k: [rr[m][f"{k}_peak_bytes"] / 1e9 for rr in res]
+                           for k, m in (("serve", "ds"), ("train", "ds"))}
+        | {"arc_serve": [rr["arc"]["serve_peak_bytes"] / 1e9
+                         for rr in res]},
+        "tiles_held_vs_plain": [rr["ds"]["tiles_held_vs_plain"]
+                                for rr in res],
+        "launches": {k: sum(rr["ds"]["kernel_launches"].get(k, 0)
+                            for rr in res)
+                     for k in ("bdi_compress", "bdi_decompress")},
+        "launches_straddling": pred["tile_launches_a_step_straddling"]
+        * TPT_STEPS * MOE_RANKS}
+    log(f"phase 19: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5465,10 +6080,14 @@ def main() -> int:
     rep = phase_replicated(dev)
     phase_done("18 yi-6b on a model axis of 8 (K/V whole, the cache over "
                "T, bdi8 tiles across shards), eight ranks on one card")
+    moe = phase_moe_tp(dev)
+    phase_done("19 deepseek-v2-lite-16b and arctic-480b on a model axis of "
+               "4 (experts a rank, MLA heads, the latent split), four ranks "
+               "on one card")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of
-    # phases 10, 13 (the compressed all-reduce), 16, 17 and 18 (every
+    # phases 10, 13 (the compressed all-reduce), 16, 17, 18 and 19 (every
     # rank), and
     # for the serving kernels phases 9 and 9b, each counted from 0 over
     # its own run
@@ -5484,7 +6103,8 @@ def main() -> int:
                               + dp["launches"][name]
                               + tp_trained["launches"][name]
                               + dpt["launches"][name]
-                              + rep["launches"][name])
+                              + rep["launches"][name]
+                              + moe["launches"][name])
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

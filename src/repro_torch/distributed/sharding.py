@@ -179,20 +179,27 @@ def local_shards(tree, specs, mesh, coord: dict | None = None):
     out = []
     for (path, leaf), (_, spec) in zip(leaves, spec_list):
         x = leaf
-        for d, s in enumerate(spec):
-            axes = () if s is None else (s if isinstance(s, tuple) else (s,))
-            n, i = 1, 0
-            for a in axes:
-                n, i = n * sizes[a], i * sizes[a] + coord[a]
-            if n == 1:
-                continue
-            if x.shape[d] % n:
-                raise ValueError(f"{path}: dim {d} of {tuple(leaf.shape)} "
-                                 f"does not split into {n} blocks")
-            b = x.shape[d] // n
-            x = x.narrow(d, i * b, b)
+        for d, c in enumerate(_cuts(path, tuple(leaf.shape), spec, sizes,
+                                    coord)):
+            if c.stop - c.start < leaf.shape[d]:
+                x = x.narrow(d, c.start, c.stop - c.start)
         out.append(x if x is leaf else x.clone())
     return _rebuild(tree, iter(out))
+
+
+def _layer_spec(path: str, shape: tuple, mesh, itemsize: int, fsdp: bool,
+                layers: int | None):
+    """The spec of the leaf at ``path`` (keyed as in the whole tree) of
+    ``shape``; under ``['blocks']`` with ``layers``, ``shape`` is one
+    layer's of a stack of that many, whose bytes FSDP reads, and a spec
+    that splits the layers themselves raises."""
+    if layers is None or not path.startswith("['blocks']"):
+        return _spec_for(path, shape, mesh, itemsize, fsdp)
+    spec = _spec_for(path, (layers, *shape), mesh, itemsize, fsdp)
+    if spec[0] is not None:
+        raise NotImplementedError(f"{path}: {spec} splits the layers; "
+                                  "a layer is not cut on its own")
+    return P(*spec[1:])
 
 
 def local_params(tree, mesh, coord: dict | None = None, *,
@@ -202,24 +209,59 @@ def local_params(tree, mesh, coord: dict | None = None, *,
     default, the training layout of JAX's dry run (FSDP blocks over the
     data axes) with ``fsdp=True``.  ``layers``: the leaves under
     ``['blocks']`` are one layer of a stack of that many (an init that
-    cuts each layer as it is drawn), so that FSDP reads the stacked
-    leaf's bytes; a spec that splits the layers themselves raises."""
-    if layers is None:
-        return local_shards(tree, param_specs(tree, mesh, fsdp=fsdp), mesh,
-                            coord)
-    specs = []
-    for path, leaf in leaf_paths(tree):
-        if not path.startswith("['blocks']"):
-            specs.append(_spec_for(path, tuple(leaf.shape), mesh,
-                                   leaf.element_size(), fsdp))
-            continue
-        spec = _spec_for(path, (layers, *leaf.shape), mesh,
-                         leaf.element_size(), fsdp)
-        if spec[0] is not None:
-            raise NotImplementedError(f"{path}: {spec} splits the layers; "
-                                      "a layer is not cut on its own")
-        specs.append(P(*spec[1:]))
+    cuts each layer as it is drawn, :class:`Local`)."""
+    specs = [_layer_spec(path, tuple(leaf.shape), mesh, leaf.element_size(),
+                         fsdp, layers) for path, leaf in leaf_paths(tree)]
     return local_shards(tree, _rebuild(tree, iter(specs)), mesh, coord)
+
+
+def _cuts(path: str, shape: tuple, spec, sizes: dict, coord: dict
+          ) -> list[slice]:
+    """The slice of each dim of the leaf at ``path`` of ``shape`` that the
+    rank at ``coord`` keeps under ``spec``: along each dim that names mesh
+    axes, block i of n contiguous ones, n the product of those axes'
+    sizes and i this rank's coordinates on them read major to minor."""
+    out = []
+    for d, n_d in enumerate(shape):
+        s = spec[d] if d < len(spec) else None
+        axes = () if s is None else (s if isinstance(s, tuple) else (s,))
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * sizes[a], i * sizes[a] + coord[a]
+        if n_d % n:
+            raise ValueError(f"{path}: dim {d} of {tuple(shape)} does not "
+                             f"split into {n} blocks")
+        b = n_d // n
+        out.append(slice(i * b, (i + 1) * b))
+    return out
+
+
+class Local:
+    """``local_params(tree, mesh, coord, fsdp=fsdp, layers=layers)`` as a
+    function of a subtree (``models/transformer.init_params(local=)``),
+    which also gives one leaf's block before the leaf exists
+    (:meth:`block`), so that an init can draw the parts a rank does not
+    keep without holding them (the MoE experts, ``models/moe.init_moe``)."""
+
+    def __init__(self, mesh, coord: dict | None = None, *,
+                 fsdp: bool = False, layers: int | None = None):
+        self.mesh, self.fsdp, self.layers = mesh, fsdp, layers
+        self.coord = coord if coord is not None else {
+            a: mesh.get_local_rank(a) for a in mesh_axes(mesh)}
+
+    def __call__(self, tree):
+        return local_params(tree, self.mesh, self.coord, fsdp=self.fsdp,
+                            layers=self.layers)
+
+    def block(self, path: str, shape: tuple, itemsize: int = 2
+              ) -> list[slice]:
+        """The slices of each dim of the leaf at ``path`` (keyed as in the
+        whole tree) of whole ``shape`` (one layer's, under ``['blocks']``
+        with ``layers``) that this rank keeps."""
+        spec = _layer_spec(path, tuple(shape), self.mesh, itemsize,
+                           self.fsdp, self.layers)
+        return _cuts(path, tuple(shape), spec, mesh_axes(self.mesh),
+                     self.coord)
 
 
 def param_shardings(shape_tree, mesh, *, fsdp: bool = True):

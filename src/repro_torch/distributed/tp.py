@@ -112,6 +112,43 @@ rule table's blocks of the whole model (:func:`placement`) and wrap the
 leaves split over ``data`` as :class:`Fsdp` and those kept whole over
 ``model`` as :class:`Whole` (:func:`layout_view`).
 
+Expert parallelism and MLA under the model axis (deepseek-v2-lite-16b,
+arctic-480b).  JAX's ``moe_ffn`` runs a ``shard_map`` over ``model`` and
+the data axes, whose HLO (a train step of the reduced configs on ``(1,
+4)`` and ``(2, 2)``) holds, per layer:
+
+  * each rank routes its rows (``in_specs=P(dp, None)``: the rows the
+    rank holds already, :func:`rows_split`) through its E/m experts and
+    the f32 outputs [T, D] are summed over ``model`` (a psum, identity
+    backward): :func:`reduce_from_model`;
+  * the transpose sums the FFN input's gradient over ``model``: each
+    rank's bf16 cotangent (from its own experts' dispatch and from the
+    router) widened to f32, summed, rounded once to bf16 (a bf16 psum
+    that XLA promotes to f32): :func:`copy_to_model`;
+  * the router's f32 weight gradient, each rank's partial from its own
+    experts' gates, summed over ``model`` and the data axes in f32 (one
+    all-reduce over both; here one over each, :class:`Whole` with
+    ``partial``, then over ``data`` as any replicated leaf's);
+  * the experts' weight gradients: each rank's rounded to bf16 (the
+    products' transposes), then summed over ``data`` in f32 and rounded
+    once (``weight`` of the stack, :class:`_DataLeaf`).
+
+MLA splits its heads (wq, wuk, wuv column-parallel, wo row-parallel) and
+replicates wdkv, wkr and kv_norm (:func:`replicated`).  Backward, per
+layer: the input gradient's partials of wq and, for the latent, of wuk
+and wuv (f32, summed, each rounded on its own), and the rope key's
+gradient, which every query head shares: an f32 sum over this rank's
+heads, summed over ``model``, rounded once (:func:`heads_broadcast`).
+The latent's and the rope key's gradients are then whole on every rank,
+and so are those of wdkv, wkr and kv_norm.  The decode cache holds this
+rank's block of the latent's last dim (``cache_specs`` splits it), which
+a decode step gathers over ``model`` in f32 at its use; GSPMD gathers the
+same, and besides gathers the softmax weights ``[B, H, T]`` over the
+heads, so that each rank contracts them with its own block of the
+latent, then an all-to-all returns that ``[B, H, r]`` context to the
+heads: the port contracts the gathered latent on its own heads instead
+and needs neither.
+
 The layers call these functions at every mesh: with no mesh, or axes
 of one, each is the plain single-device form.  The collectives go
 through ``torch.distributed`` on the mesh's ``model`` or ``data`` group,
@@ -297,6 +334,71 @@ def reduce_from_model(partial: torch.Tensor) -> torch.Tensor:
     if model_size() == 1:
         return partial
     return _Sum.apply(partial, "model")
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward; backward: the incoming gradient (this rank's
+    partial) widened to f32, summed over ``model``, rounded once to its
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.group = model_group()
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+        s.copy_(g)
+        return _all_reduce(s, group=ctx.group, backward=True).to(g.dtype)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, read by this rank's share of a computation (the
+    routed experts' FFN): the conjugate of :func:`reduce_from_model`.  Its
+    gradient, this rank's partial, is summed over the ``model`` axis in
+    f32 and rounded once to x's dtype, as JAX's ``shard_map`` transpose
+    sums its replicated input's."""
+    if model_size() == 1:
+        return x
+    return _Copy.apply(x)
+
+
+class _HeadSum(torch.autograd.Function):
+    """x [..., d] broadcast to [..., h, d]; backward: the f32 sum over the
+    h heads, summed over ``model``, rounded once to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, h):
+        ctx.group = model_group()
+        return x.unsqueeze(-2).expand(*x.shape[:-1], h, x.shape[-1]) \
+            .contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        s = g.to(torch.float32).sum(dim=-2)
+        return _all_reduce(s, group=ctx.group,
+                           backward=True).to(g.dtype), None
+
+
+def heads_broadcast(x: torch.Tensor, h: int) -> torch.Tensor:
+    """x [..., d], shared by every head (MLA's rope key), broadcast over
+    this rank's ``h`` query heads -> [..., h, d].  Under a model axis the
+    gradient is summed over the rank's heads in f32, then over the axis,
+    and rounded once, as JAX's HLO sums it; with none, ``expand``."""
+    if model_size() == 1:
+        return x.unsqueeze(-2).expand(*x.shape[:-1], h, x.shape[-1])
+    return _HeadSum.apply(x, h)
+
+
+def model_block(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` split over ``model`` (the
+    whole of it with a model axis of one)."""
+    m = model_size()
+    if m == 1:
+        return t
+    n = t.shape[dim] // m
+    return t.narrow(dim, model_rank() * n, n)
 
 
 def reduce_from_data(partial: torch.Tensor) -> torch.Tensor:
@@ -595,13 +697,27 @@ def column_parallel(x: torch.Tensor, w) -> torch.Tensor:
     read by this rank's heads only (``partial``) is a column product too,
     all of whose columns the rank computes; one read whole on every rank
     the plain product, no sum either way."""
-    sums = model_size() > 1 and not (isinstance(w, Whole) and not w.partial)
+    if model_size() == 1 or isinstance(w, Whole) and not w.partial:
+        return replicated(x, w)
+    w = weight(w)
+    y = _Product.apply(x.reshape(-1, x.shape[-1]),
+                       w.reshape(w.shape[0], -1), False, True)
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def replicated(x: torch.Tensor, w) -> torch.Tensor:
+    """x [..., K] @ w [K, *out] -> [..., *out] in x's dtype, f32
+    accumulated and rounded once, for a weight the rule table replicates
+    over ``model`` (MLA's wdkv and wkr; the router, in f32): every rank
+    computes all of it, no sum forward or backward, the weight read
+    through :func:`weight` (an FSDP block gathered; under split rows its
+    gradient summed over ``data``)."""
     w = weight(w)
     w2d = w.reshape(w.shape[0], -1)
-    if not sums and w.dtype == x.dtype:
+    if w.dtype == x.dtype:
         y = torch.matmul(x, w2d)
     else:
-        y = _Product.apply(x.reshape(-1, x.shape[-1]), w2d, False, sums)
+        y = _Product.apply(x.reshape(-1, x.shape[-1]), w2d, False, False)
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 
@@ -726,19 +842,24 @@ def sharded_leaves(whole: dict, params: dict) -> list[bool]:
 
 
 def check_layout(cfg) -> None:
-    """Raise unless this slice lays ``cfg`` out over the active mesh:
-    the dense GQA decoders (yi, qwen2.5, gemma3, internvl2's language
-    model) beside a data axis of any size, on a mesh without a ``pod``
-    axis, with d_ff and the vocab dividing the model axis.  Where the
-    heads or KV heads do not divide it, the rule table keeps those leaves
-    whole, as JAX does: K/V replicated (each rank's query heads read
-    their KV heads of the whole K/V), Q and wo too where the heads do not
-    divide, and the decode cache sharded over T (``cache_specs``; a
+    """Raise unless this slice lays ``cfg`` out over the active mesh: the
+    dense GQA decoders (yi, qwen2.5, gemma3, internvl2's language model),
+    the MoE decoders (deepseek-v2-lite-16b's MLA and shared experts,
+    arctic-480b's dense residual FFN) beside a data axis of any size, on
+    a mesh without a ``pod`` axis.  Where the heads or KV heads of a GQA
+    decoder do not divide the model axis, the rule table keeps those
+    leaves whole, as JAX does: K/V replicated (each rank's query heads
+    read their KV heads of the whole K/V), Q and wo too where the heads do
+    not divide, and the decode cache sharded over T (``cache_specs``; a
     cache whose T does not divide the axis is refused where it is made,
-    ``models/transformer.init_cache``).  Refused, naming the ROADMAP
-    item: a pod axis, MLA, MoE, the recurrent and encoder-decoder
-    families, a d_ff or vocab that does not divide the model axis, and
-    ring caches (gemma3's local layers) whose KV heads do not divide it."""
+    ``models/transformer.init_cache``); so are shared experts whose width
+    does not divide it.  Refused, each by name with the ROADMAP item: a
+    pod axis; the recurrent and encoder-decoder families; experts that do
+    not divide the model axis (JAX asserts); a dense d_ff (of a dense MLP
+    or arctic's residual FFN) or a vocab that does not divide it; MLA
+    heads, latent or rope widths that do not divide it (``cache_specs``
+    would split the latent cache over T); ring caches (gemma3's local
+    layers) whose KV heads do not divide it."""
     m, d = model_size(), data_size()
     if m == 1 and d == 1:
         return
@@ -747,19 +868,33 @@ def check_layout(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: a pod axis of {sizes['pod']} (the multi-pod mesh) "
             f"is not laid out ({ROADMAP_ITEM})")
-    if (cfg.attn_kind != "gqa" or cfg.is_moe or cfg.is_encdec
-            or cfg.family in ("ssm", "hybrid")):
+    if cfg.is_encdec or cfg.family in ("ssm", "hybrid") or \
+            cfg.attn_kind not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: tensor and data parallelism are ported for the "
-            f"dense GQA decoders only, not for MLA, MoE, the recurrent or "
-            f"the encoder-decoder families ({ROADMAP_ITEM})")
+            f"dense GQA and the MoE decoders, not for the recurrent or the "
+            f"encoder-decoder families ({ROADMAP_ITEM})")
+    if cfg.is_moe and cfg.n_experts % m:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.n_experts} experts do not divide the model "
+            f"axis of {m} (JAX's moe_ffn asserts it) ({ROADMAP_ITEM})")
     odd = {k: v for k, v in (("d_ff", cfg.d_ff), ("vocab", cfg.vocab))
-           if v % m}
+           if v % m and (k == "vocab" or not cfg.is_moe
+                         or cfg.moe_dense_residual)}
     if odd:
         raise NotImplementedError(
             f"{cfg.name}: {odd} do not divide the model axis of {m}; the "
-            f"rule table would replicate the MLP or the vocab, which is not "
-            f"laid out ({ROADMAP_ITEM})")
+            f"rule table would replicate the dense MLP or the vocab, which is "
+            f"not laid out ({ROADMAP_ITEM})")
+    if cfg.attn_kind == "mla":
+        odd = {k: v for k, v in (("heads", cfg.n_heads),
+                                 ("kv_lora_rank", cfg.kv_lora_rank),
+                                 ("qk_rope_dim", cfg.qk_rope_dim)) if v % m}
+        if odd:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA's {odd} do not divide the model axis of "
+                f"{m}; whole heads, or a latent cache that cache_specs would "
+                f"split over T, are not laid out ({ROADMAP_ITEM})")
     if cfg.local_ratio > 0 and cfg.n_kv_heads % m:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_kv_heads} KV heads do not divide the model "

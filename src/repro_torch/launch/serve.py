@@ -118,7 +118,8 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
     b, s = prompts.shape
     d, m = tp.data_size(), tp.model_size()
     tp.check_layout(cfg)
-    if m > 1 and cfg.n_kv_heads % m and (s + gen) % m:
+    if m > 1 and cfg.attn_kind == "gqa" and cfg.n_kv_heads % m and \
+            (s + gen) % m:
         raise NotImplementedError(
             f"{cfg.name}: a prompt of {s} plus {gen} new tokens make a cache "
             f"of {s + gen} rows, which do not divide the model axis of {m}; "

@@ -31,6 +31,15 @@ full-sequence q/k/v projections are column-parallel
 partial over the ranks; a bias's gradient is local.  Under a data axis
 they run on this rank's rows, each weight read through ``tp.weight``
 (an FSDP block gathered over ``data`` at its use).
+
+MLA under the model axis splits its heads: wq, wuk and wuv are
+column-parallel, wo row-parallel; wdkv, wkr and kv_norm are replicated
+(``tp.replicated``), so every rank computes the whole latent and rope
+key; the rope key's gradient, shared by every head, is summed over the
+rank's heads and then over the axis (``tp.heads_broadcast``).  The
+decode cache holds this rank's block of the latent's and the rope key's
+last dim (``sharding.cache_specs``), which the step writes at ``t`` and
+gathers over ``model`` in f32 at its use.
 """
 
 from __future__ import annotations
@@ -332,8 +341,9 @@ def init_mla(gen: torch.Generator, d: int, n_heads: int, r: int, dn: int,
 
 def _mla_qkr(p: dict, x: torch.Tensor, positions: torch.Tensor, dn: int,
              dr: int, theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(q_nope [B, S, H, dn], q_rope [B, S, H, dr] roped)."""
-    q = L.linear(p["wq"], x)                         # [B, S, H, dn+dr]
+    """(q_nope [B, S, H, dn], q_rope [B, S, H, dr] roped): this rank's
+    heads under a model axis."""
+    q = L.column_linear(p["wq"], x)                  # [B, S, H, dn+dr]
     qn, qr = q[..., :dn], q[..., dn:]
     cos, sin = L.rope_angles(positions, dr, theta)
     qr = L.apply_rope(qr, cos[None, :, None, :], sin[None, :, None, :])
@@ -342,9 +352,10 @@ def _mla_qkr(p: dict, x: torch.Tensor, positions: torch.Tensor, dn: int,
 
 def _mla_latent(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """(c [B, S, r] normed latent, k_rope [B, S, dr] roped)."""
-    c = L.rmsnorm(p["kv_norm"], L.linear(p["wdkv"], x))
-    kr = L.linear(p["wkr"], x)[:, :, None, :]
+    """(c [B, S, r] normed latent, k_rope [B, S, dr] roped), whole on
+    every rank."""
+    c = L.rmsnorm(p["kv_norm"], tp.replicated(x, p["wdkv"]["w"]))
+    kr = tp.replicated(x, p["wkr"]["w"])[:, :, None, :]
     cos, sin = L.rope_angles(positions, kr.shape[-1], theta)
     kr = L.apply_rope(kr, cos[None, :, None, :], sin[None, :, None, :])
     return c, kr[:, :, 0]
@@ -357,11 +368,11 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     b, s, _ = x.shape
     qn, qr = _mla_qkr(p, x, positions, dn, dr, theta)
     c, kr = _mla_latent(p, x, positions, theta)
-    kn = L.linear(p["wuk"], c)                       # [B, S, H, dn]
-    v = L.linear(p["wuv"], c)                        # [B, S, H, dv]
+    kn = L.column_linear(p["wuk"], c)                # [B, S, H, dn]
+    v = L.column_linear(p["wuv"], c)                 # [B, S, H, dv]
     h = qn.shape[2]
     q = torch.cat([qn, qr], dim=-1)
-    k = torch.cat([kn, kr[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    k = torch.cat([kn, tp.heads_broadcast(kr, h)], dim=-1)
     ctx = _chunked_attn(q.reshape(b, s, h, 1, dn + dr), k, v, positions,
                         positions, True, 0)
     return _proj_out(p, ctx.reshape(b, s, h, v.shape[-1]))
@@ -373,28 +384,32 @@ def mla_decode(p: dict, x: torch.Tensor, c_cache: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Absorbed-matrix decode: attention runs in the r-wide latent space.
 
-    The cache is the latent itself (c [B, T, r], k_rope [B, T, dr]),
-    written in place at ``t``.  W_uk is absorbed into q and W_uv applied
-    to the latent context, both in f32 (bf16 operands are exact there;
-    TF32 is off on the card, ``kernels/_device.resolve_device``).
+    The cache is the latent itself (c [B, T, r], k_rope [B, T, dr]; this
+    rank's block of the last dim under a model axis), written in place at
+    ``t`` and read (gathered over the axis) in f32.  W_uk is absorbed
+    into q and W_uv applied to the latent context, both in f32 (bf16
+    operands are exact there; TF32 is off on the card, ``kernels/
+    _device.resolve_device``), for this rank's heads.
     """
     pos = torch.tensor([t], dtype=torch.int32, device=x.device)
     qn, qr = _mla_qkr(p, x, pos, dn, dr, theta)
     c_new, kr_new = _mla_latent(p, x, pos, theta)
-    c_cache[:, t] = c_new[:, 0].to(c_cache.dtype)
-    kr_cache[:, t] = kr_new[:, 0].to(kr_cache.dtype)
+    c_cache[:, t] = tp.model_block(c_new[:, 0]).to(c_cache.dtype)
+    kr_cache[:, t] = tp.model_block(kr_new[:, 0]).to(kr_cache.dtype)
 
     f32 = torch.float32
-    cc = c_cache[:, :t + 1].to(f32)                   # [B, t+1, r]
+    cc, krc = c_cache[:, :t + 1].to(f32), kr_cache[:, :t + 1].to(f32)
+    if tp.model_size() > 1:
+        cc = tp.all_gather(cc, -1, "model")           # [B, t+1, r]
+        krc = tp.all_gather(krc, -1, "model")
     q_eff = torch.einsum("bhd,rhd->bhr", qn[:, 0].to(f32),
-                         p["wuk"]["w"].to(f32))
+                         tp.weight(p["wuk"]["w"]).to(f32))
     scores = torch.einsum("bhr,btr->bht", q_eff, cc)
-    scores = scores + torch.einsum("bhd,btd->bht", qr[:, 0].to(f32),
-                                   kr_cache[:, :t + 1].to(f32))
+    scores = scores + torch.einsum("bhd,btd->bht", qr[:, 0].to(f32), krc)
     w = torch.softmax(scores / math.sqrt(dn + dr), dim=-1)
     ctx_lat = torch.einsum("bht,btr->bhr", w, cc)
     ctx = torch.einsum("bhr,rhd->bhd", ctx_lat,
-                       p["wuv"]["w"].to(f32)).to(x.dtype)
+                       tp.weight(p["wuv"]["w"]).to(f32)).to(x.dtype)
     return _proj_out(p, ctx[:, None]), c_cache, kr_cache
 
 
@@ -402,8 +417,10 @@ def mla_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       cache_len: int, theta: float = 1e4
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """A prompt's latent cache: c [B, cache_len, r] and k_rope [B,
-    cache_len, dr], the first cache_len positions."""
+    cache_len, dr], the first cache_len positions (this rank's block of
+    the last dim under a model axis)."""
     c, kr = _mla_latent(p, x, positions, theta)
+    c, kr = tp.model_block(c), tp.model_block(kr)
     b, s, r = c.shape
     cc = c.new_zeros((b, cache_len, r))
     krc = kr.new_zeros((b, cache_len, kr.shape[-1]))

@@ -22,18 +22,23 @@ Semantics kept from the JAX version, each of which decides bits:
     starting from 0, as the scatter-add ``out.at[tok].add`` does.
 
 Expert parallelism (JAX's ``shard_map`` path): under a mesh with a
-``model`` axis (``distributed/axes.use_mesh``), every rank holds the whole
-activation, routes the tokens of its data shard through its own experts
-``[midx * e_local, (midx + 1) * e_local)`` (sliced from the full stack
-every rank holds) with the capacity of a
-shard's token count, and the partial outputs are summed over the
-``model`` group; a data axis larger than one then gathers the shards'
-rows, so every rank returns the whole output, as JAX's global array
-holds it.  The shared experts stay outside, as in JAX, where GSPMD runs
-them tensor-parallel under the rule table: with a model axis larger than
-one each rank takes its columns of their gate and up and its rows of
-their down (:func:`_local_mlp`) through ``layers.mlp``'s row-parallel
-path.
+``model`` axis (``distributed/axes.use_mesh``) a rank holds its E/m
+experts ``[midx * e_local, (midx + 1) * e_local)`` only (``sharding.
+local_params``; :func:`init_moe` draws the others and keeps nothing of
+them), routes the tokens of its rows (the rank's rows of the batch under
+a data axis, ``tp.rows_split``, which JAX's ``in_specs=P(dp, None)``
+hands each device) through them with the capacity of that token count,
+and the f32 partial outputs are summed over ``model``
+(``tp.reduce_from_model``).  The backward follows JAX's transpose of the
+``shard_map`` (``distributed/tp.py``): the FFN input's gradient summed
+over ``model`` (``tp.copy_to_model``), the router's f32 gradient summed
+over ``model`` (a ``tp.Whole`` leaf read by this rank's experts only)
+and, as every replicated leaf's, over ``data``; the experts' own
+gradients are this rank's, summed over ``data`` only.  The shared
+experts stay outside, as in JAX, where GSPMD runs them tensor-parallel
+under the rule table: a rank holds its columns of their gate and up and
+its rows of their down (whole, ``tp.Whole``, where their width does not
+divide the axis), which ``layers.mlp`` runs.
 """
 
 from __future__ import annotations
@@ -41,7 +46,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.distributed import axes as AX
 from repro_torch.distributed import tp
@@ -51,22 +55,29 @@ from . import layers as L
 
 def init_moe(gen: torch.Generator, d: int, f_expert: int, n_experts: int,
              n_shared: int = 0, *, dtype=torch.bfloat16,
-             device: torch.device) -> dict:
+             device: torch.device, block=None) -> dict:
     """Router [D, E] in f32, experts stacked {gate, up: [E, D, F], down:
     [E, F, D]}, and ``shared`` (one MLP n_shared * F wide) if asked for.
     Experts are drawn one at a time into the stack, so the f32 draw of
-    one expert is the largest temporary."""
+    one expert is the largest temporary.  ``block``: a function of a
+    stack's name and whole shape giving the slices of each dim a rank
+    keeps (``sharding.Local.block``): every expert is drawn, and the
+    stack holds only the kept experts' kept blocks."""
     p = {"router": L.init_linear(gen, d, n_experts, dtype=torch.float32,
                                  device=device)}
-    experts = None
+    whole = {"gate": (n_experts, d, f_expert), "up": (n_experts, d, f_expert),
+             "down": (n_experts, f_expert, d)}
+    cut = {k: block(k, sh) if block else [slice(0, n) for n in sh]
+           for k, sh in whole.items()}
+    experts = {k: {"w": torch.empty(tuple(s.stop - s.start for s in c),
+                                    dtype=dtype, device=device)}
+               for k, c in cut.items()}
     for e in range(n_experts):
         one = L.init_mlp(gen, d, f_expert, dtype=dtype, device=device)
-        if experts is None:
-            experts = {k: {"w": torch.empty((n_experts,) + v["w"].shape,
-                                            dtype=dtype, device=device)}
-                       for k, v in one.items()}
         for k, v in one.items():
-            experts[k]["w"][e] = v["w"]
+            lo = cut[k][0]
+            if lo.start <= e < lo.stop:
+                experts[k]["w"][e - lo.start] = v["w"][cut[k][1], cut[k][2]]
     p["experts"] = experts
     if n_shared:
         p["shared"] = L.init_mlp(gen, d, n_shared * f_expert, dtype=dtype,
@@ -80,7 +91,8 @@ def _capacity(n_tokens: int, top_k: int, n_experts: int,
 
 
 def _probs(router: dict, x2d: torch.Tensor) -> torch.Tensor:
-    return torch.softmax(L.linear(router, x2d.to(torch.float32)), dim=-1)
+    return torch.softmax(tp.replicated(x2d.to(torch.float32), router["w"]),
+                         dim=-1)
 
 
 def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -98,20 +110,25 @@ def _route(router: dict, x2d: torch.Tensor, top_k: int, n_experts: int
 
 
 class _ExpertMatmul(torch.autograd.Function):
-    """[E, C, a] x [E, a, b] -> [E, C, b] in f32 from bf16 operands.
+    """[E, C, a] x [E, a, b] -> [E, C, b] in f32 from bf16 operands (``b``
+    may be f32 holding bf16 values: a stack gathered over ``data`` or
+    widened for the data axis's sum, ``tp.weight``).
 
     The backward forms each gradient in f32 from the f32 cotangent and
-    the other operand widened, then rounds it once to the operand's
-    dtype, as JAX's transpose of a ``preferred_element_type=f32`` product
-    does (so a backward widens one expert stack at a time).
+    the other operand widened, then rounds it once to bf16, as JAX's
+    transpose of a ``preferred_element_type=f32`` product does (so a
+    backward widens one expert stack at a time); a widened stack's
+    gradient is those bf16 values in f32, for the data axis's sum.
     """
 
     @staticmethod
     def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(a, b)
+        bb = b.to(a.dtype)
+        ctx.save_for_backward(a, bb)
+        ctx.b_dtype = b.dtype
         if a.is_cuda:
-            return torch.bmm(a, b, out_dtype=torch.float32)
-        return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+            return torch.bmm(a, bb, out_dtype=torch.float32)
+        return torch.bmm(a.to(torch.float32), bb.to(torch.float32))
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -121,7 +138,8 @@ class _ExpertMatmul(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             ga = torch.bmm(g, b.to(f32).transpose(1, 2)).to(a.dtype)
         if ctx.needs_input_grad[1]:
-            gb = torch.bmm(a.to(f32).transpose(1, 2), g).to(b.dtype)
+            gb = torch.bmm(a.to(f32).transpose(1, 2), g).to(b.dtype).to(
+                ctx.b_dtype)
         return ga, gb
 
 
@@ -164,62 +182,32 @@ def _moe_local(p: dict, x2d: torch.Tensor, top_k: int, n_experts: int,
     return out
 
 
-def _moe_sharded(p: dict, x2d: torch.Tensor, mesh, top_k: int,
-                 n_experts: int, capacity_factor: float) -> torch.Tensor:
-    """The expert-parallel path: this rank's data shard of ``x2d``
-    through its experts, summed over "model", the shards' rows gathered
-    over the data axes (pod-major).  Returns [T, D] in f32."""
-    sizes = AX.mesh_axes(mesh)
-    m = sizes["model"]
+def _moe_sharded(p: dict, x2d: torch.Tensor, top_k: int, n_experts: int,
+                 capacity_factor: float) -> torch.Tensor:
+    """The expert-parallel path: this rank's rows ``x2d`` (its data
+    shard's tokens, as they are) through its own experts (``p["experts"]``
+    holds them alone), the f32 partials summed over ``model``.  Returns
+    [T, D] in f32, this rank's rows."""
+    m = tp.model_size()
     if n_experts % m:
         raise ValueError(f"{n_experts} experts do not split over a model "
                          f"axis of {m}")
-    e_local = n_experts // m
-    dp = AX.dp_axes()
-    dp_size = 1
-    for a in dp:
-        dp_size *= sizes[a]
-    t = x2d.shape[0]
-    if t % dp_size:
-        raise ValueError(f"{t} tokens do not split over {dp_size} data "
-                         "ranks")
-    t_loc = max(1, t // dp_size)
-    cap = _capacity(t_loc, top_k, n_experts, capacity_factor)
-    dpi = 0
-    for a in dp:                                    # major to minor
-        dpi = dpi * sizes[a] + mesh.get_local_rank(a)
-    midx = mesh.get_local_rank("model")
-    mine = slice(midx * e_local, (midx + 1) * e_local)   # of the full stack
-    pp = {"router": p["router"],
-          "experts": {k: {"w": v["w"][mine]} for k, v in p["experts"].items()}}
-    out = _moe_local(pp, x2d[dpi * t_loc:(dpi + 1) * t_loc], top_k,
-                     n_experts, midx * e_local, e_local, cap)
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.get_group("model"))
-    for a in reversed(dp):                          # minor axis first
-        if sizes[a] > 1:
-            parts = [torch.empty_like(out) for _ in range(sizes[a])]
-            dist.all_gather(parts, out, group=mesh.get_group(a))
-            out = torch.cat(parts)
-    return out
-
-
-def _local_mlp(p: dict) -> dict:
-    """This rank's shard of a dense MLP held whole (the shared experts):
-    columns of gate and up, rows of down, block ``model_rank`` of
-    ``model_size``, as the rule table lays them out; the MLP itself with
-    a model axis of one."""
-    m = tp.model_size()
-    if m == 1:
-        return p
-    if p["gate"]["w"].shape[-1] % m:
+    if tp.data_size() > 1 and not tp.rows_split():
         raise NotImplementedError(
-            f"shared experts of width {p['gate']['w'].shape[-1]} do not "
-            f"split over a model axis of {m} ({tp.ROADMAP_ITEM})")
-    f = p["gate"]["w"].shape[-1] // m
-    mine = slice(tp.model_rank() * f, (tp.model_rank() + 1) * f)
-    return {"gate": {"w": p["gate"]["w"][:, mine]},
-            "up": {"w": p["up"]["w"][:, mine]},
-            "down": {"w": p["down"]["w"][mine]}}
+            f"a batch whose rows do not divide the data axis of "
+            f"{tp.data_size()} stays whole on every rank, which JAX's "
+            f"shard_map cannot route ({tp.ROADMAP_ITEM})")
+    e_local = n_experts // m
+    router = p["router"]["w"]
+    if m > 1:                       # each rank's gates: a partial gradient
+        router = tp.Whole(router, partial=True)
+    pp = {"router": {"w": router},
+          "experts": {k: {"w": tp.weight(v["w"])}
+                      for k, v in p["experts"].items()}}
+    cap = _capacity(x2d.shape[0], top_k, n_experts, capacity_factor)
+    out = _moe_local(pp, tp.copy_to_model(x2d), top_k, n_experts,
+                     tp.model_rank() * e_local, e_local, cap)
+    return tp.reduce_from_model(out)
 
 
 def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
@@ -233,10 +221,10 @@ def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
         cap = _capacity(b * s, top_k, n_experts, capacity_factor)
         out = _moe_local(p, x2d, top_k, n_experts, 0, n_experts, cap)
     else:
-        out = _moe_sharded(p, x2d, mesh, top_k, n_experts, capacity_factor)
+        out = _moe_sharded(p, x2d, top_k, n_experts, capacity_factor)
     y = out.reshape(b, s, d).to(x.dtype)
     if "shared" in p:
-        y = y + L.mlp(_local_mlp(p["shared"]), x)
+        y = y + L.mlp(p["shared"], x)
     return y
 
 

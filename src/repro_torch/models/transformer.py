@@ -109,8 +109,11 @@ def cache_slots(cfg: ArchConfig) -> tuple[np.ndarray, np.ndarray,
     return is_global, slot, (int(is_global.sum()), int((~is_global).sum()))
 
 
+_EXPERTS = "['blocks']['ffn']['experts']['{}']['w']"
+
+
 def _init_block(cfg: ArchConfig, gen: torch.Generator,
-                device: torch.device) -> dict:
+                device: torch.device, block=None) -> dict:
     p = {"ln1": L.init_rmsnorm(cfg.d_model, device),
          "ln2": L.init_rmsnorm(cfg.d_model, device)}
     if cfg.attn_kind == "mla":
@@ -121,9 +124,10 @@ def _init_block(cfg: ArchConfig, gen: torch.Generator,
         p["attn"] = A.init_gqa(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, bias=cfg.qkv_bias, device=device)
     if cfg.is_moe:
-        p["ffn"] = M.init_moe(gen, cfg.d_model, cfg.d_ff_expert,
-                              cfg.n_experts, cfg.n_shared_experts,
-                              device=device)
+        p["ffn"] = M.init_moe(
+            gen, cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+            cfg.n_shared_experts, device=device,
+            block=block and (lambda k, sh: block(_EXPERTS.format(k), sh)))
         if cfg.moe_dense_residual:
             p["dense_ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff,
                                         device=device)
@@ -133,24 +137,35 @@ def _init_block(cfg: ArchConfig, gen: torch.Generator,
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator,
-                device: torch.device | str, local=None) -> dict:
+                device: torch.device | str,
+                local: SH.Local | None = None) -> dict:
     """Random params on ``device`` from ``gen`` (a generator on that
     device); the JAX init's tree and distributions, not its numbers.
 
-    ``local``: a function of a subtree keyed as in the whole tree (such as
-    ``distributed/sharding.local_params`` on a mesh), applied to the
-    embedding, to each layer's block (keyed ``{"blocks": block}``, one
-    layer, ``local_params(layers=)``) and to the head as each is drawn, so
-    that a rank keeps its blocks and never holds more of the whole model
-    than one layer.  The draws are the same either way."""
+    ``local``: a ``distributed/sharding.Local`` (this rank's blocks on a
+    mesh), applied to the embedding, to each layer's block (keyed
+    ``{"blocks": block}``, one layer) and to the head as each is drawn,
+    so that a rank keeps its blocks and never holds more of the whole
+    model than one layer; it cuts the MoE expert stacks as each expert is
+    drawn, so that a rank never holds a whole layer's stack either
+    (arctic-480b's is 26.8 GB).  The draws are the same either way."""
     check_family(cfg)
     device = torch.device(device)
     keep = local or (lambda t: t)
+    block = local.block if local else None
+
+    def one_layer() -> dict:
+        bp = _init_block(cfg, gen, device, block)
+        if block is None or not cfg.is_moe:
+            return keep({"blocks": bp})["blocks"]
+        experts = bp["ffn"].pop("experts")            # cut already
+        bp = keep({"blocks": bp})["blocks"]
+        bp["ffn"]["experts"] = experts
+        return bp
+
     embed = keep({"embed": L.init_embed(gen, cfg.vocab, cfg.d_model,
                                         device=device)})["embed"]
-    blocks = P.init_stacked(
-        lambda: keep({"blocks": _init_block(cfg, gen, device)})["blocks"],
-        cfg.n_layers)
+    blocks = P.init_stacked(one_layer, cfg.n_layers)
     return {
         "embed": embed,
         "blocks": blocks,
@@ -212,9 +227,11 @@ def placed(cfg: ArchConfig, params: dict) -> tuple[dict, list[dict]]:
     (``params.unstack``), where under a data axis each leaf split over
     ``data`` is a ``tp.Fsdp`` block, which the layers read through
     ``tp.weight``, and under a model axis each attention leaf kept whole
-    over it (heads or KV heads that do not divide it) a ``tp.Whole``."""
+    over it (heads or KV heads that do not divide it; shared experts
+    whose width does not) a ``tp.Whole``."""
     m = tp.model_size()
-    if tp.data_size() == 1 and cfg.n_kv_heads % m == 0:
+    if tp.data_size() == 1 and (m == 1 or cfg.attn_kind == "gqa" and
+                                not cfg.is_moe and cfg.n_kv_heads % m == 0):
         return params, P.unstack(params["blocks"])
     lay = tp.placement(whole_shapes(cfg), params)
     dims = {path: d for path, _, d in lay if d is not None}

@@ -38,10 +38,11 @@ Tolerances, each from what the two packages do differently:
   one-step rule (the gradients come from two backward passes that round
   differently; the collective itself is held bit-equal by feeding both
   packages' gradients to both ``tree_all_reduce``);
-* ``moe_ffn`` under a ``(1, 2)`` and a ``(2, 1)`` mesh: within 2 bf16
-  ULPs elementwise of JAX's, ``tests/test_torch_moe.py``'s bound for
-  ``moe_ffn`` (the partial sums over the model axis are the same values
-  as JAX's; the expert products round as that file states).
+* ``moe_ffn`` under a ``(1, 2)`` and a ``(2, 1)`` mesh, each rank on its
+  experts and its rows: within 2 bf16 ULPs elementwise of JAX's rows,
+  ``tests/test_torch_moe.py``'s bound for ``moe_ffn`` (the partial sums
+  over the model axis are the same values as JAX's; the expert products
+  round as that file states).
 """
 
 import os
@@ -66,6 +67,7 @@ from repro_torch.checkpoint import store
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.data import pipeline as TP
 from repro_torch.distributed import compress_comm as cc
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
 from repro_torch.models import params as P
 from repro_torch.models.api import get_model
@@ -463,9 +465,15 @@ def port_rank(rank: int, work: str) -> None:
         ffn = P.layer(mparams["blocks"], 0)["ffn"]
         x = torch.from_numpy(moe_input(mcfg)).to(torch.bfloat16)
         for shape in MOE_MESHES:
-            with use_mesh(make_host_mesh(*shape, device="cpu")):
-                y = M.moe_ffn(ffn, x, top_k=mcfg.top_k,
-                              n_experts=mcfg.n_experts,
+            mesh = make_host_mesh(*shape, device="cpu")
+            with use_mesh(mesh):
+                # this rank's experts and rows, as the rule table and
+                # batch_specs lay them out
+                mine = SH.local_params({"blocks": {"ffn": ffn}}, mesh,
+                                       layers=mcfg.n_layers)
+                y = M.moe_ffn(mine["blocks"]["ffn"],
+                              SH.local_batch({"x": x}, mesh)["x"],
+                              top_k=mcfg.top_k, n_experts=mcfg.n_experts,
                               capacity_factor=mcfg.capacity_factor)
             out[f"moe/{shape}"] = y.float().numpy()
     finally:
@@ -608,8 +616,13 @@ def test_dp_step_two_ranks_matches_jax(two_ranks, compress):
 
 @pytest.mark.parametrize("shape", MOE_MESHES)
 def test_moe_expert_parallel_two_ranks_matches_jax(two_ranks, shape):
-    want = two_ranks["jax"][f"moe/{shape}"]
-    for port in two_ranks["port"]:
+    """Each rank runs its experts on its rows (the whole batch under
+    ``(1, 2)``, half of it under ``(2, 1)``) and returns those rows."""
+    whole = two_ranks["jax"][f"moe/{shape}"]
+    for r, port in enumerate(two_ranks["port"]):
+        n = whole.shape[0] // shape[0]
+        lo = (r // shape[1]) * n
+        want = whole[lo:lo + n]
         got = port[f"moe/{shape}"]
         assert got.shape == want.shape
         mag = np.maximum(np.abs(got), np.abs(want))

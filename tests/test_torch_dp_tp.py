@@ -332,8 +332,7 @@ def port_case(case: str, mesh) -> dict:
                 out[f"shard{path}"] = _np(leaf)
             drawn = T.init_params(
                 cfg, torch.Generator().manual_seed(0), "cpu",
-                local=lambda t: SH.local_params(t, mesh, fsdp=True,
-                                                layers=cfg.n_layers))
+                local=SH.Local(mesh, fsdp=True, layers=cfg.n_layers))
             out["init_local_equal"] = np.asarray(all(
                 torch.equal(a, b) for (_, a), (_, b) in zip(
                     store.leaf_paths(drawn), store.leaf_paths(local))))

@@ -195,8 +195,7 @@ def port_rank(rank: int, world: int, work: str) -> None:
                 for path, leaf in store.leaf_paths(local):
                     out[f"{case}/shard{path}"] = _np(leaf)
                 drawn = T.init_params(cfg, torch.Generator().manual_seed(0),
-                                      "cpu", local=lambda t: SH.local_params(
-                                          t, mesh))
+                                      "cpu", local=SH.Local(mesh))
                 same = all(torch.equal(a, b) for (pa, a), (_, b) in zip(
                     store.leaf_paths(drawn), store.leaf_paths(local))
                     if "['b']" not in pa)
@@ -529,7 +528,9 @@ def test_layouts_this_slice_does_not_take_are_refused(what):
     (K/V replicated with the cache over T is, ``tests/test_torch_tp_
     replicated.py``): gemma3's ring caches, which JAX would shard over
     their window, and a cache whose T does not divide m either
-    (``cache_specs`` would split the head dim); an MLA/MoE config; a
+    (``cache_specs`` would split the head dim); an MoE config whose
+    experts do not divide m (the MoE and MLA decoders are laid out,
+    ``tests/test_torch_tp_moe.py``); a
     second data axis (a pod axis beside the data and model axes, the
     multi-pod mesh; one data axis is laid out, ``tests/test_torch_dp_
     tp.py``): each entry point raises and names the ROADMAP item."""
@@ -537,7 +538,7 @@ def test_layouts_this_slice_does_not_take_are_refused(what):
     if what == "kv_heads":
         cfg = get_arch("gemma3-27b").reduced(n_kv_heads=1)
     elif what == "family":
-        cfg = get_arch("deepseek-v2-lite-16b").reduced()
+        cfg = get_arch("deepseek-v2-lite-16b").reduced(n_experts=3)
     else:
         axes = ((2, 2, 2), ("pod", "data", "model"))
     m = get_model(cfg)

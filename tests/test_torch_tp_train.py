@@ -634,8 +634,10 @@ def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
     laid out, ``tests/test_torch_tp_replicated.py``), a second data axis
     (a pod axis beside the data and model axes, the multi-pod mesh; one
     data axis is laid out, ``tests/test_torch_dp_tp.py``), ``launch/
-    train.train()`` under a mesh, and the loss of a family this slice
-    does not lay out."""
+    train.train()`` under a mesh, and the loss of a config this slice
+    does not lay out (an MoE whose experts do not divide the model axis,
+    the recurrent family; the MoE and MLA decoders are, ``tests/test_
+    torch_tp_moe.py``)."""
     cfg = get_arch("yi-6b").reduced()
     batch = _torch_batch(case_batches(cfg)[0])
     axes = ((2, 2, 2), ("pod", "data", "model")) if what == "data_axis" \
@@ -668,8 +670,12 @@ def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
                                      r"ROADMAP Queue 1 item 2"):
                 train("yi-6b", steps=1, device="cpu")
         else:
-            for arch in ("deepseek-v2-lite-16b", "xlstm-350m"):
-                m = get_model(get_arch(arch).reduced())
+            # experts that do not divide the model axis; the recurrent
+            # family
+            for kw in ({"arch": "deepseek-v2-lite-16b", "n_experts": 3},
+                       {"arch": "xlstm-350m"}):
+                kw = dict(kw)
+                m = get_model(get_arch(kw.pop("arch")).reduced(**kw))
                 with pytest.raises(NotImplementedError,
                                    match=r"ROADMAP Queue 1 item 2"):
                     make_train_step(m, AdamWConfig())({}, {}, batch)

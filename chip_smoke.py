@@ -259,9 +259,10 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      No kernel launches in phases 14-14b.
   15. tensor-parallel serving: internvl2-76b's language model at full
      width (d_model 8192, 64 heads, 8 KV heads, d_ff 28672, vocab
-     128256), 8 of its 80 layers, on a ``(1, 2)`` mesh of two rank
-     processes on the one card over gloo (NCCL refuses two ranks on one
-     device: two more processes try it first and must fail).  Each rank
+     128256), 4 of its 80 layers (8 before phase 20), on a ``(1, 2)``
+     mesh of two rank processes on the one card over gloo (NCCL refuses
+     two ranks on one device: two more processes try it first and must
+     fail).  Each rank
      draws the whole model from seed 15 on the card a layer at a time
      and keeps its shards (``init_params(local=sharding.Local(mesh))``),
      then serves 4 prompts of 128 tokens and 16 greedy tokens through
@@ -361,7 +362,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      latent 512, 64 experts top-6 and 2 shared, vocab 102400, seed 0):
      each rank draws the model a layer at a time and keeps its shards,
      its 16 experts a layer among them (``sharding.Local``), serves 4
-     prompts of 128 tokens and 16 greedy tokens at ``MOE_LAYERS`` = 8
+     prompts of 128 tokens and 16 greedy tokens at ``MOE_LAYERS`` = 4 (8
+     before phase 20)
      (each rank its 4 heads, the latent cache split over its last dim
      and gathered at use, its experts' outputs summed over the axis),
      then trains 3 steps of 4 x 128 from phase 10's stream at
@@ -387,6 +389,34 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      Kernels 4 and 5 are held against their plain versions on sampled
      rows of every moment store of each rank; the four ranks' launches
      go into the ``kernels`` line.
+  20. The model axis for the recurrent and encoder-decoder families:
+     four gloo rank processes of the one card on a ``(1, 4)`` mesh run,
+     in turn, hymba-1.5b, xlstm-350m and seamless-m4t-large-v2 at their
+     published widths (seed 0), at cut depths (``FAM_CELLS``).  Each
+     rank draws the whole model on the card and keeps its blocks
+     (``sharding.local_params``), serves a few prompts through
+     ``dense_generate`` (hymba's of 1040 tokens, so that its rings of
+     1024 slots wrap, each rank holding 256 of them; its 25 heads and 5
+     KV heads whole on every rank, its full-attention cache over T;
+     Mamba on the rank's 800 channels, its state over n; xLSTM's 4 heads
+     one a rank; seamless's vocab of 256206, which 4 does not divide,
+     whole on every rank) and takes ``FAM_STEPS`` bdi8 train steps,
+     kernels 4 and 5 on the rank's moment tiles.  ``fam_predict``
+     computes from the shapes (meta tensors on an abstract ``(1, 4)``
+     mesh) a rank's bytes (params, cache, moments), the collectives and
+     their bytes of a prefill, a decode step and a train step by axis,
+     and the tile launches a step; each rank must match them.  The four
+     ranks' tokens, logits, losses and norms must be equal; against the
+     same weights whole in this process, greedy tokens equal up to
+     one-ULP ties with logits within ``TP_ULPS`` bf16 ULPs (xlstm:
+     within twice what reassociating the whole model's mLSTM sums as the
+     ranks add them moves its logits, ``Reassociated``, and tokens up to
+     near ties within that bound), the first loss within 1e-4 (xlstm:
+     or twice what so reassociating moves it) and the others within
+     1e-2.  Kernels 4 and 5 are
+     held against their plain versions on sampled rows of every moment
+     store of each rank; the four ranks' launches go into the
+     ``kernels`` line.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -3979,7 +4009,7 @@ def phase_dryrun_cli(procs: list) -> list:
 # ---------------------------------------------------------------------------
 
 TP_RANKS = 2
-TP_LAYERS = 8                   # of internvl2-76b's 80
+TP_LAYERS = 4                   # of internvl2-76b's 80 (8 before phase 20)
 TP_BATCH, TP_PROMPT, TP_GEN = 4, 128, 16
 TP_SEED = 15
 TP_ULPS = 2
@@ -4633,7 +4663,8 @@ def dpt_tiles_vs_plain(params: dict, state: dict, n_layers: int,
                                 adamw._store_leaves(state[k])):
             if not isinstance(s, dict) or "maskp" not in s:
                 continue
-            x = {name: _sample(t, path, n_layers) for name, t in s.items()}
+            x = {name: _sample(t, path, n_layers).contiguous()
+                 for name, t in s.items()}
             p = ref.PackedTiles(x["deltas"].reshape(-1, 128),
                                 x["base"].reshape(-1, 1),
                                 x["scale"].reshape(-1, 1),
@@ -5312,7 +5343,8 @@ def phase_replicated(dev) -> dict:
 MOE_SHAPE = (1, 4)                   # (data, model)
 MOE_RANKS = MOE_SHAPE[0] * MOE_SHAPE[1]
 MOE_DS, MOE_ARC = "deepseek-v2-lite-16b", "arctic-480b"
-MOE_LAYERS, MOE_TRAIN_LAYERS = 8, 4  # deepseek serving, training, of 27
+# deepseek serving (8 before phase 20) and training, of 27
+MOE_LAYERS, MOE_TRAIN_LAYERS = 4, 4
 MOE_GEN = 16
 ARC_LAYERS, ARC_BATCH, ARC_PROMPT, ARC_GEN = 1, 2, 64, 8   # arctic, of 35
 MOE_SEED = 0
@@ -5889,6 +5921,600 @@ def phase_moe_tp(dev) -> dict:
     return out
 
 
+FAM_SHAPE = (1, 4)                   # (data, model)
+FAM_RANKS = FAM_SHAPE[0] * FAM_SHAPE[1]
+FAM_SEED = 0
+FAM_STEPS = 2                        # bdi8 train steps
+FAM_TRAIN = (2, 128)                 # a train batch: rows, positions
+FAM_ENC = 64                         # seamless's encoder frames, serving
+# arch -> (depth, serving batch, prompt, greedy tokens): hymba at 3 of
+# its 32 layers, 1 of them full attention (3 of 32 at full depth), its
+# prompts past its window; xlstm at 8 of 24 (7 mLSTM, 1 sLSTM), whose
+# prefill is a decode step a token (~0.46 s each through the host);
+# seamless at 2 + 2 of 24 + 24
+FAM_CELLS = {"hymba-1.5b": ({"n_layers": 3, "n_full_attn": 1}, 2, 1040, 4),
+             "xlstm-350m": ({"n_layers": 8}, 4, 8, 4),
+             "seamless-m4t-large-v2": ({"n_layers": 2, "enc_layers": 2}, 2,
+                                       32, 4)}
+
+
+def fam_cfg(arch: str):
+    from repro_torch.configs.registry import get_arch
+    kw = dict(FAM_CELLS[arch][0])
+    return at_depth(get_arch(arch), kw.pop("n_layers"), **kw)
+
+
+def fam_inputs(cfg, dev) -> dict:
+    """The prompts (and seamless's frames) ``dense_generate`` serves, and
+    ``FAM_STEPS`` train batches of phase 10's stream, every rank the
+    same."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, DataIterator
+    _, b, s, _ = FAM_CELLS[cfg.name]
+    g = torch.Generator().manual_seed(FAM_SEED + 3)
+    out = {"prompts": torch.randint(1, cfg.vocab, (b, s), generator=g)}
+    if cfg.is_encdec:
+        out["frames"] = (torch.randn((b, FAM_ENC, cfg.d_model), generator=g)
+                         * 0.02).to(dev)
+    it = DataIterator(cfg, ShapeConfig("train", FAM_TRAIN[1], FAM_TRAIN[0],
+                                       "train"), DataConfig(seed=0))
+    out["batches"] = [{k: torch.from_numpy(v).to(dev)
+                       for k, v in next(it).items()}
+                      for _ in range(FAM_STEPS)]
+    return out
+
+
+def fam_counts(cfg, m: int, serve: tuple, train: tuple, sharded: int,
+               straddling: list) -> dict:
+    """Model-axis collectives of each family as ``distributed/tp.py`` and
+    the models issue them: [all_reduce, all_gather, bytes] of
+    ``dense_generate``'s prefill and of a decode step, [all_reduce,
+    all_gather, backward, bytes] of a train step.  ``serve`` (rows,
+    prompt, encoder frames), ``train`` (rows, positions, which are the
+    encoder's frames too); ``sharded`` the
+    leaves whose squares the clip norm sums over the axis (one f32 each),
+    ``straddling`` the bytes of each leaf whose bdi8 tiles straddle the
+    shards (its gradient gathered).  Per family:
+
+    * hymba (its heads whole): a layer's prefill gathers ``in_proj``'s
+      block (bf16 [B, S, 2 di/m]) and the Mamba state into the cache's
+      layout (f32 [B, di/m, n]), sums x_proj's partial (f32 [B, S, R +
+      2n]), ``out_proj``'s and the FFN's (f32 [B, S, D]); a decode step
+      adds the MAX and SUM over the attention's T or window blocks (f32
+      [B, H] and [B, H, Dh + 1]) and the state's re-cut to channels;
+      training: forward as the prefill without the state, the recompute
+      again without the FFN's sum (past the layer's last saved tensor),
+      backward the FFN's gate and up input gradients, the x_proj output's
+      (``copy_to_model``), the gathered block's (f32 [B, S, 2 di]) and
+      ``in_proj``'s input gradient;
+    * xlstm (a decode step a prompt token): the embedding's sum, a
+      mLSTM's gathers of u, of q, k and v (bf16 [B, 3 di/m]) and of the
+      stabiliser m where it is split, the sum of its numerator and
+      normaliser (f32 [B, H, dh + 1]) and of ``down``; an sLSTM's gathers
+      of its states (f32 [4, B, D/m]), of Wx x (bf16 [B, 4D/m]) and of r
+      where it is split; the logits' gather; training: forward the
+      embedding's and ``down``'s sums, the gathers of u (and q and k
+      where a head spans ranks), Wx x and r, the loss's MAX and SUM; the
+      recompute the loss's and the gathers again; backward the head's
+      input gradient, a mLSTM's ``w_if`` weight and bias gradients (f32),
+      u's (f32 [B, S, di]), up's and gate_z's input gradients, an
+      sLSTM's ``wx`` input gradient;
+    * seamless (heads split): an encoder layer sums wo and down (f32 [B,
+      S_enc, D]), a decoder layer wo, the cross-attention's wo and down;
+      training: forward as serving, the recompute without down, backward
+      q, k and v's, the cross-attention's q (and k and v on the memory)
+      and the FFN's gate and up input gradients.
+
+    A vocab that divides m adds the embedding's sum and the logits'
+    gather, or the loss's MAX and SUM (and again in the recompute) and
+    the head's input gradient; a whole one nothing.  Then the clip
+    norm's sum and one gather a straddling leaf."""
+    (b, s, se), (tb, ts) = serve, train
+    d, v = cfg.d_model, cfg.vocab
+    split_v = v % m == 0
+    emb = lambda rows: [split_v, 0, rows * d * 4 * split_v]  # noqa: E731
+    logits = [0, split_v, b * (v // m) * 2 * split_v]
+    add = lambda *xs: [sum(c) for c in zip(*xs)]              # noqa: E731
+    if cfg.family == "hybrid":
+        di, n = cfg.ssm_expand * d, cfg.ssm_state
+        r = -(-d // 16) + 2 * n
+        h, dh = cfg.n_heads, cfg.head_dim
+        state = b * (di // m) * n * 4 if n % m == 0 and n >= m else 0
+        ag_state = int(state > 0)
+        lay = [3, 1 + ag_state, b * s * (2 * di // m) * 2 + state
+               + b * s * r * 4 + 2 * b * s * d * 4]
+        pre = add(emb(b * s), logits, *[lay] * cfg.n_layers)
+        step = [5, 1 + 2 * ag_state, b * h * 4 + b * h * (dh + 1) * 4
+                + b * (2 * di // m) * 2 + 2 * state + b * r * 4
+                + 2 * b * d * 4]
+        dec = add(emb(b), logits, *[step] * cfg.n_layers)
+        x = tb * ts
+        fwd = [3, 1, x * (2 * di // m) * 2 + x * r * 4 + 2 * x * d * 4]
+        rec = [2, 1, x * (2 * di // m) * 2 + x * r * 4 + x * d * 4]
+        bwd = [5, 0, 3 * x * d * 4 + x * r * 4 + x * 2 * di * 4]
+        back = 5 * cfg.n_layers
+        train_l = [add(fwd, rec, bwd)] * cfg.n_layers
+        loss = []
+    elif cfg.family == "ssm":
+        from repro_torch.models.xlstm import layer_is_slstm
+        flags = layer_is_slstm(cfg)
+        ns = int(flags.sum())
+        nm = cfg.n_layers - ns
+        hh, di = cfg.n_heads, cfg.ssm_expand * d
+        dh, dhs = di // hh, d // hh
+        span = hh % m != 0
+        mm = b * (hh // m) * 4 if hh % m == 0 and hh >= m else 0
+        rr = (hh // m) * dhs * 4 * dhs * 4 if hh % m == 0 else 0
+        mt = [2, 2 + int(mm > 0), b * (di // m) * 2 + b * 3 * (di // m) * 2
+              + mm + b * hh * (dh + 1) * 4 + b * d * 4]
+        st = [0, 2 + int(rr > 0), 4 * b * (d // m) * 4 + b * (4 * d // m) * 2
+              + rr]
+        tok = add(emb(b), logits, *[mt] * nm, *[st] * ns)
+        pre = [c * s for c in tok]
+        dec = tok
+        x = tb * ts
+        qk = 2 * span
+        fwd_m = [1, 1 + qk, x * (di // m) * 2 * (1 + qk) + x * d * 4]
+        rec_m = [0, 1 + qk, x * (di // m) * 2 * (1 + qk)]
+        bwd_m = [5 + qk, 0, di * 2 * hh * 4 + 2 * hh * 4
+                 + x * di * 4 * (1 + qk) + 2 * x * d * 4]
+        fwd_s = [0, 1 + int(rr > 0), x * (4 * d // m) * 2 + rr]
+        rec_s = fwd_s
+        bwd_s = [1, 0, x * d * 4]
+        back = nm * (5 + qk) + ns
+        train_l = [add(fwd_m, rec_m, bwd_m)] * nm \
+            + [add(fwd_s, rec_s, bwd_s)] * ns
+        loss = []
+    else:
+        ne, nd = cfg.enc_layers, cfg.n_layers
+        pre = add(emb(b * s), logits, *[[2, 0, 2 * b * se * d * 4]] * ne,
+                  *[[3, 0, 3 * b * s * d * 4]] * nd)
+        dec = add(emb(b), logits, *[[3, 0, 3 * b * d * 4]] * nd)
+        x = tb * ts                       # the encoder's frames: ts too
+        train_l = [[8, 0, 8 * x * d * 4]] * ne \
+            + [[13, 0, 13 * x * d * 4]] * nd
+        back = 5 * ne + 8 * nd
+        loss = []
+    x = tb * ts
+    if split_v:        # embedding; loss MAX + SUM, twice; head's dx
+        loss = [[1, 0, x * d * 4], [4, 0, 2 * 12 * x], [1, 0, x * d * 4]]
+        back += 1
+    tr = add(*train_l, *loss, [1, 0, sharded * 4],
+             [0, len(straddling), sum(straddling)])
+    return {"prefill": pre, "decode_step": dec,
+            "train_step": [tr[0], tr[1], back, tr[2]]}
+
+
+def fam_predict(arch: str) -> dict:
+    """What a rank of phase 20 holds and issues for ``arch``, from the
+    shapes alone (meta tensors on an abstract ``(1, 4)`` mesh): bytes of
+    its params, of its decode cache after ``dense_generate`` and of its
+    bdi8 moments; the leaves whose moment tiles straddle the shards; the
+    collectives and their bytes by axis (:func:`fam_counts`; none over
+    data); the tile launches a train step (a moment group is two
+    decompresses and two compresses)."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.launch.elastic import abstract_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw as AW
+    from repro_torch.optim import adamw_init, opt_state_bytes
+    cfg = fam_cfg(arch)
+    _, b, s, gen = FAM_CELLS[arch]
+    model = get_model(cfg)
+    ocfg = tpt_ocfg()
+    mesh = abstract_mesh(FAM_SHAPE, ("data", "model"))
+    m = FAM_SHAPE[1]
+    with use_mesh(mesh):
+        whole = model.init(torch.Generator(), "meta")
+        local = SH.local_params(whole, mesh, coord={"data": 0, "model": 0})
+        kw = {"enc_len": FAM_ENC} if cfg.is_encdec else {}
+        cache = model.init_cache(b, s + gen, device="meta", **kw)
+        wide = tp.check_moments(local, ocfg.moment_dtype)
+        sharded = sum(tp.sharded_leaves(whole, local))
+        moments = opt_state_bytes(adamw_init(local, ocfg), ocfg)
+        shapes = [AW._wide(p.shape, w)
+                  for (_, p), w in zip(leaf_paths(local), wide)]
+    leaves = leaf_paths(local)
+    counts = fam_counts(cfg, m, (b, s, FAM_ENC), FAM_TRAIN, sharded,
+                        [t.numel() * t.element_size()
+                         for (_, t), w in zip(leaves, wide) if w])
+    groups = [len(AW._groups(torch.empty(sh, device="meta")))
+              for sh in shapes if AW._tiled(sh, ocfg.moment_dtype)]
+    return {"param_bytes": sum(t.numel() * t.element_size()
+                               for _, t in leaves),
+            "cache_bytes": sum(t.numel() * t.element_size() for t in cache),
+            "moment_bytes": moments,
+            "straddling": [p for (p, _), w in zip(leaves, wide) if w],
+            **counts, "tile_launches_a_step": 4 * sum(groups)}
+
+
+class Reassociated:
+    """Within, the whole model (no mesh) adds its sums as the ranks of a
+    model axis of ``m`` add them: the mLSTM decode's numerator and its
+    normaliser's dot over ``m`` blocks of the key dim, a product whose
+    columns the ranks split (``tp.replicated``, which ``column_parallel``
+    runs without a mesh) in ``m`` column blocks, a row-parallel product
+    as ``m`` f32 partials added in order, then rounded: the same
+    arithmetic, the f32 sums reassociated.  At a random init the mLSTM's
+    recurrence (its normaliser's ``max(|q . n|, exp(-m))``, over every
+    prompt token and layer) amplifies such roundings: on the CPU, reduced
+    xlstm-350m at d_model 256, 8 mLSTM layers and 32 prompt tokens moves
+    its logits by 4.5 bf16 ULPs with the decode's sums alone so
+    reassociated (18.5 with 2 heads), and the ranks of ``(1, 4)`` move
+    them by 5.3."""
+
+    EQS = ("bhk,bhkv->bhv", "bhk,bhk->bh")
+
+    def __init__(self, m: int):
+        self.m = m
+
+    def __enter__(self):
+        import torch
+        from repro_torch.distributed import tp
+        self.torch, self.tp = torch, tp
+        self.saved = (torch.einsum, tp.replicated, tp.row_parallel)
+        m = self.m
+        einsum, replicated, _ = self.saved
+
+        def blocks(eq, *ops):
+            if eq not in self.EQS:
+                return einsum(eq, *ops)
+            a, b = ops
+            n = a.shape[-1] // m
+            cut = (lambda t, i: t.narrow(2, i * n, n)) \
+                if eq == self.EQS[0] else \
+                (lambda t, i: t.narrow(-1, i * n, n))
+            out = einsum(eq, a.narrow(-1, 0, n), cut(b, 0))
+            for i in range(1, m):
+                out = out + einsum(eq, a.narrow(-1, i * n, n), cut(b, i))
+            return out
+
+        def columns(x, w):
+            w = tp.weight(w)
+            w2d = w.reshape(w.shape[0], -1)
+            if w2d.shape[1] % m:
+                return replicated(x, w)
+            n = w2d.shape[1] // m
+            y = torch.cat([replicated(x, w2d[:, i * n:(i + 1) * n])
+                           for i in range(m)], dim=-1)
+            return y.reshape(*x.shape[:-1], *w.shape[1:])
+
+        def rows(x, w):
+            w = tp.weight(w)
+            w2d = w.reshape(-1, w.shape[-1])
+            n = w2d.shape[0] // m
+            y = sum(torch.matmul(x[..., i * n:(i + 1) * n].float(),
+                                 w2d[i * n:(i + 1) * n].float())
+                    for i in range(m))
+            return y.to(x.dtype)
+        torch.einsum, tp.replicated, tp.row_parallel = blocks, columns, rows
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.einsum, self.tp.replicated, self.tp.row_parallel = \
+            self.saved
+
+
+def _fam_parity(name: str, tokens, logits, whole: dict, ulps: float,
+                batch: int) -> tuple[int, list, float]:
+    """A rank's greedy ``tokens``/``logits`` against the whole model's:
+    every live row's logits within ``ulps`` bf16 ULPs of its array's
+    largest |value|; where a row's token differs, the whole model's
+    margin between the two tokens within ``ulps`` too (a near tie at the
+    bound), and the row is compared no further.  Returns (tokens equal,
+    the near ties, the worst gap in ULPs)."""
+    from repro_torch.serving.parity import bf16_ulp
+    stopped, ties, worst, equal = set(), [], 0.0, 0
+    for j in range(logits.shape[0]):
+        live = [b for b in range(batch) if b not in stopped]
+        if not live:
+            break
+        a, w = logits[j, live], whole["logits"][j, live]
+        unit = bf16_ulp(float(w.abs().max()))
+        gap = float((a - w).abs().max()) / unit
+        worst = max(worst, gap)
+        if gap > ulps:
+            raise AssertionError(f"{name}: step {j} logits {gap:.2f} ULPs "
+                                 f"from the whole model's (bound {ulps})")
+        for b in live:
+            g, t = tokens[b][j], whole["tokens"][b][j]
+            if g == t:
+                equal += 1
+                continue
+            row = whole["logits"][j, b]
+            margin = float(row[t] - row[g]) / unit
+            if margin > ulps:
+                raise AssertionError(f"{name}: step {j} row {b}: token {g} "
+                                     f"for {t}, {margin:.2f} ULPs apart")
+            ties.append({"step": j, "row": b, "want": t, "got": g,
+                         "margin_ulps": margin})
+            stopped.add(b)
+    return equal, ties, worst
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _fam_model(counts: dict) -> list:
+    return [counts["model"][k] for k in ("all_reduce", "all_gather",
+                                         "bytes")]
+
+
+def fam_rank(rank: int, work: str) -> None:
+    """One rank of phase 20 on the ``(1, 4)`` mesh: each family in turn,
+    the whole model drawn on the card and cut to the rank's blocks, served
+    through ``dense_generate``, then ``FAM_STEPS`` bdi8 train steps;
+    writes ``fam_<rank>.json`` and ``.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._device import resolve_device
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw, adamw_init, opt_state_bytes
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(work) / "rendezvous_fam"), FAM_RANKS), rank=rank,
+        world_size=FAM_RANKS)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    keep = {}
+    try:
+        mesh = make_host_mesh(*FAM_SHAPE)
+        with use_mesh(mesh):
+            for arch in FAM_CELLS:
+                cfg, ocfg = fam_cfg(arch), tpt_ocfg()
+                model = get_model(cfg)
+                inp = fam_inputs(cfg, dev)
+                t0 = time.perf_counter()
+                with use_mesh(None):
+                    whole = model.init(torch.Generator(
+                        device=dev).manual_seed(FAM_SEED), dev)
+                params = SH.local_params(whole, mesh)
+                del whole
+                torch.cuda.empty_cache()
+                sync(dev)
+                r = {"init_s": time.perf_counter() - t0,
+                     "param_bytes": sum(t.numel() * t.element_size()
+                                        for t in _leaves(params))}
+                frames = inp.get("frames")
+                dense_generate(cfg, params, inp["prompts"][:, :6], 2,
+                               enc_embeds=frames)             # warm-up
+                out = dense_generate(cfg, params, inp["prompts"],
+                                     FAM_CELLS[arch][3], keep_logits=True,
+                                     enc_embeds=frames)
+                r.update(prefill_ms=out["prefill_s"] * 1e3,
+                         ms_a_step=[x * 1e3 for x in out["decode_s"]],
+                         serve_collectives=out["collectives"],
+                         cache_bytes=out["cache_bytes"])
+                keep[arch] = {"tokens": out["tokens"],
+                              "logits": out["logits"]}
+                wide = tp.check_moments(params, ocfg.moment_dtype)
+                state = adamw_init(params, ocfg)
+                step = make_train_step(model, ocfg)
+                ops.reset_launches()
+                mets, norms, held = [], [], 0
+                for i, batch in enumerate(inp["batches"]):
+                    params, state, met = step(params, state, batch)
+                    mets.append(met)
+                    norms.append(tpt_norms(params, state))
+                    if i == 0:
+                        launches = dict(ops.LAUNCHES)
+                        held = dpt_tiles_vs_plain(params, state,
+                                                  cfg.n_layers, "20")
+                        ops.LAUNCHES.update(launches)
+                keep[arch]["norms"] = norms
+                r.update(opt_state_bytes=opt_state_bytes(state, ocfg),
+                         straddling=[p for (p, _), w in zip(
+                             leaf_paths(params), wide) if w],
+                         losses=[x["loss"] for x in mets],
+                         grad_norms=[x["grad_norm"] for x in mets],
+                         fwd_bwd_ms=[x["fwd_bwd_s"] * 1e3 for x in mets],
+                         opt_ms=[x["opt_s"] * 1e3 for x in mets],
+                         collectives=[x["collectives"] for x in mets],
+                         tiles_held_vs_plain=held,
+                         kernel_launches={k: v for k, v in
+                                          ops.LAUNCHES.items() if v})
+                res[arch] = r
+                del params, state, step, inp
+                torch.cuda.empty_cache()
+        torch.save(keep, Path(work) / f"fam_{rank}.pt")
+        (Path(work) / f"fam_{rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh()
+
+
+def _fam_checks(r: int, arch: str, x: dict, pred: dict) -> None:
+    """A rank's bytes, collectives and launches against ``fam_predict``."""
+    c = x["serve_collectives"]
+    checks = [("params", x["param_bytes"], pred["param_bytes"]),
+              ("cache", x["cache_bytes"], pred["cache_bytes"]),
+              ("moments", x["opt_state_bytes"], pred["moment_bytes"]),
+              ("straddling", x["straddling"], pred["straddling"]),
+              ("prefill", _fam_model(c["prefill"]), pred["prefill"]),
+              ("decode step", _fam_model(c["per_step"]),
+               pred["decode_step"])]
+    checks += [(f"{n} over data", sum(c[n]["data"].values()), 0)
+               for n in ("prefill", "per_step")]
+    for i, cc in enumerate(x["collectives"]):
+        checks += [(f"train step {i}", [cc["model"][k] for k in (
+            "all_reduce", "all_gather", "backward", "bytes")],
+            pred["train_step"]),
+            (f"train step {i} over data", sum(cc["data"].values()), 0)]
+    want = pred["tile_launches_a_step"] * FAM_STEPS
+    checks.append(("tile launches", x["kernel_launches"],
+                   {"bdi_compress": want // 2, "bdi_decompress": want // 2}))
+    for name, a, b in checks:
+        if a != b:
+            raise AssertionError(f"phase 20: rank {r}: {arch}: {name} {a}, "
+                                 f"predicted {b}")
+
+
+def phase_families_tp(dev) -> dict:
+    """Phase 20 (see the module docstring)."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw_init
+    card = smi()
+    pred = {arch: fam_predict(arch) for arch in FAM_CELLS}
+    log(f"phase 20 prediction (shapes, (1, 4)): {json.dumps(pred)}")
+    work = Path(tempfile.mkdtemp(prefix="fam20_"))
+    t0 = time.perf_counter()
+    ranks = [(_spawn(f"fam_rank({r}, {str(work)!r})",
+                     work / f"fam_{r}.log"), work / f"fam_{r}.log")
+             for r in range(FAM_RANKS)]
+    _wait_all(ranks, "phase 20: a rank", 600)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"fam_{r}.json").read_text())
+           for r in range(FAM_RANKS)]
+    got = [torch.load(work / f"fam_{r}.pt") for r in range(FAM_RANKS)]
+    median = lambda xs: sorted(xs)[len(xs) // 2]       # noqa: E731
+    for r, rr in enumerate(res):
+        log(f"phase 20 rank {r} (gloo through the host on one card, not a "
+            f"TP speed; {card}): {json.dumps(rr)}")
+        if rr["backend"] != "gloo":
+            raise AssertionError(f"phase 20: rank {r}: {rr['backend']}")
+        for arch in FAM_CELLS:
+            if not all(math.isfinite(x) for x in rr[arch]["losses"]):
+                raise AssertionError(f"phase 20: rank {r}: {arch}: "
+                                     f"{rr[arch]['losses']}")
+            _fam_checks(r, arch, rr[arch], pred[arch])
+    for r in range(1, FAM_RANKS):
+        for arch in FAM_CELLS:
+            a, b = res[r][arch], res[0][arch]
+            if a["losses"] != b["losses"] or \
+                    a["grad_norms"] != b["grad_norms"]:
+                raise AssertionError(f"phase 20: {arch}: the ranks' losses "
+                                     f"or norms differ")
+            ga, gb = got[r][arch], got[0][arch]
+            if ga["tokens"] != gb["tokens"] or \
+                    not torch.equal(ga["logits"], gb["logits"]):
+                raise AssertionError(f"phase 20: {arch}: the ranks' served "
+                                     f"tokens or logits differ")
+            for i in range(FAM_STEPS):
+                for k, t in gb["norms"][i].items():
+                    if not torch.equal(t, ga["norms"][i][k]):
+                        raise AssertionError(f"phase 20: {arch}: step {i}: "
+                                             f"{k} differs between ranks 0 "
+                                             f"and {r}")
+    # the same weights, prompts and batches, whole, in this process
+    t1 = time.perf_counter()
+    out = {"card": card, "ranks_wall_s": ranks_s, "cells": {}}
+    for arch, (_, b, s, gen) in FAM_CELLS.items():
+        cfg, ocfg = fam_cfg(arch), tpt_ocfg()
+        model = get_model(cfg)
+        inp = fam_inputs(cfg, dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            FAM_SEED), dev)
+        frames = inp.get("frames")
+        dense_generate(cfg, params, inp["prompts"][:, :6], 2,
+                       enc_embeds=frames)                    # warm-up
+        whole = dense_generate(cfg, params, inp["prompts"], gen,
+                               keep_logits=True, enc_embeds=frames)
+        bound, moved = TP_ULPS, None
+        if cfg.family == "ssm":
+            # the mLSTM's recurrence amplifies f32 reassociation: the
+            # bound is twice what reassociating the whole model's sums as
+            # the ranks do moves its logits (``Reassociated``)
+            with Reassociated(FAM_SHAPE[1]):
+                moved = dense_generate(cfg, params, inp["prompts"], gen,
+                                       keep_logits=True)
+            moved = _fam_parity(f"phase 20 {arch} reassociated",
+                                moved["tokens"], moved["logits"], whole,
+                                float("inf"), b)[2]
+            bound = max(TP_ULPS, 2 * moved)
+            equal, ties, worst = _fam_parity(
+                f"phase 20 {arch}", got[0][arch]["tokens"],
+                got[0][arch]["logits"], whole, bound, b)
+        else:
+            par, worst = _served_parity(f"phase 20 {arch}",
+                                        got[0][arch]["tokens"],
+                                        got[0][arch]["logits"], whole,
+                                        TP_ULPS, b)
+            equal, ties = par.compared, [t.__dict__ for t in par.ties]
+        params0 = None
+        if cfg.family == "ssm":          # the weights before the update
+            with torch.no_grad():
+                params0 = _tree_clone(params)
+        state = adamw_init(params, ocfg)
+        step = make_train_step(model, ocfg)
+        mets = []
+        for batch in inp["batches"]:
+            params, state, met = step(params, state, batch)
+            mets.append(met)
+        del params, state, step
+        losses = [x["loss"] for x in mets]
+        ours = res[0][arch]["losses"]
+        first = TPT_FIRST_RTOL
+        if cfg.family == "ssm":          # as the logits' bound above
+            with Reassociated(FAM_SHAPE[1]), torch.no_grad():
+                moved_loss = float(model.loss(params0, inp["batches"][0]))
+            first = max(first, 2 * abs(moved_loss - losses[0])
+                        / abs(losses[0]))
+        if abs(ours[0] - losses[0]) > first * abs(losses[0]) or \
+                any(abs(a - w) > TPT_LOSS_RTOL * abs(w)
+                    for a, w in zip(ours, losses)):
+            raise AssertionError(f"phase 20: {arch}: losses {ours} against "
+                                 f"the whole model's {losses}")
+        del params0
+        release(dev)
+        rr = [x[arch] for x in res]
+        out["cells"][arch] = {
+            "cell": f"{arch} full width, {cfg.n_layers} layers"
+                    + (f" + {cfg.enc_layers} encoder layers, {FAM_ENC} frames"
+                       if cfg.is_encdec else "")
+                    + f", {b} x {s} + {gen}, {FAM_STEPS} train steps of "
+                      f"{FAM_TRAIN[0]} x {FAM_TRAIN[1]} under bdi8",
+            "tokens_equal": equal, "near_ties": ties,
+            "worst_logit_gap_ulps": worst, "bound_ulps": bound,
+            "reassociated_gap_ulps": moved,
+            "losses": ours, "losses_whole": losses,
+            "first_loss_rtol": first,
+            "grad_norms": rr[0]["grad_norms"],
+            "grad_norms_whole": [x["grad_norm"] for x in mets],
+            "rank_ms": {"prefill": [x["prefill_ms"] for x in rr],
+                        "decode_median": [median(x["ms_a_step"])
+                                          for x in rr],
+                        "fwd_bwd": [x["fwd_bwd_ms"][-1] for x in rr],
+                        "opt": [x["opt_ms"][-1] for x in rr]},
+            "whole_ms": {"prefill": whole["prefill_s"] * 1e3,
+                         "decode_median": median(whole["decode_s"]) * 1e3,
+                         "fwd_bwd": mets[-1]["fwd_bwd_s"] * 1e3,
+                         "opt": mets[-1]["opt_s"] * 1e3},
+            "bytes_a_rank": {k: rr[0][k] for k in (
+                "param_bytes", "cache_bytes", "opt_state_bytes")},
+            "collectives": {"prefill": rr[0]["serve_collectives"]["prefill"],
+                            "decode": rr[0]["serve_collectives"]["per_step"],
+                            "train": rr[0]["collectives"][-1]},
+            "tiles_held_vs_plain": [x["tiles_held_vs_plain"] for x in rr]}
+    out["whole_wall_s"] = time.perf_counter() - t1
+    out["launches"] = {k: sum(x[arch]["kernel_launches"].get(k, 0)
+                              for x in res for arch in FAM_CELLS)
+                       for k in ("bdi_compress", "bdi_decompress")}
+    log(f"phase 20: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6070,10 +6696,10 @@ def main() -> int:
                "others)")
     phase_tensor_parallel(dev)
     phase_done("15 tensor-parallel serving of internvl2-76b at full width, "
-               "8 layers, two ranks on one card")
+               "4 layers, two ranks on one card")
     tp_trained = phase_tp_train(dev)
     phase_done("16 tensor-parallel training of internvl2-76b at full width, "
-               "8 layers, two ranks on one card, bdi8 moments")
+               "4 layers, two ranks on one card, bdi8 moments")
     dpt = phase_dp_tp(dev)
     phase_done("17 DP x TP serving and training (bdi8) of internvl2-76b at "
                "full width, 4 layers, four ranks on one card")
@@ -6084,11 +6710,15 @@ def main() -> int:
     phase_done("19 deepseek-v2-lite-16b and arctic-480b on a model axis of "
                "4 (experts a rank, MLA heads, the latent split), four ranks "
                "on one card")
+    fam = phase_families_tp(dev)
+    phase_done("20 hymba-1.5b, xlstm-350m and seamless-m4t-large-v2 on a "
+               "model axis of 4 (Mamba's channels, rings over the window, "
+               "xLSTM's heads, whole vocabularies), four ranks on one card")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of
-    # phases 10, 13 (the compressed all-reduce), 16, 17, 18 and 19 (every
-    # rank), and
+    # phases 10, 13 (the compressed all-reduce), 16, 17, 18, 19 and 20
+    # (every rank), and
     # for the serving kernels phases 9 and 9b, each counted from 0 over
     # its own run
     path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
@@ -6104,7 +6734,8 @@ def main() -> int:
                               + tp_trained["launches"][name]
                               + dpt["launches"][name]
                               + rep["launches"][name]
-                              + moe["launches"][name])
+                              + moe["launches"][name]
+                              + fam["launches"][name])
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

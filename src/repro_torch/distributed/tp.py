@@ -149,6 +149,22 @@ latent, then an all-to-all returns that ``[B, H, r]`` context to the
 heads: the port contracts the gathered latent on its own heads instead
 and needs neither.
 
+The recurrent and encoder-decoder families under the model axis
+(``models/ssm.py``, ``hybrid.py``, ``xlstm.py``, ``encdec.py``): a
+block split over ``model`` whose whole each rank reads a share of is
+gathered forward and its gradient summed and cut backward
+(:func:`gather_model`: Mamba's ``in_proj`` block, whose columns hold u
+on the first m/2 ranks and z on the rest, and mLSTM's u, q and k); one
+that every rank reads all of, computing alike (sLSTM's gate-major
+``wx`` columns), has its gradient cut without a sum.  mLSTM's ``w_if``,
+whole and read by each rank's heads, sums its gradient over ``model``
+(:func:`summed_weight`).  A vocab that does not divide the axis keeps
+the embedding and the head whole (:class:`Whole`): the plain lookup,
+logits and cross-entropy on every rank.  A ring cache whose KV heads do
+not divide the axis is sharded over its window as over T.  Every
+family's entry points find the layout by shape (:func:`placed`) and make
+their caches as ``cache_specs`` cuts them (:func:`cache_blocks`).
+
 The layers call these functions at every mesh: with no mesh, or axes
 of one, each is the plain single-device form.  The collectives go
 through ``torch.distributed`` on the mesh's ``model`` or ``data`` group,
@@ -170,6 +186,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import re
 import threading
 from typing import NamedTuple
 
@@ -276,6 +293,40 @@ def all_gather(t: torch.Tensor, dim: int, axis: str,
     dist.all_gather(parts, t, group=group)
     _count(axis, "all_gather", t)
     return torch.cat(parts, dim=dim)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather over ``model`` along ``dim``.  Backward: this rank's
+    block of the gradient, the gradient first summed over ``model`` in
+    f32 and rounded once where ``summed``."""
+
+    @staticmethod
+    def forward(ctx, x, dim, summed):
+        ctx.dim, ctx.summed = dim, summed
+        ctx.group, ctx.rank = model_group(), model_rank()
+        return all_gather(x, dim, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            s = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+            s.copy_(g)
+            g = _all_reduce(s, group=ctx.group, backward=True).to(g.dtype)
+        n = g.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        return g.narrow(ctx.dim, ctx.rank * n, n), None, None
+
+
+def gather_model(x: torch.Tensor, dim: int = -1,
+                 summed: bool = True) -> torch.Tensor:
+    """The whole over ``model`` of this rank's block ``x`` along ``dim``
+    (the blocks in axis order; ``x`` itself with a model axis of one).
+    Its gradient is this rank's block of the whole one's: ``summed`` where
+    each rank reads only its share of the whole (each rank's gradient a
+    partial: Mamba's u and z, mLSTM's u, q and k), not where every rank
+    computes all of it alike (the sLSTM recurrence)."""
+    if model_size() == 1:
+        return x
+    return _Gather.apply(x, dim % x.dim(), summed)
 
 
 def rows_split() -> bool:
@@ -523,6 +574,17 @@ def weight(w) -> torch.Tensor:
     return w
 
 
+def summed_weight(w) -> torch.Tensor:
+    """A leaf the rule table replicates over ``model`` but each rank reads
+    for its own heads only (mLSTM's ``w_if``): :func:`weight` of it as a
+    ``Whole(w, partial=True)``, its gradient's partial summed over
+    ``model``; :func:`weight` itself with a model axis of one."""
+    return weight(Whole(w, True) if model_size() > 1 else w)
+
+
+_STACKS = re.compile(r"^\['(enc_|dec_)?blocks'\]")
+
+
 @functools.lru_cache(maxsize=64)
 def _placement(key: tuple, sizes: tuple, threshold: int) -> tuple:
     mesh = _Sizes(dict(sizes))
@@ -535,7 +597,7 @@ def _placement(key: tuple, sizes: tuple, threshold: int) -> tuple:
             out.append((path, model, None))
         elif local == AX.local_shape(whole, full, mesh):
             dim = list(full).index("data")
-            if path.startswith("['blocks']") and dim == 0:
+            if _STACKS.match(path) and dim == 0:
                 raise NotImplementedError(
                     f"{path}: the rule table splits the layers over data; "
                     f"a layer's block is not gathered ({ROADMAP_ITEM})")
@@ -560,6 +622,32 @@ def model_axis() -> _Sizes:
     return _Sizes({"model": model_size()})
 
 
+def cache_blocks(name: str, whole, allowed: dict) -> list[tuple]:
+    """This rank's block shape of each leaf of a decode cache (a
+    NamedTuple) whose rows are this rank's already (``whole``: ``meta``
+    tensors of the whole cache over the model axis):
+    ``sharding.cache_specs`` on the model axis alone.  ``allowed``: by
+    field, the dims a leaf may be split at; a split anywhere else (a dim
+    that does not divide the axis pushes ``cache_specs`` on to the next)
+    raises, naming the ROADMAP item."""
+    if model_size() == 1:
+        return [tuple(t.shape) for t in whole]
+    axis = model_axis()
+    out = []
+    for field, t, (_, spec) in zip(whole._fields, whole, SH.spec_leaves(
+            SH.cache_specs(whole, axis))):
+        dims = [i for i, a in enumerate(spec) if a == "model"]
+        if t.numel() and dims and dims[0] not in allowed.get(field, ()):
+            raise NotImplementedError(
+                f"{name}: the cache's {field} {tuple(t.shape)} would be split "
+                f"at dim {dims[0]} over the model axis of {model_size()} "
+                f"(cache_specs gives {spec}), which is not laid out; its "
+                f"rows, heads or window must divide the axis "
+                f"({ROADMAP_ITEM})")
+        out.append(AX.local_shape(tuple(t.shape), spec, axis))
+    return out
+
+
 def placement(whole: dict, params: dict) -> tuple:
     """For each leaf of this rank's ``params`` (``jax.tree.leaves``
     order): ``(path, split over model, dim split over data)``, the last
@@ -576,22 +664,48 @@ def placement(whole: dict, params: dict) -> tuple:
     return _placement(key, sizes, SH.FSDP_THRESHOLD_BYTES)
 
 
-_KV = "['blocks']['attn']['w{}']"
+_KV = re.compile(r"(.*\['(?:attn|cross)'\])\['w[kv]'\]")
 
 
 def model_whole(lay: tuple) -> dict:
     """``{path: partial}`` for each leaf of a :func:`placement` that the
     rule table would split over ``model`` but keeps whole (the dim does
-    not divide the axis): ``partial`` for wk's and wv's leaves where wq is
-    split (each rank's query heads read their KV heads of the whole K/V;
-    :class:`Whole`).  Empty with a model axis of one."""
+    not divide the axis): ``partial`` for wk's and wv's leaves where the
+    same attention's wq is split (each rank's query heads read their KV
+    heads of the whole K/V; :class:`Whole`).  Empty with a model axis of
+    one."""
     if model_size() == 1:
         return {}
     split = {path: model for path, model, _ in lay}
-    q = split.get(_KV.format("q") + "['w']", False)
-    return {path: q and path.startswith((_KV.format("k"), _KV.format("v")))
-            for path, model, _ in lay
-            if not model and "m" in rule_template(path)}
+    out = {}
+    for path, model, _ in lay:
+        if model or "m" not in rule_template(path):
+            continue
+        kv = _KV.match(path)
+        out[path] = bool(kv) and split.get(kv.group(1) + "['wq']['w']",
+                                           False)
+    return out
+
+
+def placed(whole, params: dict, stacks: tuple) -> tuple[dict, dict]:
+    """``(top, layers)``: this rank's ``params`` outside the stacked
+    ``stacks`` and, by stack, the views of each layer
+    (``models/params.unstack``), with every leaf split over ``data`` an
+    :class:`Fsdp` block and every leaf kept whole over ``model`` a
+    :class:`Whole` (:func:`placement` against the whole model's shapes,
+    which ``whole()`` returns, :func:`model_whole`, :func:`layout_view`).
+    With no mesh, the params and their layers as they are."""
+    from repro_torch.models import params as P
+    if model_size() == 1 and data_size() == 1:
+        return ({k: v for k, v in params.items() if k not in stacks},
+                {k: P.unstack(params[k]) for k in stacks})
+    lay = placement(whole(), params)
+    dims = {path: d for path, _, d in lay if d is not None}
+    kept = model_whole(lay)
+    top = layout_view({k: v for k, v in params.items() if k not in stacks},
+                      dims, kept)
+    return top, {k: [layout_view(bp, dims, kept, f"['{k}']", lead=1)
+                     for bp in P.unstack(params[k])] for k in stacks}
 
 
 def layout_view(tree: dict, dims: dict, whole: dict | None = None,
@@ -725,10 +839,15 @@ def vocab_embed(w, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of the embedding table for ``tokens``, where this rank holds
     rows [r V/m, (r + 1) V/m) of it (``w``, a tensor or an :class:`Fsdp`
     block): the tokens outside read 0, and the f32 sum over the ranks is
-    exact.  The backward scatters into this rank's rows only."""
+    exact.  The backward scatters into this rank's rows only.  A
+    :class:`Whole` table (a vocab that does not divide the axis) is the
+    plain lookup on every rank, no sum."""
+    whole = isinstance(w, Whole)
+    if whole:
+        w = w.w
     dt = w.block.dtype if isinstance(w, Fsdp) else w.dtype
     w = weight(w)
-    if model_size() == 1:
+    if model_size() == 1 or whole:
         return F.embedding(tokens, w).to(dt)
     lo = model_rank() * w.shape[0]
     mine = (tokens >= lo) & (tokens < lo + w.shape[0])
@@ -737,13 +856,14 @@ def vocab_embed(w, tokens: torch.Tensor) -> torch.Tensor:
     return reduce_from_model(part).to(dt)
 
 
-def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+def gather_vocab(logits: torch.Tensor, split: bool = True) -> torch.Tensor:
     """This rank's vocab columns ``[..., V/m]`` of its rows -> the whole
     batch's ``[B, ..., V]`` on every rank, the blocks in axis order: the
-    columns over ``model``, then the rows over ``data`` where they are
-    split.  Forward only: the loss reads the columns where they are
-    (:func:`vocab_cross_entropy`)."""
-    if model_size() > 1:
+    columns over ``model`` (``split``: not where the head is whole over
+    it, a vocab that does not divide the axis), then the rows over
+    ``data`` where they are split.  Forward only: the loss reads the
+    columns where they are (:func:`vocab_cross_entropy`)."""
+    if model_size() > 1 and split:
         logits = all_gather(logits, -1, "model")
     if rows_split():
         logits = all_gather(logits, 0, "data")
@@ -810,8 +930,8 @@ class _VocabCE(torch.autograd.Function):
         return dl, None
 
 
-def vocab_cross_entropy(logits: torch.Tensor,
-                        targets: torch.Tensor) -> torch.Tensor:
+def vocab_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                        split: bool = True) -> torch.Tensor:
     """Per-token cross-entropy ``[...]`` (f32) of this rank's vocab
     columns ``logits`` f32 ``[..., V/m]`` (``V/m`` columns from ``r V/m``)
     and the global ``targets``: a MAX all-reduce of the row max, then one
@@ -819,11 +939,13 @@ def vocab_cross_entropy(logits: torch.Tensor,
     read on the rank that holds the target, 0 elsewhere); the result is
     ``max + log(sum exp) - gold`` on every rank.  The backward is local:
     the softmax of the local columns minus the one-hot on the target's
-    rank, times the incoming gradient."""
+    rank, times the incoming gradient.  With ``split`` False (a head whole
+    over the axis: every rank has every column) the plain cross-entropy,
+    no collective."""
     if logits.dtype != torch.float32:
         raise TypeError(f"vocab_cross_entropy takes f32 logits, not "
                         f"{logits.dtype}")
-    if model_size() == 1:
+    if model_size() == 1 or not split:
         gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
         return torch.logsumexp(logits, dim=-1) - gold
     return _VocabCE.apply(logits, targets)
@@ -842,24 +964,27 @@ def sharded_leaves(whole: dict, params: dict) -> list[bool]:
 
 
 def check_layout(cfg) -> None:
-    """Raise unless this slice lays ``cfg`` out over the active mesh: the
-    dense GQA decoders (yi, qwen2.5, gemma3, internvl2's language model),
-    the MoE decoders (deepseek-v2-lite-16b's MLA and shared experts,
-    arctic-480b's dense residual FFN) beside a data axis of any size, on
-    a mesh without a ``pod`` axis.  Where the heads or KV heads of a GQA
-    decoder do not divide the model axis, the rule table keeps those
-    leaves whole, as JAX does: K/V replicated (each rank's query heads
-    read their KV heads of the whole K/V), Q and wo too where the heads do
-    not divide, and the decode cache sharded over T (``cache_specs``; a
-    cache whose T does not divide the axis is refused where it is made,
-    ``models/transformer.init_cache``); so are shared experts whose width
-    does not divide it.  Refused, each by name with the ROADMAP item: a
-    pod axis; the recurrent and encoder-decoder families; experts that do
-    not divide the model axis (JAX asserts); a dense d_ff (of a dense MLP
-    or arctic's residual FFN) or a vocab that does not divide it; MLA
-    heads, latent or rope widths that do not divide it (``cache_specs``
-    would split the latent cache over T); ring caches (gemma3's local
-    layers) whose KV heads do not divide it."""
+    """Raise unless this slice lays ``cfg`` out over the active mesh, as
+    JAX's rule table does: every family (the dense GQA decoders, the MoE
+    decoders with MLA, xLSTM's recurrent cells, hymba's attention beside
+    Mamba, seamless's encoder-decoder) beside a data axis of any size, on
+    a mesh without a ``pod`` axis.  Where a dim does not divide the model
+    axis the rule table keeps the leaf whole, and so does the port: heads
+    or KV heads (K/V, and Q and wo where the heads do not divide,
+    replicated; the decode cache sharded over T, a ring over its window:
+    ``cache_specs``, a cache whose rows do not divide the axis either
+    refused where it is made), a vocab (the embedding and the head whole
+    on every rank), sLSTM's recurrent kernel, MoE shared experts.
+    Refused, each by name with the ROADMAP item: a pod axis; experts that
+    do not divide the model axis (JAX asserts); a dense d_ff (of a dense
+    MLP or arctic's residual FFN) that does not divide it; MLA heads,
+    latent or rope widths that do not divide it (``cache_specs`` would
+    split the latent cache over T); a Mamba width, an xLSTM width or head
+    width that does not divide it, or xLSTM heads that neither divide it
+    nor are divided by it (the recurrent states would be cut elsewhere
+    than the cells' channels or heads); an encoder-decoder whose KV heads
+    do not divide it (the cross-attention cache would be sharded over the
+    encoder's frames)."""
     m, d = model_size(), data_size()
     if m == 1 and d == 1:
         return
@@ -868,38 +993,38 @@ def check_layout(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: a pod axis of {sizes['pod']} (the multi-pod mesh) "
             f"is not laid out ({ROADMAP_ITEM})")
-    if cfg.is_encdec or cfg.family in ("ssm", "hybrid") or \
-            cfg.attn_kind not in ("gqa", "mla"):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor and data parallelism are ported for the "
-            f"dense GQA and the MoE decoders, not for the recurrent or the "
-            f"encoder-decoder families ({ROADMAP_ITEM})")
     if cfg.is_moe and cfg.n_experts % m:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_experts} experts do not divide the model "
             f"axis of {m} (JAX's moe_ffn asserts it) ({ROADMAP_ITEM})")
-    odd = {k: v for k, v in (("d_ff", cfg.d_ff), ("vocab", cfg.vocab))
-           if v % m and (k == "vocab" or not cfg.is_moe
-                         or cfg.moe_dense_residual)}
-    if odd:
+    if cfg.d_ff and cfg.d_ff % m and (not cfg.is_moe
+                                      or cfg.moe_dense_residual):
         raise NotImplementedError(
-            f"{cfg.name}: {odd} do not divide the model axis of {m}; the "
-            f"rule table would replicate the dense MLP or the vocab, which is "
-            f"not laid out ({ROADMAP_ITEM})")
+            f"{cfg.name}: a d_ff of {cfg.d_ff} does not divide the model "
+            f"axis of {m}; the rule table would replicate the dense MLP, "
+            f"which is not laid out ({ROADMAP_ITEM})")
+    odd = {}
     if cfg.attn_kind == "mla":
         odd = {k: v for k, v in (("heads", cfg.n_heads),
                                  ("kv_lora_rank", cfg.kv_lora_rank),
                                  ("qk_rope_dim", cfg.qk_rope_dim)) if v % m}
-        if odd:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA's {odd} do not divide the model axis of "
-                f"{m}; whole heads, or a latent cache that cache_specs would "
-                f"split over T, are not laid out ({ROADMAP_ITEM})")
-    if cfg.local_ratio > 0 and cfg.n_kv_heads % m:
+    elif cfg.family == "hybrid":
+        odd = {k: v for k, v in (("d_inner", cfg.ssm_expand * cfg.d_model),)
+               if v % m}
+    elif cfg.family == "ssm":
+        h = cfg.n_heads
+        dh = cfg.ssm_expand * cfg.d_model // h
+        odd = {k: v for k, v in (("d_model", cfg.d_model),
+                                 ("mlstm_head_dim", dh)) if v % m}
+        if h % m and m % h:
+            odd["heads"] = h
+    elif cfg.is_encdec and cfg.n_kv_heads % m:
+        odd = {"kv_heads": cfg.n_kv_heads}
+    if odd:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.n_kv_heads} KV heads do not divide the model "
-            f"axis of {m}; its ring caches would be sharded over their "
-            f"window, which is not laid out ({ROADMAP_ITEM})")
+            f"{cfg.name}: {odd} do not divide the model axis of {m} (or "
+            f"it them); its leaves or caches would be cut where the port "
+            f"does not lay them out ({ROADMAP_ITEM})")
 
 
 def check_moments(params, moment_dtype: str) -> list[bool]:

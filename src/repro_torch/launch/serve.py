@@ -110,7 +110,8 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
     prefill and of one decode step, with the bytes of their inputs
     (zeros without a mesh), and ``writes``, the cache rows a step wrote
     into this rank's block of a cache sharded over T.  Where the KV heads
-    do not divide the model axis the cache is sharded over T, so its
+    do not divide the model axis the cache is sharded over T (hymba's
+    full-attention layers too; its rings over their window), so its
     ``s + gen`` rows must divide the axis too: else this raises, naming
     the ROADMAP item, and picks no layout of its own."""
     model = get_model(cfg)

@@ -15,7 +15,9 @@ Encoder-decoder configs go to ``encdec``, ssm to ``xlstm``, hybrid to
 kind it does not take.  Under a mesh whose ``model`` or ``data`` axis
 is larger than one, every function refuses a config or mesh that tensor
 and data parallelism do not lay out (``distributed/tp.check_layout``:
-any family but the dense GQA decoders, a ``pod`` axis).
+a ``pod`` axis, widths that the port would cut elsewhere than JAX's rule
+table does); each family's ``init_cache`` gives this rank's blocks of
+the cache as ``sharding.cache_specs`` cuts it.
 """
 
 from __future__ import annotations

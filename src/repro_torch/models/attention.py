@@ -22,7 +22,8 @@ and wo, and of the caches): query head h reads KV head h // (H/K) within
 the rank's block, as in the whole model.  Where the KV heads do not
 divide m, wk and wv are whole (``tp.Whole``): the rank computes every KV
 head and its query heads read theirs (:func:`heads_kv`), and the decode
-cache holds the rank's rows of T (:func:`attend_rows`); where the heads
+cache holds the rank's rows of T, or of a ring's window, slot ``t % W``
+written on the rank that holds it (:func:`attend_rows`); where the heads
 do not divide m either, attention runs whole on every rank.  In the
 forward only the output projection communicates: :func:`_proj_out` is
 row-parallel (plain where wo is whole).  The
@@ -253,6 +254,21 @@ def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     if theta > 0:
         q = _rope_at(q, t, theta)
         k_new = _rope_at(k_new, t, theta)
+    if rows_split(p) and ring:
+        # this rank's slots [r Tc, (r + 1) Tc) of a ring of W = Tc m slots
+        # (cache_specs splits it over its window): the new row lands on
+        # the rank that holds slot t % W; every slot is scored, masked by
+        # the ring's validity
+        w = tc * tp.model_size()
+        tp.write_row(k_cache, _ring_slot(t, w), k_new[:, 0])
+        tp.write_row(v_cache, _ring_slot(t, w), v_new[:, 0])
+        sidx = tp.model_rank() * tc + torch.arange(tc, dtype=torch.int64,
+                                                   device=x.device)
+        slot_pos = t - torch.remainder(t - sidx, w)
+        ctx = attend_rows(p, q, k_cache.to(torch.float32),
+                          v_cache.to(torch.float32),
+                          (slot_pos >= 0) & (slot_pos <= t))
+        return _proj_out(p, ctx), k_cache, v_cache
     if rows_split(p):
         tp.write_row(k_cache, t, k_new[:, 0])
         tp.write_row(v_cache, t, v_new[:, 0])
@@ -297,20 +313,27 @@ def gqa_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
     """A prompt's K/V laid out as a decode cache [B, cache_len, K, Dh].
 
     ``kv``: (k roped, v) from :func:`gqa_kv`, so that a caller that also
-    runs attention projects once.  A ring takes the last min(cache_len,
-    S) positions at slot ``position % cache_len``; a full cache the
-    cache_len rows from position ``start`` (a rank's block of a cache
-    sharded over T), those past the prompt zero.
+    runs attention projects once.  A ring takes the last min(W, S)
+    positions at slot ``position % W``, W = cache_len, or cache_len m
+    where K/V are whole over the model axis (:func:`rows_split`: the ring
+    is sharded over its window, this rank's slots [r cache_len, (r + 1)
+    cache_len)); a full cache the cache_len rows from position ``start``
+    (a rank's block of a cache sharded over T), those past the prompt
+    zero.
     """
     k, v = kv if kv is not None else gqa_kv(p, x, positions, theta=theta)
     b, s, kh, dh = k.shape
     kc = k.new_zeros((b, cache_len, kh, dh))
     vc = torch.zeros_like(kc)
     if ring:
-        take = min(cache_len, s)
-        idx = _ring_slot(positions[s - take:].long(), cache_len)
-        kc[:, idx] = k[:, s - take:]
-        vc[:, idx] = v[:, s - take:]
+        split = rows_split(p)
+        w = cache_len * (tp.model_size() if split else 1)
+        lo = tp.model_rank() * cache_len if split else 0
+        take = min(w, s)
+        idx = _ring_slot(positions[s - take:].long(), w) - lo
+        mine = (idx >= 0) & (idx < cache_len)
+        kc[:, idx[mine]] = k[:, s - take:][:, mine]
+        vc[:, idx[mine]] = v[:, s - take:][:, mine]
     else:
         n = max(0, min(cache_len, s - start))
         kc[:, :n] = k[:, start:start + n]

@@ -8,10 +8,20 @@ encoder memory (unroped, ``theta`` 0).  Decode caches: self-attention
 K/V a decoder layer, plus the cross K/V projected once from the memory
 at prefill.  Layers loop in Python (under ``torch.utils.checkpoint`` in
 the training forward) where JAX scans them.
+
+Under a ``(d, m)`` mesh (``distributed/tp.py``) a rank holds its blocks
+under JAX's rule table (``distributed/sharding.local_params``) and its
+rows of the batch (the encoder's frames too): the encoder blocks and the
+decoder's self-attention run the GQA path on the rank's heads, and
+cross-attention follows the ``['cross']`` rules (wq, wk, wv split over
+the heads, wo row-parallel), its cache split over the KV heads as
+``cache_specs`` splits it; a vocab that does not divide m keeps the
+embedding and the head whole.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -19,6 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
 
 from . import attention as A
@@ -74,18 +85,40 @@ def _enc_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
     return x + L.mlp(bp["ffn"], h)
 
 
-def encode(cfg: ArchConfig, params: dict, enc_embeds: torch.Tensor,
-           remat: bool = True) -> torch.Tensor:
-    """Frames [B, S_enc, D] (cast to bf16) -> memory [B, S_enc, D]."""
+@functools.lru_cache(maxsize=8)
+def whole_shapes(cfg: ArchConfig) -> dict:
+    """The whole model's params as ``meta`` tensors."""
+    return init_params(cfg, torch.Generator(), "meta")
+
+
+_STACKS = ("enc_blocks", "dec_blocks")
+
+
+def placed(cfg: ArchConfig, params: dict) -> tuple[dict, dict]:
+    """``(params outside the stacks, {stack: the views of each layer})``:
+    under a mesh each leaf split over ``data`` a ``tp.Fsdp`` block and
+    each leaf kept whole over ``model`` a ``tp.Whole`` (``tp.placed``)."""
+    return tp.placed(lambda: whole_shapes(cfg), params, _STACKS)
+
+
+def _encode(cfg: ArchConfig, top: dict, layers: list[dict],
+            enc_embeds: torch.Tensor, remat: bool) -> torch.Tensor:
     x = enc_embeds.to(torch.bfloat16)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for bp in P.unstack(params["enc_blocks"]):
+    for bp in layers:
         if remat:
-            x = checkpoint(_enc_block, cfg, bp, x, positions,
+            x = checkpoint(tp.under_mesh(_enc_block), cfg, bp, x, positions,
                            use_reentrant=False)
         else:
             x = _enc_block(cfg, bp, x, positions)
-    return L.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    return L.rmsnorm(top["enc_norm"], x, cfg.norm_eps)
+
+
+def encode(cfg: ArchConfig, params: dict, enc_embeds: torch.Tensor,
+           remat: bool = True) -> torch.Tensor:
+    """Frames [B, S_enc, D] (cast to bf16) -> memory [B, S_enc, D]."""
+    top, layers = placed(cfg, params)
+    return _encode(cfg, top, layers["enc_blocks"], enc_embeds, remat)
 
 
 def _dec_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
@@ -103,30 +136,35 @@ def _dec_block(cfg: ArchConfig, bp: dict, x: torch.Tensor,
 def _hidden(cfg: ArchConfig, params: dict, batch: dict,
             remat: bool = True) -> torch.Tensor:
     """Teacher-forcing decoder hidden states (before the LM head)."""
-    memory = encode(cfg, params, batch["enc_embeds"], remat)
-    x = L.embed(params["embed"], batch["tokens"])
+    top, layers = placed(cfg, params)
+    memory = _encode(cfg, top, layers["enc_blocks"], batch["enc_embeds"],
+                     remat)
+    x = L.embed(top["embed"], batch["tokens"])
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     mem_pos = torch.arange(memory.shape[1], dtype=torch.int32,
                            device=x.device)
-    for bp in P.unstack(params["dec_blocks"]):
+    for bp in layers["dec_blocks"]:
         if remat:
-            x = checkpoint(_dec_block, cfg, bp, x, positions, memory,
-                           mem_pos, use_reentrant=False)
+            x = checkpoint(tp.under_mesh(_dec_block), cfg, bp, x, positions,
+                           memory, mem_pos, use_reentrant=False)
         else:
             x = _dec_block(cfg, bp, x, positions, memory, mem_pos)
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.rmsnorm(top["final_norm"], x, cfg.norm_eps)
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict,
             remat: bool = True) -> torch.Tensor:
     """Teacher forcing: the encoder over frames, the decoder over tokens."""
-    return L.lm_logits(params["lm_head"], _hidden(cfg, params, batch, remat))
+    tp.check_layout(cfg)
+    return L.lm_logits(placed(cfg, params)[0]["lm_head"],
+                       _hidden(cfg, params, batch, remat))
 
 
 def loss_fn(cfg: ArchConfig, params: dict, batch: dict) -> torch.Tensor:
+    tp.check_layout(cfg)
     x = _hidden(cfg, params, batch)
-    return L.chunked_cross_entropy(params["lm_head"], x, batch["targets"],
-                                   batch.get("loss_mask"))
+    return L.chunked_cross_entropy(placed(cfg, params)[0]["lm_head"], x,
+                                   batch["targets"], batch.get("loss_mask"))
 
 
 class EncDecCache(NamedTuple):
@@ -140,12 +178,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                enc_len: int = ENC_LEN_DECODE, dtype=torch.bfloat16,
                device: torch.device | str | None = None) -> EncDecCache:
     device = resolve_device(device)
+    tp.check_layout(cfg)
     lyr, k, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
 
     def z(n):
-        return torch.zeros((lyr, batch, n, k, dh), dtype=dtype, device=device)
-    return EncDecCache(self_k=z(max_len), self_v=z(max_len),
-                       cross_k=z(enc_len), cross_v=z(enc_len))
+        return torch.empty((lyr, batch, n, k, dh), dtype=dtype,
+                           device="meta")
+    whole = EncDecCache(self_k=z(max_len), self_v=z(max_len),
+                        cross_k=z(enc_len), cross_v=z(enc_len))
+    return EncDecCache(*(
+        torch.zeros(s, dtype=dtype, device=device)
+        for s in tp.cache_blocks(cfg.name, whole, {
+            "self_k": (3,), "self_v": (3,), "cross_k": (3,),
+            "cross_v": (3,)})))
 
 
 @torch.no_grad()
@@ -156,17 +201,19 @@ def decode_step(cfg: ArchConfig, params: dict, cache: EncDecCache,
     the cache, its self-attention K/V written in place).  Cross-attention
     reads the whole static memory, without a mask or rope, scaled by
     ``1 / sqrt(dh)`` in f32."""
+    tp.check_layout(cfg)
     t = int(t)
     f32 = torch.float32
+    params, layers = placed(cfg, params)
     x = L.embed(params["embed"], token[:, None])
-    for i, bp in enumerate(P.unstack(params["dec_blocks"])):
+    for i, bp in enumerate(layers["dec_blocks"]):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         y, _, _ = A.gqa_decode(bp["attn"], h, cache.self_k[i],
                                cache.self_v[i], t, ring=False,
                                theta=cfg.rope_theta)
         x = x + y
         h = L.rmsnorm(bp["lnx"], x, cfg.norm_eps)
-        q = L.linear(bp["cross"]["wq"], h)               # [B, 1, H, Dh]
+        q = L.column_linear(bp["cross"]["wq"], h)        # [B, 1, H, Dh]
         b, _, hh, dh = q.shape
         ck, cv = cache.cross_k[i], cache.cross_v[i]
         kh = ck.shape[2]
@@ -189,7 +236,10 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
     [B, V], cache).  A layer projects its self K/V once (roped, for the
     cache and attention) and its cross K/V once from the memory (theta 0,
     kept in the cache for decode)."""
-    memory = encode(cfg, params, batch["enc_embeds"], remat=False)
+    tp.check_layout(cfg)
+    params, layers = placed(cfg, params)
+    memory = _encode(cfg, params, layers["enc_blocks"], batch["enc_embeds"],
+                     remat=False)
     b, s_enc, _ = memory.shape
     x = L.embed(params["embed"], batch["tokens"])
     s = x.shape[1]
@@ -199,7 +249,7 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     mem_pos = torch.arange(s_enc, dtype=torch.int32, device=x.device)
     cache = init_cache(cfg, b, max_len, enc_len=s_enc, device=x.device)
-    for i, bp in enumerate(P.unstack(params["dec_blocks"])):
+    for i, bp in enumerate(layers["dec_blocks"]):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         kv = A.gqa_kv(bp["attn"], h, positions, theta=cfg.rope_theta)
         cache.self_k[i], cache.self_v[i] = A.gqa_prefill_cache(

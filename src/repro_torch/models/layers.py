@@ -27,8 +27,10 @@ ranks, then rounded), ``embed`` looks up this rank's rows of the vocab
 and sums, ``lm_logits``/``last_logits`` gather the vocab columns, so
 every rank returns the whole ``[..., V]``, and ``chunked_cross_entropy``
 never gathers them: each chunk's loss is the vocab-parallel
-cross-entropy of this rank's columns (``tp.vocab_cross_entropy``).  A
-leaf the rule table keeps whole over the model axis (``tp.Whole``: wq,
+cross-entropy of this rank's columns (``tp.vocab_cross_entropy``); a
+vocab that does not divide the axis keeps the embedding and the head
+whole (``tp.Whole``): the plain lookup, logits and loss on every rank.
+A leaf the rule table keeps whole over the model axis (``tp.Whole``: wq,
 wk, wv, their biases, wo where the heads do not divide it) is the plain
 product in :func:`column_linear` and ``tp.row_parallel``, no sum forward
 or backward, but for wk's and wv's under split query heads, whose input
@@ -159,7 +161,8 @@ def init_lm_head(gen: torch.Generator, d: int, vocab: int, *,
 
 
 def lm_logits(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return tp.gather_vocab(column_linear(p, x))
+    return tp.gather_vocab(column_linear(p, x),
+                           split=not isinstance(p["w"], tp.Whole))
 
 
 def last_logits(params: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -212,9 +215,11 @@ def chunked_cross_entropy(head_p: dict, x: torch.Tensor,
         mask = F.pad(mask, (0, pad))
     mask = mask.to(torch.float32)
 
+    split = not isinstance(head_p["w"], tp.Whole)
+
     def one(xi, ti, mi):
         logits = column_linear(head_p, xi).to(torch.float32)
-        nll = tp.vocab_cross_entropy(logits, ti)
+        nll = tp.vocab_cross_entropy(logits, ti, split)
         return (nll * mi).sum(), mi.sum()
 
     one = tp.under_mesh(one)           # the recompute's thread

@@ -22,6 +22,36 @@ divided by ``sqrt(dh)`` rounded to bf16, ``softplus`` is
 identity above a threshold) and ``log_sigmoid`` is ``-softplus(-x)``,
 as JAX writes them.  The decode steps return new states; the models
 write them into their caches.
+
+Under the model axis (``distributed/tp.py``; JAX's rule table, whose
+GSPMD program the port's parity tests hold these against) each function
+takes this rank's shards and every weight is read through ``tp.weight``
+(an FSDP block gathered over ``data``, a gradient summed over it):
+
+* Mamba runs on the rank's block of the d_inner channels.  ``in_proj``
+  is split over its 2 d_inner columns, so a rank's contiguous block holds
+  u for the first m/2 ranks and z for the rest: the projection's block is
+  gathered over ``model`` and each rank keeps its own channels of u and
+  of z (:func:`_mamba_in`, the gather's gradient summed and cut back).
+  ``x_proj`` is row-parallel (dt, B and C summed over ``model`` in f32 and
+  rounded once, then read by every rank's channels: their gradient summed
+  over ``model``, ``tp.copy_to_model``); ``dt_proj``, the conv, ``a_log``
+  and ``d_skip`` are the rank's channels; the time scan runs on them with
+  no collective; ``out_proj`` is row-parallel.  The state ``h`` [B, di/m,
+  n] is the rank's channels.
+* mLSTM: ``up`` and ``gate_z`` are column-parallel, u is gathered over
+  ``model`` for ``wq``/``wk``/``wv`` (the rank's columns) and the f32
+  ``w_if`` (whole, its gradient a partial summed over ``model``,
+  ``tp.summed_weight``), ``down`` is row-parallel.  The parallel form runs
+  on the rank's heads where the heads divide the axis; where the axis
+  divides the heads a head spans m/H ranks: q and k are gathered and each
+  rank computes its head's scores for its block of the value dims.  The
+  decode step gathers q, k and v (every head) and updates its block of
+  the key dim of C and n (``cache_specs`` splits them there), the
+  numerator and the normaliser summed over ``model``.
+* sLSTM: ``wx``'s gate-major columns are gathered over ``model`` and every
+  rank runs the whole recurrence (``r`` whole, or gathered where it is
+  split over heads), its gradient the same on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +60,7 @@ import math
 
 import torch
 
+from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
 
 from . import layers as L
@@ -87,14 +118,34 @@ def init_mamba(gen: torch.Generator, d: int, d_inner: int, state: int,
     }
 
 
+def _local_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """:func:`layers.linear` on this rank's columns of a weight whose
+    input is whole on every rank but whose output each rank reads alone
+    (its gradient summed upstream): no sum forward or backward."""
+    y = tp.replicated(x, p["w"])
+    if "b" in p:
+        y = y + tp.weight(p["b"]).to(y.dtype)
+    return y
+
+
+def _mamba_in(p: dict, x: torch.Tensor):
+    """(u, z) [B, S, di] of ``in_proj``: this rank's channels of each
+    under a model axis."""
+    ux = L.column_linear(p["in_proj"], x)
+    if tp.model_size() == 1:
+        return ux.chunk(2, dim=-1)
+    u, z = tp.gather_model(ux).chunk(2, dim=-1)
+    return tp.model_block(u), tp.model_block(z)
+
+
 def _mamba_ssm_inputs(p: dict, u: torch.Tensor, state: int):
     """u [B, S, di] (post-conv, post-silu) -> (dA, dBu [B, S, di, n] f32,
     c [B, S, n] f32), discretised."""
-    dt_rank = p["dt_proj"]["w"].shape[0]
-    xp = L.linear(p["x_proj"], u).to(f32)
+    xp = tp.copy_to_model(tp.row_parallel(u, p["x_proj"]["w"]).to(f32))
+    dt_rank = xp.shape[-1] - 2 * state
     dt, bmat, cmat = torch.split(xp, [dt_rank, state, state], dim=-1)
-    delta = softplus(L.linear(p["dt_proj"], dt.to(u.dtype)).to(f32))
-    a = -torch.exp(p["a_log"].to(f32))                 # [di, n]
+    delta = softplus(_local_linear(p["dt_proj"], dt.to(u.dtype)).to(f32))
+    a = -torch.exp(tp.weight(p["a_log"]).to(f32))      # [di, n]
     da = torch.exp(delta[..., None] * a)
     dbu = (delta * u.to(f32))[..., None] * bmat[:, :, None, :]
     return da, dbu, cmat
@@ -163,20 +214,22 @@ def mamba_forward(p: dict, x: torch.Tensor, state: int,
                   return_state: bool = False):
     """Full-sequence Mamba via a (chunked) scan over time.  With
     ``return_state``: (out, h_last [B, di, n] f32, conv_tail [B, cw-1,
-    di]), the state a decode step continues from."""
+    di]), the state a decode step continues from (di this rank's channels
+    under a model axis)."""
     b = x.shape[0]
-    u_pre, z = L.linear(p["in_proj"], x).chunk(2, dim=-1)
-    u = silu(_causal_conv(u_pre, p["conv_w"], p["conv_b"]).to(f32)
+    u_pre, z = _mamba_in(p, x)
+    conv_w = tp.weight(p["conv_w"])
+    u = silu(_causal_conv(u_pre, conv_w, tp.weight(p["conv_b"])).to(f32)
              ).to(x.dtype)
     da, dbu, cmat = _mamba_ssm_inputs(p, u, state)
     h0 = torch.zeros((b, u.shape[-1], state), dtype=f32, device=x.device)
     scan = _scan_chunked if CHUNKED_SCAN else _scan_sequential
     h_last, y = scan(da, dbu, cmat, h0)
-    y = y + p["d_skip"] * u.to(f32)
-    out = L.linear(p["out_proj"], _gate(y, z, x.dtype))
+    y = y + tp.weight(p["d_skip"]) * u.to(f32)
+    out = tp.row_parallel(_gate(y, z, x.dtype), p["out_proj"]["w"])
     if not return_state:
         return out
-    cw = p["conv_w"].shape[0]
+    cw = conv_w.shape[0]
     pad = u_pre.new_zeros((b, cw - 1, u_pre.shape[-1]))
     conv_tail = torch.cat([pad, u_pre], dim=1)[:, -(cw - 1):]
     return out, h_last, conv_tail
@@ -186,16 +239,19 @@ def mamba_decode(p: dict, x: torch.Tensor, h: torch.Tensor,
                  conv_state: torch.Tensor, state: int
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One step.  x [B, 1, D]; h [B, di, n]; conv_state [B, cw-1, di]
-    -> (y [B, 1, D], h', conv_state')."""
-    u, z = L.linear(p["in_proj"], x).chunk(2, dim=-1)
-    u_conv = _causal_conv(u, p["conv_w"], p["conv_b"], init_state=conv_state)
+    -> (y [B, 1, D], h', conv_state'); di this rank's channels under a
+    model axis."""
+    u, z = _mamba_in(p, x)
+    u_conv = _causal_conv(u, tp.weight(p["conv_w"]), tp.weight(p["conv_b"]),
+                          init_state=conv_state)
     new_conv = torch.cat([conv_state[:, 1:], u.to(conv_state.dtype)], dim=1)
     u_act = silu(u_conv.to(f32)).to(x.dtype)
     da, dbu, cmat = _mamba_ssm_inputs(p, u_act, state)
     h = da[:, 0] * h + dbu[:, 0]
     y = torch.einsum("bdn,bn->bd", h, cmat[:, 0])[:, None, :]
-    y = y + p["d_skip"] * u_act.to(f32)
-    return L.linear(p["out_proj"], _gate(y, z, x.dtype)), h, new_conv
+    y = y + tp.weight(p["d_skip"]) * u_act.to(f32)
+    return (tp.row_parallel(_gate(y, z, x.dtype), p["out_proj"]["w"]), h,
+            new_conv)
 
 
 # ---------------------------------------------------------------------------
@@ -216,22 +272,48 @@ def init_mlstm(gen: torch.Generator, d: int, n_heads: int,
             "down": lin(di, d)}
 
 
-def _mlstm_qkvif(p: dict, x: torch.Tensor, n_heads: int):
-    b, s, _ = x.shape
-    u = L.linear(p["up"], x)
-    z = L.linear(p["gate_z"], x)
-    dh = u.shape[-1] // n_heads
+def _mlstm_in(p: dict, x: torch.Tensor, n_heads: int):
+    """(u whole [B, S, di], z, q, k, v [B, S, di/m]: this rank's columns,
+    i_pre, f_pre [B, S, H] f32, every head)."""
+    u = L.column_linear(p["up"], x)
+    z = L.column_linear(p["gate_z"], x)
+    uw = tp.gather_model(u)
+    dh = uw.shape[-1] // n_heads
     # the key scale rounded to u's dtype, as JAX's
     # ``jnp.sqrt(f32(dh)).astype(u.dtype)`` (22.625, not 22.627, at 512);
     # a tensor on u's device, so that the card divides (a CPU scalar
     # divisor becomes a product with its reciprocal there)
     scale = torch.full((), float(torch.tensor(math.sqrt(dh), dtype=f32)),
                        dtype=u.dtype, device=u.device)
-    q = L.linear(p["wq"], u).reshape(b, s, n_heads, dh)
-    k = L.linear(p["wk"], u).reshape(b, s, n_heads, dh) / scale
-    v = L.linear(p["wv"], u).reshape(b, s, n_heads, dh)
-    i_pre, f_pre = L.linear(p["w_if"], u.to(f32)).chunk(2, dim=-1)
-    return q, k, v, i_pre, f_pre, z                   # gates [B, S, H]
+    q = tp.replicated(uw, p["wq"]["w"])
+    k = tp.replicated(uw, p["wk"]["w"]) / scale
+    v = tp.replicated(uw, p["wv"]["w"])
+    wif = p["w_if"]
+    gif = torch.matmul(uw.to(f32), tp.summed_weight(wif["w"])) \
+        + tp.summed_weight(wif["b"])
+    i_pre, f_pre = gif.chunk(2, dim=-1)
+    return uw, z, q, k, v, i_pre, f_pre
+
+
+def _mlstm_qkvif(p: dict, x: torch.Tensor, n_heads: int):
+    """(q, k, v [B, S, h, d], i_pre, f_pre [B, S, h], z): the rank's h
+    heads and the value dims it computes (every head with no model axis;
+    under one its H/m heads, or, where a head spans g = m/H ranks, its
+    head's whole q and k and its 1/g of the value dims)."""
+    b, s, _ = x.shape
+    _, z, q, k, v, i_pre, f_pre = _mlstm_in(p, x, n_heads)
+    m = tp.model_size()
+    if m > 1 and n_heads % m:                   # a head spans m/H ranks
+        head = tp.model_rank() // (m // n_heads)
+        q, k = (tp.gather_model(t).reshape(b, s, n_heads, -1)
+                .narrow(2, head, 1) for t in (q, k))
+        v = v.reshape(b, s, 1, -1)
+        i_pre, f_pre = (t.narrow(-1, head, 1) for t in (i_pre, f_pre))
+    else:
+        h = n_heads // m
+        q, k, v = (t.reshape(b, s, h, -1) for t in (q, k, v))
+        i_pre, f_pre = (tp.model_block(t) for t in (i_pre, f_pre))
+    return q, k, v, i_pre, f_pre, z                   # gates [B, S, h]
 
 
 def mlstm_forward(p: dict, x: torch.Tensor, n_heads: int,
@@ -259,7 +341,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, n_heads: int,
         outs.append(torch.einsum("bcth,bthd->bchd", sc, vf)
                     / norm[..., None])
     h = torch.cat(outs, dim=1).reshape(b, s, -1)
-    return L.linear(p["down"], _gate(h, z, x.dtype))
+    return tp.row_parallel(_gate(h, z, x.dtype), p["down"]["w"])
 
 
 def mlstm_init_state(b: int, n_heads: int, dh: int,
@@ -275,7 +357,12 @@ def mlstm_decode(p: dict, x: torch.Tensor, st: dict, n_heads: int
                  ) -> tuple[torch.Tensor, dict]:
     """One recurrent step; x [B, 1, D].  At the first step m is -inf:
     the stabiliser takes i_t and the old state's weight is 0 (``where``,
-    so no -inf - -inf reaches the exponent's result)."""
+    so no -inf - -inf reaches the exponent's result).  Under a model axis
+    ``st`` is this rank's blocks as ``cache_specs`` cuts them (C and n
+    over their key dim; m over the heads where they divide the axis, else
+    whole): see :func:`_mlstm_decode_tp`."""
+    if tp.model_size() > 1:
+        return _mlstm_decode_tp(p, x, st, n_heads)
     q, k, v, i_pre, f_pre, z = _mlstm_qkvif(p, x, n_heads)
     q, k, v = (a[:, 0].to(f32) for a in (q, k, v))
     i_t = i_pre[:, 0]
@@ -293,8 +380,47 @@ def mlstm_decode(p: dict, x: torch.Tensor, st: dict, n_heads: int
     den = torch.maximum(torch.einsum("bhk,bhk->bh", q, n_new).abs(),
                         torch.exp(-m_new))
     h = (num / den[..., None]).reshape(x.shape[0], 1, -1)
-    return (L.linear(p["down"], _gate(h, z, x.dtype)),
+    return (tp.row_parallel(_gate(h, z, x.dtype), p["down"]["w"]),
             {"C": c_new, "n": n_new, "m": m_new})
+
+
+def _mlstm_decode_tp(p: dict, x: torch.Tensor, st: dict, n_heads: int
+                     ) -> tuple[torch.Tensor, dict]:
+    """:func:`mlstm_decode` on this rank's blocks of the state: q, k and v
+    of every head gathered over ``model`` (one all-gather of the three
+    stacked), the gates of every head, the rank's block of C's and n's key
+    dim updated, the numerator and the normaliser's dot summed over
+    ``model`` (one all-reduce of both), then the rank's columns of h for
+    ``gate_z`` and the row-parallel ``down``."""
+    b = x.shape[0]
+    _, z, q, k, v, i_pre, f_pre = _mlstm_in(p, x, n_heads)
+    qkv = tp.gather_model(torch.stack([q, k, v], dim=2)[:, 0])
+    q, k, v = (t.reshape(b, n_heads, -1).to(f32) for t in qkv.unbind(1))
+    i_t = i_pre[:, 0]
+    logf = log_sigmoid(f_pre)[:, 0]                      # [B, H]
+    m_prev = st["m"]
+    split_m = m_prev.shape[-1] != n_heads
+    if split_m:
+        m_prev = tp.all_gather(m_prev, -1, "model")
+    first = torch.isinf(m_prev)
+    m_new = torch.where(first, i_t, torch.maximum(logf + m_prev, i_t))
+    fp = torch.where(first, torch.zeros_like(m_new),
+                     torch.exp(logf + m_prev - m_new))
+    ip = torch.exp(i_t - m_new)
+    kb, qb = (tp.model_block(t) for t in (k, q))         # [B, H, dh/m]
+    c_new = (fp[..., None, None] * st["C"]
+             + ip[..., None, None] * torch.einsum("bhk,bhv->bhkv", kb, v))
+    n_new = fp[..., None] * st["n"] + ip[..., None] * kb
+    part = torch.cat([torch.einsum("bhk,bhkv->bhv", qb, c_new),
+                      torch.einsum("bhk,bhk->bh", qb, n_new)[..., None]],
+                     dim=-1)
+    part = tp.all_reduce(part, "model")
+    num, den = part[..., :-1], part[..., -1]
+    den = torch.maximum(den.abs(), torch.exp(-m_new))
+    h = tp.model_block((num / den[..., None]).reshape(b, 1, -1))
+    return (tp.row_parallel(_gate(h, z, x.dtype), p["down"]["w"]),
+            {"C": c_new, "n": n_new,
+             "m": tp.model_block(m_new) if split_m else m_new})
 
 
 # ---------------------------------------------------------------------------
@@ -319,12 +445,32 @@ def slstm_init_state(b: int, d: int,
     return {"h": full(0.0), "c": full(0.0), "n": full(1.0), "m": full(0.0)}
 
 
-def _slstm_step(p: dict, st: dict, x_t: torch.Tensor, n_heads: int
-                ) -> tuple[dict, torch.Tensor]:
-    """x_t [B, 4d] (pre-projected Wx x) -> (state', h [B, d])."""
+def _slstm_x(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Wx x + b [B, S, 4d], whole on every rank: under a model axis the
+    rank's gate-major columns (of the weight and of the bias) gathered,
+    the gradient, the same on every rank, cut back to them."""
+    if isinstance(p["wx"]["w"], tp.Whole):
+        return L.column_linear(p["wx"], x)
+    return tp.gather_model(L.column_linear(p["wx"], x), summed=False)
+
+
+def _slstm_r(p: dict, n_heads: int) -> torch.Tensor:
+    """The recurrent kernel [H, dh, 4dh], whole: gathered over ``model``
+    where the rule table splits it over the heads."""
+    r = tp.weight(p["r"])
+    if r.shape[0] != n_heads:
+        r = tp.gather_model(r, 0, summed=False)
+    return r
+
+
+def _slstm_step(p: dict, st: dict, x_t: torch.Tensor, n_heads: int,
+                r: torch.Tensor | None = None) -> tuple[dict, torch.Tensor]:
+    """x_t [B, 4d] (pre-projected Wx x) -> (state', h [B, d]); ``r`` the
+    whole recurrent kernel (:func:`_slstm_r`)."""
     b, d = st["h"].shape
     hh = st["h"].reshape(b, n_heads, d // n_heads)
-    rec = torch.einsum("bhk,hkj->bhj", hh, p["r"]).reshape(b, 4 * d)
+    r = p["r"] if r is None else r
+    rec = torch.einsum("bhk,hkj->bhj", hh, r).reshape(b, 4 * d)
     zi, ii, ff, oo = (x_t.to(f32) + rec).chunk(4, dim=-1)
     zt, ot = torch.tanh(zi), torch.sigmoid(oo)
     logf = log_sigmoid(ff)
@@ -339,15 +485,18 @@ def _slstm_step(p: dict, st: dict, x_t: torch.Tensor, n_heads: int
 
 def slstm_forward(p: dict, x: torch.Tensor, n_heads: int) -> torch.Tensor:
     b, s, d = x.shape
-    xw = L.linear(p["wx"], x)                            # [B, S, 4d]
+    xw = _slstm_x(p, x)                                  # [B, S, 4d]
+    r = _slstm_r(p, n_heads)
     st, hs = slstm_init_state(b, d, x.device), []
     for t in trips.steps(s):
-        st, h = _slstm_step(p, st, xw[:, t], n_heads)
+        st, h = _slstm_step(p, st, xw[:, t], n_heads, r)
         hs.append(h)
     return trips.stack(hs, s, dim=1).to(x.dtype)
 
 
 def slstm_decode(p: dict, x: torch.Tensor, st: dict, n_heads: int
                  ) -> tuple[torch.Tensor, dict]:
-    st, h = _slstm_step(p, st, L.linear(p["wx"], x)[:, 0], n_heads)
+    """One step on the whole state (the caller gathers a rank's blocks)."""
+    st, h = _slstm_step(p, st, _slstm_x(p, x)[:, 0], n_heads,
+                        _slstm_r(p, n_heads))
     return h[:, None, :].to(x.dtype), st

@@ -226,20 +226,11 @@ def placed(cfg: ArchConfig, params: dict) -> tuple[dict, list[dict]]:
     """``(params, layers)``: this rank's params and their per-layer views
     (``params.unstack``), where under a data axis each leaf split over
     ``data`` is a ``tp.Fsdp`` block, which the layers read through
-    ``tp.weight``, and under a model axis each attention leaf kept whole
-    over it (heads or KV heads that do not divide it; shared experts
-    whose width does not) a ``tp.Whole``."""
-    m = tp.model_size()
-    if tp.data_size() == 1 and (m == 1 or cfg.attn_kind == "gqa" and
-                                not cfg.is_moe and cfg.n_kv_heads % m == 0):
-        return params, P.unstack(params["blocks"])
-    lay = tp.placement(whole_shapes(cfg), params)
-    dims = {path: d for path, _, d in lay if d is not None}
-    whole = tp.model_whole(lay)
-    top = tp.layout_view({k: v for k, v in params.items() if k != "blocks"},
-                         dims, whole)
-    return top, [tp.layout_view(bp, dims, whole, "['blocks']", lead=1)
-                 for bp in P.unstack(params["blocks"])]
+    ``tp.weight``, and under a model axis each leaf kept whole over it
+    (heads or KV heads that do not divide it, shared experts whose width
+    does not, a vocab that does not) a ``tp.Whole`` (``tp.placed``)."""
+    top, layers = tp.placed(lambda: whole_shapes(cfg), params, ("blocks",))
+    return top, layers["blocks"]
 
 
 def _hidden(cfg: ArchConfig, params: dict, batch: dict,

@@ -61,6 +61,8 @@ import numpy as np
 import pytest
 import torch
 
+import _workers  # noqa: F401  (shares the cores among xdist workers)
+
 from repro.configs.registry import get_arch as jax_arch
 from repro.models import attention as JA
 from repro.models import transformer as JT

@@ -58,6 +58,8 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 
+import _workers  # noqa: F401  (shares the cores among xdist workers)
+
 from repro.distributed import compress_comm as jcc
 from repro.models.api import get_model as jax_model
 from repro.optim import AdamWConfig as JAdamWConfig

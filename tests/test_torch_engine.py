@@ -41,6 +41,8 @@ import numpy as np
 import pytest
 import torch
 
+import _workers  # noqa: F401  (shares the cores among xdist workers)
+
 from repro_torch.configs.registry import get_arch
 from repro_torch.launch.serve import generate
 from repro_torch.models.params import from_numpy

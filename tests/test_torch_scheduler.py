@@ -39,6 +39,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import _workers  # noqa: F401  (shares the cores among xdist workers)
+
 from repro_torch.serving.parity import GreedyParity
 
 PAGE = 8

@@ -52,6 +52,8 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 
+import _workers  # noqa: F401  (shares the cores among xdist workers)
+
 from repro_torch.checkpoint import store
 from repro_torch.configs.registry import get_arch
 from repro_torch.data import pipeline as TP
@@ -526,41 +528,57 @@ def test_training_under_a_model_axis_is_refused(monkeypatch):
 def test_layouts_this_slice_does_not_take_are_refused(what):
     """KV heads that do not divide m where they are laid out no further
     (K/V replicated with the cache over T is, ``tests/test_torch_tp_
-    replicated.py``): gemma3's ring caches, which JAX would shard over
-    their window, and a cache whose T does not divide m either
-    (``cache_specs`` would split the head dim); an MoE config whose
-    experts do not divide m (the MoE and MLA decoders are laid out,
-    ``tests/test_torch_tp_moe.py``); a
-    second data axis (a pod axis beside the data and model axes, the
-    multi-pod mesh; one data axis is laid out, ``tests/test_torch_dp_
-    tp.py``): each entry point raises and names the ROADMAP item."""
+    replicated.py``, and so are gemma3's ring caches over their window,
+    each rank its slots): a cache whose T or window does not divide m
+    either (``cache_specs`` would split the head dim); an MoE config
+    whose experts do not divide m (the MoE and MLA decoders are laid out,
+    ``tests/test_torch_tp_moe.py``; so are the recurrent and
+    encoder-decoder families, ``tests/test_torch_tp_families.py``, whose
+    caches come out as each rank's blocks); a second data axis (a pod
+    axis beside the data and model axes, the multi-pod mesh; one data
+    axis is laid out, ``tests/test_torch_dp_tp.py``): each entry point
+    raises and names the ROADMAP item."""
     cfg, axes = case_cfg("yi-6b"), ((1, 2), ("data", "model"))
+    toks = torch.ones((2, 4), dtype=torch.int64)
     if what == "kv_heads":
-        cfg = get_arch("gemma3-27b").reduced(n_kv_heads=1)
-    elif what == "family":
+        gemma = get_arch("gemma3-27b").reduced(n_kv_heads=1)
+        with _abstract(2):
+            tp.check_layout(gemma)
+            ring = get_model(gemma).init_cache(2, 8, device="meta")
+            assert ring.ring_k.shape[2] == 4 and ring.full_k.shape[2] == 4
+            calls = [lambda: get_model(gemma).init_cache(2, 7, device="cpu"),
+                     lambda: T.init_quant_cache(get_arch("yi-6b").reduced(
+                         n_kv_heads=1), 2, 7, device="cpu")]
+            for call in calls:
+                with pytest.raises(NotImplementedError,
+                                   match="ROADMAP Queue 1 item 2"):
+                    call()
+        return
+    if what == "family":
         cfg = get_arch("deepseek-v2-lite-16b").reduced(n_experts=3)
     else:
         axes = ((2, 2, 2), ("pod", "data", "model"))
     m = get_model(cfg)
-    toks = torch.ones((2, 4), dtype=torch.int64)
     calls = [lambda: m.prefill({}, {"tokens": toks}, 8),
              lambda: m.decode_step({}, None, toks[:, 0], 4),
              lambda: m.init_cache(2, 8, device="cpu"),
              lambda: m.forward({}, {"tokens": toks})]
-    if what == "kv_heads":
-        calls.append(lambda: T.init_quant_cache(get_arch("yi-6b").reduced(
-            n_kv_heads=1), 2, 7, device="cpu"))
-    elif what != "family":
+    if what != "family":
         calls.append(lambda: T.init_quant_cache(cfg, 2, 8, device="cpu"))
     with AX.use_mesh(EL.abstract_mesh(*axes)):
         for call in calls:
             with pytest.raises(NotImplementedError,
                                match="ROADMAP Queue 1 item 2"):
                 call()
-    for family in ("xlstm-350m", "hymba-1.5b", "seamless-m4t-large-v2"):
-        with _abstract(2), pytest.raises(NotImplementedError,
-                                         match="ROADMAP Queue 1 item 2"):
-            get_model(get_arch(family).reduced()).init_cache(2, 8)
+    if what == "family":
+        for family in ("xlstm-350m", "hymba-1.5b", "seamless-m4t-large-v2"):
+            with _abstract(2):
+                cache = get_model(get_arch(family).reduced(
+                    n_heads=4, n_kv_heads=4)).init_cache(2, 8, device="meta")
+            whole = get_model(get_arch(family).reduced(
+                n_heads=4, n_kv_heads=4)).init_cache(2, 8, device="meta")
+            assert sum(t.numel() for t in cache) * 2 == \
+                sum(t.numel() for t in whole), family
 
 
 def test_collectives_are_plain_ops_without_a_model_axis():

@@ -75,6 +75,8 @@ import numpy as np
 import pytest
 import torch
 
+import _workers  # noqa: F401  (shares the cores among xdist workers)
+
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_arch
@@ -636,8 +638,9 @@ def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
     data axis is laid out, ``tests/test_torch_dp_tp.py``), ``launch/
     train.train()`` under a mesh, and the loss of a config this slice
     does not lay out (an MoE whose experts do not divide the model axis,
-    the recurrent family; the MoE and MLA decoders are, ``tests/test_
-    torch_tp_moe.py``)."""
+    xLSTM heads that neither divide it nor are divided by it; the MoE and
+    MLA decoders are, ``tests/test_torch_tp_moe.py``, and the recurrent
+    and encoder-decoder families, ``tests/test_torch_tp_families.py``)."""
     cfg = get_arch("yi-6b").reduced()
     batch = _torch_batch(case_batches(cfg)[0])
     axes = ((2, 2, 2), ("pod", "data", "model")) if what == "data_axis" \
@@ -670,10 +673,13 @@ def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
                                      r"ROADMAP Queue 1 item 2"):
                 train("yi-6b", steps=1, device="cpu")
         else:
-            # experts that do not divide the model axis; the recurrent
-            # family
+            # experts that do not divide the model axis; xLSTM heads that
+            # neither divide it nor are divided by it (the recurrent
+            # family is laid out, tests/test_torch_tp_families.py)
+            tp.check_layout(get_arch("xlstm-350m").reduced())
             for kw in ({"arch": "deepseek-v2-lite-16b", "n_experts": 3},
-                       {"arch": "xlstm-350m"}):
+                       {"arch": "xlstm-350m", "n_heads": 3,
+                        "d_model": 96}):
                 kw = dict(kw)
                 m = get_model(get_arch(kw.pop("arch")).reduced(**kw))
                 with pytest.raises(NotImplementedError,

@@ -70,6 +70,8 @@ import numpy as np
 import pytest
 import torch
 
+import _workers  # noqa: F401  (shares the cores among xdist workers)
+
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import get_arch

@@ -252,10 +252,14 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      more plain: FLOPs equal, argument bytes within the allocator's 512
      bytes a tensor, the predicted peak (arguments + temp) not under
      either measured peak by more than 10%; both gaps logged;
-  14b. the dry run's CLI in three processes, started after phase 1 (they
-     need no card): xlstm-350m long_500k, yi-6b train_4k, and the same
-     with ``--multi-pod``; each exits 0 with 256 (512) devices and
-     positive traced FLOPs; its row is logged.
+  14b. the dry run's CLI in four processes, started after phase 1 (they
+     need no card): xlstm-350m long_500k, yi-6b train_4k, the same with
+     ``--multi-pod``, and arctic-480b train_4k; each row is a rank at
+     coordinate 0 of the production mesh, exits 0 with 256 (512) devices,
+     positive traced FLOPs and the rank's collectives by axis, and is
+     logged; the two-pod yi-6b rank runs exactly half the one-pod rank's
+     FLOPs (half its rows) and the same model-axis collectives; arctic's
+     straddling q8 moments move by all-to-all.
      No kernel launches in phases 14-14b.
   15. tensor-parallel serving: internvl2-76b's language model at full
      width (d_model 8192, 64 heads, 8 KV heads, d_ff 28672, vocab
@@ -329,8 +333,21 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      rank's blocks: the params before the step bit-equal, moments within
      2e-2, params >= 98% within one bf16 ULP, all within 2 lr + 1 ULP).
      Kernels 4 and 5 are held against their plain versions on those rows
-     of every moment store of each rank (launches not counted); the four
-     ranks' launches go into the ``kernels`` line.
+     of every moment store of each rank (launches not counted).  Each
+     train step of each rank is held against the dry run's trace of that
+     rank (``step_traces``, run on ``meta`` in a process started after
+     phase 1): its collectives by axis equal, the bytes it holds within
+     512 a tensor, the traced peak not under the measured one by more
+     than 10%, and the first step's FLOPs (under ``FlopCounterMode``)
+     equal.  Then the four processes, as a ``(2, 1, 2)`` mesh (a pod axis
+     beside the data and model axes), take one bdi8 step of yi-6b
+     reduced to d_model 384 with 3 heads of 128 (FSDP at 16 KiB), whose
+     wo, down and embedding tiles straddle the data blocks (each rank
+     keeps the moments of another dim's block, moved there by an
+     all-to-all): the step held against its trace as above, kernels 4
+     and 5 against their plain versions on every tile.  The four ranks'
+     launches, the straddling step's included, go into the ``kernels``
+     line.
   18. The model axis where the KV heads do not divide it: yi-6b at full
      width (32 heads, 4 KV heads, d_ff 11008, vocab 64000, seed 0) on a
      ``(1, 8)`` mesh of eight gloo rank processes of the one card, the
@@ -355,7 +372,9 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      against the same weights whole in this process, phase 17's bounds.
      Kernels 4 and 5 are held against their plain versions on sampled
      rows of every moment store of each rank, the whole straddling ones
-     included; the eight ranks' launches go into the ``kernels`` line.
+     included; each train step is held against the dry run's trace of
+     its rank as in phase 17; the eight ranks' launches go into the
+     ``kernels`` line.
   19. The model axis for the MoE and MLA decoders: four gloo rank
      processes of the one card on a ``(1, 4)`` mesh run, in turn,
      deepseek-v2-lite-16b at full width (d_model 2048, 16 MLA heads,
@@ -442,7 +461,8 @@ TRAIN_LM_STEPS = 50                 # phase 10d (the twin's default is 200)
 WIDE_5B_STEPS = 12                  # phase 5b at full width (5: 24)
 ALLOC_ROUND = 512                   # the caching allocator's block unit
 DRYRUN_CELLS = (("xlstm-350m", "long_500k", False),
-                ("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True))
+                ("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True),
+                ("arctic-480b", "train_4k", False))
 ATTN_RTOL = 1e-4
 
 
@@ -3972,10 +3992,16 @@ def start_dryrun_cli() -> list:
 
 
 def phase_dryrun_cli(procs: list) -> list:
-    """Phase 14b: the three rows of ``start_dryrun_cli``: each process
-    exits 0, its row has 256 (512 with ``--multi-pod``) devices and
-    positive traced FLOPs, and yi-6b's train_4k rank on two pods traces
-    half the FLOPs of one pod's (half the rows)."""
+    """Phase 14b: the rows of ``start_dryrun_cli``, each a rank at
+    coordinate 0 of the production mesh: each process exits 0, its row
+    has 256 (512 with ``--multi-pod``) devices, positive traced FLOPs,
+    the mesh's collectives by axis and no ``collectives.tensor_parallel_
+    fsdp`` under ``not_measured``; yi-6b's train_4k rank on two pods runs
+    the one-pod rank's program at half its rows (8 of 256 for 16): its
+    FLOPs are exactly half (every product's rows halve, the weights'
+    blocks are the same) and its model axis issues the same collectives;
+    arctic-480b's q8 moments of ``wo`` straddle the data blocks (56 tiles
+    over 16), which the rank moves by all-to-all."""
     rows = []
     try:
         for cmd, out, proc in procs:
@@ -3990,17 +4016,29 @@ def phase_dryrun_cli(procs: list) -> list:
             proc.wait()
     for (_, _, multi_pod), row in zip(DRYRUN_CELLS, rows):
         log("phase 14b: " + json.dumps(
-            {k: v for k, v in row.items() if k not in ("not_measured",)}
-            | {"collectives": {k: v for k, v in row["collectives"].items()
-                               if k != "leaves"}}))
+            {k: v for k, v in row.items() if k not in ("not_measured",
+                                                       "dp_compressed")}))
         if row["n_devices"] != (512 if multi_pod else 256) \
-                or row["traced_flops"] <= 0:
+                or row["traced_flops"] <= 0 \
+                or set(row["rank"]["coordinate"].values()) != {0} \
+                or "by_axis" not in row["collectives"] \
+                or "collectives.tensor_parallel_fsdp" in row["not_measured"]:
             raise AssertionError(f"phase 14b: row {row['arch']} "
                                  f"{row['shape']}: {row['n_devices']} "
-                                 f"devices, {row['traced_flops']} FLOPs")
-    if 2 * rows[2]["traced_flops"] != rows[1]["traced_flops"]:
-        raise AssertionError("phase 14b: yi-6b train_4k on two pods is not "
-                             "half a pod's FLOPs a rank")
+                                 f"devices, {row['traced_flops']} FLOPs, "
+                                 f"rank {row['rank']}")
+    one, two = rows[1], rows[2]
+    model = lambda r: {k: r["collectives"]["by_axis"]["model"][k]  # noqa
+                       for k in ("all_reduce", "all_gather", "all_to_all")}
+    if 2 * two["traced_flops"] != one["traced_flops"] \
+            or model(one) != model(two):
+        raise AssertionError(f"phase 14b: yi-6b train_4k on two pods: "
+                             f"{two['traced_flops']} FLOPs and model-axis "
+                             f"collectives {model(two)} against one pod's "
+                             f"{one['traced_flops']} and {model(one)}")
+    if rows[3]["collectives"]["by_axis"]["data"]["all_to_all"] <= 0:
+        raise AssertionError("phase 14b: arctic-480b's straddling moments "
+                             "moved nothing")
     return rows
 
 
@@ -4569,6 +4607,153 @@ def phase_tp_train(dev) -> dict:
 # phase 17: DP x TP (FSDP blocks, ZeRO-1 moments), four ranks on one card
 # ---------------------------------------------------------------------------
 
+STEP_KEYS = ("all_reduce", "all_gather", "all_to_all", "backward", "bytes")
+STEP_PEAK_SHARE = 0.9                # as phase 14 holds the predicted peak
+STRADDLE_SHAPE = (2, 1, 2)           # (pod, data, model)
+STRADDLE_KW = {"n_layers": 2, "d_model": 384, "n_heads": 3,
+               "n_kv_heads": 1, "d_ff": 256, "vocab": 256}
+STRADDLE_THRESHOLD = 16 << 10        # FSDP over the pod axis at these widths
+
+
+def step_traces(cfg, ocfg, shape: tuple, names: tuple) -> list:
+    """``launch/dryrun.trace`` of one train step of ``cfg`` on the
+    phases' batch (``tpt_batches``: ``TPT_BATCH`` x ``TPT_SEQ``, no
+    frontend embeds) at every coordinate of the ``shape`` mesh, on meta,
+    in rank order: each rank's collectives by axis (``STEP_KEYS``), FLOPs,
+    the bytes it holds (params, moments, its rows) and the peak (those
+    and the trace's temp bytes)."""
+    import itertools
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.elastic import abstract_mesh
+    cell = ShapeConfig("train_chip", TPT_SEQ, TPT_BATCH, "train")
+    batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in tpt_batches(cfg, "cpu", 1)[0].items()}
+    out = []
+    for idx in itertools.product(*(range(n) for n in shape)):
+        row = dryrun.trace(cfg, cell, abstract_mesh(
+            shape, names, dict(zip(names, idx))), ocfg, 1, torch.float32,
+            batch=batch)
+        held = sum(row["rank"]["held_bytes"].values())
+        out.append({"collectives": {
+            a: [c[k] for k in STEP_KEYS]
+            for a, c in row["collectives"]["by_axis"].items()},
+            "flops": row["traced_flops"], "held_bytes": held,
+            "peak_bytes": held + row["temp_size_in_bytes"],
+            "trace_s": row["trace_s"]})
+    return out
+
+
+def write_step_traces(out: str) -> None:
+    """Entry of the process ``start_step_traces`` starts: phase 17's and
+    18's traces of each rank's train step (``step_traces``; the straddling
+    step's too) into ``out`` (JSON)."""
+    sys.path.insert(0, str(SRC))
+    t0 = time.perf_counter()
+    rows = {"17": step_traces(tpt_cfg(DPT_LAYERS), tpt_ocfg(), DPT_SHAPE,
+                              ("data", "model")),
+            "17 straddling": straddle_traces(),
+            "18": step_traces(rep_cfg(REP_TRAIN_LAYERS), tpt_ocfg(),
+                              REP_SHAPE, ("data", "model"))}
+    rows["trace_s"] = time.perf_counter() - t0
+    Path(out).write_text(json.dumps(rows))
+
+
+def start_step_traces() -> dict:
+    """Starts ``write_step_traces`` after the build, beside the other
+    phases (it needs no card: tens of seconds on the host's CPU)."""
+    import tempfile
+    work = Path(tempfile.mkdtemp(prefix="step_traces_"))
+    out = work / "traces.json"
+    return {"proc": _spawn(f"write_step_traces({str(out)!r})",
+                           work / "traces.log"),
+            "out": out, "log": work / "traces.log"}
+
+
+def step_traces_of(started: dict, key: str) -> list:
+    """The traces ``start_step_traces`` wrote, for phase ``key``."""
+    if "rows" not in started:
+        _wait_all([(started["proc"], started["log"])],
+                  "the dry run's traces of phases 17 and 18", 600)
+        started["rows"] = json.loads(started["out"].read_text())
+        log(f"the dry run's traces of phases 17 and 18 took "
+            f"{started['rows']['trace_s']:.1f} s on meta, beside the "
+            f"other phases")
+    return started["rows"][key]
+
+
+def measured_step(step, params, state, batch, dev, flops: bool):
+    """One train step on a rank, measured as the dry run predicts it:
+    the bytes the step takes (params, moments, this rank's rows), the
+    peak (those and what the step allocates above what was allocated
+    before it) and, with ``flops``, its FLOPs under ``FlopCounterMode``.
+    Returns ``(params, state, metrics, measures)``."""
+    import contextlib
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import current_mesh
+    nbytes = lambda tree: sum(t.numel() * t.element_size()    # noqa: E731
+                              for t in _leaves(tree))
+    rows = batch if tp.data_size() == 1 else \
+        SH.local_batch(batch, current_mesh())
+    held = nbytes(params) + nbytes(state) + nbytes(rows)
+    del rows
+    sync(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fc = FlopCounterMode(display=False) if flops else \
+        contextlib.nullcontext()
+    with fc:
+        params, state, met = step(params, state, batch)
+    sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - before + held
+    return params, state, met, {
+        "held_bytes": held, "peak_bytes": peak, "tensors": sum(
+            1 for _ in _leaves(params)) + sum(1 for _ in _leaves(state))
+        + len(batch), "flops": fc.get_total_flops() if flops else None}
+
+
+def check_step_traces(phase: str, r: int, rr: dict, pred: dict) -> dict:
+    """Rank ``r``'s measured train steps (``rr["steps"]``, each with its
+    collectives) against the dry run's trace of that rank: collectives
+    equal, held bytes within ``ALLOC_ROUND`` a tensor, the predicted peak
+    not under the measured one by more than 10%, FLOPs equal where
+    measured.  Returns the comparison for the log."""
+    worst = 0.0
+    for i, (m, c) in enumerate(zip(rr["steps"], rr["collectives"])):
+        got = {a: [c[a][k] for k in STEP_KEYS] for a in c}
+        if got != pred["collectives"]:
+            raise AssertionError(f"phase {phase}: rank {r}: train step {i}'s "
+                                 f"collectives {got}, traced "
+                                 f"{pred['collectives']}")
+        if abs(m["held_bytes"] - pred["held_bytes"]) > \
+                ALLOC_ROUND * m["tensors"]:
+            raise AssertionError(f"phase {phase}: rank {r}: step {i} holds "
+                                 f"{m['held_bytes']} bytes, traced "
+                                 f"{pred['held_bytes']}")
+        if pred["peak_bytes"] < STEP_PEAK_SHARE * m["peak_bytes"]:
+            raise AssertionError(f"phase {phase}: rank {r}: step {i}'s peak "
+                                 f"{m['peak_bytes']} bytes, traced "
+                                 f"{pred['peak_bytes']}")
+        if m["flops"] is not None and m["flops"] != pred["flops"]:
+            raise AssertionError(f"phase {phase}: rank {r}: step {i} ran "
+                                 f"{m['flops']} FLOPs, traced "
+                                 f"{pred['flops']}")
+        worst = max(worst, m["peak_bytes"] / pred["peak_bytes"])
+    return {"held_bytes": pred["held_bytes"],
+            "peak_bytes": {"traced": pred["peak_bytes"],
+                           "measured": [m["peak_bytes"]
+                                        for m in rr["steps"]]},
+            "flops": {"traced": pred["flops"],
+                      "measured": [m["flops"] for m in rr["steps"]]},
+            "measured_over_traced_peak": worst}
+
+
 DPT_SHAPE = (2, 2)                   # (data, model)
 DPT_RANKS = DPT_SHAPE[0] * DPT_SHAPE[1]
 DPT_LAYERS = 2                       # the rule table's blocks as at 4
@@ -4648,12 +4833,12 @@ def dpt_predict(cfg) -> dict:
 
 
 def dpt_tiles_vs_plain(params: dict, state: dict, n_layers: int,
-                       phase: str = "17") -> int:
+                       phase: str = "17", sample: bool = True) -> int:
     """Kernels 4 and 5 against their plain versions on the sampled rows
-    of every bdi8 moment store of this rank (``_sample``): decompress,
-    then compress what it gave; bit-equal or raise.  Returns the tiles
-    held; the launches made here are not the main path's (the caller
-    restores ``ops.LAUNCHES``)."""
+    of every bdi8 moment store of this rank (``_sample``; every tile
+    without ``sample``): decompress, then compress what it gave;
+    bit-equal or raise.  Returns the tiles held; the launches made here
+    are not the main path's (the caller restores ``ops.LAUNCHES``)."""
     from repro_torch.checkpoint.store import leaf_paths
     from repro_torch.kernels import bdi_compress, bdi_decompress, ref
     from repro_torch.optim import adamw
@@ -4663,8 +4848,8 @@ def dpt_tiles_vs_plain(params: dict, state: dict, n_layers: int,
                                 adamw._store_leaves(state[k])):
             if not isinstance(s, dict) or "maskp" not in s:
                 continue
-            x = {name: _sample(t, path, n_layers).contiguous()
-                 for name, t in s.items()}
+            x = {name: (_sample(t, path, n_layers) if sample else t)
+                 .contiguous() for name, t in s.items()}
             p = ref.PackedTiles(x["deltas"].reshape(-1, 128),
                                 x["base"].reshape(-1, 1),
                                 x["scale"].reshape(-1, 1),
@@ -4753,20 +4938,22 @@ def dp_tp_rank(rank: int, work: str) -> None:
             start = tpt_state(params, None, cfg.n_layers)
             sync(dev)
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
             ops.reset_launches()
-            mets, norms, sample, held = [], [], None, 0
+            mets, norms, sample, held, steps, peak = [], [], None, 0, [], 0
             for i, batch in enumerate(batches):
-                params, state, met = step(params, state, batch)
+                params, state, met, meas = measured_step(
+                    step, params, state, batch, dev, flops=i == 0)
+                peak = max(peak, torch.cuda.max_memory_allocated(dev))
                 mets.append(met)
+                steps.append(meas)
                 norms.append(tpt_norms(params, state))
                 if i == 0:
                     launches = dict(ops.LAUNCHES)
                     sample = tpt_state(params, state, cfg.n_layers)
                     held = dpt_tiles_vs_plain(params, state, cfg.n_layers)
                     ops.LAUNCHES.update(launches)   # the sample's, plain's
-            peak = torch.cuda.max_memory_allocated(dev)
         res.update(
+            steps=steps,
             opt_state_bytes=opt_state_bytes(state, ocfg), owners=owners,
             losses=[m["loss"] for m in mets],
             grad_norms=[m["grad_norm"] for m in mets],
@@ -4775,6 +4962,9 @@ def dp_tp_rank(rank: int, work: str) -> None:
             collectives=[m["collectives"] for m in mets],
             train_peak_bytes=peak, tiles_held_vs_plain=held,
             kernel_launches={k: v for k, v in ops.LAUNCHES.items() if v})
+        del params, state, batches
+        torch.cuda.empty_cache()
+        res["straddle"] = straddle_step(dev)
         torch.save({"served": served, "start": start, "sample": sample,
                     "norms": norms}, Path(work) / f"dpt_{rank}.pt")
         (Path(work) / f"dpt_{rank}.json").write_text(json.dumps(res))
@@ -4782,8 +4972,73 @@ def dp_tp_rank(rank: int, work: str) -> None:
         destroy_mesh()
 
 
-def phase_dp_tp(dev) -> dict:
-    """Phase 17 (see the module docstring)."""
+def straddle_cfg():
+    from repro_torch.configs.registry import get_arch
+    return get_arch("yi-6b").reduced(**STRADDLE_KW)
+
+
+def straddle_step(dev) -> dict:
+    """Phase 17's ranks after their work: their world as a ``(2, 1, 2)``
+    mesh (a pod axis), one bdi8 step of ``straddle_cfg`` with FSDP at
+    ``STRADDLE_THRESHOLD`` (test-size widths, so that the blocks lie over
+    the pod axis), whose wo, down and embedding tiles straddle the data
+    blocks (each rank keeps the moments of another dim's block,
+    ``optim/adamw.plan``); kernels 4 and 5 then held against their plain
+    versions on every tile of those stores."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params, whole_shapes
+    from repro_torch.optim import adamw, adamw_init
+    cfg, ocfg = straddle_cfg(), tpt_ocfg()
+    prev = SH.FSDP_THRESHOLD_BYTES
+    SH.FSDP_THRESHOLD_BYTES = STRADDLE_THRESHOLD
+    try:
+        mesh = make_host_mesh(*STRADDLE_SHAPE[1:], pod=STRADDLE_SHAPE[0])
+        with use_mesh(mesh):
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(TP_SEED), dev,
+                local=SH.Local(mesh, fsdp=True, layers=cfg.n_layers))
+            whole = whole_shapes(cfg)
+            lay = adamw.plan(params, whole, ocfg)
+            state = adamw_init(params, ocfg, whole=whole)
+            ops.reset_launches()
+            params, state, met, meas = measured_step(
+                make_train_step(get_model(cfg), ocfg), params, state,
+                tpt_batches(cfg, dev, 1)[0], dev, flops=True)
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            held = dpt_tiles_vs_plain(params, state, cfg.n_layers, "17",
+                                      sample=False)
+            ops.LAUNCHES.update(launches)
+        return {"straddling": [p for (p, _), x in zip(leaf_paths(params), lay)
+                               if x.data is not None and x.owner != x.data],
+                "loss": met["loss"], "collectives": [met["collectives"]],
+                "steps": [meas], "kernel_launches": launches,
+                "tiles_held_vs_plain": held}
+    finally:
+        SH.FSDP_THRESHOLD_BYTES = prev
+
+
+def straddle_traces() -> list:
+    """``step_traces`` of ``straddle_step``'s cell at its threshold."""
+    from repro_torch.distributed import sharding as SH
+    prev = SH.FSDP_THRESHOLD_BYTES
+    SH.FSDP_THRESHOLD_BYTES = STRADDLE_THRESHOLD
+    try:
+        return step_traces(straddle_cfg(), tpt_ocfg(), STRADDLE_SHAPE,
+                           ("pod", "data", "model"))
+    finally:
+        SH.FSDP_THRESHOLD_BYTES = prev
+
+
+def phase_dp_tp(dev, started: dict) -> dict:
+    """Phase 17 (see the module docstring); ``started``: the dry run's
+    traces (``start_step_traces``)."""
     import math
     import tempfile
 
@@ -4797,6 +5052,11 @@ def phase_dp_tp(dev) -> dict:
     pred = dpt_predict(cfg)
     log(f"phase 17 prediction (shapes, rule table at 64 MiB, (2, 2)): "
         f"{json.dumps(pred)}")
+    traces = step_traces_of(started, "17")
+    straddle = step_traces_of(started, "17 straddling")
+    log(f"phase 17: the dry run's trace of each rank's train step: "
+        f"{json.dumps(traces)}; of the straddling step on "
+        f"{STRADDLE_SHAPE}: {json.dumps(straddle)}")
     work = Path(tempfile.mkdtemp(prefix="dptp17_"))
     t0 = time.perf_counter()
     ranks = [(_spawn(f"dp_tp_rank({r}, {str(work)!r})",
@@ -4840,6 +5100,19 @@ def phase_dp_tp(dev) -> dict:
             if rr[key] != pred[pkey]:
                 raise AssertionError(f"phase 17: rank {r}: {key} {rr[key]}"
                                      f", predicted {pred[pkey]}")
+        rr["against_trace"] = check_step_traces("17", r, rr, traces[r])
+        st = rr["straddle"]
+        st["against_trace"] = check_step_traces("17 (straddling step)", r,
+                                                st, straddle[r])
+        if not math.isfinite(st["loss"]) or len(st["straddling"]) < 3 \
+                or st["tiles_held_vs_plain"] <= 0 or set(
+                    st["kernel_launches"]) != {"bdi_compress",
+                                               "bdi_decompress"}:
+            raise AssertionError(f"phase 17: rank {r}'s straddling step: "
+                                 f"{json.dumps(st)}")
+        log(f"phase 17 rank {r} against its trace: "
+            f"{json.dumps(rr['against_trace'])}; straddling step: "
+            f"{json.dumps(st)}")
     for r in range(1, DPT_RANKS):
         if res[r]["losses"] != res[0]["losses"] or \
                 res[r]["grad_norms"] != res[0]["grad_norms"]:
@@ -4947,7 +5220,19 @@ def phase_dp_tp(dev) -> dict:
                               "train": [rr["train_peak_bytes"] / 1e9
                                         for rr in res]},
            "tiles_held_vs_plain": [rr["tiles_held_vs_plain"] for rr in res],
+           "against_trace": [rr["against_trace"] for rr in res],
+           "straddling_step": {
+               "cell": f"yi-6b at {STRADDLE_KW}, {STRADDLE_SHAPE} (pod, "
+                       f"data, model), FSDP at {STRADDLE_THRESHOLD} B, "
+                       f"{ocfg.moment_dtype}",
+               "straddling": res[0]["straddle"]["straddling"],
+               "losses": [rr["straddle"]["loss"] for rr in res],
+               "tiles_held_vs_plain": [rr["straddle"]["tiles_held_vs_plain"]
+                                       for rr in res],
+               "against_trace": [rr["straddle"]["against_trace"]
+                                 for rr in res]},
            "launches": {k: sum(rr["kernel_launches"].get(k, 0)
+                               + rr["straddle"]["kernel_launches"].get(k, 0)
                                for rr in res)
                         for k in ("bdi_compress", "bdi_decompress")}}
     log(f"phase 17: {json.dumps(out)}")
@@ -5106,12 +5391,14 @@ def rep_rank(rank: int, work: str) -> None:
             start = tpt_state(params, None, cfg.n_layers)
             sync(dev)
             torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
             ops.reset_launches()
-            mets, norms, sample, held = [], [], None, 0
+            mets, norms, sample, held, steps, peak = [], [], None, 0, [], 0
             for i, batch in enumerate(batches):
-                params, state, met = step(params, state, batch)
+                params, state, met, meas = measured_step(
+                    step, params, state, batch, dev, flops=i == 0)
+                peak = max(peak, torch.cuda.max_memory_allocated(dev))
                 mets.append(met)
+                steps.append(meas)
                 norms.append(tpt_norms(params, state))
                 if i == 0:
                     launches = dict(ops.LAUNCHES)
@@ -5119,8 +5406,8 @@ def rep_rank(rank: int, work: str) -> None:
                     held = dpt_tiles_vs_plain(params, state, cfg.n_layers,
                                               "18")
                     ops.LAUNCHES.update(launches)   # the sample's, plain's
-            peak = torch.cuda.max_memory_allocated(dev)
         res.update(
+            steps=steps,
             opt_state_bytes=opt_state_bytes(state, ocfg), wide=wide,
             moment_shapes={p: list(s["deltas"].shape) for (p, _), s, w in
                            zip(leaf_paths(params),
@@ -5139,8 +5426,9 @@ def rep_rank(rank: int, work: str) -> None:
         destroy_mesh()
 
 
-def phase_replicated(dev) -> dict:
-    """Phase 18 (see the module docstring)."""
+def phase_replicated(dev, started: dict) -> dict:
+    """Phase 18 (see the module docstring); ``started``: the dry run's
+    traces (``start_step_traces``)."""
     import math
     import tempfile
 
@@ -5153,6 +5441,9 @@ def phase_replicated(dev) -> dict:
     ocfg = tpt_ocfg()
     pred = rep_predict()
     log(f"phase 18 prediction (shapes, (1, 8)): {json.dumps(pred)}")
+    traces = step_traces_of(started, "18")
+    log(f"phase 18: the dry run's trace of each rank's train step: "
+        f"{json.dumps(traces)}")
     work = Path(tempfile.mkdtemp(prefix="rep18_"))
     t0 = time.perf_counter()
     ranks = [(_spawn(f"rep_rank({r}, {str(work)!r})",
@@ -5214,6 +5505,9 @@ def phase_replicated(dev) -> dict:
             if a != b:
                 raise AssertionError(f"phase 18: rank {r}: {name} "
                                      f"collectives {a}, predicted {b}")
+        rr["against_trace"] = check_step_traces("18", r, rr, traces[r])
+        log(f"phase 18 rank {r} against its trace: "
+            f"{json.dumps(rr['against_trace'])}")
     for r in range(1, REP_RANKS):
         if res[r]["losses"] != res[0]["losses"] or \
                 res[r]["grad_norms"] != res[0]["grad_norms"]:
@@ -5331,6 +5625,7 @@ def phase_replicated(dev) -> dict:
                               "train": [rr["train_peak_bytes"] / 1e9
                                         for rr in res]},
            "tiles_held_vs_plain": [rr["tiles_held_vs_plain"] for rr in res],
+           "against_trace": [rr["against_trace"] for rr in res],
            "launches": {k: sum(rr["kernel_launches"].get(k, 0)
                                for rr in res)
                         for k in ("bdi_compress", "bdi_decompress")},
@@ -6557,6 +6852,7 @@ def main() -> int:
 
     phase_done("1 build")
     cli = start_dryrun_cli()
+    traces = start_step_traces()
     kernels = [phase_compress(dev, cfg, page)]
     phase_done("2 bdi_compress_kv")
     kernels += phase_gbdi(dev, cfg, page)
@@ -6700,10 +6996,10 @@ def main() -> int:
     tp_trained = phase_tp_train(dev)
     phase_done("16 tensor-parallel training of internvl2-76b at full width, "
                "4 layers, two ranks on one card, bdi8 moments")
-    dpt = phase_dp_tp(dev)
+    dpt = phase_dp_tp(dev, traces)
     phase_done("17 DP x TP serving and training (bdi8) of internvl2-76b at "
                "full width, 4 layers, four ranks on one card")
-    rep = phase_replicated(dev)
+    rep = phase_replicated(dev, traces)
     phase_done("18 yi-6b on a model axis of 8 (K/V whole, the cache over "
                "T, bdi8 tiles across shards), eight ranks on one card")
     moe = phase_moe_tp(dev)

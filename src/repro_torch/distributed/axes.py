@@ -169,11 +169,10 @@ def shard(x: torch.Tensor, *spec, global_shape: tuple | None = None
     otherwise.  A DTensor is redistributed to the spec's placements.  A
     plain tensor is taken as this rank's block (the tensor- and
     data-parallel layers, ``distributed/tp.py``, hold plain blocks): it
-    comes back unchanged where every axis of size > 1 that the spec names
-    is the ``model`` or the ``data`` axis and its shape is the block's of
-    ``global_shape`` (the global array's, needed then); a wrong shape
-    raises.  A ``pod`` axis larger than one raises: the multi-pod mesh is
-    not laid out on plain tensors."""
+    comes back unchanged where its shape is the block's of
+    ``global_shape`` (the global array's, needed where the spec names an
+    axis of size > 1: ``model``, ``data`` or ``pod``); a wrong shape
+    raises."""
     mesh = current_mesh()
     if mesh is None:
         return x
@@ -182,11 +181,6 @@ def shard(x: torch.Tensor, *spec, global_shape: tuple | None = None
         return x.redistribute(mesh, ns.placements)
     sizes = mesh_axes(mesh)
     split = [a for a in spec_axes(ns.spec) if sizes[a] > 1]
-    if any(a not in (MODEL, "data") for a in split):
-        raise NotImplementedError(
-            f"shard: a plain tensor over mesh axes {split}: only the model "
-            "and data axes are laid out on plain tensors (the pod axis is "
-            "not ported, ROADMAP Queue 1 item 2)")
     if split:
         if global_shape is None:
             raise TypeError(f"shard: a plain tensor split over {split} needs "

@@ -85,6 +85,15 @@ def _dp_axes(mesh) -> tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in names)
 
 
+def data_dim(spec) -> int | None:
+    """The dim of ``spec`` split over the data axes (``"data"``, or
+    ``("pod", "data")`` on the multi-pod mesh), or None."""
+    for i, s in enumerate(spec):
+        if s == "data" or isinstance(s, tuple) and "data" in s:
+            return i
+    return None
+
+
 def _is_spec(x) -> bool:
     return isinstance(x, PartitionSpec)
 

@@ -165,21 +165,36 @@ not divide the axis is sharded over its window as over T.  Every
 family's entry points find the layout by shape (:func:`placed`) and make
 their caches as ``cache_specs`` cuts them (:func:`cache_blocks`).
 
+The pod axis of the multi-pod mesh (``(2, 16, 16)`` over ``("pod",
+"data", "model")``) is one more data axis, as JAX's ``DP = ("pod",
+"data")``: :func:`data_size` is their product, :func:`data_rank` the
+rank's coordinate over them major to minor and :func:`data_group` the
+mesh's two dims flattened into one group; batches, FSDP blocks and
+ZeRO-1 blocks lie over both.
+
 The layers call these functions at every mesh: with no mesh, or axes
 of one, each is the plain single-device form.  The collectives go
-through ``torch.distributed`` on the mesh's ``model`` or ``data`` group,
+through ``torch.distributed`` on the mesh's ``model`` or data group,
 whatever its backend (NCCL; or gloo, which takes CUDA tensors for
 ``all_reduce`` and ``all_gather``): no host copy and no branch on the
-backend.  A collective that fails raises.
+backend.  A collective that fails raises.  Under an abstract mesh
+(``launch/elastic.AbstractMesh``, the dry run's: a coordinate and no
+process group) a collective takes ``meta`` tensors only: it is counted
+with the same bytes and gives its result's shape (an all-reduce its
+input, an all-gather d or m blocks of it), and nothing is sent; a CPU
+or CUDA tensor there raises, as does a ``meta`` tensor on a process
+group.
 
-:data:`COUNTS` counts the collectives issued here, by axis, and the
-bytes of their inputs (``backward``: those of them issued by a backward
+:data:`COUNTS` counts the collectives issued here, by axis (``data``
+holds the pod axis's too), and the bytes of their inputs, in all and by
+kind (``<op>_bytes``; ``backward``: those of them issued by a backward
 pass; ``writes``: decode-cache rows written into this rank's T block),
 for the serving loop's and the train step's reports (``launch/
 serve.dense_generate``, ``launch/train.make_train_step``);
-``optim/adamw.py`` adds the ZeRO-1 gathers of updated blocks and the
+``optim/adamw.py`` adds the ZeRO-1 gathers of updated blocks, the
 gathers of the gradients of leaves whose moment tiles straddle the
-model shards (:func:`check_moments`).
+model shards (:func:`check_moments`) and the all-to-alls of leaves whose
+tiles straddle the data blocks (:func:`all_to_all`).
 """
 
 from __future__ import annotations
@@ -193,8 +208,10 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.checkpoint.store import leaf_paths
+from repro_torch.launch.elastic import AbstractGroup
 
 from . import axes as AX
 from . import sharding as SH
@@ -202,8 +219,10 @@ from .sharding import rule_template
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 2"
 AXES = ("model", "data")
-COUNTS = {a: {"all_reduce": 0, "all_gather": 0, "bytes": 0, "backward": 0,
-              "writes": 0} for a in AXES}
+OPS = ("all_reduce", "all_gather", "all_to_all")
+COUNTS = {a: {**{op: 0 for op in OPS}, "bytes": 0, "backward": 0,
+              "writes": 0, **{f"{op}_bytes": 0 for op in OPS}}
+          for a in AXES}
 _TILE = 128                            # optim/adamw.py's moment tile
 _rows = threading.local()
 
@@ -223,8 +242,10 @@ def model_size() -> int:
 
 
 def data_size() -> int:
-    """Size of the active mesh's ``data`` axis (1 with no mesh)."""
-    return axis_size("data")
+    """Size of the active mesh's data axes, ``("pod", "data")`` where a
+    pod axis exists (1 with no mesh): the product, as JAX's ``DP`` shards
+    batches, FSDP blocks and caches over both."""
+    return axis_size("pod") * axis_size("data")
 
 
 def model_rank() -> int:
@@ -235,10 +256,14 @@ def model_rank() -> int:
 
 
 def data_rank() -> int:
-    """This rank's coordinate on the ``data`` axis (0 with no mesh)."""
-    if data_size() == 1:
-        return 0
-    return int(AX.current_mesh().get_local_rank("data"))
+    """This rank's coordinate on the data axes, read major to minor over
+    ``("pod", "data")`` (``sharding._cuts`` reads a block's index so; 0
+    with no mesh)."""
+    r = 0
+    for a in ("pod", "data"):
+        if axis_size(a) > 1:
+            r = r * axis_size(a) + int(AX.current_mesh().get_local_rank(a))
+    return r
 
 
 def model_group():
@@ -247,8 +272,40 @@ def model_group():
 
 
 def data_group():
-    """The process group of this rank's ``data`` axis."""
-    return AX.current_mesh().get_group("data")
+    """The process group of this rank's data axes: the ``data`` axis's,
+    or with a pod axis the mesh's ``("pod", "data")`` dims flattened into
+    one (ranks numbered as :func:`data_rank` numbers them)."""
+    mesh = AX.current_mesh()
+    if axis_size("pod") == 1:
+        return mesh.get_group("data")
+    if isinstance(mesh, DeviceMesh):      # made once, then found by name
+        return mesh["pod", "data"]._flatten("pod_data").get_group()
+    return mesh.get_group(("pod", "data"))
+
+
+def _group(axis: str):
+    return model_group() if axis == "model" else data_group()
+
+
+def _group_size(group) -> int:
+    return group.size if isinstance(group, AbstractGroup) else \
+        dist.get_world_size(group)
+
+
+def _sent(t: torch.Tensor, group) -> bool:
+    """Whether a collective on ``group`` sends ``t``: on a process group,
+    a tensor of a device that holds data; on an abstract mesh's group (a
+    rank traced on ``meta``, ``launch/dryrun.py``), a ``meta`` tensor,
+    which nothing sends.  Any other pairing raises: the device and the
+    mesh choose the path."""
+    abstract = isinstance(group, AbstractGroup)
+    if abstract != (t.device.type == "meta"):
+        raise ValueError(
+            f"a collective of a {t.device.type} tensor on "
+            + ("an abstract mesh, which runs on meta tensors only"
+               if abstract else "a process group, which sends no meta "
+               "tensor"))
+    return not abstract
 
 
 def counts() -> dict:
@@ -265,15 +322,18 @@ def counts_since(before: dict) -> dict:
 def _count(axis: str, op: str, t: torch.Tensor,
            backward: bool = False) -> None:
     c = COUNTS[axis]
+    n = t.numel() * t.element_size()
     c[op] += 1
-    c["bytes"] += t.numel() * t.element_size()
+    c["bytes"] += n
+    c[f"{op}_bytes"] += n
     c["backward"] += backward
 
 
 def _all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None,
                 backward: bool = False, axis: str = "model") -> torch.Tensor:
-    dist.all_reduce(t, op=op,
-                    group=group or AX.current_mesh().get_group(axis))
+    group = group or _group(axis)
+    if _sent(t, group):
+        dist.all_reduce(t, op=op, group=group)
     _count(axis, "all_reduce", t, backward)
     return t
 
@@ -287,12 +347,29 @@ def all_gather(t: torch.Tensor, dim: int, axis: str,
                group=None) -> torch.Tensor:
     """The blocks of ``t`` over ``axis`` (this rank's among them),
     concatenated along ``dim`` in the axis's order."""
-    group = group or AX.current_mesh().get_group(axis)
+    group = group or _group(axis)
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t, group=group)
+    parts = [torch.empty_like(t) for _ in range(_group_size(group))]
+    if _sent(t, group):
+        dist.all_gather(parts, t, group=group)
     _count(axis, "all_gather", t)
     return torch.cat(parts, dim=dim)
+
+
+def all_to_all(t: torch.Tensor, split: int, cat: int,
+               axis: str = "data") -> torch.Tensor:
+    """This rank's block of ``t`` along ``cat`` over ``axis`` -> the
+    whole along ``cat`` and this rank's block along ``split``: rank j
+    gets block j of ``split`` from every rank, concatenated along ``cat``
+    in the axis's order (one ``all_to_all_single``)."""
+    group = _group(axis)
+    n = _group_size(group)
+    inp = torch.stack(t.chunk(n, split))
+    out = torch.empty_like(inp)
+    if _sent(inp, group):
+        dist.all_to_all_single(out, inp, group=group)
+    _count(axis, "all_to_all", inp)
+    return torch.cat(out.unbind(0), dim=cat)
 
 
 class _Gather(torch.autograd.Function):
@@ -312,7 +389,7 @@ class _Gather(torch.autograd.Function):
             s = torch.empty(g.shape, dtype=torch.float32, device=g.device)
             s.copy_(g)
             g = _all_reduce(s, group=ctx.group, backward=True).to(g.dtype)
-        n = g.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        n = g.shape[ctx.dim] // _group_size(ctx.group)
         return g.narrow(ctx.dim, ctx.rank * n, n), None, None
 
 
@@ -502,7 +579,7 @@ class _DataLeaf(torch.autograd.Function):
         if ctx.summed:
             _all_reduce(s, group=ctx.group, backward=True, axis="data")
         if ctx.dim is not None:
-            n = s.shape[ctx.dim] // dist.get_world_size(ctx.group)
+            n = s.shape[ctx.dim] // _group_size(ctx.group)
             s = s.narrow(ctx.dim, ctx.rank * n, n)
         return s.to(ctx.dtype), None
 
@@ -596,7 +673,7 @@ def _placement(key: tuple, sizes: tuple, threshold: int) -> tuple:
         if local == AX.local_shape(whole, base, mesh):
             out.append((path, model, None))
         elif local == AX.local_shape(whole, full, mesh):
-            dim = list(full).index("data")
+            dim = SH.data_dim(full)
             if _STACKS.match(path) and dim == 0:
                 raise NotImplementedError(
                     f"{path}: the rule table splits the layers over data; "
@@ -967,15 +1044,16 @@ def check_layout(cfg) -> None:
     """Raise unless this slice lays ``cfg`` out over the active mesh, as
     JAX's rule table does: every family (the dense GQA decoders, the MoE
     decoders with MLA, xLSTM's recurrent cells, hymba's attention beside
-    Mamba, seamless's encoder-decoder) beside a data axis of any size, on
-    a mesh without a ``pod`` axis.  Where a dim does not divide the model
-    axis the rule table keeps the leaf whole, and so does the port: heads
+    Mamba, seamless's encoder-decoder) beside data axes of any size (a
+    pod axis is one more, :func:`data_size`).  Where a dim does not
+    divide the model axis the rule table keeps the leaf whole, and so
+    does the port: heads
     or KV heads (K/V, and Q and wo where the heads do not divide,
     replicated; the decode cache sharded over T, a ring over its window:
     ``cache_specs``, a cache whose rows do not divide the axis either
     refused where it is made), a vocab (the embedding and the head whole
     on every rank), sLSTM's recurrent kernel, MoE shared experts.
-    Refused, each by name with the ROADMAP item: a pod axis; experts that
+    Refused, each by name with the ROADMAP item: experts that
     do not divide the model axis (JAX asserts); a dense d_ff (of a dense
     MLP or arctic's residual FFN) that does not divide it; MLA heads,
     latent or rope widths that do not divide it (``cache_specs`` would
@@ -988,11 +1066,6 @@ def check_layout(cfg) -> None:
     m, d = model_size(), data_size()
     if m == 1 and d == 1:
         return
-    sizes = AX.mesh_axes(AX.current_mesh())
-    if sizes.get("pod", 1) > 1:
-        raise NotImplementedError(
-            f"{cfg.name}: a pod axis of {sizes['pod']} (the multi-pod mesh) "
-            f"is not laid out ({ROADMAP_ITEM})")
     if cfg.is_moe and cfg.n_experts % m:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_experts} experts do not divide the model "
@@ -1036,8 +1109,9 @@ def check_moments(params, moment_dtype: str) -> list[bool]:
     every rank holds the leaf's whole moments (``optim/adamw.py`` updates
     them from the gradient gathered over ``model``).  f32 and bf16 moments
     have no tiles; all False then, and with a model axis of one.  The
-    same straddle over ``data`` is refused where the update's blocks are
-    cut (``optim/adamw.plan``)."""
+    same straddle over the data axes is laid out where the update's
+    blocks are cut (``optim/adamw.plan``: the rank owns another dim's
+    block)."""
     m = model_size()
     out = []
     for path, leaf in leaf_paths(params):

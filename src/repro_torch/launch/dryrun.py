@@ -25,14 +25,24 @@ a shape and a dtype and no data:
     axes and, where the vocabulary divides, the model axis.
 
 No op of the model executes anywhere, as JAX's dry run compiles and
-runs nothing: it needs no card and gives the same rows on any host.  It
-traces one data-parallel rank's program with the model axis unsharded
-(no TP or FSDP rank is traced, ROADMAP Queue 1 item 2): FLOPs and temp
-bytes are a DP rank's with whole weights, while the
-argument bytes follow the rule table.  The row says so (``scope``).
-Where a microbatch's rows do not divide over the data axes, a rank runs
-each microbatch at the rows rounded up, as XLA pads a dimension it
-cannot divide.
+runs nothing: it needs no card and gives the same rows on any host.
+Where JAX's figures are per device under GSPMD, the port's are a rank's:
+the step runs at one coordinate of the mesh (0 on every axis unless the
+caller picks another, ``launch/elastic.abstract_mesh(coord=)``) on that
+rank's own tensors: its blocks of the params under the rule table
+(``sharding.local_params``, FSDP blocks unless ``--no-fsdp``, for train,
+prefill and decode alike, as JAX's ``lower_cell`` places them), its ZeRO-1
+optimizer state (``optim/adamw.plan``), its rows of the batch and its
+blocks of the caches (``tp.cache_blocks``).  Every collective of
+``distributed/tp.py`` is counted there and sends nothing (a ``meta``
+tensor under an abstract mesh): ``collectives`` is the rank's, in JAX's
+``collective_bytes`` schema, and ``traced_flops`` and
+``temp_size_in_bytes`` are the rank's program's.  Where a microbatch's
+rows do not divide over the data axes, a rank runs each microbatch at the
+rows rounded up, as XLA pads a dimension it cannot divide; where the
+batch's rows do not divide them, every rank runs them all, as
+``batch_specs`` replicates them.  Where ranks' programs differ, the row
+says how (``rank``).
 
 The HLO parsers (``_parse_hlo``, ``hlo_cost``, ``collective_bytes``,
 ``_shape_bytes``) are not ported: they read XLA's text, and the port
@@ -62,14 +72,16 @@ from repro_torch.configs.base import (SHAPES, ArchConfig, ShapeConfig,
                                       applicable_shapes)
 from repro_torch.configs.registry import get_arch
 from repro_torch.distributed import compress_comm as CC
+from repro_torch.distributed import axes as AX
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed import tp
 from repro_torch.distributed.axes import P, mesh_axes
 from repro_torch.launch.elastic import abstract_mesh
 from repro_torch.launch.mesh import production_axes
 from repro_torch.models import frontends, trips
 from repro_torch.models import params as PT
 from repro_torch.models import transformer as T
-from repro_torch.models.api import ModelAPI, get_model
+from repro_torch.models.api import ModelAPI, family_module, get_model
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 META = torch.device("meta")
@@ -100,15 +112,12 @@ NOT_MEASURED = {
     "seq_depth": "XLA's while-loop nesting; the port's loops are Python "
                  "(models/trips)",
     "generated_code_size_in_bytes": "XLA's executable; the port has none",
-    "collectives.tensor_parallel_fsdp": "no TP or FSDP rank is traced; "
-                                        "the dry run traces one "
-                                        "data-parallel rank (ROADMAP "
-                                        "Queue 1 item 2)",
 }
-SCOPE = ("argument, output and alias bytes: a rank's share under the rule "
-         "table (sharding.py) on the mesh; traced_flops and "
-         "temp_size_in_bytes: one data-parallel rank's program with the "
-         "model axis unsharded")
+SCOPE = ("one rank of the mesh, at the coordinate in 'rank': its blocks of "
+         "the params, optimizer state, batch and caches under the rule "
+         "table (sharding.py); traced_flops, temp_size_in_bytes and "
+         "collectives are that rank's program's, argument, output and "
+         "alias bytes its share")
 
 
 # ---------------------------------------------------------------------------
@@ -116,14 +125,33 @@ SCOPE = ("argument, output and alias bytes: a rank's share under the rule "
 # ---------------------------------------------------------------------------
 
 def build_train_step(model: ModelAPI, ocfg: AdamWConfig, n_micro: int = 1,
-                     acc_dtype: torch.dtype = torch.float32):
+                     acc_dtype: torch.dtype = torch.float32,
+                     whole: dict | None = None):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss and its gradients over ``n_micro`` microbatches (the batch's
     rows in order, as JAX's ``split_micro``), summed in ``acc_dtype`` and
     divided by ``n_micro``, then ``adamw_update`` (in place).  With one
     microbatch the gradients go to the update as they come, each in its
     leaf's dtype, as JAX's.  ``metrics`` adds ``loss``, the mean loss, as
-    a tensor: the step runs on the card, the CPU and ``meta`` alike."""
+    a tensor: the step runs on the card, the CPU and ``meta`` alike.
+
+    Under a mesh, ``params`` and ``opt_state`` are a rank's blocks and
+    ``batch`` its rows (``launch/train.make_train_step`` cuts them; the
+    caller opens ``tp.whole_rows`` where they do not divide); the update
+    needs the whole params' shapes, ``whole`` (the model's
+    ``whole_shapes``, read at the first step where not given).
+    ``on_grads``, a keyword of the step: called with the loss between the
+    gradients and the update."""
+    meta = {"params": whole}
+
+    def whole_shapes():
+        if tp.data_size() == 1 and tp.model_size() == 1:
+            return None
+        if meta["params"] is None:
+            meta["params"] = family_module(model.cfg).whole_shapes(
+                model.cfg)
+        return meta["params"]
+
     def grads_of(params, batch):
         leaves = [t.requires_grad_() for t in PT.leaves(params)]
         loss = model.loss(params, batch)
@@ -132,7 +160,8 @@ def build_train_step(model: ModelAPI, ocfg: AdamWConfig, n_micro: int = 1,
         return loss.detach(), torch.autograd.grad(
             loss, leaves, allow_unused=True, materialize_grads=True)
 
-    def step(params, opt_state, batch):
+    def step(params, opt_state, batch, on_grads=None):
+        shapes = whole_shapes()
         if n_micro == 1:
             loss, grads = grads_of(params, batch)
         else:
@@ -159,8 +188,11 @@ def build_train_step(model: ModelAPI, ocfg: AdamWConfig, n_micro: int = 1,
             loss = loss / n_micro
             for a in grads:
                 a.div_(n_micro)
+        if on_grads is not None:
+            on_grads(loss)
         params, opt_state, metrics = adamw_update(
-            params, PT.unflatten(params, grads), opt_state, ocfg)
+            params, PT.unflatten(params, grads), opt_state, ocfg,
+            whole=shapes)
         metrics["loss"] = loss
         return params, opt_state, metrics
     return step
@@ -503,9 +535,17 @@ def param_bytes(params: dict) -> int:
     return sum(t.numel() * t.element_size() for t in PT.leaves(params))
 
 
+def _nbytes(tree) -> int:
+    """The bytes of the tensors of a tree (none for None)."""
+    return 0 if tree is None else sum(
+        t.numel() * t.element_size() for _, t in leaf_paths(tree))
+
+
 def dp_collectives(params: dict) -> dict:
-    """What the port's DP step (``compress_comm.make_dp_train_step``) puts
-    on the wire a step, per rank, in JAX's ``collective_bytes`` shape:
+    """What the port's compressed DP step (``compress_comm.
+    make_dp_train_step``, a pure data-parallel run with whole weights, not
+    the production mesh's step) puts on the wire a step, per rank, in
+    JAX's ``collective_bytes`` shape:
     every gradient leaf compressed (one all-gather of its payload a row
     group) and the loss's all-reduce; ``raw`` is the uncompressed step's
     (one all-reduce a leaf, f32 ``wire_bytes``); ``leaves`` both per
@@ -529,46 +569,98 @@ def dp_collectives(params: dict) -> dict:
 # a cell
 # ---------------------------------------------------------------------------
 
+def collectives(counts: dict) -> dict:
+    """A rank's ``tp.COUNTS`` over a step (``tp.counts_since``) in JAX's
+    ``collective_bytes`` schema: input bytes by kind, ``total`` and
+    ``counts``, over both axes; ``by_axis`` the counts themselves."""
+    kinds = {op: op.replace("_", "-") for op in tp.OPS}
+    out = {k: sum(c[f"{op}_bytes"] for c in counts.values())
+           for op, k in kinds.items()}
+    out["total"] = sum(out.values())
+    out["counts"] = {k: sum(c[op] for c in counts.values())
+                     for op, k in kinds.items()}
+    out["by_axis"] = counts
+    return out
+
+
+def _differs(cfg: ArchConfig, shape: ShapeConfig, mesh, cache) -> list:
+    """How other ranks' programs differ from the traced one's."""
+    out = []
+    d, sizes = _dp(mesh), mesh_axes(mesh)
+    if d > 1 and shape.global_batch % d:
+        out.append(f"the batch's {shape.global_batch} rows do not divide "
+                   f"the data axes of {d}: every rank runs all of them "
+                   f"(batch_specs replicates them)")
+    m = sizes.get("model", 1)
+    if shape.kind == "decode" and m > 1 and any(
+            s[2] == "model" for _, s in SH.spec_leaves(
+                SH.cache_specs(cache, tp.model_axis()))
+            if len(s) == 5):
+        t = shape.seq_len - 1
+        out.append(f"the cache is split over T: row t = {t} is written "
+                   f"(tp.write_row) by the rank whose T block holds it, "
+                   f"model coordinate {t * m // shape.seq_len}")
+    return out
+
+
 def trace(cfg: ArchConfig, shape: ShapeConfig, mesh, ocfg: AdamWConfig,
           n_micro: int, acc_dtype: torch.dtype, *,
-          kv_compressed: bool = False, fsdp: bool = True) -> dict:
+          kv_compressed: bool = False, fsdp: bool = True,
+          batch: dict | None = None) -> dict:
     """The dry-run row of one cell: ``cfg`` x ``shape`` on ``mesh`` (an
-    abstract mesh, ``launch/elastic.abstract_mesh``), everything on
-    meta."""
+    abstract mesh, ``launch/elastic.abstract_mesh``, whose ``coord`` is
+    the rank traced), everything on meta.  ``batch``: a train step's
+    whole batch (``meta`` tensors of ``shape``'s rows) in place of
+    ``frontends.batch_struct``'s, such as a data stream's without its
+    frontend embeds; the rank takes its rows."""
     t0 = time.perf_counter()
     model = get_model(cfg)
-    params = model.init(torch.Generator(), META)
-    io = io_bytes(model, shape, mesh, ocfg, params,
+    # the model's own tree of whole shapes, made here and not inside the
+    # count, where its storages would count as live
+    whole = family_module(cfg).whole_shapes(cfg)
+    io = io_bytes(model, shape, mesh, ocfg, whole,
                   kv_compressed=kv_compressed, fsdp=fsdp)
     rows = _rank_rows(shape.global_batch, mesh)
-    if shape.kind == "train":
-        opt = adamw_init(params, ocfg)
-        batch = _batch(cfg, shape, -(-rows // n_micro) * n_micro)
-        step = build_train_step(model, ocfg, n_micro, acc_dtype)
-        with Count() as count:
-            step(params, opt, batch)
-        coll = dp_collectives(params)
-    else:
-        if shape.kind == "prefill":
-            batch = _batch(cfg, shape, rows)
+    d = _dp(mesh)
+    cache = None
+    with AX.use_mesh(mesh), tp.whole_rows(d > 1 and rows
+                                          == shape.global_batch):
+        tp.check_layout(cfg)
+        params = SH.local_params(whole, mesh, fsdp=fsdp)
+        opt = adamw_init(params, ocfg, whole=whole) \
+            if shape.kind == "train" else None
+        c0 = tp.counts()
+        if shape.kind == "train":
+            batch = _batch(cfg, shape, -(-rows // n_micro) * n_micro) \
+                if batch is None else SH.local_batch(batch, mesh)
+            step = build_train_step(model, ocfg, n_micro, acc_dtype, whole)
             with Count() as count:
-                logits, _ = model.prefill(params, batch, shape.seq_len)
+                step(params, opt, batch)
         else:
-            cache, decode = _cache(model, shape, rows, kv_compressed)
-            batch = {}
-            token = torch.empty((rows,), dtype=torch.int32, device=META)
-            with Count() as count:
-                logits, _ = decode(params, cache, token, shape.seq_len - 1)
-        _check_io(cfg, shape.kind, params, batch, count.read, logits)
-        coll = {"counts": {}, "total": 0}
+            if shape.kind == "prefill":
+                batch = _batch(cfg, shape, rows)
+                with Count() as count:
+                    logits, _ = model.prefill(params, batch, shape.seq_len)
+            else:
+                cache, decode = _cache(model, shape, rows, kv_compressed)
+                token = torch.empty((rows,), dtype=torch.int32, device=META)
+                batch = {"token": token}
+                with Count() as count:
+                    logits, _ = decode(params, cache, token,
+                                       shape.seq_len - 1)
+            _check_io(cfg, shape.kind, params, batch, count.read, logits)
+        coll = collectives(tp.counts_since(c0))
+        held = {"params": _nbytes(params), "opt_state": _nbytes(opt),
+                "inputs": _nbytes(batch) + _nbytes(cache)}
+        differs = _differs(cfg, shape, mesh, cache)
     sizes = mesh_axes(mesh)
-    return {
+    row = {
         "arch": cfg.name, "shape": shape.name,
         "microbatches": n_micro if shape.kind == "train" else 0,
         "mesh": "x".join(str(v) for v in sizes.values()),
         "n_devices": int(np.prod(list(sizes.values()))),
         "lower_s": None, "compile_s": None,
-        "param_bytes_global": param_bytes(params),
+        "param_bytes_global": param_bytes(whole),
         "flops": None, "bytes_accessed": None, "hlo_flops": None,
         "hlo_bytes": None, "seq_depth": None,
         "collectives": coll,
@@ -577,9 +669,14 @@ def trace(cfg: ArchConfig, shape: ShapeConfig, mesh, ocfg: AdamWConfig,
         "generated_code_size_in_bytes": None,
         "traced_flops": count.flops,
         "trace_s": time.perf_counter() - t0,
+        "rank": {"coordinate": {a: mesh.get_local_rank(a) for a in sizes},
+                 "differs": differs, "held_bytes": held},
         "not_measured": NOT_MEASURED,
         "scope": SCOPE,
     }
+    if shape.kind == "train":
+        row["dp_compressed"] = dp_collectives(whole)
+    return row
 
 
 def trace_cell(arch_name: str, shape_name: str, multi_pod: bool, *,
@@ -598,7 +695,7 @@ def trace_cell(arch_name: str, shape_name: str, multi_pod: bool, *,
     if sp:
         raise NotImplementedError(
             "--sp: sequence parallelism (JAX's axes.set_sp, "
-            "repro/distributed/axes.py:176) is not ported")
+            "repro/distributed/axes.py:114) is not ported")
     ocfg = AdamWConfig(moment_dtype=MOMENT_DTYPE.get(cfg.name, "f32"))
     n_micro = microbatches if microbatches is not None else \
         MICROBATCHES.get(cfg.name, 1)
@@ -611,8 +708,8 @@ def trace_cell(arch_name: str, shape_name: str, multi_pod: bool, *,
 def run(arch: str, shape: str, multi_pod: bool, out: str | None = None,
         **kw) -> dict:
     info = trace_cell(arch, shape, multi_pod, **kw)
-    print("=== collective bytes (per rank, the DP step) ===")
-    print({k: v for k, v in info["collectives"].items() if k != "leaves"})
+    print("=== collective bytes (per rank, the mesh's step) ===")
+    print(info["collectives"])
     print("=== not measured ===")
     print(json.dumps(info["not_measured"], indent=1))
     if out:
@@ -620,7 +717,8 @@ def run(arch: str, shape: str, multi_pod: bool, out: str | None = None,
             json.dump(info, f, indent=1)
     print("=== summary ===")
     print(json.dumps({k: v for k, v in info.items()
-                      if k not in ("collectives", "not_measured")}, indent=1))
+                      if k not in ("collectives", "dp_compressed",
+                                   "not_measured")}, indent=1))
     return info
 
 

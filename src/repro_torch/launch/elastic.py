@@ -28,16 +28,45 @@ from repro_torch.distributed.axes import mesh_axes
 @dataclass(frozen=True)
 class AbstractMesh:
     """A mesh's axis names and sizes, with no devices (JAX's
-    ``AbstractMesh``)."""
+    ``AbstractMesh``), and the coordinate of the rank that a trace plays
+    (``coord``, 0 on every axis by default; ``launch/dryrun.py``).  Under
+    it the collectives of ``distributed/tp.py`` run on ``meta`` tensors
+    only: each is counted and gives its result's shape, and nothing is
+    sent (:meth:`get_group`)."""
     axis_names: tuple[str, ...]
     shape: dict = field(hash=False)
+    coord: dict = field(default_factory=dict, hash=False)
+
+    def get_local_rank(self, axis: str) -> int:
+        return int(self.coord.get(axis, 0))
+
+    def get_group(self, axes) -> "AbstractGroup":
+        """The group of ``axes`` (a name, or a tuple of names flattened
+        major to minor)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return AbstractGroup(axes, int(np.prod([self.shape[a]
+                                                for a in axes])))
 
 
-def abstract_mesh(sizes: tuple[int, ...], names: tuple[str, ...]
-                  ) -> AbstractMesh:
+@dataclass(frozen=True)
+class AbstractGroup:
+    """The process group of an :class:`AbstractMesh`'s axes: no process
+    runs it (``distributed/tp.py`` counts a collective on it and sends
+    nothing)."""
+    axes: tuple[str, ...]
+    size: int
+
+
+def abstract_mesh(sizes: tuple[int, ...], names: tuple[str, ...],
+                  coord: dict | None = None) -> AbstractMesh:
     if len(sizes) != len(names):
         raise ValueError(f"sizes {sizes} and names {names} differ in length")
-    return AbstractMesh(tuple(names), dict(zip(names, map(int, sizes))))
+    shape = dict(zip(names, map(int, sizes)))
+    coord = dict(coord or {})
+    if set(coord) - set(names) or any(
+            not 0 <= c < shape[a] for a, c in coord.items()):
+        raise ValueError(f"coordinate {coord} is not on the mesh {shape}")
+    return AbstractMesh(tuple(names), shape, coord)
 
 
 def reshard_plan(shape_tree, old_mesh, new_mesh) -> dict:

@@ -86,9 +86,15 @@ def make_production_mesh(*, multi_pod: bool = False,
 
 
 def make_host_mesh(data: int = 1, model: int = 1,
-                   device: str | torch.device | None = None) -> DeviceMesh:
+                   device: str | torch.device | None = None, *,
+                   pod: int = 1) -> DeviceMesh:
     """A ("data", "model") mesh of data x model ranks on ``device`` (the
-    card unless ``device="cpu"``)."""
+    card unless ``device="cpu"``); with ``pod`` > 1 a ("pod", "data",
+    "model") mesh of pod x data x model ranks, the multi-pod mesh's
+    layout (``distributed/tp.data_group`` flattens its pod and data
+    dims)."""
+    if pod > 1:
+        return _mesh((pod, data, model), ("pod", "data", "model"), device)
     return _mesh((data, model), ("data", "model"), device)
 
 

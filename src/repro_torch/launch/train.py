@@ -42,19 +42,21 @@ from repro_torch.distributed import axes as AX
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed import tp
 from repro_torch.kernels._device import resolve_device
-from repro_torch.models import params as P
+from repro_torch.launch.dryrun import build_train_step
 from repro_torch.models.api import ModelAPI, get_model
-from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.optim.adamw import MOMENT_DTYPES, export_state, import_state
 
 
 def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss, its gradients over the parameter leaves, then the AdamW
-    update (in place, see ``optim/adamw.py``).  ``metrics`` holds Python
-    floats: ``loss``, ``grad_norm``, and the host seconds of the forward
-    and backward (``fwd_bwd_s``) and of the update (``opt_s``), each
-    ending in a read of its result, which waits for the device, and
+    update (in place, see ``optim/adamw.py``): ``launch/dryrun.
+    build_train_step`` at one microbatch, the step the dry run traces.
+    ``metrics`` holds Python floats: ``loss``, ``grad_norm``, and the host
+    seconds of the forward and backward (``fwd_bwd_s``) and of the update
+    (``opt_s``), each ending in a read of its result, which waits for the
+    device, and
     ``collectives``: by mesh axis (``model``, ``data``), the collectives
     the step issued and the bytes of their inputs (``distributed/
     tp.COUNTS``; zeros without a mesh).
@@ -67,35 +69,27 @@ def make_train_step(model: ModelAPI, ocfg: AdamWConfig):
     (``sharding.local_batch``; rows that do not divide d stay whole): the
     loss is the global mean on every rank, the gradients are this rank's
     blocks and ``grad_norm`` is the global norm."""
-    meta = {}
+    core = build_train_step(model, ocfg)
 
     def step(params, opt_state, batch):
         c0 = tp.counts()
         t0 = time.perf_counter()
-        whole, d, rows = None, tp.data_size(), 0
-        if d > 1 or tp.model_size() > 1:
-            if "params" not in meta:
-                meta["params"] = model.init(torch.Generator(), "meta")
-            whole = meta["params"]
+        d, rows, t = tp.data_size(), 0, {}
         if d > 1:
             rows = next(iter(batch.values())).shape[0]
             batch = SH.local_batch(batch, AX.current_mesh())
+
+        def on_grads(loss):
+            t["loss"] = float(loss)
+            t["t1"] = time.perf_counter()
         with tp.whole_rows(d > 1 and rows % d != 0):
-            leaves = [t.requires_grad_() for t in P.leaves(params)]
-            loss = model.loss(params, batch)
-            # a leaf the loss does not reach (xLSTM's idle cell in a block)
-            # gets a zero gradient, as jax.grad gives it
-            grads = P.unflatten(params, torch.autograd.grad(
-                loss, leaves, allow_unused=True, materialize_grads=True))
-        loss = float(loss.detach())
-        t1 = time.perf_counter()
-        params, opt_state, m = adamw_update(params, grads, opt_state, ocfg,
-                                            whole=whole)
-        del grads
+            params, opt_state, m = core(params, opt_state, batch,
+                                        on_grads=on_grads)
         gnorm = float(m["grad_norm"])
         return params, opt_state, {
-            "loss": loss, "grad_norm": gnorm, "fwd_bwd_s": t1 - t0,
-            "opt_s": time.perf_counter() - t1,
+            "loss": t["loss"], "grad_norm": gnorm,
+            "fwd_bwd_s": t["t1"] - t0,
+            "opt_s": time.perf_counter() - t["t1"],
             "collectives": tp.counts_since(c0)}
     return step
 

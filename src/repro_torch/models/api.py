@@ -15,8 +15,8 @@ Encoder-decoder configs go to ``encdec``, ssm to ``xlstm``, hybrid to
 kind it does not take.  Under a mesh whose ``model`` or ``data`` axis
 is larger than one, every function refuses a config or mesh that tensor
 and data parallelism do not lay out (``distributed/tp.check_layout``:
-a ``pod`` axis, widths that the port would cut elsewhere than JAX's rule
-table does); each family's ``init_cache`` gives this rank's blocks of
+widths that the port would cut elsewhere than JAX's rule table does; a
+``pod`` axis is one more data axis); each family's ``init_cache`` gives this rank's blocks of
 the cache as ``sharding.cache_specs`` cuts it.
 """
 

@@ -331,9 +331,19 @@ def gqa_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
         lo = tp.model_rank() * cache_len if split else 0
         take = min(w, s)
         idx = _ring_slot(positions[s - take:].long(), w) - lo
-        mine = (idx >= 0) & (idx < cache_len)
-        kc[:, idx[mine]] = k[:, s - take:][:, mine]
-        vc[:, idx[mine]] = v[:, s - take:][:, mine]
+        if split:
+            # other ranks' slots go to a spare row, dropped after: a
+            # count that depends on no data (the dry run traces this on
+            # meta, where a boolean index has no size)
+            idx = torch.where((idx >= 0) & (idx < cache_len), idx,
+                              cache_len)
+            kc = k.new_zeros((b, cache_len + 1, kh, dh))
+            vc = torch.zeros_like(kc)
+        kc[:, idx] = k[:, s - take:]
+        vc[:, idx] = v[:, s - take:]
+        if split:
+            kc = kc[:, :cache_len].contiguous()
+            vc = vc[:, :cache_len].contiguous()
     else:
         n = max(0, min(cache_len, s - start))
         kc[:, :n] = k[:, start:start + n]

@@ -46,12 +46,19 @@ of m and v or JAX's tile statistics, deltas and masks), updates the
 whole moments, compresses whole tiles (kernel 4 on the card) and steps
 this rank's columns of the param.
 
-Under a ``(d, m)`` mesh (ZeRO-1, :func:`plan`) each rank keeps the
-moments of one block of each leaf, whole tiles only: an FSDP leaf's data
-block, or a block of a leaf whole over ``data`` whose moment the rule
-table splits, which the rank updates alone and all-gathers over
-``data`` afterwards; the clip norm sums a leaf's squares over each axis
-that splits it.  The update itself stays local and elementwise.
+Under a ``(d, m)`` mesh (ZeRO-1, :func:`plan`; d the product of the
+data axes, ``("pod", "data")`` on the multi-pod mesh) each rank keeps
+the moments of one block of each leaf, whole tiles only: an FSDP leaf's
+data block, or a block of a leaf whole over ``data`` whose moment the
+rule table splits, which the rank updates alone and all-gathers over
+``data`` afterwards.  A ``bdi8``/``q8`` leaf whose FSDP block lies along
+its last dim with a tile count that d does not divide (arctic-480b's
+``wo`` at the production mesh) keeps the moments of another dim's block,
+the one the rule table splits the moment's ``deltas`` over: the rank
+moves its gradient and param block there by an all-to-all over the data
+axes, updates, and moves the param back.  The clip norm sums a leaf's
+squares over each axis that splits it.  The update itself stays
+elementwise.
 
 Unlike the JAX version, :func:`adamw_update` writes the new params and
 moments into the tensors it is given (at yi-6b's full width a second
@@ -143,6 +150,14 @@ def _tiled(shape, kind: str) -> bool:
         and shape[-1] % _TILE == 0
 
 
+def _codec(x: torch.Tensor, kernel, plain):
+    """The tile codec for ``x``'s device: the kernel's wrapper (which
+    launches the kernel on the card and takes the plain version on the
+    CPU), or on ``meta`` (the dry run's shapes, where no op runs) the
+    plain version, whose shapes and allocations the trace counts."""
+    return plain if x.device.type == "meta" else kernel
+
+
 def _store(x: torch.Tensor, kind: str):
     if kind == "f32":
         return x.to(torch.float32)
@@ -159,7 +174,7 @@ def _store(x: torch.Tensor, kind: str):
         deltas = torch.clamp(torch.round(tiles / scale[:, None]), -127, 127)
         return {"deltas": deltas.to(torch.int8).view(*lead, _TILE),
                 "scale": scale.view(lead)}
-    p = ops.compress(tiles)
+    p = _codec(tiles, ops.compress, ref.compress_ref)(tiles)
     return {"deltas": p.deltas.view(*lead, _TILE), "base": p.base.view(lead),
             "scale": p.scale.view(lead),
             "maskp": p.maskp.view(*lead, _TILE // 8)}
@@ -191,10 +206,12 @@ def _load(s, shape) -> torch.Tensor:
     if not isinstance(s, dict):
         return s.to(torch.float32)
     if "maskp" in s:
-        tiles = ops.decompress(ref.PackedTiles(
+        packed = ref.PackedTiles(
             s["deltas"].reshape(-1, _TILE), s["base"].reshape(-1, 1),
-            s["scale"].reshape(-1, 1),
-            s["maskp"].reshape(-1, _TILE // 8), None))
+            s["scale"].reshape(-1, 1), s["maskp"].reshape(-1, _TILE // 8),
+            None)
+        tiles = _codec(packed.deltas, ops.decompress,
+                       ref.decompress_ref)(packed)
     else:
         tiles = s["deltas"].to(torch.float32) * s["scale"][..., None]
     return tiles.reshape(shape)
@@ -205,7 +222,10 @@ class Leaf(NamedTuple):
     squares summed over it); ``data``, the dim of its FSDP block (its
     squares summed over ``data``) or None; ``owner``, the dim along which
     this rank updates and stores the moments of 1/d of the leaf, or None
-    (every rank updates the whole leaf, bit for bit alike)."""
+    (every rank updates the whole leaf, bit for bit alike).  ``owner``
+    differs from a set ``data`` where the leaf's moment tiles straddle
+    its data blocks: the rank moves its gradient and param from the one
+    block to the other (:func:`tp.all_to_all`)."""
     model: bool
     data: int | None
     owner: int | None
@@ -221,9 +241,28 @@ def _wide(shape, straddles: bool) -> tuple:
     return (*shape[:-1], shape[-1] * tp.model_size())
 
 
+def _straddle_owner(path: str, w, shard: list, mesh, d: int
+                    ) -> int | None:
+    """The dim whose data blocks a rank updates for a leaf whose FSDP block
+    lies along its tiled last dim but whose tiles straddle those blocks:
+    the dim the rule table splits the moment's ``deltas`` over (as JAX's
+    ``_spec_for`` gives a moment leaf its own spec, ``_MOMENT_SUFFIX``),
+    where that is a dim of the leaf other than the last; else the largest
+    other dim that divides d; else None (no dim but the last divides:
+    every rank updates the whole leaf over the data axes)."""
+    nd = len(shard)
+    tiles = (*w.shape[:-1], w.shape[-1] // _TILE, _TILE)
+    dspec = SH._spec_for(f"['m']{path}['deltas']", tiles, mesh, 1, True)
+    dd = SH.data_dim(dspec)
+    if dd is not None and dd < nd - 1:
+        return dd
+    cands = [i for i in range(nd - 1) if shard[i] % d == 0]
+    return max(cands, key=lambda i: shard[i]) if cands else None
+
+
 def plan(params: dict, whole: dict | None, cfg: AdamWConfig
          ) -> list[Leaf] | None:
-    """Each leaf's :class:`Leaf` under the active mesh's data axis (None
+    """Each leaf's :class:`Leaf` under the active mesh's data axes (None
     without one).  ``whole``: the whole params' shapes (``meta`` tensors).
 
     ZeRO-1 on whole tiles: a rank owns one block of each parameter and
@@ -231,11 +270,16 @@ def plan(params: dict, whole: dict | None, cfg: AdamWConfig
     (``sharding.param_specs(fsdp=True)``); for a leaf whole over ``data``
     whose rule-table spec or whose moment's (f32 and bf16 moments have
     the leaf's shape) splits it over ``data``, that dim's block, which it
-    updates and then all-gathers over ``data``.  A rank thus stores at
-    most the rule table's share of every moment leaf, and the blocks
-    gathered give JAX's whole state.  Refused, naming the ROADMAP item: a
-    ``bdi8``/``q8`` tile that would straddle two blocks (a tiled last dim
-    whose tile count does not divide d)."""
+    updates and then all-gathers over ``data``.  A ``bdi8``/``q8`` leaf
+    whose FSDP block lies along its last dim, with a tile count that does
+    not divide d (arctic-480b's ``wo`` at the production mesh: 56 tiles
+    over 16), owns the block of another dim (:func:`_straddle_owner`),
+    whole tiles over all of the last dim; where no other dim divides d
+    (arctic-480b's dense residual ``down`` on the multi-pod mesh: 56 tiles
+    over 32, 304 rows) it owns none and updates the whole leaf over the
+    data axes, as every rank does a leaf whole over them.  A rank thus
+    stores at most the rule table's share of every moment leaf but those,
+    and the blocks gathered give JAX's whole state."""
     d = tp.data_size()
     if d == 1:
         return None
@@ -250,36 +294,64 @@ def plan(params: dict, whole: dict | None, cfg: AdamWConfig
             P.leaves(params), tp.check_moments(params, kind)):
         spec = SH._spec_for(path, tuple(w.shape), mesh, w.element_size(),
                             True)
-        owner = list(spec).index("data") if "data" in spec else None
-        store = _zero_store(w, kind)
-        if owner is None and not isinstance(store, dict):
+        owner = SH.data_dim(spec)
+        if owner is None and not _tiled(w.shape, kind):
             # a moment of the leaf's shape (f32 or bf16) that the rule
             # table splits, the leaf not; a tile store never is (its
             # bytes are at most the leaf's)
-            mspec = SH._spec_for(f"['m']{path}", tuple(w.shape), mesh,
-                                 store.element_size(), True)
-            if "data" in mspec:
-                owner = list(mspec).index("data")
+            owner = SH.data_dim(SH._spec_for(
+                f"['m']{path}", tuple(w.shape), mesh,
+                2 if kind == "bf16" else 4, True))
         shard = list(_wide(p.shape, wide))  # the leaf's moment, whole
         if data is not None:                 # over data
             shard[data] *= d
         if owner == len(shard) - 1 and _tiled(shard, kind) and \
                 (shard[-1] // d) % _TILE:
-            raise NotImplementedError(
-                f"{path}: {shard[-1] // _TILE} {kind} moment tiles of {_TILE} "
-                f"do not divide the data axis of {d}; a tile would straddle "
-                f"two blocks, which is not laid out ({tp.ROADMAP_ITEM})")
+            owner = _straddle_owner(path, w, shard, mesh, d)
         out.append(Leaf(model, data, owner))
     return out
 
 
-def _block(p: torch.Tensor, leaf: Leaf | None) -> torch.Tensor:
-    """The part of a rank's leaf ``p`` whose moments it keeps: the 1/d
-    block along the owner dim of a leaf whole over ``data``, else ``p``."""
-    if leaf is None or leaf.owner is None or leaf.data is not None:
+def _moment_shape(p: torch.Tensor, leaf: Leaf | None, wide: bool) -> tuple:
+    """The shape of the part of a rank's leaf ``p`` whose moments it
+    keeps (:func:`plan`): the 1/d block along the owner dim, whole along
+    a data dim that differs from it; whole over ``model`` where the tiles
+    straddle the model shards."""
+    shape = list(_wide(p.shape, wide))
+    if leaf is not None and leaf.owner != leaf.data:
+        if leaf.data is not None:
+            shape[leaf.data] *= tp.data_size()
+        if leaf.owner is not None:
+            shape[leaf.owner] //= tp.data_size()
+    return tuple(shape)
+
+
+def _owned(p: torch.Tensor, leaf: Leaf | None) -> torch.Tensor:
+    """The part of a rank's leaf ``p`` (a param or its gradient) whose
+    moments it keeps: ``p`` itself where it owns its block, the 1/d block
+    along the owner dim of a leaf whole over ``data``, or the block of the
+    owner dim over all of the data dim, moved by an all-to-all over the
+    data axes."""
+    if leaf is None or leaf.owner == leaf.data:
         return p
-    n = p.shape[leaf.owner] // tp.data_size()
-    return p.narrow(leaf.owner, tp.data_rank() * n, n)
+    if leaf.owner is None:              # the whole over the data axes
+        return tp.all_gather(p, leaf.data, "data")
+    if leaf.data is None:
+        n = p.shape[leaf.owner] // tp.data_size()
+        return p.narrow(leaf.owner, tp.data_rank() * n, n)
+    return tp.all_to_all(p, leaf.owner, leaf.data)
+
+
+def _returned(pb: torch.Tensor, leaf: Leaf) -> torch.Tensor:
+    """The rank's own block of the updated part ``pb`` (:func:`_owned`):
+    the blocks gathered over the data axes (a leaf whole over them), moved
+    back by an all-to-all, or cut from the whole."""
+    if leaf.data is None:
+        return tp.all_gather(pb, leaf.owner, "data")
+    if leaf.owner is not None:
+        return tp.all_to_all(pb, leaf.data, leaf.owner)
+    n = pb.shape[leaf.data] // tp.data_size()
+    return pb.narrow(leaf.data, tp.data_rank() * n, n)
 
 
 def adamw_init(params: dict, cfg: AdamWConfig,
@@ -291,14 +363,14 @@ def adamw_init(params: dict, cfg: AdamWConfig,
     wide = tp.check_moments(params, cfg.moment_dtype)
     lay = plan(params, whole, cfg)
     leaves = P.leaves(params)
-    blocks = [_block(p, None if lay is None else lay[i])
+    shapes = [_moment_shape(p, None if lay is None else lay[i], wide[i])
               for i, p in enumerate(leaves)]
     step_dev = leaves[0].device
 
     def zeros():
         return P.unflatten(params, [
-            _zero_store(b, cfg.moment_dtype, _wide(b.shape, w))
-            for b, w in zip(blocks, wide)])
+            _zero_store(p, cfg.moment_dtype, s)
+            for p, s in zip(leaves, shapes)])
     return {"step": torch.zeros((), dtype=torch.int32, device=step_dev),
             "m": zeros(), "v": zeros()}
 
@@ -411,13 +483,13 @@ def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
                                              _store_leaves(state["m"]),
                                              _store_leaves(state["v"]))):
         leaf = None if lay is None else lay[i]
-        pb, gb = _block(p, leaf), _block(g, leaf)
+        pb, gb = _owned(p, leaf), _owned(g, leaf)
         if wide[i]:                       # every rank its whole moments
             gb = tp.all_gather(gb, -1, "model")
         for r0, r1 in _groups(gb):
             upd(*(_rows(t, r0, r1) for t in (pb, gb, m_s, v_s)))
         if pb is not p:
-            p.copy_(tp.all_gather(pb, leaf.owner, "data"))
+            p.copy_(_returned(pb, leaf))
     return params, {"step": step, "m": state["m"], "v": state["v"]}, {
         "grad_norm": gnorm, "clip_scale": scale}
 

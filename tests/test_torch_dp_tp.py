@@ -916,38 +916,48 @@ def test_local_batch_cuts_rows_or_keeps_them_whole():
 
 @pytest.mark.parametrize("what", ["pod_axis", "data_straddle"])
 def test_what_dp_tp_still_refuses(what):
-    """A pod axis beside the data and model axes (the multi-pod mesh), at
-    every entry point; ``bdi8``/``q8`` moments whose tiles straddle two
-    data blocks (reduced yi-6b at d_model 256 on a data axis of 4: down's
-    and wo's 2 tiles of D over 4 blocks), while f32 and bf16 moments are
-    laid out.  Each raises naming the ROADMAP item."""
+    """Laid out now: a pod axis beside the data and model axes (the
+    multi-pod mesh), at every entry point, which a rank traced on
+    ``meta`` runs under the dry run's abstract mesh (the collectives of
+    both axes counted, none sent), while CPU tensors there raise at the
+    first collective; ``bdi8``/``q8`` moments whose tiles straddle two
+    data blocks (reduced yi-6b at d_model 256 on a data axis of 4: wo's 2
+    tiles of D over 4 blocks), whose moments a rank keeps for its block
+    of the head dim (f32 and bf16 moments for its block of D)."""
     cfg = case_cfg("yi-6b")
     model = get_model(cfg)
     if what == "pod_axis":
-        toks = torch.ones((2, 4), dtype=torch.int64)
-        calls = [lambda: model.prefill({}, {"tokens": toks}, 8),
-                 lambda: model.decode_step({}, None, toks[:, 0], 4),
-                 lambda: model.forward({}, {"tokens": toks}),
-                 lambda: model.loss({}, {"tokens": toks, "targets": toks}),
-                 lambda: make_train_step(model, AdamWConfig())(
-                     {}, {}, {"tokens": toks, "targets": toks})]
-        with AX.use_mesh(EL.abstract_mesh((2, 2, 2),
-                                          ("pod", "data", "model"))):
-            for call in calls:
-                with pytest.raises(NotImplementedError,
-                                   match="pod axis.*ROADMAP Queue 1 item 2"):
-                    call()
+        mesh = EL.abstract_mesh((2, 2, 2), ("pod", "data", "model"))
+        with AX.use_mesh(mesh):
+            tp.check_layout(cfg)
+            local = SH.local_params(model.init(torch.Generator(), "meta"),
+                                    mesh, fsdp=True)
+            toks = torch.ones((1, 4), dtype=torch.int64, device="meta")
+            before = tp.counts()
+            model.prefill(local, {"tokens": toks}, 8)
+            model.decode_step(local, model.init_cache(1, 8, device="meta"),
+                              toks[:, 0], 4)
+            model.forward(local, {"tokens": toks})
+            model.loss(local, {"tokens": toks, "targets": toks})
+            got = tp.counts_since(before)
+            assert got["model"]["all_reduce"] > 0
+            assert got["data"]["all_gather"] > 0
+            cpu = SH.local_params(case_params("yi-6b"), mesh, fsdp=True)
+            rows = torch.ones((4, 4), dtype=torch.int64)
+            with pytest.raises(ValueError, match="meta tensors only"):
+                make_train_step(model, AdamWConfig())(
+                    cpu, {}, {"tokens": rows, "targets": rows})
         return
     mesh = EL.abstract_mesh((4, 1), ("data", "model"))
     with threshold("yi-6b"), AX.use_mesh(mesh):
         local = SH.local_params(case_params("yi-6b"), mesh,
                                 coord={"data": 0, "model": 0}, fsdp=True)
         whole = model.init(torch.Generator(), "meta")
+        wo = _paths("yi-6b").index("['blocks']['attn']['wo']['w']")
         for md in ("bdi8", "q8"):
-            with pytest.raises(NotImplementedError,
-                               match=r"straddle two blocks.*ROADMAP Queue 1 "
-                                     r"item 2"):
-                AW.plan(local, whole, AdamWConfig(moment_dtype=md))
+            lay = AW.plan(local, whole, AdamWConfig(moment_dtype=md))
+            assert (lay[wo].data, lay[wo].owner) == (3, 2), md
         for md in ("f32", "bf16"):
             lay = AW.plan(local, whole, AdamWConfig(moment_dtype=md))
             assert sum(leaf.data is not None for leaf in lay) >= 5
+            assert (lay[wo].data, lay[wo].owner) == (3, 3), md

@@ -565,11 +565,13 @@ def test_cli_row_multi_pod(tmp_path):
 
 
 def test_train_row_reports_the_dp_all_reduce():
+    """The compressed DP all-reduce of a pure data-parallel run, kept
+    under ``dp_compressed`` beside the rank's own ``collectives``."""
     info = D.trace(get_arch("yi-6b").reduced(),
                    ShapeConfig("x", 16, 32, "train"),
                    EL.abstract_mesh((16, 1), ("data", "model")),
                    AdamWConfig(), 2, torch.float32)
-    coll = info["collectives"]
+    coll = info["dp_compressed"]
     leaves = coll["leaves"]
     assert coll["all-gather"] == sum(v["compressed"] for v in leaves.values())
     assert coll["raw"]["all-reduce"] == 4 + sum(

@@ -198,10 +198,10 @@ def test_shard_follows_the_mesh(mesh1):
         with pytest.raises(ValueError, match=r"is \(3, 4\), not \(3, 2\)"):
             AX.shard(x[:, :2], AX.DP, AX.MODEL, global_shape=(6, 8))
     with AX.use_mesh(EL.abstract_mesh((2, 1, 2), ("pod", "data", "model"))):
-        with pytest.raises(NotImplementedError,
-                           match="pod axis is not ported.*ROADMAP Queue 1 "
-                                 "item 2"):
-            AX.shard(x, AX.DP, AX.MODEL, global_shape=(6, 8))
+        # the multi-pod mesh: the rows over ("pod", "data") are taken too
+        assert AX.shard(x, AX.DP, AX.MODEL, global_shape=(6, 8)) is x
+        with pytest.raises(ValueError, match=r"is \(3, 4\), not \(3, 2\)"):
+            AX.shard(x[:, :2], AX.DP, AX.MODEL, global_shape=(6, 8))
     assert AX.current_mesh() is None
 
 

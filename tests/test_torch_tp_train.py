@@ -628,15 +628,17 @@ def test_vocab_cross_entropy_matches_whole(records, world):
 @pytest.mark.parametrize("what", ["straddling_tiles", "data_axis",
                                   "train_driver", "family"])
 def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
-    """Each raises naming the ROADMAP item: ``bdi8``/``q8`` moment tiles
-    that straddle two data blocks (reduced yi-6b at d_model 256 on a
-    ``(4, 2)`` mesh, FSDP at a threshold of 64 KiB, test-only: wo's 2
-    tiles of D over 4 blocks; tiles that straddle the model shards, one
-    of gate and up at d_ff 128 under m = 2, where JAX's step gathers, are
-    laid out, ``tests/test_torch_tp_replicated.py``), a second data axis
-    (a pod axis beside the data and model axes, the multi-pod mesh; one
-    data axis is laid out, ``tests/test_torch_dp_tp.py``), ``launch/
-    train.train()`` under a mesh, and the loss of a config this slice
+    """Laid out now: ``bdi8``/``q8`` moment tiles that straddle two data
+    blocks (reduced yi-6b at d_model 256 on a ``(4, 2)`` mesh, FSDP at a
+    threshold of 64 KiB, test-only: wo's 2 tiles of D over 4 blocks, the
+    rank keeping the moments of its block of the head dim; tiles that
+    straddle the model shards, one of gate and up at d_ff 128 under m =
+    2, where JAX's step gathers, ``tests/test_torch_tp_replicated.py``),
+    and a pod axis beside the data and model axes (``tests/test_torch_tp_
+    pod.py``), where a loss of CPU tensors under the dry run's abstract
+    mesh raises at its first collective.  Each of these raises naming the
+    ROADMAP item: ``launch/train.train()`` under a mesh, and the loss of
+    a config this slice
     does not lay out (an MoE whose experts do not divide the model axis,
     xLSTM heads that neither divide it nor are divided by it; the MoE and
     MLA decoders are, ``tests/test_torch_tp_moe.py``, and the recurrent
@@ -655,18 +657,24 @@ def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
                 d_model=256, d_ff=256, vocab=256), torch.Generator(), "meta")
             local = SH.local_params(whole, mesh, fsdp=True,
                                     coord={"data": 0, "model": 0})
+            paths = [path for path, _ in store.leaf_paths(whole)]
+            wo = paths.index("['blocks']['attn']['wo']['w']")
             for md in ("bdi8", "q8"):
-                with pytest.raises(NotImplementedError,
-                                   match=r"straddle two blocks.*ROADMAP "
-                                         r"Queue 1 item 2"):
-                    adamw_init(local, AdamWConfig(moment_dtype=md),
-                               whole=whole)
+                lay = plan(local, whole, AdamWConfig(moment_dtype=md))
+                assert (lay[wo].data, lay[wo].owner) == (3, 2), md
+                state = adamw_init(local, AdamWConfig(moment_dtype=md),
+                                   whole=whole)
+                assert state["m"]["blocks"]["attn"]["wo"]["w"][
+                    "deltas"].shape == (2, 2, 16, 2, 128)
             for md in ("f32", "bf16"):           # no tiles, no limit
-                assert plan(local, whole, AdamWConfig(moment_dtype=md))
+                lay = plan(local, whole, AdamWConfig(moment_dtype=md))
+                assert (lay[wo].data, lay[wo].owner) == (3, 3), md
         elif what == "data_axis":
-            with pytest.raises(NotImplementedError,
-                               match=r"pod axis.*ROADMAP Queue 1 item 2"):
-                get_model(cfg).loss({}, batch)
+            tp.check_layout(cfg)
+            params = SH.local_params(T.init_params(
+                cfg, torch.Generator(), "cpu"), mesh)
+            with pytest.raises(ValueError, match="meta tensors only"):
+                get_model(cfg).loss(params, batch)
         elif what == "train_driver":
             with pytest.raises(NotImplementedError,
                                match=r"train\(\) under a model axis.*"

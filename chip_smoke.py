@@ -373,7 +373,15 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      Kernels 4 and 5 are held against their plain versions on sampled
      rows of every moment store of each rank, the whole straddling ones
      included; each train step is held against the dry run's trace of
-     its rank as in phase 17; the eight ranks' launches go into the
+     its rank as in phase 17.  Then each rank takes one more step with
+     the sequence-parallel residual stream (``axes.set_sp(True)``: a
+     layer's input and output the rank's block of S/8 positions, the
+     row-parallel outputs reduce-scattered, ``sp_step``) from clones of
+     its first step's params, state and batch: its loss within 1e-4 of
+     that step's, its state after it within phase 17's bounds of that
+     step's, its collectives, held bytes, FLOPs and peak against the dry
+     run's ``--sp`` trace of its rank, its tile launches the first
+     step's (``sp_checks``).  The eight ranks' launches go into the
      ``kernels`` line.
   19. The model axis for the MoE and MLA decoders: four gloo rank
      processes of the one card on a ``(1, 4)`` mesh run, in turn,
@@ -406,8 +414,16 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      own inputs lie within 2 bf16 ULPs of the ranks' and at most 3% of
      its own choices differ from theirs).
      Kernels 4 and 5 are held against their plain versions on sampled
-     rows of every moment store of each rank; the four ranks' launches
-     go into the ``kernels`` line.
+     rows of every moment store of each rank.  Then deepseek takes phase
+     18's sequence-parallel step (its expert choices those of its first
+     step: the gathered sequence routed whole), and arctic-480b, after
+     serving, its loss and gradients without and with the sequence-
+     parallel stream on one batch of 4 x 128 and no update (its moments
+     would not fit four ranks on one card; ``sp_grads``, each gradient
+     sampled and freed as it lands): the losses within 1e-4, every
+     gradient's sampled rows, the expert stacks' among them, within 1e-2
+     relative, the expert choices equal.  The four ranks' launches go into the
+     ``kernels`` line.
   20. The model axis for the recurrent and encoder-decoder families:
      four gloo rank processes of the one card on a ``(1, 4)`` mesh run,
      in turn, hymba-1.5b, xlstm-350m and seamless-m4t-large-v2 at their
@@ -434,8 +450,18 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      or twice what so reassociating moves it) and the others within
      1e-2.  Kernels 4 and 5 are
      held against their plain versions on sampled rows of every moment
-     store of each rank; the four ranks' launches go into the
-     ``kernels`` line.
+     store of each rank.  hymba and xlstm (``FAM_SP``: seamless never
+     splits its stream, as in JAX) each take ``FAM_STEPS`` of phase 18's
+     sequence-parallel steps from the first step's start, on its
+     batches, each held as there against the dry run's ``--sp`` trace of
+     each rank's step of 2 x 128: the first loss within 1e-4 of the first
+     step's, the second, after the update, within 1e-2 of the second
+     step's, as phase 20 holds its own steps; the state after the first
+     within twice what reassociating the whole model's sums as the ranks
+     add them moves the whole model's first step (``Reassociated``: the
+     share of a leaf off by more than one ULP, the moments' relative
+     error), or phase 17's bounds where those are wider.  The four
+     ranks' launches go into the ``kernels`` line.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -4147,8 +4173,13 @@ def _wait_all(procs: list, what: str, timeout: float) -> None:
     try:
         for p, log_path in procs:
             if p.wait(timeout=timeout) != 0:
+                time.sleep(5)         # the others' errors reach their logs
+                tails = "".join(
+                    f"\n--- {lp.name}, exit {q.poll()}: "
+                    f"{lp.read_text()[-1500:]}" for q, lp in procs
+                    if q.poll() not in (None, 0))
                 raise AssertionError(f"{what} exited {p.returncode}"
-                                     f": {log_path.read_text()[-3000:]}")
+                                     f": {tails}")
     finally:
         for p, _ in procs:
             if p.poll() is None:
@@ -4272,13 +4303,14 @@ def tpt_ocfg():
     return AdamWConfig(lr=3e-4, grad_clip=1.0, moment_dtype=TPT_MOMENTS)
 
 
-def tpt_batches(cfg, dev, steps: int = TPT_STEPS) -> list:
-    """``steps`` batches of phase 10's stream (``train()``'s: seed 0),
-    every rank the same."""
+def tpt_batches(cfg, dev, steps: int = TPT_STEPS, rows: int = TPT_BATCH,
+                seq: int = TPT_SEQ) -> list:
+    """``steps`` batches of ``rows`` x ``seq`` of phase 10's stream
+    (``train()``'s: seed 0), every rank the same."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, DataIterator
-    it = DataIterator(cfg, ShapeConfig("train", TPT_SEQ, TPT_BATCH, "train"),
+    it = DataIterator(cfg, ShapeConfig("train", seq, rows, "train"),
                       DataConfig(seed=0))
     return [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()
              if k != "embeds"} for _ in range(steps)]
@@ -4297,8 +4329,8 @@ def _sample(t, path: str, n_layers: int):
     have to cross the host between the processes."""
     if _is_norm(path):
         return t
-    if path.startswith("['blocks']"):
-        return t[[0, n_layers - 1]][:, ::TPT_ROW_STRIDE]
+    if path.startswith("['blocks']"):      # the stride a view, then a copy
+        return t[:, ::TPT_ROW_STRIDE][[0, n_layers - 1]]
     return t[::TPT_ROW_STRIDE]
 
 
@@ -4607,7 +4639,8 @@ def phase_tp_train(dev) -> dict:
 # phase 17: DP x TP (FSDP blocks, ZeRO-1 moments), four ranks on one card
 # ---------------------------------------------------------------------------
 
-STEP_KEYS = ("all_reduce", "all_gather", "all_to_all", "backward", "bytes")
+STEP_KEYS = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter",
+             "backward", "bytes")
 STEP_PEAK_SHARE = 0.9                # as phase 14 holds the predicted peak
 STRADDLE_SHAPE = (2, 1, 2)           # (pod, data, model)
 STRADDLE_KW = {"n_layers": 2, "d_model": 384, "n_heads": 3,
@@ -4615,27 +4648,29 @@ STRADDLE_KW = {"n_layers": 2, "d_model": 384, "n_heads": 3,
 STRADDLE_THRESHOLD = 16 << 10        # FSDP over the pod axis at these widths
 
 
-def step_traces(cfg, ocfg, shape: tuple, names: tuple) -> list:
+def step_traces(cfg, ocfg, shape: tuple, names: tuple, sp: bool = False,
+                rows: int = TPT_BATCH, seq: int = TPT_SEQ) -> list:
     """``launch/dryrun.trace`` of one train step of ``cfg`` on the
-    phases' batch (``tpt_batches``: ``TPT_BATCH`` x ``TPT_SEQ``, no
-    frontend embeds) at every coordinate of the ``shape`` mesh, on meta,
-    in rank order: each rank's collectives by axis (``STEP_KEYS``), FLOPs,
-    the bytes it holds (params, moments, its rows) and the peak (those
-    and the trace's temp bytes)."""
+    phases' batch (``tpt_batches``: ``rows`` x ``seq``, no frontend
+    embeds) at every coordinate of the ``shape`` mesh, on meta, in rank
+    order, with the sequence-parallel residual stream where ``sp``: each
+    rank's collectives by axis (``STEP_KEYS``), FLOPs, the bytes it holds
+    (params, moments, its rows) and the peak (those and the trace's temp
+    bytes)."""
     import itertools
 
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.elastic import abstract_mesh
-    cell = ShapeConfig("train_chip", TPT_SEQ, TPT_BATCH, "train")
+    cell = ShapeConfig("train_chip", seq, rows, "train")
     batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
-             for k, v in tpt_batches(cfg, "cpu", 1)[0].items()}
+             for k, v in tpt_batches(cfg, "cpu", 1, rows, seq)[0].items()}
     out = []
     for idx in itertools.product(*(range(n) for n in shape)):
         row = dryrun.trace(cfg, cell, abstract_mesh(
             shape, names, dict(zip(names, idx))), ocfg, 1, torch.float32,
-            batch=batch)
+            batch=batch, sp=sp)
         held = sum(row["rank"]["held_bytes"].values())
         out.append({"collectives": {
             a: [c[k] for k in STEP_KEYS]
@@ -4649,14 +4684,25 @@ def step_traces(cfg, ocfg, shape: tuple, names: tuple) -> list:
 def write_step_traces(out: str) -> None:
     """Entry of the process ``start_step_traces`` starts: phase 17's and
     18's traces of each rank's train step (``step_traces``; the straddling
-    step's too) into ``out`` (JSON)."""
+    step's too) and the traces of the sequence-parallel steps of phases
+    18-20 (``"<phase> sp"``, phase 20's by family) into ``out`` (JSON)."""
     sys.path.insert(0, str(SRC))
     t0 = time.perf_counter()
+    names = ("data", "model")
     rows = {"17": step_traces(tpt_cfg(DPT_LAYERS), tpt_ocfg(), DPT_SHAPE,
-                              ("data", "model")),
+                              names),
             "17 straddling": straddle_traces(),
             "18": step_traces(rep_cfg(REP_TRAIN_LAYERS), tpt_ocfg(),
-                              REP_SHAPE, ("data", "model"))}
+                              REP_SHAPE, names),
+            "18 sp": step_traces(rep_cfg(REP_TRAIN_LAYERS), tpt_ocfg(),
+                                 REP_SHAPE, names, sp=True),
+            "19 sp": step_traces(moe_cfg(MOE_DS, MOE_TRAIN_LAYERS),
+                                 tpt_ocfg(), MOE_SHAPE, names, sp=True)}
+    for arch in FAM_SP:
+        rows[f"20 sp {arch}"] = step_traces(fam_cfg(arch), tpt_ocfg(),
+                                            FAM_SHAPE, names, sp=True,
+                                            rows=FAM_TRAIN[0],
+                                            seq=FAM_TRAIN[1])
     rows["trace_s"] = time.perf_counter() - t0
     Path(out).write_text(json.dumps(rows))
 
@@ -4676,12 +4722,21 @@ def step_traces_of(started: dict, key: str) -> list:
     """The traces ``start_step_traces`` wrote, for phase ``key``."""
     if "rows" not in started:
         _wait_all([(started["proc"], started["log"])],
-                  "the dry run's traces of phases 17 and 18", 600)
+                  "the dry run's traces of phases 17-20", 600)
         started["rows"] = json.loads(started["out"].read_text())
-        log(f"the dry run's traces of phases 17 and 18 took "
+        log(f"the dry run's traces of phases 17-20 took "
             f"{started['rows']['trace_s']:.1f} s on meta, beside the "
             f"other phases")
     return started["rows"][key]
+
+
+def _bmm_flops(a_shape, b_shape, *rest, out_shape=None, **kw) -> int:
+    """``FlopCounterMode``'s ``bmm`` count for every overload: its own
+    formula takes the ``out_dtype`` of ``bmm.dtype`` (the MoE experts'
+    f32-accumulated products on the card) for its ``out_shape`` and
+    raises."""
+    from torch.utils.flop_counter import bmm_flop
+    return bmm_flop(a_shape, b_shape)
 
 
 def measured_step(step, params, state, batch, dev, flops: bool):
@@ -4706,7 +4761,8 @@ def measured_step(step, params, state, batch, dev, flops: bool):
     sync(dev)
     before = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    fc = FlopCounterMode(display=False) if flops else \
+    fc = FlopCounterMode(display=False, custom_mapping={
+        torch.ops.aten.bmm: _bmm_flops}) if flops else \
         contextlib.nullcontext()
     with fc:
         params, state, met = step(params, state, batch)
@@ -4752,6 +4808,100 @@ def check_step_traces(phase: str, r: int, rr: dict, pred: dict) -> dict:
             "flops": {"traced": pred["flops"],
                       "measured": [m["flops"] for m in rr["steps"]]},
             "measured_over_traced_peak": worst}
+
+
+def sp_step(step, params, state, batches: list, dev, n_layers: int) -> tuple:
+    """Train steps of a rank with the sequence-parallel residual stream
+    (``axes.set_sp(True)`` for the steps, off after them), one a batch of
+    ``batches`` (those of the steps without it, from their first), from
+    ``params`` and ``state`` (clones of the first step's start), each
+    measured as :func:`measured_step`, the first with its FLOPs (as the
+    steps without it count theirs): returns ``(record,
+    the tpt_state sample after the first step)``, the record's ``steps``
+    and ``collectives`` as :func:`check_step_traces` reads them, and the
+    tile launches of the steps alone (``ops.LAUNCHES`` as it was, after
+    the sample's loads too)."""
+    from repro_torch.distributed import axes as AX
+    from repro_torch.kernels import ops
+    saved = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    mets, meas, sample = [], [], None
+    AX.set_sp(True)
+    try:
+        for batch in batches:
+            params, state, met, m = measured_step(step, params, state, batch,
+                                                  dev, flops=sample is None)
+            mets.append(met)
+            meas.append(m)
+            if sample is None:
+                launches = dict(ops.LAUNCHES)
+                sample = tpt_state(params, state, n_layers)
+                ops.LAUNCHES.update(launches)
+    finally:
+        AX.set_sp(False)
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    ops.LAUNCHES.update(saved)
+    return {
+        "losses": [x["loss"] for x in mets],
+        "grad_norms": [x["grad_norm"] for x in mets],
+        "fwd_bwd_ms": [x["fwd_bwd_s"] * 1e3 for x in mets],
+        "opt_ms": [x["opt_s"] * 1e3 for x in mets],
+        "steps": meas, "collectives": [x["collectives"] for x in mets],
+        "kernel_launches": launches}, sample
+
+
+SP_PEAK_FLOOR = 0.85                 # measured / traced peak, at least
+SP_STATE_BOUNDS = {"within_1_ulp": TPT_ULP_SHARE, "max_gap_over_lr": 2.0,
+                   "moment_err": TPT_MOMENT_RTOL}      # phase 17's
+
+
+def sp_checks(phase: str, r: int, rr: dict, sp: dict, trace: dict,
+              kept: dict, launches: dict,
+              bounds: dict = SP_STATE_BOUNDS) -> dict:
+    """A rank's sequence-parallel steps (``sp``, :func:`sp_step`) against
+    its steps without it (``rr``'s losses, ``kept``'s samples of the state
+    before and after the first): the first loss within
+    ``TPT_FIRST_RTOL``, a later one (after an update) within
+    ``TPT_LOSS_RTOL``; the state after the first step within ``bounds``
+    of the other's (``_one_step_gap``'s worst leaf: the share within one
+    bf16 ULP at least, the largest gap over lr and the moments' relative
+    error at most; phase 17's unless the phase derives its own); each
+    step's collectives, held bytes, FLOPs and peak against its ``--sp``
+    trace (:func:`check_step_traces`: the traced peak at least 90% of the
+    measured; here besides the measured at least ``SP_PEAK_FLOOR`` of
+    the traced), a reduce-scatter among them; the
+    tile launches ``launches`` a step, the steps' without it.  Returns the
+    comparison for the log."""
+    for i, (a, b) in enumerate(zip(sp["losses"], rr["losses"])):
+        if abs(a - b) > (TPT_LOSS_RTOL if i else TPT_FIRST_RTOL) * abs(b):
+            raise AssertionError(f"phase {phase}: rank {r}: the sp step "
+                                 f"{i}'s loss {a}, without sp {b}")
+    gap = _one_step_gap(kept["sp_sample"], kept["sample"], kept["start"])
+    w = {n: v for n, (_, v) in gap["worst"].items()}
+    if w["within_1_ulp"] < bounds["within_1_ulp"] \
+            or w["max_gap_over_lr"] > bounds["max_gap_over_lr"] \
+            or max(w["m_err"], w["v_err"]) > bounds["moment_err"]:
+        raise AssertionError(f"phase {phase}: rank {r}: the sp step's state "
+                             f"against the step without sp: "
+                             f"{gap['worst']}, bounds {bounds}")
+    low = [m["peak_bytes"] / trace["peak_bytes"] for m in sp["steps"]]
+    if min(low) < SP_PEAK_FLOOR:
+        raise AssertionError(f"phase {phase}: rank {r}: the sp steps' peaks "
+                             f"are {low} of the traced")
+    if not all(c["model"]["reduce_scatter"] for c in sp["collectives"]):
+        raise AssertionError(f"phase {phase}: rank {r}: an sp step "
+                             f"reduce-scattered nothing")
+    n = len(sp["steps"])
+    if sp["kernel_launches"] != {k: n * v for k, v in launches.items()}:
+        raise AssertionError(f"phase {phase}: rank {r}: {n} sp steps "
+                             f"launched {sp['kernel_launches']}, a step "
+                             f"without sp {launches}")
+    return {"losses": [sp["losses"], rr["losses"][:n]],
+            "state_gap": gap["worst"], "state_bounds": bounds,
+            "against_trace": check_step_traces(f"{phase} sp", r, sp, trace),
+            "collectives": sp["collectives"][0],
+            "launches": sp["kernel_launches"],
+            "fwd_bwd_ms": sp["fwd_bwd_ms"]}
 
 
 DPT_SHAPE = (2, 2)                   # (data, model)
@@ -5389,6 +5539,7 @@ def rep_rank(rank: int, work: str) -> None:
             batches = tpt_batches(cfg, dev)
             step = make_train_step(get_model(cfg), ocfg)
             start = tpt_state(params, None, cfg.n_layers)
+            sp_start = (_tree_clone(params), _tree_clone(state))
             sync(dev)
             torch.cuda.empty_cache()
             ops.reset_launches()
@@ -5406,6 +5557,9 @@ def rep_rank(rank: int, work: str) -> None:
                     held = dpt_tiles_vs_plain(params, state, cfg.n_layers,
                                               "18")
                     ops.LAUNCHES.update(launches)   # the sample's, plain's
+            res["sp"], sp_sample = sp_step(step, *sp_start, batches[:1],
+                                           dev, cfg.n_layers)
+            del sp_start
         res.update(
             steps=steps,
             opt_state_bytes=opt_state_bytes(state, ocfg), wide=wide,
@@ -5420,7 +5574,8 @@ def rep_rank(rank: int, work: str) -> None:
             train_peak_bytes=peak, tiles_held_vs_plain=held,
             kernel_launches={k: v for k, v in ops.LAUNCHES.items() if v})
         torch.save({"served": served, "start": start, "sample": sample,
-                    "norms": norms}, Path(work) / f"rep_{rank}.pt")
+                    "sp_sample": sp_sample, "norms": norms},
+                   Path(work) / f"rep_{rank}.pt")
         (Path(work) / f"rep_{rank}.json").write_text(json.dumps(res))
     finally:
         destroy_mesh()
@@ -5442,8 +5597,10 @@ def phase_replicated(dev, started: dict) -> dict:
     pred = rep_predict()
     log(f"phase 18 prediction (shapes, (1, 8)): {json.dumps(pred)}")
     traces = step_traces_of(started, "18")
-    log(f"phase 18: the dry run's trace of each rank's train step: "
-        f"{json.dumps(traces)}")
+    sp_traces = step_traces_of(started, "18 sp")
+    log(f"phase 18: the dry run's trace of each rank's train step, without "
+        f"and with sequence parallelism: {json.dumps(traces)} "
+        f"{json.dumps(sp_traces)}")
     work = Path(tempfile.mkdtemp(prefix="rep18_"))
     t0 = time.perf_counter()
     ranks = [(_spawn(f"rep_rank({r}, {str(work)!r})",
@@ -5508,6 +5665,12 @@ def phase_replicated(dev, started: dict) -> dict:
         rr["against_trace"] = check_step_traces("18", r, rr, traces[r])
         log(f"phase 18 rank {r} against its trace: "
             f"{json.dumps(rr['against_trace'])}")
+        rr["sp_checks"] = sp_checks(
+            "18", r, rr, rr["sp"], sp_traces[r], got[r],
+            {k: pred["tile_launches_a_step"] // 2
+             for k in ("bdi_compress", "bdi_decompress")})
+        log(f"phase 18 rank {r}: the sequence-parallel step: "
+            f"{json.dumps(rr['sp_checks'])}")
     for r in range(1, REP_RANKS):
         if res[r]["losses"] != res[0]["losses"] or \
                 res[r]["grad_norms"] != res[0]["grad_norms"]:
@@ -5626,7 +5789,9 @@ def phase_replicated(dev, started: dict) -> dict:
                                         for rr in res]},
            "tiles_held_vs_plain": [rr["tiles_held_vs_plain"] for rr in res],
            "against_trace": [rr["against_trace"] for rr in res],
+           "sp_step": [rr["sp_checks"] for rr in res],
            "launches": {k: sum(rr["kernel_launches"].get(k, 0)
+                               + rr["sp"]["kernel_launches"].get(k, 0)
                                for rr in res)
                         for k in ("bdi_compress", "bdi_decompress")},
            "launches_straddling": pred["tile_launches_a_step_straddling"]
@@ -5663,9 +5828,9 @@ class RouteReplay:
     the expert choices of each call and the router inputs of the first
     ``keep_inputs`` calls.  Else call i < len(replay) chooses the ranks'
     ``replay[i]`` (the gates of those experts from this model's own
-    probabilities, normalised as ``_route`` does), after checking that
-    this model's router on the ranks' input ``inputs[i]`` chooses exactly
-    those; later calls route themselves.  At a random init the routing is
+    probabilities, normalised as ``_route`` does), after checking, where
+    ``inputs`` are given, that this model's router on the ranks' input
+    ``inputs[i]`` chooses exactly those; later calls route themselves.  At a random init the routing is
     near uniform: the ranks' router inputs differ from the whole model's
     by bf16 roundings, which flip near-tied choices, and an expert's
     gradient moves with each token it gains or loses.  So phase 19 trains
@@ -5701,16 +5866,19 @@ class RouteReplay:
             if call >= len(self.replay):
                 return route(router, x2d, top_k, n_experts)
             idx = self.replay[call].to(x2d.device)
-            theirs = self.given[call].to(x2d.device)
             with torch.no_grad():
-                if not torch.equal(M._top_k(M._probs(router, theirs),
-                                            top_k)[1], idx):
-                    raise AssertionError(
-                        f"phase 19: route call {call}: the router on the "
-                        f"ranks' input chooses otherwise than the ranks")
-                gap = (x2d.float() - theirs.float()).abs().max()
-                self.input_ulps = max(self.input_ulps, float(gap) / bf16_ulp(
-                    float(theirs.float().abs().max())))
+                if self.given is not None:
+                    theirs = self.given[call].to(x2d.device)
+                    if not torch.equal(
+                            M._top_k(M._probs(router, theirs), top_k)[1],
+                            idx):
+                        raise AssertionError(
+                            f"phase 19: route call {call}: the router on "
+                            f"the ranks' input chooses otherwise than the "
+                            f"ranks")
+                    gap = (x2d.float() - theirs.float()).abs().max()
+                    self.input_ulps = max(self.input_ulps, float(
+                        gap) / bf16_ulp(float(theirs.float().abs().max())))
             probs = M._probs(router, x2d)
             own = M._top_k(probs, top_k)[1]
             self.choices += idx.numel()
@@ -5724,6 +5892,16 @@ class RouteReplay:
 
     def __exit__(self, *exc):
         self.M._route = self.saved
+
+    def summary(self) -> dict:
+        """:meth:`check`, then the replay's counts: route calls, choices
+        replayed, choices and tokens its own router would have flipped,
+        its router inputs' largest gap in bf16 ULPs."""
+        self.check()
+        return {"calls": len(self.routes), "choices": self.choices,
+                "flipped": sum(self.flips),
+                "tokens_flipped": sum(1 for n in self.flips if n),
+                "input_ulps": self.input_ulps}
 
     def check(self) -> None:
         """Raise unless the replay hid rounding alone: every router input
@@ -5869,6 +6047,69 @@ def _moe_serve(cfg, params, prompts, gen: int, dev) -> tuple[dict, dict]:
             {"tokens": out["tokens"], "logits": out["logits"]})
 
 
+SP_GRAD_RTOL = 1e-2                  # tests/test_torch_tp_sp.py's
+
+
+def sp_grads(model, params: dict, batch: dict, n_layers: int) -> dict:
+    """The loss and the gradients of a rank's ``params`` on ``batch``
+    without and then with the sequence-parallel residual stream, and no
+    update (arctic-480b's moments at full width do not fit four ranks on
+    one card): both losses, both runs' collectives, the expert choices
+    equal or not, and by leaf the relative Frobenius distance of the sp
+    run's gradient from the other's, on each gradient's ``_sample``.  Each
+    gradient is sampled as it lands and freed at once (a hook after its
+    accumulation): an expert stack's, formed in f32, takes 4.16 GiB a rank,
+    and all of them at once ran four ranks out of memory."""
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import axes as AX
+    from repro_torch.distributed import tp
+    items = leaf_paths(params)
+    out, kept, first, on, landed = {}, {}, None, False, []
+
+    def hook(path):
+        def sample(t):
+            landed[-1].add(path)
+            x = _sample(t.grad, path, n_layers).cpu().float()
+            t.grad = None
+            if on:
+                y = kept[path]
+                kept[path] = float((x - y).norm() / y.norm().clamp(min=1e-30))
+            else:
+                kept[path] = x
+        return sample
+
+    hooks = [t.requires_grad_().register_post_accumulate_grad_hook(hook(p))
+             for p, t in items]
+    try:
+        for on in (False, True):
+            AX.set_sp(on)
+            c0 = tp.counts()
+            landed.append(set())
+            # the sp run replays the other's expert choices (RouteReplay)
+            with RouteReplay(keep_inputs=1 << 30) if first is None else \
+                    RouteReplay(first.routes, first.inputs) as routes:
+                loss = model.loss(params, batch)
+                loss.backward()
+            first = first or routes
+            out[f"sp={on}"] = {"loss": float(loss.detach()),
+                               "collectives": tp.counts_since(c0)}
+            del loss
+            if landed[-1] != landed[0]:
+                raise AssertionError(f"sp={on}: gradients of {landed[-1]}, "
+                                     f"without sp {landed[0]}")
+    finally:
+        AX.set_sp(False)
+        for h in hooks:
+            h.remove()
+        for _, t in items:
+            t.requires_grad_(False)
+            t.grad = None
+    out["routes"] = routes.summary()
+    out["grad_rel"] = kept
+    out["no_gradient"] = sorted({p for p, _ in items} - landed[0])
+    return out
+
+
 def moe_rank(rank: int, work: str) -> None:
     """One rank of phase 19 on the ``(1, 4)`` mesh: deepseek-v2-lite-16b
     (its shards drawn a layer at a time, its experts an expert at a time)
@@ -5925,6 +6166,7 @@ def moe_rank(rank: int, work: str) -> None:
             batches = tpt_batches(cfg, dev)
             step = make_train_step(get_model(cfg), ocfg)
             keep["start"] = tpt_state(params, None, cfg.n_layers)
+            sp_start = (_tree_clone(params), _tree_clone(state))
             sync(dev)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -5946,8 +6188,18 @@ def moe_rank(rank: int, work: str) -> None:
                         ops.LAUNCHES.update(launches)
             keep["routes"] = routes.routes[:first]
             keep["route_inputs"] = routes.inputs if rank == 0 else []
+            train_peak = torch.cuda.max_memory_allocated(dev)
+            # the first step's choices, replayed: the sp step routes the same
+            # tokens, and its own choices may differ by rounding flips only
+            # (no inputs, no check: the same router on its own inputs, and
+            # the check's products would count in the step's FLOPs)
+            with RouteReplay(keep["routes"]) as sp_routes:
+                res["ds"]["sp"], keep["sp_sample"] = sp_step(
+                    step, *sp_start, batches[:1], dev, cfg.n_layers)
+            res["ds"]["sp"]["routes"] = sp_routes.summary()
+            del sp_start
             res["ds"].update(
-                train_peak_bytes=torch.cuda.max_memory_allocated(dev),
+                train_peak_bytes=train_peak,
                 opt_state_bytes=opt_state_bytes(state, ocfg), wide=wide,
                 moment_shapes={p: list(s["deltas"].shape) for (p, _), s, w
                                in zip(leaf_paths(params),
@@ -5974,6 +6226,10 @@ def moe_rank(rank: int, work: str) -> None:
             num, keep["arc_served"] = _moe_serve(
                 cfg, params, arc_prompts(cfg.vocab), ARC_GEN, dev)
             res["arc"].update(num)
+            torch.cuda.empty_cache()      # the serving's cached blocks
+            res["arc"]["sp"] = sp_grads(get_model(cfg), params,
+                                        tpt_batches(cfg, dev, 1)[0],
+                                        cfg.n_layers)
             del params
         torch.save(keep, Path(work) / f"moe_{rank}.pt")
         (Path(work) / f"moe_{rank}.json").write_text(json.dumps(res))
@@ -6021,8 +6277,9 @@ def _moe_checks(r: int, rr: dict, pred: dict) -> None:
                                  f"predicted {b}")
 
 
-def phase_moe_tp(dev) -> dict:
-    """Phase 19 (see the module docstring)."""
+def phase_moe_tp(dev, started: dict) -> dict:
+    """Phase 19 (see the module docstring); ``started``: the dry run's
+    traces (``start_step_traces``)."""
     import math
     import tempfile
 
@@ -6046,6 +6303,34 @@ def phase_moe_tp(dev) -> dict:
     res = [json.loads((work / f"moe_{r}.json").read_text())
            for r in range(MOE_RANKS)]
     got = [torch.load(work / f"moe_{r}.pt") for r in range(MOE_RANKS)]
+    sp_traces = step_traces_of(started, "19 sp")
+    per_step = {k: pred["tile_launches_a_step"] // 2
+                for k in ("bdi_compress", "bdi_decompress")}
+    for r, rr in enumerate(res):
+        ds, arc = rr["ds"], rr["arc"]["sp"]
+        for name, calls in (("deepseek", 2 * MOE_TRAIN_LAYERS),
+                            ("arctic-480b", 2 * ARC_LAYERS)):
+            got_calls = (ds["sp"] if name == "deepseek" else arc)[
+                "routes"]["calls"]
+            if got_calls != calls:
+                raise AssertionError(f"phase 19: rank {r}: {name}'s sp run "
+                                     f"routed {got_calls} times, not "
+                                     f"{calls}")
+        ds["sp_checks"] = sp_checks("19", r, ds, ds["sp"], sp_traces[r],
+                                    got[r], per_step)
+        ds["sp_checks"]["routes"] = ds["sp"]["routes"]
+        a, b = arc["sp=True"], arc["sp=False"]
+        worst = max(arc["grad_rel"].items(), key=lambda kv: kv[1])
+        if abs(a["loss"] - b["loss"]) > TPT_FIRST_RTOL * abs(b["loss"]) \
+                or worst[1] > SP_GRAD_RTOL \
+                or not a["collectives"]["model"]["reduce_scatter"]:
+            raise AssertionError(f"phase 19: rank {r}: arctic-480b with sp: "
+                                 f"loss {a['loss']} against {b['loss']}, "
+                                 f"worst gradient {worst}, collectives "
+                                 f"{a['collectives']}")
+        log(f"phase 19 rank {r}: the sequence-parallel steps: deepseek "
+            f"{json.dumps(ds['sp_checks'])}; arctic-480b's loss and "
+            f"gradients {json.dumps(arc)}")
     median = lambda xs: sorted(xs)[len(xs) // 2]       # noqa: E731
     for r, rr in enumerate(res):
         shown = {k: {**v, "ms_a_step": {"median": median(v["ms_a_step"]),
@@ -6207,7 +6492,11 @@ def phase_moe_tp(dev) -> dict:
                          for rr in res]},
         "tiles_held_vs_plain": [rr["ds"]["tiles_held_vs_plain"]
                                 for rr in res],
+        "sp_step": {"deepseek": [rr["ds"]["sp_checks"] for rr in res],
+                    "arctic_loss_and_gradients": [rr["arc"]["sp"]
+                                                  for rr in res]},
         "launches": {k: sum(rr["ds"]["kernel_launches"].get(k, 0)
+                            + rr["ds"]["sp"]["kernel_launches"].get(k, 0)
                             for rr in res)
                      for k in ("bdi_compress", "bdi_decompress")},
         "launches_straddling": pred["tile_launches_a_step_straddling"]
@@ -6231,6 +6520,8 @@ FAM_CELLS = {"hymba-1.5b": ({"n_layers": 3, "n_full_attn": 1}, 2, 1040, 4),
              "xlstm-350m": ({"n_layers": 8}, 4, 8, 4),
              "seamless-m4t-large-v2": ({"n_layers": 2, "enc_layers": 2}, 2,
                                        32, 4)}
+# the families whose residual stream JAX's set_sp splits (seamless's never)
+FAM_SP = ("hymba-1.5b", "xlstm-350m")
 
 
 def fam_cfg(arch: str):
@@ -6479,7 +6770,7 @@ class Reassociated:
                            for i in range(m)], dim=-1)
             return y.reshape(*x.shape[:-1], *w.shape[1:])
 
-        def rows(x, w):
+        def rows(x, w, seq=True):
             w = tp.weight(w)
             w2d = w.reshape(-1, w.shape[-1])
             n = w2d.shape[0] // m
@@ -6602,6 +6893,11 @@ def fam_rank(rank: int, work: str) -> None:
                 wide = tp.check_moments(params, ocfg.moment_dtype)
                 state = adamw_init(params, ocfg)
                 step = make_train_step(model, ocfg)
+                sp = arch in FAM_SP
+                if sp:
+                    keep[arch]["start"] = tpt_state(params, None,
+                                                    cfg.n_layers)
+                    sp_start = (_tree_clone(params), _tree_clone(state))
                 ops.reset_launches()
                 mets, norms, held = [], [], 0
                 for i, batch in enumerate(inp["batches"]):
@@ -6610,9 +6906,16 @@ def fam_rank(rank: int, work: str) -> None:
                     norms.append(tpt_norms(params, state))
                     if i == 0:
                         launches = dict(ops.LAUNCHES)
+                        if sp:
+                            keep[arch]["sample"] = tpt_state(
+                                params, state, cfg.n_layers)
                         held = dpt_tiles_vs_plain(params, state,
                                                   cfg.n_layers, "20")
                         ops.LAUNCHES.update(launches)
+                if sp:
+                    r["sp"], keep[arch]["sp_sample"] = sp_step(
+                        step, *sp_start, inp["batches"], dev, cfg.n_layers)
+                    del sp_start
                 keep[arch]["norms"] = norms
                 r.update(opt_state_bytes=opt_state_bytes(state, ocfg),
                          straddling=[p for (p, _), w in zip(
@@ -6660,8 +6963,9 @@ def _fam_checks(r: int, arch: str, x: dict, pred: dict) -> None:
                                  f"predicted {b}")
 
 
-def phase_families_tp(dev) -> dict:
-    """Phase 20 (see the module docstring)."""
+def phase_families_tp(dev, started: dict) -> dict:
+    """Phase 20 (see the module docstring); ``started``: the dry run's
+    traces (``start_step_traces``)."""
     import math
     import tempfile
 
@@ -6683,6 +6987,8 @@ def phase_families_tp(dev) -> dict:
     res = [json.loads((work / f"fam_{r}.json").read_text())
            for r in range(FAM_RANKS)]
     got = [torch.load(work / f"fam_{r}.pt") for r in range(FAM_RANKS)]
+    sp_traces = {arch: step_traces_of(started, f"20 sp {arch}")
+                 for arch in FAM_SP}
     median = lambda xs: sorted(xs)[len(xs) // 2]       # noqa: E731
     for r, rr in enumerate(res):
         log(f"phase 20 rank {r} (gloo through the host on one card, not a "
@@ -6748,8 +7054,8 @@ def phase_families_tp(dev) -> dict:
                                         TP_ULPS, b)
             equal, ties = par.compared, [t.__dict__ for t in par.ties]
         params0 = None
-        if cfg.family == "ssm":          # the weights before the update
-            with torch.no_grad():
+        if cfg.family == "ssm" or arch in FAM_SP:   # the weights before
+            with torch.no_grad():                   # the update
                 params0 = _tree_clone(params)
         state = adamw_init(params, ocfg)
         step = make_train_step(model, ocfg)
@@ -6757,7 +7063,38 @@ def phase_families_tp(dev) -> dict:
         for batch in inp["batches"]:
             params, state, met = step(params, state, batch)
             mets.append(met)
-        del params, state, step
+            if arch in FAM_SP and len(mets) == 1:
+                sample = tpt_state(params, state, cfg.n_layers)
+        del params, state
+        sp_bounds = moved_state = None
+        if arch in FAM_SP:
+            # what reassociating the whole model's sums moves its first
+            # step's state: the sp steps' state is held to twice that
+            p1 = _tree_clone(params0)
+            with Reassociated(FAM_SHAPE[1]):
+                p1, st1, _ = step(p1, adamw_init(p1, ocfg),
+                                  inp["batches"][0])
+            moved_state = _one_step_gap(
+                tpt_state(p1, st1, cfg.n_layers), sample,
+                tpt_state(params0, None, cfg.n_layers))["worst"]
+            del p1, st1, sample
+            w = {n: v for n, (_, v) in moved_state.items()}
+            sp_bounds = {
+                "within_1_ulp": min(TPT_ULP_SHARE,
+                                    1 - 2 * (1 - w["within_1_ulp"])),
+                "max_gap_over_lr": SP_STATE_BOUNDS["max_gap_over_lr"],
+                "moment_err": max(TPT_MOMENT_RTOL,
+                                  2 * max(w["m_err"], w["v_err"]))}
+            for r, x in enumerate(res):
+                x = x[arch]
+                x["sp_checks"] = sp_checks(
+                    f"20 {arch}", r, x, x["sp"], sp_traces[arch][r],
+                    got[r][arch], {k: pred[arch]["tile_launches_a_step"] // 2
+                                   for k in ("bdi_compress",
+                                             "bdi_decompress")}, sp_bounds)
+                log(f"phase 20 rank {r}: {arch}'s sequence-parallel steps: "
+                    f"{json.dumps(x['sp_checks'])}")
+        del step
         losses = [x["loss"] for x in mets]
         ours = res[0][arch]["losses"]
         first = TPT_FIRST_RTOL
@@ -6801,9 +7138,13 @@ def phase_families_tp(dev) -> dict:
             "collectives": {"prefill": rr[0]["serve_collectives"]["prefill"],
                             "decode": rr[0]["serve_collectives"]["per_step"],
                             "train": rr[0]["collectives"][-1]},
-            "tiles_held_vs_plain": [x["tiles_held_vs_plain"] for x in rr]}
+            "tiles_held_vs_plain": [x["tiles_held_vs_plain"] for x in rr],
+            "sp_step": [x["sp_checks"] for x in rr] if arch in FAM_SP
+            else None, "reassociated_state_gap": moved_state}
     out["whole_wall_s"] = time.perf_counter() - t1
     out["launches"] = {k: sum(x[arch]["kernel_launches"].get(k, 0)
+                              + x[arch].get("sp", {}).get(
+                                  "kernel_launches", {}).get(k, 0)
                               for x in res for arch in FAM_CELLS)
                        for k in ("bdi_compress", "bdi_decompress")}
     log(f"phase 20: {json.dumps(out)}")
@@ -7002,11 +7343,11 @@ def main() -> int:
     rep = phase_replicated(dev, traces)
     phase_done("18 yi-6b on a model axis of 8 (K/V whole, the cache over "
                "T, bdi8 tiles across shards), eight ranks on one card")
-    moe = phase_moe_tp(dev)
+    moe = phase_moe_tp(dev, traces)
     phase_done("19 deepseek-v2-lite-16b and arctic-480b on a model axis of "
                "4 (experts a rank, MLA heads, the latent split), four ranks "
                "on one card")
-    fam = phase_families_tp(dev)
+    fam = phase_families_tp(dev, traces)
     phase_done("20 hymba-1.5b, xlstm-350m and seamless-m4t-large-v2 on a "
                "model axis of 4 (Mamba's channels, rings over the window, "
                "xLSTM's heads, whole vocabularies), four ranks on one card")

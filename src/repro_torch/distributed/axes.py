@@ -192,12 +192,43 @@ def shard(x: torch.Tensor, *spec, global_shape: tuple | None = None
     return x
 
 
-def shard_seq(x: torch.Tensor) -> torch.Tensor:
-    """The residual stream's layout: [B, S, D] activations over (DP,
-    None, None).  A no-op with no mesh, as in JAX.  JAX's sequence-
-    parallel variant (``set_sp``, off by default there) is not ported:
-    no caller turns it on."""
+SP_ENABLED = False   # sequence-parallel residual stream (JAX's set_sp)
+
+
+def set_sp(enabled: bool) -> None:
+    """Turn the sequence-parallel residual stream on or off, for the whole
+    process (every thread, autograd's recompute among them), as JAX's
+    module switch does.  Off by default."""
+    global SP_ENABLED
+    SP_ENABLED = bool(enabled)
+
+
+def seq_split(seq_len: int) -> bool:
+    """Whether a residual stream of ``seq_len`` positions lies over
+    ``(DP, "model", None)``: sequence parallelism on, a mesh whose model
+    axis m > 1, and m dividing ``seq_len``.  Otherwise it lies over
+    ``(DP, None, None)``, JAX's fallback."""
+    mesh = current_mesh()
+    if not SP_ENABLED or mesh is None:
+        return False
+    m = mesh_axes(mesh).get(MODEL, 1)
+    return m > 1 and seq_len % m == 0
+
+
+def shard_seq(x: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """The residual stream's layout: [B, S, D] activations (``seq_len`` =
+    S, the whole sequence; ``x`` whole or this rank's S block) over (DP,
+    None, None), or with sequence parallelism over (DP, "model", None)
+    where :func:`seq_split` says so: ``distributed/tp.seq_parallel``'s
+    cut, which a layer body enters itself.  A no-op with no mesh, as in
+    JAX.  A plain tensor outside sequence parallelism is the rank's rows
+    already and comes back as it is; a DTensor is laid out over (DP, None,
+    None)."""
     mesh = current_mesh()
     if mesh is None or x.ndim != 3:
         return x
-    return shard(x, DP, None, None)
+    if isinstance(x, DTensor) and not seq_split(seq_len):
+        return shard(x, DP, None, None)
+    from . import tp
+    with tp.seq_parallel(x, seq_len) as x:
+        return x

@@ -172,6 +172,32 @@ rank's coordinate over them major to minor and :func:`data_group` the
 mesh's two dims flattened into one group; batches, FSDP blocks and
 ZeRO-1 blocks lie over both.
 
+The sequence-parallel residual stream (JAX's ``axes.set_sp``, off by
+default; ``axes.seq_split``): each layer body constrains its input to
+``(DP, "model", None)`` where m divides S, so that a layer's input and
+output, and the checkpoint each layer keeps for its recompute, are the
+rank's block of S/m positions.  The HLO of GSPMD's train step (reduced
+yi-6b on ``(1, 4)``) holds, per layer: the norms on the block, their
+weights' f32 gradients summed as partials over ``model``; the normed block
+all-gathered before the projections (GSPMD gathers the f32 widening of
+the same bf16 values); each row-parallel output's f32 partial summed and
+cut to the block, and each column-parallel product's input-gradient
+partial summed and cut likewise, every one rounded once (on the CPU an
+all-reduce and a dynamic slice: XLA's CPU pipeline forms no
+reduce-scatter); the final norm on the block, gathered before the head,
+whose cross-entropy chunks XLA then recomputes in the backward.  The
+layer bodies enter :func:`seq_parallel`; :func:`gather_seq` gathers,
+:func:`row_parallel` reduce-scatters (:func:`sum_seq`, counted as
+``reduce_scatter``) or, for a product every rank computes whole (wo
+whose heads do not divide the axis, sLSTM's output), cuts the block
+(:func:`scatter_seq`, whose gradient is gathered: every rank then runs
+the whole backward alike and nothing is summed), and a column-parallel
+product that read the gathered sequence reduce-scatters its input
+gradient's partial (``_seq_dx``).  MoE routes the gathered tokens, as
+its ``shard_map`` takes ``P(dp, None)``: the capacity and the drops are
+those of the run without it.  Prefill, decode and the encoder-decoder
+never split the stream, as JAX's never call ``shard_seq``.
+
 The layers call these functions at every mesh: with no mesh, or axes
 of one, each is the plain single-device form.  The collectives go
 through ``torch.distributed`` on the mesh's ``model`` or data group,
@@ -186,7 +212,8 @@ or CUDA tensor there raises, as does a ``meta`` tensor on a process
 group.
 
 :data:`COUNTS` counts the collectives issued here, by axis (``data``
-holds the pod axis's too), and the bytes of their inputs, in all and by
+holds the pod axis's too), and the bytes of their inputs (a
+reduce-scatter's whole input, as XLA counts its operand), in all and by
 kind (``<op>_bytes``; ``backward``: those of them issued by a backward
 pass; ``writes``: decode-cache rows written into this rank's T block),
 for the serving loop's and the train step's reports (``launch/
@@ -219,7 +246,7 @@ from .sharding import rule_template
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 2"
 AXES = ("model", "data")
-OPS = ("all_reduce", "all_gather", "all_to_all")
+OPS = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter")
 COUNTS = {a: {**{op: 0 for op in OPS}, "bytes": 0, "backward": 0,
               "writes": 0, **{f"{op}_bytes": 0 for op in OPS}}
           for a in AXES}
@@ -343,8 +370,8 @@ def all_reduce(t: torch.Tensor, axis: str) -> torch.Tensor:
     return _all_reduce(t, axis=axis)
 
 
-def all_gather(t: torch.Tensor, dim: int, axis: str,
-               group=None) -> torch.Tensor:
+def all_gather(t: torch.Tensor, dim: int, axis: str, group=None,
+               backward: bool = False) -> torch.Tensor:
     """The blocks of ``t`` over ``axis`` (this rank's among them),
     concatenated along ``dim`` in the axis's order."""
     group = group or _group(axis)
@@ -352,8 +379,24 @@ def all_gather(t: torch.Tensor, dim: int, axis: str,
     parts = [torch.empty_like(t) for _ in range(_group_size(group))]
     if _sent(t, group):
         dist.all_gather(parts, t, group=group)
-    _count(axis, "all_gather", t)
+    _count(axis, "all_gather", t, backward)
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, axis: str = "model",
+                   group=None, backward: bool = False) -> torch.Tensor:
+    """The sum of ``t`` over ``axis``, this rank's block of it along
+    ``dim`` (one ``reduce_scatter_tensor`` of the blocks stacked in the
+    axis's order), counted with the bytes of the whole input, as XLA
+    counts a reduce-scatter's operand."""
+    group = group or _group(axis)
+    n = _group_size(group)
+    inp = torch.stack(t.chunk(n, dim))
+    out = torch.empty_like(inp[0])
+    if _sent(inp, group):
+        dist.reduce_scatter_tensor(out.view(-1), inp.view(-1), group=group)
+    _count(axis, "reduce_scatter", inp, backward)
+    return out
 
 
 def all_to_all(t: torch.Tensor, split: int, cat: int,
@@ -430,7 +473,9 @@ def under_mesh(fn):
     wherever it is called: both are per thread (``axes.use_mesh``), and
     on the card autograd runs the backward, and with it a checkpoint's
     recompute, on a thread of its own.  The backward functions here take
-    the groups from the forward's context instead."""
+    the groups from the forward's context instead.  The sequence-parallel
+    switch (``axes.set_sp``) is process-wide, so the recompute sees it,
+    and a layer body enters :func:`seq_parallel` itself."""
     mesh = AX.current_mesh()
     whole = not getattr(_rows, "split", True)
 
@@ -438,6 +483,142 @@ def under_mesh(fn):
         with AX.use_mesh(mesh), whole_rows(whole):
             return fn(*args, **kw)
     return run
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: the residual stream's S blocks over ``model``
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def seq_parallel(x: torch.Tensor, s: int):
+    """The residual stream ``x`` of a sequence of ``s`` positions as a
+    layer holds it, ``axes.shard_seq``'s layout: where ``axes.seq_split(s)``
+    says so, this rank's block of S/m positions (a whole ``x`` cut by
+    :func:`scatter_seq`, a block as it is), else ``x`` as it is.  Within,
+    :func:`gather_seq` gathers the whole before the layer's mixers, whose
+    row-parallel outputs are reduce-scattered back to the block
+    (:func:`row_parallel`), and a norm on the block sums its weight's
+    gradient over ``model`` (``layers.rmsnorm``: :func:`on_block`).  A
+    layer body enters it itself, so that its recompute, on autograd's
+    thread, does too."""
+    split = AX.seq_split(s)
+    if split and x.shape[1] == s:
+        x = scatter_seq(x)
+    elif split and x.shape[1] != s // model_size():
+        raise ValueError(f"seq_parallel: {tuple(x.shape)} is neither a "
+                         f"sequence of {s} nor its block of "
+                         f"{s // model_size()}")
+    prev = (getattr(_rows, "seq", None), getattr(_rows, "gathered", None))
+    _rows.seq = s if split else None
+    _rows.gathered = None
+    try:
+        yield x
+    finally:
+        _rows.seq, _rows.gathered = prev
+
+
+def _seq() -> int | None:
+    return getattr(_rows, "seq", None)
+
+
+def on_block(x: torch.Tensor) -> bool:
+    """Whether ``x`` [B, S/m, ...] is this rank's S block of the residual
+    stream (within :func:`seq_parallel`, the stream split)."""
+    s = _seq()
+    return s is not None and x.dim() >= 2 and x.shape[1] == s // model_size()
+
+
+def seq_whole(x: torch.Tensor) -> bool:
+    """Whether ``x`` [B, S, ...] spans the whole sequence of a residual
+    stream split by :func:`seq_parallel`."""
+    s = _seq()
+    return s is not None and x.dim() >= 2 and x.shape[1] == s
+
+
+class _SeqScatter(torch.autograd.Function):
+    """This rank's block along dim 1 (a copy); backward: the blocks of the
+    gradient gathered over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.group, m = model_group(), model_size()
+        n = x.shape[1] // m
+        return x.narrow(1, model_rank() * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, 1, "model", ctx.group, backward=True)
+
+
+def scatter_seq(x: torch.Tensor) -> torch.Tensor:
+    """This rank's S block ``[B, S/m, ...]`` of ``x`` ``[B, S, ...]``,
+    whole and the same on every rank (the embedding's output, a mixer
+    whose output every rank computes whole: attention whose heads do not
+    divide the axis, sLSTM): its gradient, a block on each rank, is
+    gathered over ``model``."""
+    if model_size() == 1:
+        return x
+    return _SeqScatter.apply(x)
+
+
+class _SeqGather(torch.autograd.Function):
+    """All-gather over ``model`` along dim 1; backward: this rank's block
+    of the gradient, whose every consumer has summed its partial."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.rank, ctx.n = model_rank(), x.shape[1]
+        return all_gather(x, 1, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.rank * ctx.n, ctx.n)
+
+
+def gather_seq(x: torch.Tensor) -> torch.Tensor:
+    """The whole sequence ``[B, S, ...]`` of this rank's S block ``x``
+    (within :func:`seq_parallel`; anything else comes back as it is), for
+    the mixers that read every position.  The column-parallel products
+    that read the result sum their input gradient's f32 partials by a
+    reduce-scatter over S and round each once (:class:`_Product`); a
+    product every rank computes whole hands back the whole gradient; the
+    backward here keeps this rank's block of their sum."""
+    if not on_block(x):
+        return x
+    out = _SeqGather.apply(x)
+    _rows.gathered = out
+    return out
+
+
+def seq_block(y: torch.Tensor) -> torch.Tensor:
+    """A mixer's output as the residual stream holds it: a whole ``y``
+    (within :func:`seq_parallel`, the stream split) cut to this rank's
+    block (:func:`scatter_seq`), a block as it is."""
+    return scatter_seq(y) if seq_whole(y) else y
+
+
+class _SumScatter(torch.autograd.Function):
+    """Reduce-scatter over ``model`` along dim 1 (an f32 partial summed,
+    this rank's S block of the sum); backward: the gradient's blocks
+    gathered over ``model``."""
+
+    @staticmethod
+    def forward(ctx, partial):
+        ctx.group = model_group()
+        return reduce_scatter(partial, 1, "model", ctx.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, 1, "model", ctx.group, backward=True)
+
+
+def sum_seq(partial: torch.Tensor) -> torch.Tensor:
+    """:func:`reduce_from_model` of an f32 partial ``[B, S, ...]`` under
+    sequence parallelism: the sum's S block of this rank (a reduce-scatter
+    where the plain path all-reduces); the caller rounds it."""
+    if partial.dtype != torch.float32:
+        raise TypeError(f"sum_seq sums f32 partials, not {partial.dtype}")
+    return _SumScatter.apply(partial)
 
 
 class _Sum(torch.autograd.Function):
@@ -829,11 +1010,14 @@ class _Product(torch.autograd.Function):
     weight's dtype, so a widened weight's stays in f32."""
 
     @staticmethod
-    def forward(ctx, x2d, w2d, out_f32, sum_dx):
+    def forward(ctx, x2d, w2d, out_f32, sum_dx, seq=None):
         wb = w2d.to(x2d.dtype)
         ctx.save_for_backward(x2d, wb)
         ctx.out_f32, ctx.wide = out_f32, w2d.dtype != x2d.dtype
         ctx.group = model_group() if sum_dx else None
+        ctx.seq = seq
+        if seq is not None:
+            ctx.rank = model_rank()
         return _partial_f32(x2d, wb) if out_f32 else torch.mm(x2d, wb)
 
     @staticmethod
@@ -843,7 +1027,9 @@ class _Product(torch.autograd.Function):
             g = g.to(x2d.dtype)       # bf16 values: the sum's rounding
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            if ctx.group is not None:
+            if ctx.seq is not None:
+                dx = _seq_dx(ctx, _partial_f32(g, wb.t()), x2d.dtype)
+            elif ctx.group is not None:
                 dx = _all_reduce(_partial_f32(g, wb.t()), group=ctx.group,
                                  backward=True).to(x2d.dtype)
             else:
@@ -851,32 +1037,55 @@ class _Product(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = _partial_f32(x2d.t(), g) if ctx.wide else \
                 torch.mm(x2d.t(), g)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
-def row_parallel(x: torch.Tensor, w) -> torch.Tensor:
+def _seq_dx(ctx, part: torch.Tensor, dtype) -> torch.Tensor:
+    """The input gradient of a column-parallel product that read the
+    gathered sequence: its f32 partial [B S, K] reduce-scattered over S,
+    rounded once to ``dtype``, placed at this rank's block of a whole
+    gradient that is 0 elsewhere (the gather's backward keeps the block)."""
+    b, s = ctx.seq
+    blk = reduce_scatter(part.view(b, s, -1), 1, group=ctx.group,
+                         backward=True).to(dtype)
+    dx = blk.new_zeros((b, s, blk.shape[-1]))
+    dx.narrow(1, ctx.rank * blk.shape[1], blk.shape[1]).copy_(blk)
+    return dx.view(b * s, -1)
+
+
+def row_parallel(x: torch.Tensor, w, seq: bool = True) -> torch.Tensor:
     """x [..., K] @ w [*k, N] -> [..., N] in x's dtype (K the product of
     ``k``), where K is split over the ``model`` axis (this rank's heads
     or d_ff columns): the f32 partial summed over the ranks, then rounded
     once.  With a model axis of one, or for a :class:`Whole` leaf (wo
     where the heads do not divide the axis: every rank has every head),
     the plain product that rounds once (``layers.linear``).  ``w``: a
-    tensor, an :class:`Fsdp` block or a :class:`Whole` leaf."""
+    tensor, an :class:`Fsdp` block or a :class:`Whole` leaf.
+
+    Within :func:`seq_parallel`, the stream split, a mixer's output over
+    the whole sequence x [B, S, K] returns to the stream's S block: the
+    partial reduce-scattered over S (:func:`sum_seq`), a whole product
+    cut (:func:`scatter_seq`).  ``seq`` False keeps the whole sum (Mamba's
+    ``x_proj``, read by the scan)."""
     plain = model_size() == 1 or isinstance(w, Whole)
+    scatter = seq and seq_whole(x)
     w = weight(w)
     w2d = w.reshape(-1, w.shape[-1])
     if plain and w.dtype == x.dtype:
-        return torch.matmul(x, w2d)
+        y = torch.matmul(x, w2d)
+        return scatter_seq(y) if scatter else y
     x2d = x.reshape(-1, x.shape[-1])
     if plain:
-        y = _Product.apply(x2d, w2d, False, False)
-    else:
-        # the partial and the sum are two nodes: a layer's recompute stops
-        # after the last node that saves tensors, so it issues the MLP's
-        # sum no more (as XLA's remat does not), the attention's again
-        part = _Product.apply(x2d, w2d, True, False)
-        y = reduce_from_model(part).to(x.dtype)
-    return y.reshape(*x.shape[:-1], -1)
+        y = _Product.apply(x2d, w2d, False, False).reshape(
+            *x.shape[:-1], -1)
+        return scatter_seq(y) if scatter else y
+    # the partial and the sum are two nodes: a layer's recompute stops
+    # after the last node that saves tensors, so it issues the MLP's sum
+    # no more (as XLA's remat does not), the attention's again
+    part = _Product.apply(x2d, w2d, True, False)
+    if scatter:
+        return sum_seq(part.view(*x.shape[:-1], -1)).to(x.dtype)
+    return reduce_from_model(part).to(x.dtype).reshape(*x.shape[:-1], -1)
 
 
 def column_parallel(x: torch.Tensor, w) -> torch.Tensor:
@@ -890,9 +1099,11 @@ def column_parallel(x: torch.Tensor, w) -> torch.Tensor:
     the plain product, no sum either way."""
     if model_size() == 1 or isinstance(w, Whole) and not w.partial:
         return replicated(x, w)
+    seq = tuple(x.shape[:2]) if x is getattr(_rows, "gathered", None) \
+        else None
     w = weight(w)
     y = _Product.apply(x.reshape(-1, x.shape[-1]),
-                       w.reshape(w.shape[0], -1), False, True)
+                       w.reshape(w.shape[0], -1), False, True, seq)
     return y.reshape(*x.shape[:-1], *w.shape[1:])
 
 

@@ -51,7 +51,8 @@ give are null and listed under ``not_measured`` with the reason.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-9b \\
-      --shape train_4k [--multi-pod] [--out out.json]
+      --shape train_4k [--multi-pod] [--microbatches N] [--sp] \\
+      [--out out.json]
 """
 
 from __future__ import annotations
@@ -606,14 +607,19 @@ def _differs(cfg: ArchConfig, shape: ShapeConfig, mesh, cache) -> list:
 def trace(cfg: ArchConfig, shape: ShapeConfig, mesh, ocfg: AdamWConfig,
           n_micro: int, acc_dtype: torch.dtype, *,
           kv_compressed: bool = False, fsdp: bool = True,
-          batch: dict | None = None) -> dict:
+          batch: dict | None = None, sp: bool = False) -> dict:
     """The dry-run row of one cell: ``cfg`` x ``shape`` on ``mesh`` (an
     abstract mesh, ``launch/elastic.abstract_mesh``, whose ``coord`` is
     the rank traced), everything on meta.  ``batch``: a train step's
     whole batch (``meta`` tensors of ``shape``'s rows) in place of
     ``frontends.batch_struct``'s, such as a data stream's without its
-    frontend embeds; the rank takes its rows."""
+    frontend embeds; the rank takes its rows.  ``sp``: the sequence-
+    parallel residual stream, switched on or off for the process
+    (``axes.set_sp``) on every call, as JAX's ``lower_cell`` switches it:
+    it changes the train step's forward and backward only (the models'
+    prefill and decode never split the stream)."""
     t0 = time.perf_counter()
+    AX.set_sp(sp)
     model = get_model(cfg)
     # the model's own tree of whole shapes, made here and not inside the
     # count, where its storages would count as live
@@ -685,24 +691,23 @@ def trace_cell(arch_name: str, shape_name: str, multi_pod: bool, *,
                sp: bool = False) -> dict:
     """JAX's ``lower_cell``: the row of one cell of the production matrix.
     ``remat`` is taken for JAX's signature, where it is unused too (the
-    models checkpoint every layer)."""
+    models checkpoint every layer).  ``sp``: the sequence-parallel
+    residual stream (``--sp``), each layer's input and output this rank's
+    block of S/m positions."""
     del remat
     cfg = get_arch(arch_name)
     shape = SHAPES[shape_name]
     if shape_name not in applicable_shapes(cfg):
         raise SystemExit(f"SKIP: {shape_name} not applicable to {arch_name} "
                          "(full-attention arch; see DESIGN.md)")
-    if sp:
-        raise NotImplementedError(
-            "--sp: sequence parallelism (JAX's axes.set_sp, "
-            "repro/distributed/axes.py:114) is not ported")
     ocfg = AdamWConfig(moment_dtype=MOMENT_DTYPE.get(cfg.name, "f32"))
     n_micro = microbatches if microbatches is not None else \
         MICROBATCHES.get(cfg.name, 1)
     acc = torch.bfloat16 if GRAD_ACC_DTYPE.get(cfg.name) == "bf16" \
         else torch.float32
     return trace(cfg, shape, abstract_mesh(*production_axes(multi_pod)),
-                 ocfg, n_micro, acc, kv_compressed=kv_compressed, fsdp=fsdp)
+                 ocfg, n_micro, acc, kv_compressed=kv_compressed, fsdp=fsdp,
+                 sp=sp)
 
 
 def run(arch: str, shape: str, multi_pod: bool, out: str | None = None,

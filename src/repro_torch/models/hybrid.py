@@ -103,13 +103,18 @@ def _fuse(bp: dict, attn_y: torch.Tensor, ssm_y: torch.Tensor,
 
 def _block_forward(cfg: ArchConfig, bp: dict, x: torch.Tensor,
                    positions: torch.Tensor, window: int) -> torch.Tensor:
-    h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    attn_y = A.gqa_forward(bp["attn"], h, positions, window=window,
-                           theta=cfg.rope_theta)
-    ssm_y = S.mamba_forward(bp["mamba"], h, cfg.ssm_state)
-    x = x + _fuse(bp, attn_y, ssm_y, cfg.norm_eps)
-    h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    return x + L.mlp(bp["ffn"], h)
+    """One layer.  Under sequence parallelism x and the result are this
+    rank's S block: attention and Mamba read the gathered norm of it and
+    return blocks, on which ``_fuse`` and the FFN's norm run."""
+    with tp.seq_parallel(x, positions.shape[0]) as x:
+        h = tp.gather_seq(L.rmsnorm(bp["ln1"], x, cfg.norm_eps))
+        attn_y = tp.seq_block(A.gqa_forward(bp["attn"], h, positions,
+                                            window=window,
+                                            theta=cfg.rope_theta))
+        ssm_y = tp.seq_block(S.mamba_forward(bp["mamba"], h, cfg.ssm_state))
+        x = x + _fuse(bp, attn_y, ssm_y, cfg.norm_eps)
+        h = tp.gather_seq(L.rmsnorm(bp["ln2"], x, cfg.norm_eps))
+        return x + tp.seq_block(L.mlp(bp["ffn"], h))
 
 
 @functools.lru_cache(maxsize=8)
@@ -137,7 +142,9 @@ def _hidden(cfg: ArchConfig, params: dict, batch: dict,
                            positions, int(w), use_reentrant=False)
         else:
             x = _block_forward(cfg, bp, x, positions, int(w))
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    with tp.seq_parallel(x, positions.shape[0]) as x:
+        return tp.gather_seq(L.rmsnorm(params["final_norm"], x,
+                                       cfg.norm_eps))
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict,

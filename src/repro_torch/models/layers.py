@@ -37,6 +37,15 @@ or backward, but for wk's and wv's under split query heads, whose input
 gradient and weight gradient are partials summed over the ranks.  With a
 model axis of one each is the plain form above.
 
+Under sequence parallelism (``axes.set_sp``, a layer body within
+``tp.seq_parallel``) a layer's input and output are this rank's S block
+of the residual stream: :func:`rmsnorm` runs on the block (its weight's
+gradient summed over ``model``), ``tp.gather_seq`` gathers the normed
+block before the mixers, the column-parallel products reduce-scatter
+their input gradient's partials, and ``mlp``'s down projection, like
+every mixer's row-parallel output, is reduce-scattered to the block
+(``tp.row_parallel``).
+
 Under a data axis larger than one the layers take this rank's rows of
 the batch, and every weight is read through ``tp.weight`` at its use:
 an FSDP block (``tp.Fsdp``) is gathered over ``data`` just before its
@@ -69,10 +78,15 @@ def init_rmsnorm(d: int, device: torch.device) -> dict:
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim.  On this rank's S block of the residual
+    stream (``tp.on_block``: sequence parallelism) the weight, replicated
+    over ``model``, sees S/m rows only: its f32 gradient is a partial,
+    summed over ``model``."""
     dt = x.dtype
+    w = tp.Whole(p["w"], True) if tp.on_block(x) else p["w"]
     x = x.to(torch.float32)
     var = (x * x).mean(dim=-1, keepdim=True)
-    out = x * torch.rsqrt(var + eps) * tp.weight(p["w"]).to(torch.float32)
+    out = x * torch.rsqrt(var + eps) * tp.weight(w).to(torch.float32)
     return out.to(dt)
 
 

@@ -183,11 +183,13 @@ def _moe_local(p: dict, x2d: torch.Tensor, top_k: int, n_experts: int,
 
 
 def _moe_sharded(p: dict, x2d: torch.Tensor, top_k: int, n_experts: int,
-                 capacity_factor: float) -> torch.Tensor:
+                 capacity_factor: float, summed: bool = True
+                 ) -> torch.Tensor:
     """The expert-parallel path: this rank's rows ``x2d`` (its data
     shard's tokens, as they are) through its own experts (``p["experts"]``
-    holds them alone), the f32 partials summed over ``model``.  Returns
-    [T, D] in f32, this rank's rows."""
+    holds them alone), the f32 partials summed over ``model`` (unless
+    ``summed`` is False: the caller reduce-scatters them).  Returns [T, D]
+    in f32, this rank's rows."""
     m = tp.model_size()
     if n_experts % m:
         raise ValueError(f"{n_experts} experts do not split over a model "
@@ -207,22 +209,31 @@ def _moe_sharded(p: dict, x2d: torch.Tensor, top_k: int, n_experts: int,
     cap = _capacity(x2d.shape[0], top_k, n_experts, capacity_factor)
     out = _moe_local(pp, tp.copy_to_model(x2d), top_k, n_experts,
                      tp.model_rank() * e_local, e_local, cap)
-    return tp.reduce_from_model(out)
+    return tp.reduce_from_model(out) if summed else out
 
 
 def moe_ffn(p: dict, x: torch.Tensor, *, top_k: int, n_experts: int,
             capacity_factor: float = 1.25) -> torch.Tensor:
     """[B, S, D] -> [B, S, D]; the expert-parallel path when a mesh with
-    a "model" axis is active (``distributed.axes.current_mesh``)."""
+    a "model" axis is active (``distributed.axes.current_mesh``).  Under
+    sequence parallelism x is the gathered sequence, routed as a whole
+    (the capacity and the drops of the same tokens as without it, as JAX's
+    shard_map takes its rows over ``P(dp, None)``), and the experts' f32
+    partials are reduce-scattered to this rank's S block
+    (``tp.sum_seq``)."""
     b, s, d = x.shape
     mesh = AX.current_mesh()
     x2d = x.reshape(b * s, d)
     if mesh is None or "model" not in AX.mesh_axes(mesh):
         cap = _capacity(b * s, top_k, n_experts, capacity_factor)
         out = _moe_local(p, x2d, top_k, n_experts, 0, n_experts, cap)
+    elif tp.seq_whole(x):
+        out = tp.sum_seq(_moe_sharded(p, x2d, top_k, n_experts,
+                                      capacity_factor, summed=False)
+                         .view(b, s, d))
     else:
         out = _moe_sharded(p, x2d, top_k, n_experts, capacity_factor)
-    y = out.reshape(b, s, d).to(x.dtype)
+    y = out.reshape(b, -1, d).to(x.dtype)
     if "shared" in p:
         y = y + L.mlp(p["shared"], x)
     return y

@@ -141,7 +141,8 @@ def _mamba_in(p: dict, x: torch.Tensor):
 def _mamba_ssm_inputs(p: dict, u: torch.Tensor, state: int):
     """u [B, S, di] (post-conv, post-silu) -> (dA, dBu [B, S, di, n] f32,
     c [B, S, n] f32), discretised."""
-    xp = tp.copy_to_model(tp.row_parallel(u, p["x_proj"]["w"]).to(f32))
+    xp = tp.copy_to_model(tp.row_parallel(u, p["x_proj"]["w"],
+                                          seq=False).to(f32))
     dt_rank = xp.shape[-1] - 2 * state
     dt, bmat, cmat = torch.split(xp, [dt_rank, state, state], dim=-1)
     delta = softplus(_local_linear(p["dt_proj"], dt.to(u.dtype)).to(f32))

@@ -51,6 +51,14 @@ whole model's, :func:`whole_shapes`) is gathered at its one use in a
 layer (``tp.weight``): q/k/v, wo, gate/up/down, the embedding and the
 LM head, inside the layer loop and again in a layer's recompute.  At d
 = 1 nothing changes and no data collective is issued.
+
+Sequence parallelism (``axes.set_sp(True)``, a model axis that divides
+S): ``forward`` and ``loss_fn`` hold the residual stream between layers
+as this rank's block of S/m positions (``tp.seq_parallel``, the layout
+of ``axes.shard_seq``, at the top of each layer, inside its checkpoint,
+so that the checkpoint keeps the block and the recompute gathers again);
+the final norm runs on the block, which is gathered before the head.
+``prefill`` and the decode steps never split it, as in JAX.
 """
 
 from __future__ import annotations
@@ -201,10 +209,16 @@ def _attn_forward(cfg: ArchConfig, bp: dict, h: torch.Tensor,
 
 def _block_forward(cfg: ArchConfig, bp: dict, x: torch.Tensor,
                    positions: torch.Tensor, window: int) -> torch.Tensor:
-    h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
-    x = x + _attn_forward(cfg, bp, h, positions, window)
-    h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
-    return x + _ffn_apply(cfg, bp, h)
+    """One layer of the full-sequence path.  Under sequence parallelism
+    (``tp.seq_parallel``, ``axes.shard_seq``'s layout) x and the result
+    are this rank's S block: the norms run on it, their outputs are
+    gathered for attention and the FFN, whose outputs come back as
+    blocks."""
+    with tp.seq_parallel(x, positions.shape[0]) as x:
+        h = tp.gather_seq(L.rmsnorm(bp["ln1"], x, cfg.norm_eps))
+        x = x + tp.seq_block(_attn_forward(cfg, bp, h, positions, window))
+        h = tp.gather_seq(L.rmsnorm(bp["ln2"], x, cfg.norm_eps))
+        return x + tp.seq_block(_ffn_apply(cfg, bp, h))
 
 
 def _embed_inputs(cfg: ArchConfig, params: dict,
@@ -244,7 +258,9 @@ def _hidden(cfg: ArchConfig, params: dict, batch: dict,
                            positions, int(w), use_reentrant=False)
         else:
             x = _block_forward(cfg, bp, x, positions, int(w))
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    with tp.seq_parallel(x, positions.shape[0]) as x:
+        return tp.gather_seq(L.rmsnorm(params["final_norm"], x,
+                                       cfg.norm_eps))
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict,

@@ -70,11 +70,17 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 
 
 def _block_forward(cfg: ArchConfig, bp: dict, x: torch.Tensor,
-                   is_s: bool) -> torch.Tensor:
-    h = L.rmsnorm(bp["ln"], x, cfg.norm_eps)
-    if is_s:
-        return x + S.slstm_forward(bp["slstm"], h, cfg.n_heads)
-    return x + S.mlstm_forward(bp["mlstm"], h, cfg.n_heads)
+                   is_s: bool, s: int) -> torch.Tensor:
+    """One layer over a sequence of ``s`` positions.  Under sequence
+    parallelism x and the result are this rank's S block: the cell reads
+    the gathered norm of it, its output comes back as the block."""
+    with tp.seq_parallel(x, s) as x:
+        h = tp.gather_seq(L.rmsnorm(bp["ln"], x, cfg.norm_eps))
+        if is_s:
+            y = S.slstm_forward(bp["slstm"], h, cfg.n_heads)
+        else:
+            y = S.mlstm_forward(bp["mlstm"], h, cfg.n_heads)
+        return x + tp.seq_block(y)
 
 
 @functools.lru_cache(maxsize=8)
@@ -95,13 +101,16 @@ def _hidden(cfg: ArchConfig, params: dict, batch: dict,
             remat: bool = True) -> torch.Tensor:
     params, layers = placed(cfg, params)
     x = L.embed(params["embed"], batch["tokens"])
+    s = x.shape[1]
     for bp, is_s in zip(layers, layer_is_slstm(cfg)):
         if remat:
             x = checkpoint(tp.under_mesh(_block_forward), cfg, bp, x,
-                           bool(is_s), use_reentrant=False)
+                           bool(is_s), s, use_reentrant=False)
         else:
-            x = _block_forward(cfg, bp, x, bool(is_s))
-    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            x = _block_forward(cfg, bp, x, bool(is_s), s)
+    with tp.seq_parallel(x, s) as x:
+        return tp.gather_seq(L.rmsnorm(params["final_norm"], x,
+                                       cfg.norm_eps))
 
 
 def forward(cfg: ArchConfig, params: dict, batch: dict,

@@ -75,6 +75,7 @@ from repro.optim import adamw_init as jadamw_init
 from repro_torch.checkpoint import store
 from repro_torch.configs.base import SHAPES, ShapeConfig, applicable_shapes
 from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.distributed import axes as AX
 from repro_torch.kernels import ops
 from repro_torch.kernels._device import resolve_device
 from repro_torch.launch import dryrun as D
@@ -581,8 +582,20 @@ def test_train_row_reports_the_dp_all_reduce():
 
 
 def test_sp_raises():
-    with pytest.raises(NotImplementedError, match="set_sp"):
-        D.trace_cell("xlstm-350m", "long_500k", False, sp=True)
+    """``--sp`` no longer raises: the cell traces with the sequence-
+    parallel switch on and, a decode cell (whose step never splits the
+    residual stream, as JAX's ``decode_step`` never calls ``shard_seq``),
+    gives the row it gives with it off; ``trace_cell`` switches it on
+    every call, as JAX's ``lower_cell`` does."""
+    keys = ("traced_flops", "temp_size_in_bytes", "argument_size_in_bytes",
+            "output_size_in_bytes")
+    on = D.trace_cell("xlstm-350m", "long_500k", False, sp=True)
+    assert AX.SP_ENABLED
+    off = D.trace_cell("xlstm-350m", "long_500k", False)
+    assert not AX.SP_ENABLED
+    assert {k: on[k] for k in keys} == {k: off[k] for k in keys}
+    assert on["collectives"]["counts"] == off["collectives"]["counts"]
+    assert on["collectives"]["reduce-scatter"] == 0
 
 
 def test_full_attention_arch_on_long_500k_skips_as_jax():

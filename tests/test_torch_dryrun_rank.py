@@ -11,7 +11,8 @@ four host devices and compiles it, in subprocesses started with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=4
 --xla_allow_excess_precision=false``, as the TP tests start theirs.
 
-Cells (reduced configs, B = 2, S = 64): on ``(1, 4)`` yi-6b train,
+Cells (reduced configs, B = 2, S = 64): on ``(1, 4)`` yi-6b train
+(also with the sequence-parallel residual stream, ``yi6b-train-sp``),
 prefill and decode with its KV heads widened to 4 (K/V split like Q) and
 decode at its 2 (K/V whole, the cache over T), deepseek-v2-lite-16b train
 (experts and MLA), hymba-1.5b train, xlstm-350m prefill and seamless
@@ -38,9 +39,11 @@ What must match:
   ``w_if`` over each rank's block of the inner width and sums, where the
   port contracts the gathered whole;
 * collective bytes, by kind, against ``collective_bytes`` of the same
-  HLO: exactly for the cells whose layout both packages share (the
-  dense GQA decoder with its heads split, prefill, decode and train;
-  seamless's decode), up to named gaps: the port hands every rank the
+  HLO (the sequence-parallel cell ``yi6b-train-sp``, JAX lowered with
+  ``set_sp(True)``, has a test of its own): exactly for the cells whose
+  layout both packages share (the dense GQA decoder with its heads
+  split, prefill, decode and train; seamless's decode), up to named
+  gaps: the port hands every rank the
   whole logits (``tp.gather_vocab``: an all-gather of ``[rows, V/m]``
   bf16) where a jit with ``out_shardings=None`` leaves them split, and
   its cross-entropy recompute issues the row max's all-reduce again,
@@ -90,6 +93,15 @@ REPO = Path(__file__).resolve().parents[1]
 B, S = 2, 64
 REAL = 64 << 20
 GQA4 = {"n_kv_heads": 4}
+
+
+@pytest.fixture(autouse=True)
+def _sp_restored():
+    """``axes.set_sp`` is process-wide and the dry run leaves it as its
+    last call set it (as JAX's ``lower_cell``): each test restores it."""
+    prev = AX.SP_ENABLED
+    yield
+    AX.set_sp(prev)
 
 
 def _names(mesh: tuple) -> tuple:
@@ -186,13 +198,17 @@ CELLS = {
                       (_down_recompute,), (), False),
     "yi6b-train-pod": ("yi-6b", {}, "train", (2, 1, 2), 4 << 10,
                        (_down_recompute,), (), False),
+    "yi6b-train-sp": ("yi-6b", GQA4, "train", (1, 4), REAL,
+                      (_down_recompute,), (_ce_max,), False),
 }
+# cells traced and lowered with the sequence-parallel residual stream
+SP = ("yi6b-train-sp",)
 # the JAX compiles, a process each (about equal shares of the time)
 GROUPS = (("yi6b-train", "yi6b-prefill", "yi6b-decode",
            "yi6b-decode-kv-whole", "seamless-decode"),
-          ("deepseek-train", "xlstm-prefill"),
+          ("deepseek-train", "xlstm-prefill", "yi6b-train-sp"),
           ("hymba-train", "yi6b-train-dp", "yi6b-train-pod"))
-KINDS = ("all-reduce", "all-gather", "all-to-all")
+KINDS = ("all-reduce", "all-gather", "all-to-all", "reduce-scatter")
 IO = ("argument_size_in_bytes", "output_size_in_bytes",
       "alias_size_in_bytes")
 
@@ -243,6 +259,7 @@ def jax_cells(cells: list, out: str) -> None:
     rows = {}
     for cell in cells:
         _, _, kind, shape, _, _, _, _ = CELLS[cell]
+        JAX_AX.set_sp(cell in SP)
         with threshold(cell, JSH):
             cfg = cell_cfg(cell, jax_arch)
             model = jax_model(cfg)
@@ -341,7 +358,7 @@ def port_row(cell: str, coord: dict | None = None) -> dict:
     with threshold(cell):
         return D.trace(cell_cfg(cell), ShapeConfig("x", S, B, kind),
                        EL.abstract_mesh(shape, _names(shape), coord),
-                       AdamWConfig(), 1, torch.float32)
+                       AdamWConfig(), 1, torch.float32, sp=cell in SP)
 
 
 # ---------------------------------------------------------------------------
@@ -385,6 +402,55 @@ def test_rank_collectives_against_collective_bytes(jax_rows, cell):
     else:
         assert row["total"] - sum(gap.values()) <= want["total"], \
             (row, want)
+
+
+def test_sp_rank_against_gspmd(jax_rows):
+    """yi-6b train on ``(1, 4)`` with the sequence-parallel residual
+    stream against JAX's program with ``set_sp(True)``: argument bytes
+    exactly; FLOPs up to the down projection's recompute alone (under
+    sequence parallelism XLA's remat recomputes the cross-entropy chunk's
+    logits too, from the head's input gathered again); collectives by
+    kind: XLA on the CPU forms no reduce-scatter (an all-reduce and a
+    dynamic slice of the same operand), so the port's reduce-scatters and
+    all-reduces, less the recompute's row max, are GSPMD's all-reduces
+    exactly, and its gathers (bf16) at most GSPMD's (f32, gathered again
+    in the remat); the rank's peak below the same cell's without it."""
+    cell = "yi6b-train-sp"
+    cfg, shape = cell_cfg(cell), CELLS[cell][3]
+    row, want = port_row(cell), jax_rows[cell]
+    assert row["argument_size_in_bytes"] == want["argument_size_in_bytes"]
+    assert row["traced_flops"] - int(want["flops"]) == \
+        _down_recompute(cfg, shape)
+    coll, jc = row["collectives"], want["collectives"]
+    assert coll["reduce-scatter"] > 0 and "reduce-scatter" not in jc
+    assert coll["all-reduce"] + coll["reduce-scatter"] \
+        - _ce_max(cfg, shape)["all-reduce"] == jc["all-reduce"]
+    assert 0 < coll["all-gather"] <= jc["all-gather"]
+    assert coll["all-to-all"] == jc.get("all-to-all", 0) == 0
+    assert row["temp_size_in_bytes"] < port_row("yi6b-train")[
+        "temp_size_in_bytes"]
+
+
+@pytest.mark.parametrize("mb", [8, 4])
+def test_arctic_perf_iteration_sp_cells_trace(mb):
+    """JAX's perf-iteration cells B2 and B3 (``arctic-480b train_4k
+    --microbatches 8 --sp`` and ``4 --sp``) trace at ``(16, 16)`` with no
+    refusal, at 2 of its layers: the stream's reduce-scatters over
+    ``model`` only, and the rank's peak below the same cell's without
+    sequence parallelism."""
+    cfg = dataclasses.replace(get_arch("arctic-480b"), n_layers=2)
+    ocfg = AdamWConfig(moment_dtype=D.MOMENT_DTYPE["arctic-480b"])
+
+    def row(sp):
+        return D.trace(cfg, SHAPES["train_4k"], EL.abstract_mesh(
+            (16, 16), ("data", "model")), ocfg, mb, torch.float32, sp=sp)
+    on, off = row(True), row(False)
+    by_axis = on["collectives"]["by_axis"]
+    assert by_axis["model"]["reduce_scatter"] > 0
+    assert by_axis["data"]["reduce_scatter"] == 0
+    assert off["collectives"]["reduce-scatter"] == 0
+    assert on["temp_size_in_bytes"] < off["temp_size_in_bytes"]
+    assert on["traced_flops"] == off["traced_flops"]
 
 
 # ---------------------------------------------------------------------------

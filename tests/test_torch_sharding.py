@@ -177,7 +177,7 @@ def test_shard_follows_the_mesh(mesh1):
         assert AX.current_mesh() is mesh1
         assert AX.shard(x, AX.DP, AX.MODEL) is x              # size-1 axes
         y = x[None]
-        assert AX.shard_seq(y) is y and AX.shard_seq(x) is x
+        assert AX.shard_seq(y, 3) is y and AX.shard_seq(x, 3) is x
         ns = AX.named_sharding(AX.DP, AX.MODEL)
         assert str(ns.spec) == "PartitionSpec('data', 'model')"
         d = AX.shard(torch.distributed.tensor.distribute_tensor(

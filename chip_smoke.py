@@ -46,7 +46,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      engine on ``cuda`` (kernels) and ``cpu`` (plain versions) — greedy
      tokens equal up to reported bf16 ties, host state exactly equal;
   5b. the same under ``zero``, ``raw``, ``fpc``, ``gbdi`` and ``adaptive``
-     (gbdi and adaptive also at full width, 2 layers, 12 decode steps);
+     (gbdi and adaptive also at full width, 2 layers, 8 decode steps, 12
+     until phase 21);
      byte counts of fpc and adaptive, which read exact bits, within 8 per
      page (stats) and 64 per request;
   5c. ``gemma3-27b`` at full width and 2 layers under ``bdi`` (D 168,
@@ -83,9 +84,10 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
   8. multi-turn from the host tier: one conversation through a
      prefix-cached engine that caches decode pages, with a 64 MB
      ``TieredPageStore`` (yi-6b full width, phase 4's weights, bdi, page
-     16, chunk 32): a 1024-token opening prompt (seed 11), 3 turns of 32
-     new tokens plus 8 fresh user tokens, ``recycle_device_pool()``
-     between turns, so turns 2-3 promote their history from host RAM;
+     16, chunk 32): a 1024-token opening prompt (seed 11), 2 turns (3
+     until phase 21) of 32 new tokens plus 8 fresh user tokens,
+     ``recycle_device_pool()`` between turns, so turn 2 promotes its
+     history from host RAM;
      then again with 8 MB of host RAM and a disk arena, so records spill
      and promote from disk.  Per turn: TTFT (synchronised), cached
      tokens (equal to the count rehearsed on the CPU), demotions,
@@ -214,9 +216,9 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      finite, falling losses, ms a step, peak memory.
      Phases 12-12e assert that none of the seven kernels launched.
   13. the distributed layer's main path, compressed DP training: yi-6b
-     at full width, ``DP_LAYERS`` = 8 of its 32 layers (full depth until
-     PR 27; the EC plan's host percentile over every gradient value was
-     ~60 s of it) on a one-rank NCCL mesh
+     at full width, ``DP_LAYERS`` = 4 of its 32 layers (full depth until
+     phase 17 came, 8 until phase 21; the EC plan's host percentile over
+     every gradient value was ~60 s of it at 32, ~30 s at 8) on a one-rank NCCL mesh
      (``launch.mesh.make_host_mesh(1, 1)``; on one card the all-gather
      and all-reduce are copies), ``compress_comm.make_dp_train_step``
      with bdi8 moments, 4 steps of 8 x 128 from phase 10's stream and
@@ -231,7 +233,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      (counted apart from the optimizer's), every loss be finite;
   13b. full width, 1 layer: ``tree_all_reduce`` of one set of gradients
      and residuals on the card (NCCL, the tile kernels) and on the CPU
-     (gloo, the plain versions): means and residuals bit-equal; one
+     (gloo, the plain versions): means and residuals bit-equal (the
+     layer's leaves and the final norm, since phase 21); one
      compressed DP step (the EC plan, f32 moments) from one state on
      both: params within one bf16 ULP for >= 99% of each leaf;
   13c. deepseek-v2-lite-16b at full width, 4 layers, through
@@ -281,7 +284,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      equal up to reported one-ULP ties.  No kernel launches.
   16. tensor-parallel training: phase 15's model (no frontend embeds)
      on two gloo rank processes of the one card, each drawing its shards
-     as phase 15's do and taking 3 steps of ``launch.train.make_train_
+     as phase 15's do and taking ``TPT_STEPS`` = 2 steps (3 until
+     phase 21) of ``launch.train.make_train_
      step`` on 4 x 128 tokens of phase 10's stream (the same batch on
      both ranks) under bdi8 moments (lr 3e-4, clip 1.0): the model
      axis's collectives forward and backward through ``distributed/
@@ -315,7 +319,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      group) and ``DPT_GEN`` = 2 greedy tokens (16 until phase 18 came, 8
      until phase 19: a decode step gathers every FSDP block through the
      host, ~6.3 s, most of it the embedding and the head), then trains
-     from the same params for ``DPT_STEPS`` = 2 steps (3 until phase 19)
+     from the same params for ``DPT_STEPS`` = 1 step (3 until phase 19,
+     2 until phase 21)
      of 4 x 128 under bdi8 moments (ZeRO-1: each rank keeps its blocks'
      moments, stored and loaded by kernels 4 and 5).  Before the
      ranks start, ``dpt_predict`` computes from the shapes each leaf's
@@ -353,14 +358,19 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      ``(1, 8)`` mesh of eight gloo rank processes of the one card, the
      smallest model axis on which its KV heads stay whole (wk, wv on
      every rank, each rank's 4 query heads reading their KV head) and
-     the decode cache is sharded over T (``cache_specs``: 18 of 144 rows
+     the decode cache is sharded over T (``cache_specs``: 17 of 136 rows
      a rank).  Each rank draws the model a layer at a time and keeps its
-     shards, serves 4 prompts of 128 tokens and 16 greedy tokens at
-     ``REP_LAYERS`` = 4 layers (8 until phase 19; decode: the query
+     shards, serves 4 prompts of 128 tokens and ``REP_GEN`` = 8 greedy
+     tokens (16 until phase 21) at ``REP_LAYERS`` = 4 layers (8 until phase 19; decode: the query
      heads gathered, the T blocks' softmax combined by a MAX and a SUM
      all-reduce, the new token's K/V written on the rank that holds its
-     row), then trains 3
-     steps of 4 x 128 at ``REP_TRAIN_LAYERS`` = 4 under bdi8, where
+     row), then 4 prompts of 13 tokens and 4 greedy tokens, whose 17 rows
+     do not divide 8 either, so that ``cache_specs`` splits the cache over
+     its head dim (16 of 128 a rank; decode: K's blocks gathered, the
+     rank's heads' softmax weights gathered, the context all-to-all'd,
+     ``attention.attend_dh``), then trains ``TPT_STEPS`` = 2 (3 until
+     phase 21) steps of 4 x 128 at ``REP_TRAIN_LAYERS`` = 4 under bdi8,
+     where
      gate, up (86 tiles) and lm_head (500) straddle the shards: every
      rank keeps their whole moments, updated from the gradient gathered
      over the model axis, through kernels 4 and 5.  ``rep_predict``
@@ -389,11 +399,13 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      latent 512, 64 experts top-6 and 2 shared, vocab 102400, seed 0):
      each rank draws the model a layer at a time and keeps its shards,
      its 16 experts a layer among them (``sharding.Local``), serves 4
-     prompts of 128 tokens and 16 greedy tokens at ``MOE_LAYERS`` = 4 (8
+     prompts of 128 tokens and ``MOE_GEN`` = 8 greedy tokens (16 until
+     phase 21) at ``MOE_LAYERS`` = 4 (8
      before phase 20)
      (each rank its 4 heads, the latent cache split over its last dim
      and gathered at use, its experts' outputs summed over the axis),
-     then trains 3 steps of 4 x 128 from phase 10's stream at
+     then trains ``TPT_STEPS`` = 2 steps of 4 x 128 from phase 10's
+     stream at
      ``MOE_TRAIN_LAYERS`` = 4 under bdi8 (the experts' moment tiles on
      the rank's experts, the shared experts' gate and up straddling the
      shards, through kernels 4 and 5); then arctic-480b at full width
@@ -462,6 +474,32 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      share of a leaf off by more than one ULP, the moments' relative
      error), or phase 17's bounds where those are wider.  The four
      ranks' launches go into the ``kernels`` line.
+  21. Leaves and caches that JAX's rule table keeps whole: five gloo
+     rank processes of the one card on a ``(1, 5)`` mesh run, in turn,
+     hymba-1.5b at 3 layers (its 25 heads, 5 KV heads and 3200 Mamba
+     channels split; its d_ff of 5504 and vocab of 32001 whole: the MLP,
+     the embedding and the head on every rank, no sum) and qwen2.5-14b at
+     4 layers (40 heads split; its 8 KV heads, d_ff 13824 and vocab
+     152064 whole), at published widths, seed 0 (``WHL_CELLS``).  Each
+     rank keeps its blocks and serves through ``dense_generate``: hymba 2
+     x 1040 + 4; qwen 2 x 64 + 4 (68 rows: 5 divides neither them nor Dh
+     128, so the cache is whole on every rank) and 2 x 66 + 4 (over T).
+     hymba then takes one bdi8 train step of 2 x 130 and one with the
+     sequence-parallel stream from the same start (5 divides 130).
+     ``whl_predict`` computes from the shapes a rank's bytes, the whole
+     leaves, each cache's split, the collectives of each prefill, decode
+     step and train step (``whl_counts``) and the tile launches; each
+     rank must match them, and the five ranks' tokens, logits, losses and
+     norms must be equal.  Against the same weights whole in this
+     process: tokens up to one-ULP ties, logits within ``TP_ULPS`` bf16
+     ULPs, the first loss within 1e-4, and the state after the step, and
+     the sequence-parallel step's against it (also against its ``--sp``
+     trace), within twice what reassociating the whole model's sums as
+     the ranks add them moves the whole model's step (Mamba's scan
+     amplifies it), or phase 17's bounds where those are wider.  Kernels
+     4 and 5 are held against their plain versions on each rank's
+     sampled moment rows; the five ranks' launches go into the
+     ``kernels`` line.
 
 Prints each phase's wall time, a ``{"kernels": [...]}`` JSON line, the
 card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -484,7 +522,8 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3
 F32_FLOPS = 67e12                   # H100 SXM f32 outside the tensor cores
 ATTN_ATOL = 1e-4                    # kernel vs plain, f32 attention
 TRAIN_LM_STEPS = 50                 # phase 10d (the twin's default is 200)
-WIDE_5B_STEPS = 12                  # phase 5b at full width (5: 24)
+WIDE_5B_STEPS = 8                   # phase 5b at full width (5: 24; 12
+                                     # until phase 21)
 ALLOC_ROUND = 512                   # the caching allocator's block unit
 DRYRUN_CELLS = (("xlstm-350m", "long_500k", False),
                 ("yi-6b", "train_4k", False), ("yi-6b", "train_4k", True),
@@ -1560,7 +1599,7 @@ def parity_scheduler(dev, cfg, params, page: int, lo: int, hi: int,
 # phases 8, 8b, 8c, 8d: the host/disk tier, snapshot/restore, faults
 # ---------------------------------------------------------------------------
 
-TURN_PROMPT, TURN_GEN, TURN_USER, TURNS = 1024, 32, 8, 3
+TURN_PROMPT, TURN_GEN, TURN_USER, TURNS = 1024, 32, 8, 2   # 3 until 21
 
 
 def rows_by_position(eng, sched) -> dict:
@@ -3577,7 +3616,9 @@ def phase_train_families(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 DP_SEQ, DP_BATCH, DP_STEPS = 128, 8, 4
-DP_LAYERS = 8                   # phase 13's depth, of yi-6b's 32
+DP_LAYERS = 4                   # phase 13's depth, of yi-6b's 32 (8
+                                # until phase 21: the EC plan's host
+                                # percentile over its values is most of it)
 
 
 def dp_batches(dev, cfg, seq: int, batch: int, n: int) -> list:
@@ -3736,9 +3777,13 @@ def phase_dp_train(dev, cfg) -> dict:
 def phase_dp_parity(dev, cfg) -> dict:
     """Phase 13b: full width, 1 layer: ``tree_all_reduce`` of one set of
     gradients and residuals on the card (NCCL, the tile kernels) and on
-    the CPU (gloo, the plain versions), means and residuals bit-equal;
-    then one compressed DP step from one state on both, params within one
-    bf16 ULP for at least 99% of each leaf."""
+    the CPU (gloo, the plain versions), means and residuals bit-equal:
+    the layer's leaves and the final norm (the embedding's and the head's
+    524 M values, 75% of the CPU side's ~25 s of plain codec, left out
+    since phase 21: the same tiles at the same width, and the DP step
+    below reduces them on both sides); then one compressed DP step from
+    one state on both, params within one bf16 ULP for at least 99% of
+    each leaf."""
     import torch
     from repro_torch.checkpoint.store import leaf_paths
     from repro_torch.distributed import compress_comm as cc
@@ -3758,8 +3803,9 @@ def phase_dp_parity(dev, cfg) -> dict:
     plan = cc.plan_compression(grads)
     plan_s = time.perf_counter() - t0
     out, secs = {}, {}
+    held = {k: v for k, v in grads.items() if k not in ("embed", "lm_head")}
     for side, d in (("card", dev), ("cpu", cpu_dev)):
-        g = P.tree_map(lambda t: t.to(d, copy=True), grads)
+        g = P.tree_map(lambda t: t.to(d, copy=True), held)
         r = P.tree_map(lambda t: t.to(torch.float32) * 2.0 ** -9, g)
         mesh = make_host_mesh(1, 1, device=d)
         try:
@@ -3781,7 +3827,7 @@ def phase_dp_parity(dev, cfg) -> dict:
     if differ:
         raise AssertionError(f"phase 13b: tree_all_reduce differs, card vs "
                              f"cpu, at {differ[:6]}")
-    del out, grads
+    del out, grads, held
     torch.cuda.empty_cache()
     # one compressed DP step from one state (f32 moments, the EC plan)
     ocfg = AdamWConfig()
@@ -3808,7 +3854,7 @@ def phase_dp_parity(dev, cfg) -> dict:
     res = {"card": smi(), "params": n_params(gpu),
            "plan": {"seconds": plan_s, **{k: v for k, v in plan_numbers(
                plan, gpu).items() if k != "compressed"}},
-           "tree_all_reduce_bit_equal_leaves": len(leaf_paths(gpu)),
+           "tree_all_reduce_bit_equal_leaves": len(leaf_paths(gpu)) - 2,
            "tree_all_reduce_s": secs,
            "step_loss": {k: v[1] for k, v in after.items()},
            "step_param_share_within_1ulp": share}
@@ -4281,7 +4327,7 @@ def phase_tensor_parallel(dev) -> dict:
 # phase 16: training under tensor parallelism, two ranks on one card
 # ---------------------------------------------------------------------------
 
-TPT_STEPS = 3
+TPT_STEPS = 2                   # phases 16, 18, 19 (3 until phase 21)
 TPT_BATCH, TPT_SEQ = 4, 128
 TPT_MOMENTS = "bdi8"
 TPT_FIRST_RTOL = 1e-4           # the first loss, one state on both sides
@@ -4605,7 +4651,7 @@ def phase_tp_train(dev) -> dict:
                 or max(w["m_err"], w["v_err"]) > TPT_MOMENT_RTOL):
             raise AssertionError(f"phase 16: rank {r} after step 1: "
                                  f"{g['worst']}")
-    rest = slice(1, None)
+    rest = slice(1, None) if DPT_STEPS > 1 else slice(None)
     mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
     out = {"card": smi(), "cell": f"internvl2-76b full width, "
            f"{TP_LAYERS} layers, {TPT_STEPS} steps of {TPT_BATCH} x "
@@ -4703,6 +4749,11 @@ def write_step_traces(out: str) -> None:
                                             FAM_SHAPE, names, sp=True,
                                             rows=FAM_TRAIN[0],
                                             seq=FAM_TRAIN[1])
+    for arch, cell in WHL_CELLS.items():
+        if cell[3]:
+            rows[f"21 sp {arch}"] = step_traces(
+                whl_cfg(arch), tpt_ocfg(), WHL_SHAPE, names, sp=True,
+                rows=WHL_TRAIN[0], seq=WHL_TRAIN[1])
     rows["trace_s"] = time.perf_counter() - t0
     Path(out).write_text(json.dumps(rows))
 
@@ -4908,7 +4959,7 @@ DPT_SHAPE = (2, 2)                   # (data, model)
 DPT_RANKS = DPT_SHAPE[0] * DPT_SHAPE[1]
 DPT_LAYERS = 2                       # the rule table's blocks as at 4
 DPT_GEN = 2                          # greedy tokens (~6.3 s a decode step)
-DPT_STEPS = 2                        # train steps (~22 s each)
+DPT_STEPS = 1                        # train steps (~22 s each; 2 until 21)
 
 
 def _dpt_mesh():
@@ -5334,7 +5385,7 @@ def phase_dp_tp(dev, started: dict) -> dict:
                 or max(w["m_err"], w["v_err"]) > TPT_MOMENT_RTOL):
             raise AssertionError(f"phase 17: rank {r} after step 1: "
                                  f"{g['worst']}")
-    rest = slice(1, None)
+    rest = slice(1, None) if DPT_STEPS > 1 else slice(None)
     mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
     out = {"card": smi(), "cell": f"internvl2-76b full width, "
            f"{cfg.n_layers} layers, (2, 2) over gloo on one card, FSDP and "
@@ -5397,7 +5448,12 @@ def phase_dp_tp(dev, started: dict) -> dict:
 REP_SHAPE = (1, 8)                   # (data, model)
 REP_RANKS = REP_SHAPE[0] * REP_SHAPE[1]
 REP_LAYERS, REP_TRAIN_LAYERS = 4, 4  # serving (8 until phase 19), training
+REP_GEN = 8                          # greedy tokens (16 until phase 21)
 REP_SEED = 0
+# a second serving run: 13 prompt tokens + 4, whose 17 rows do not divide
+# 8 (nor do the 4 KV heads): the cache over the head dim (128 / 8)
+REP_DH_PROMPT, REP_DH_GEN = 13, 4
+REP_DH_ROWS = REP_DH_PROMPT + REP_DH_GEN
 
 
 def rep_cfg(n_layers: int):
@@ -5442,10 +5498,15 @@ def rep_predict() -> dict:
             local = SH.local_params(whole, mesh, coord={"data": 0,
                                                         "model": 0})
             out[f"param_bytes_{key}"] = nbytes(local)
-        cache = init_cache(rep_cfg(REP_LAYERS), TP_BATCH, TP_PROMPT + TP_GEN,
+        cache = init_cache(rep_cfg(REP_LAYERS), TP_BATCH, TP_PROMPT + REP_GEN,
                            device="meta")
         out["cache_bytes"] = sum(t.numel() * t.element_size() for t in cache)
         out["cache_block"] = list(cache.full_k.shape)
+        dh = init_cache(rep_cfg(REP_LAYERS), TP_BATCH, REP_DH_ROWS,
+                        device="meta")
+        out["dh_cache_bytes"] = sum(t.numel() * t.element_size()
+                                    for t in dh)
+        out["dh_cache_block"] = list(dh.full_k.shape)
         wide = tp.check_moments(local, ocfg.moment_dtype)
         state = adamw_init(local, ocfg)
         out["moment_bytes"] = opt_state_bytes(state, ocfg)
@@ -5460,16 +5521,17 @@ def rep_predict() -> dict:
     n, m = REP_LAYERS, REP_SHAPE[1]
     nt = REP_TRAIN_LAYERS
     backward = 5 * nt + 1 + 2 * nt
-    rows = (TP_PROMPT + TP_GEN) // m
-    # the decode steps' positions TP_PROMPT .. TP_PROMPT + TP_GEN - 2
+    rows = (TP_PROMPT + REP_GEN) // m
+    # the decode steps' positions TP_PROMPT .. TP_PROMPT + REP_GEN - 2
     writers = sorted({t // rows for t in range(TP_PROMPT,
-                                               TP_PROMPT + TP_GEN - 1)})
+                                               TP_PROMPT + REP_GEN - 1)})
     out.update({
         "prefill_model": [2 * n + 1, 1, 0, 0],
         "decode_step_model": [4 * n + 1, n + 1, 0],
+        "dh_decode_step_model": [2 * n + 1, 2 * n + 1, n, 0],
         "decode_writes_a_step": {str(r): 2 * n * sum(
-            t // rows == r for t in range(TP_PROMPT, TP_PROMPT + TP_GEN - 1))
-            / (TP_GEN - 1) for r in writers},
+            t // rows == r for t in range(TP_PROMPT, TP_PROMPT + REP_GEN - 1))
+            / (REP_GEN - 1) for r in writers},
         "train_step_model": [(1 + 2 * nt + 2) + (nt + 2) + backward + 1,
                              len(out["straddling"]), backward],
         "tile_launches_a_step": 4 * sum(groups),
@@ -5518,7 +5580,7 @@ def rep_rank(rank: int, work: str) -> None:
             prompts = tp_prompts(cfg.vocab)
             dense_generate(cfg, params, prompts[:, :13], 3)      # warm-up
             torch.cuda.reset_peak_memory_stats(dev)
-            out = dense_generate(cfg, params, prompts, TP_GEN,
+            out = dense_generate(cfg, params, prompts, REP_GEN,
                                  keep_logits=True)
             res.update(serve_peak_bytes=torch.cuda.max_memory_allocated(dev),
                        prefill_ms=out["prefill_s"] * 1e3,
@@ -5526,6 +5588,11 @@ def rep_rank(rank: int, work: str) -> None:
                        serve_collectives=out["collectives"],
                        cache_bytes=out["cache_bytes"])
             served = {"tokens": out["tokens"], "logits": out["logits"]}
+            out = dense_generate(cfg, params, prompts[:, :REP_DH_PROMPT],
+                                 REP_DH_GEN, keep_logits=True)
+            res.update(dh_collectives=out["collectives"],
+                       dh_cache_bytes=out["cache_bytes"])
+            served["dh"] = {"tokens": out["tokens"], "logits": out["logits"]}
             del out, params
             torch.cuda.empty_cache()
             cfg = rep_cfg(REP_TRAIN_LAYERS)
@@ -5629,6 +5696,7 @@ def phase_replicated(dev, started: dict) -> dict:
         for key, pkey in (("param_bytes_serve", "param_bytes_serve"),
                           ("param_bytes_train", "param_bytes_train"),
                           ("cache_bytes", "cache_bytes"),
+                          ("dh_cache_bytes", "dh_cache_bytes"),
                           ("opt_state_bytes", "moment_bytes")):
             if rr[key] != pred[pkey]:
                 raise AssertionError(f"phase 18: rank {r}: {key} {rr[key]}"
@@ -5648,7 +5716,11 @@ def phase_replicated(dev, started: dict) -> dict:
                                                   "backward")),
              pred["decode_step_model"]),
             ("decode writes", c["per_step"]["model"]["writes"],
-             pred["decode_writes_a_step"].get(str(r), 0.0))]
+             pred["decode_writes_a_step"].get(str(r), 0.0)),
+            ("decode step over Dh", model(rr["dh_collectives"]["per_step"],
+                                          ("all_reduce", "all_gather",
+                                           "all_to_all", "writes")),
+             pred["dh_decode_step_model"])]
         checks += [(f"train step {i}", model(m, ("all_reduce", "all_gather",
                                                  "backward")),
                     pred["train_step_model"])
@@ -5676,10 +5748,11 @@ def phase_replicated(dev, started: dict) -> dict:
                 res[r]["grad_norms"] != res[0]["grad_norms"]:
             raise AssertionError("phase 18: the ranks' losses or norms "
                                  "differ")
-        if got[r]["served"]["tokens"] != got[0]["served"]["tokens"] or \
-                not torch.equal(got[r]["served"]["logits"],
-                                got[0]["served"]["logits"]):
-            raise AssertionError("phase 18: the ranks' serving differs")
+        for a, b in ((got[r]["served"], got[0]["served"]),
+                     (got[r]["served"]["dh"], got[0]["served"]["dh"])):
+            if a["tokens"] != b["tokens"] or \
+                    not torch.equal(a["logits"], b["logits"]):
+                raise AssertionError("phase 18: the ranks' serving differs")
         for i in range(TPT_STEPS):
             for k, a in got[0]["norms"][i].items():
                 if not torch.equal(a, got[r]["norms"][i][k]):
@@ -5701,9 +5774,14 @@ def phase_replicated(dev, started: dict) -> dict:
         REP_SEED), dev)
     prompts = tp_prompts(cfg.vocab)
     dense_generate(cfg, params, prompts[:, :13], 3)             # warm-up
-    whole = dense_generate(cfg, params, prompts, TP_GEN, keep_logits=True)
+    whole = dense_generate(cfg, params, prompts, REP_GEN, keep_logits=True)
     par, worst = _served_parity("phase 18", got[0]["served"]["tokens"],
                                 got[0]["served"]["logits"], whole, TP_ULPS)
+    whole = dense_generate(cfg, params, prompts[:, :REP_DH_PROMPT],
+                           REP_DH_GEN, keep_logits=True)
+    dh = got[0]["served"]["dh"]
+    dh_par, dh_worst = _served_parity("phase 18 over Dh", dh["tokens"],
+                                      dh["logits"], whole, TP_ULPS)
     del params
     release(dev)
     cfg = rep_cfg(REP_TRAIN_LAYERS)
@@ -5750,7 +5828,7 @@ def phase_replicated(dev, started: dict) -> dict:
     mean = lambda xs: sum(xs) / len(xs)              # noqa: E731
     out = {"card": smi(), "cell": f"yi-6b full width, (1, 8) over gloo on "
            f"one card (32 heads split, 4 KV heads whole, the cache over T): "
-           f"serving {TP_BATCH} x {TP_PROMPT} + {TP_GEN} at {REP_LAYERS} "
+           f"serving {TP_BATCH} x {TP_PROMPT} + {REP_GEN} at {REP_LAYERS} "
            f"layers, then {TPT_STEPS} train steps of {TPT_BATCH} x "
            f"{TPT_SEQ} at {REP_TRAIN_LAYERS} layers under "
            f"{ocfg.moment_dtype} moments",
@@ -5758,6 +5836,15 @@ def phase_replicated(dev, started: dict) -> dict:
            "tokens_equal": par.compared,
            "ties": [t.__dict__ for t in par.ties],
            "worst_logit_gap_ulps": worst,
+           "dh_run": {"cell": f"{TP_BATCH} x {REP_DH_PROMPT} + {REP_DH_GEN}"
+                      f": {REP_DH_ROWS} rows, the cache over Dh "
+                      f"{pred['dh_cache_block']}",
+                      "tokens_equal": dh_par.compared,
+                      "ties": [t.__dict__ for t in dh_par.ties],
+                      "worst_logit_gap_ulps": dh_worst,
+                      "cache_bytes_a_rank": res[0]["dh_cache_bytes"],
+                      "decode_collectives": res[0]["dh_collectives"][
+                          "per_step"]},
            "losses": ours, "losses_whole": losses,
            "grad_norms": res[0]["grad_norms"],
            "grad_norms_whole": [m["grad_norm"] for m in mets],
@@ -5805,7 +5892,7 @@ MOE_RANKS = MOE_SHAPE[0] * MOE_SHAPE[1]
 MOE_DS, MOE_ARC = "deepseek-v2-lite-16b", "arctic-480b"
 # deepseek serving (8 before phase 20) and training, of 27
 MOE_LAYERS, MOE_TRAIN_LAYERS = 4, 4
-MOE_GEN = 16
+MOE_GEN = 8                          # greedy tokens (16 until phase 21)
 ARC_LAYERS, ARC_BATCH, ARC_PROMPT, ARC_GEN = 1, 2, 64, 8   # arctic, of 35
 MOE_SEED = 0
 MOE_ROUTE_ULPS = 2.0                 # the ranks' router inputs, bf16 ULPs
@@ -7151,6 +7238,491 @@ def phase_families_tp(dev, started: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: leaves and caches that JAX's rule table keeps whole, five ranks
+# ---------------------------------------------------------------------------
+
+WHL_SHAPE = (1, 5)                   # (data, model)
+WHL_RANKS = WHL_SHAPE[0] * WHL_SHAPE[1]
+WHL_SEED = 0
+WHL_TRAIN = (2, 130)                 # a train batch: rows, positions (5 | S)
+# arch -> (depth, serving batch, (prompt, greedy tokens) runs, trains):
+# hymba-1.5b at phase 20's 3 of 32 layers (1 of them full attention), its
+# 25 heads and 5 KV heads split, d_ff 5504 whole, prompts past its window;
+# qwen2.5-14b at 4 of 48 layers, its 40 heads split, K/V (8 KV heads), the
+# MLP (d_ff 13824) and the vocabulary whole, served twice: 64 + 4 rows (5
+# divides neither them nor Dh 128: the cache whole on every rank), then 66
+# + 4 (the cache over T).  qwen does not train: whole MLPs and vocabulary
+# with bdi8 moments at its widths do not fit five ranks on one card
+WHL_CELLS = {"hymba-1.5b": ({"n_layers": 3, "n_full_attn": 1}, 2,
+                            ((1040, 4),), True),
+             "qwen2.5-14b": ({"n_layers": 4}, 2, ((64, 4), (66, 4)), False)}
+
+
+def whl_cfg(arch: str):
+    from repro_torch.configs.registry import get_arch
+    kw = dict(WHL_CELLS[arch][0])
+    return at_depth(get_arch(arch), kw.pop("n_layers"), **kw)
+
+
+def whl_prompts(cfg, s: int):
+    import torch
+    g = torch.Generator().manual_seed(WHL_SEED + 3)
+    return torch.randint(1, cfg.vocab, (WHL_CELLS[cfg.name][1], s),
+                         generator=g)
+
+
+def whl_counts(cfg, m: int, b: int, s: int, gen: int, tb: int, ts: int,
+               sharded: int, straddling: list) -> dict:
+    """Model-axis collectives as ``distributed/tp.py`` and the models
+    issue them where the MLP and the vocabulary are whole:
+    [all_reduce, all_gather, bytes] of ``dense_generate``'s prefill
+    (``b`` rows of ``s``) and of a decode step, [all_reduce, all_gather,
+    backward, bytes] of a train step (``tb`` x ``ts``), ``writes`` a
+    decode step (all ranks' together).  A whole MLP, embedding and head
+    issue nothing.  Per family:
+
+    * qwen2.5-14b (Q and wo split, K/V whole): a layer's prefill and
+      decode sum wo's partial (f32 [B, S, D]); over a cache split over T
+      a decode step besides gathers its query heads (bf16 [B, H/m, Dh])
+      and combines the T blocks (MAX f32 [B, H], SUM f32 [B, H, Dh + 1]),
+      and the rank holding row t writes K and V;
+    * hymba-1.5b (heads, KV heads and Mamba's channels split, its state
+      over the channels, 16 not dividing 5): a layer gathers ``in_proj``'s
+      block (bf16 [B, S, 2 di/m]), sums x_proj's partial (f32 [B, S, R +
+      2n]), ``out_proj``'s and wo's (f32 [B, S, D]); training: the
+      forward so, the recompute again (the whole MLP is the layer's last
+      part and issues nothing), the backward q's, k's, v's and
+      ``in_proj``'s input gradients (f32 [B, S, D]), x_proj's output's
+      (``copy_to_model``) and the gathered block's (f32 [B, S, 2 di]).
+
+    Then the clip norm's sum and one gather a straddling leaf."""
+    d = cfg.d_model
+    add = lambda *xs: [sum(c) for c in zip(*xs)]              # noqa: E731
+    n = cfg.n_layers
+    out = {}
+    if cfg.family == "hybrid":
+        di, ns = cfg.ssm_expand * d, cfg.ssm_state
+        r = -(-d // 16) + 2 * ns
+
+        def lay(x):
+            return [3, 1, x * (2 * di // m) * 2 + x * r * 4 + 2 * x * d * 4]
+        out["prefill"] = add(*[lay(b * s)] * n)
+        out["decode_step"] = add(*[lay(b)] * n)
+        out["writes"] = 0
+        x = tb * ts
+        bwd = [6, 0, 4 * x * d * 4 + x * r * 4 + x * 2 * di * 4]
+        tr = add(*[add(lay(x), lay(x), bwd)] * n, [1, 0, sharded * 4],
+                 [0, len(straddling), sum(straddling)])
+        out["train_step"] = [tr[0], tr[1], 6 * n, tr[2]]
+        return out
+    h, dh = cfg.n_heads, cfg.head_dim
+    out["prefill"] = [n, 0, n * b * s * d * 4]
+    if (s + gen) % m:                 # the cache whole on every rank
+        out["decode_step"] = [n, 0, n * b * d * 4]
+        out["writes"] = 0
+    else:
+        out["decode_step"] = [3 * n, n, n * (b * d * 4 + b * h * 4
+                                             + b * h * (dh + 1) * 4
+                                             + b * (h // m) * dh * 2)]
+        out["writes"] = 2 * n
+    return out
+
+
+def whl_predict(arch: str) -> dict:
+    """What a rank of phase 21 holds and issues for ``arch``, from the
+    shapes alone (meta tensors on an abstract ``(1, 5)`` mesh): bytes of
+    its params, of its decode cache after each ``dense_generate`` (and
+    the dim the cache is split at), of its bdi8 moments; the leaves kept
+    whole over ``model`` and those whose moment tiles straddle the
+    shards; the collectives (:func:`whl_counts`; none over data); the
+    tile launches a train step (a moment group is two decompresses and
+    two compresses)."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.launch.elastic import abstract_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw as AW
+    from repro_torch.optim import adamw_init, opt_state_bytes
+    cfg = whl_cfg(arch)
+    _, b, runs, trains = WHL_CELLS[arch]
+    model = get_model(cfg)
+    ocfg = tpt_ocfg()
+    mesh = abstract_mesh(WHL_SHAPE, ("data", "model"))
+    m = WHL_SHAPE[1]
+    out = {"runs": []}
+    with use_mesh(mesh):
+        whole = model.init(torch.Generator(), "meta")
+        local = SH.local_params(whole, mesh, coord={"data": 0, "model": 0})
+        lay = tp.placement(whole, local)
+        out["whole_leaves"] = sorted(tp.model_whole(lay))
+        for s, gen in runs:
+            cache = model.init_cache(b, s + gen, device="meta")
+            out["runs"].append({
+                "cache_bytes": sum(t.numel() * t.element_size()
+                                   for t in cache),
+                "cache_split": [tp.split_dim(t) for t in cache],
+                **whl_counts(cfg, m, b, s, gen, *WHL_TRAIN, 0, [])})
+        wide = tp.check_moments(local, ocfg.moment_dtype)
+        sharded = sum(tp.sharded_leaves(whole, local))
+        if trains:
+            out["moment_bytes"] = opt_state_bytes(adamw_init(local, ocfg),
+                                                  ocfg)
+        shapes = [AW._wide(p.shape, w)
+                  for (_, p), w in zip(leaf_paths(local), wide)]
+    leaves = leaf_paths(local)
+    out["param_bytes"] = sum(t.numel() * t.element_size()
+                             for _, t in leaves)
+    out["straddling"] = [p for (p, _), w in zip(leaves, wide) if w]
+    if trains:
+        s, gen = runs[0]
+        out["train_step"] = whl_counts(
+            cfg, m, b, s, gen, *WHL_TRAIN, sharded,
+            [t.numel() * t.element_size()
+             for (_, t), w in zip(leaves, wide) if w])["train_step"]
+        groups = [len(AW._groups(torch.empty(sh, device="meta")))
+                  for sh in shapes if AW._tiled(sh, ocfg.moment_dtype)]
+        out["tile_launches_a_step"] = 4 * sum(groups)
+    return out
+
+
+def whl_rank(rank: int, work: str) -> None:
+    """One rank of phase 21 on the ``(1, 5)`` mesh: each model in turn,
+    drawn on the card a layer at a time with the rank's blocks kept,
+    served through ``dense_generate`` (each run of ``WHL_CELLS``), then,
+    where it trains, one bdi8 train step without and one with the
+    sequence-parallel residual stream from the same state; writes
+    ``whl_<rank>.json`` and ``.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._device import resolve_device
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw_init, opt_state_bytes
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(work) / "rendezvous_whl"), WHL_RANKS), rank=rank,
+        world_size=WHL_RANKS)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    keep = {}
+    try:
+        mesh = make_host_mesh(*WHL_SHAPE)
+        with use_mesh(mesh):
+            for arch, (_, b, runs, trains) in WHL_CELLS.items():
+                cfg, ocfg = whl_cfg(arch), tpt_ocfg()
+                model = get_model(cfg)
+                t0 = time.perf_counter()
+                gen_ = torch.Generator(device=dev).manual_seed(WHL_SEED)
+                if cfg.family == "hybrid":    # its init keeps no blocks
+                    with use_mesh(None):
+                        whole = model.init(gen_, dev)
+                    params = SH.local_params(whole, mesh)
+                    del whole
+                    torch.cuda.empty_cache()
+                else:
+                    params = model.init(gen_, dev, local=SH.Local(mesh))
+                sync(dev)
+                r = {"init_s": time.perf_counter() - t0,
+                     "param_bytes": sum(t.numel() * t.element_size()
+                                        for t in _leaves(params)),
+                     "whole_leaves": sorted(tp.model_whole(tp.placement(
+                         model.init(torch.Generator(), "meta"), params))),
+                     "runs": []}
+                keep[arch] = {"runs": []}
+                dense_generate(cfg, params, whl_prompts(cfg, 6), 2)  # warm
+                torch.cuda.reset_peak_memory_stats(dev)
+                for s, gen in runs:
+                    out = dense_generate(cfg, params, whl_prompts(cfg, s),
+                                         gen, keep_logits=True)
+                    c = out["collectives"]
+                    r["runs"].append({
+                        "prefill_ms": out["prefill_s"] * 1e3,
+                        "ms_a_step": [x * 1e3 for x in out["decode_s"]],
+                        "collectives": c, "cache_bytes": out["cache_bytes"],
+                        "cache_split": [tp.split_dim(t) for t in
+                                        model.init_cache(
+                                            b, s + gen, device="meta")]})
+                    keep[arch]["runs"].append({"tokens": out["tokens"],
+                                               "logits": out["logits"]})
+                r["serve_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+                if trains:
+                    batches = tpt_batches(cfg, dev, 1, *WHL_TRAIN)
+                    wide = tp.check_moments(params, ocfg.moment_dtype)
+                    state = adamw_init(params, ocfg)
+                    step = make_train_step(model, ocfg)
+                    keep[arch]["start"] = tpt_state(params, None,
+                                                    cfg.n_layers)
+                    sp_start = (_tree_clone(params), _tree_clone(state))
+                    sync(dev)
+                    ops.reset_launches()
+                    params, state, met = step(params, state, batches[0])
+                    launches = dict(ops.LAUNCHES)
+                    keep[arch]["sample"] = tpt_state(params, state,
+                                                     cfg.n_layers)
+                    held = dpt_tiles_vs_plain(params, state, cfg.n_layers,
+                                              "21")
+                    ops.LAUNCHES.update(launches)
+                    r["sp"], keep[arch]["sp_sample"] = sp_step(
+                        step, *sp_start, batches, dev, cfg.n_layers)
+                    del sp_start
+                    r.update(opt_state_bytes=opt_state_bytes(state, ocfg),
+                             straddling=[p for (p, _), w in zip(
+                                 leaf_paths(params), wide) if w],
+                             wide=wide, losses=[met["loss"]],
+                             grad_norms=[met["grad_norm"]],
+                             fwd_bwd_ms=[met["fwd_bwd_s"] * 1e3],
+                             opt_ms=[met["opt_s"] * 1e3],
+                             collectives=[met["collectives"]],
+                             tiles_held_vs_plain=held,
+                             kernel_launches={k: v for k, v in
+                                              launches.items() if v})
+                    del state, step
+                res[arch] = r
+                del params
+                torch.cuda.empty_cache()
+        torch.save(keep, Path(work) / f"whl_{rank}.pt")
+        (Path(work) / f"whl_{rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh()
+
+
+def _whl_checks(r: int, arch: str, x: dict, pred: dict) -> None:
+    """A rank's bytes, layouts, collectives and launches against
+    ``whl_predict``."""
+    model = lambda c, keys: [c["model"][k] for k in keys]     # noqa: E731
+    checks = [("params", x["param_bytes"], pred["param_bytes"]),
+              ("whole leaves", x["whole_leaves"], pred["whole_leaves"])]
+    for i, (run, want) in enumerate(zip(x["runs"], pred["runs"])):
+        c = run["collectives"]
+        checks += [
+            (f"run {i} cache", run["cache_bytes"], want["cache_bytes"]),
+            (f"run {i} cache split", run["cache_split"],
+             want["cache_split"]),
+            (f"run {i} prefill", model(c["prefill"], (
+                "all_reduce", "all_gather", "bytes")), want["prefill"]),
+            (f"run {i} decode step", model(c["per_step"], (
+                "all_reduce", "all_gather", "bytes")), want["decode_step"])]
+        checks += [(f"run {i} {n} over data", sum(c[n]["data"].values()), 0)
+                   for n in ("prefill", "per_step")]
+    if "losses" in x:
+        checks += [("moments", x["opt_state_bytes"], pred["moment_bytes"]),
+                   ("straddling", x["straddling"], pred["straddling"])]
+        for i, cc in enumerate(x["collectives"]):
+            checks += [(f"train step {i}", model(cc, (
+                "all_reduce", "all_gather", "backward", "bytes")),
+                pred["train_step"]),
+                (f"train step {i} over data", sum(cc["data"].values()), 0)]
+        want = pred["tile_launches_a_step"]
+        checks.append(("tile launches", x["kernel_launches"], {
+            "bdi_compress": want // 2, "bdi_decompress": want // 2}))
+    for name, a, b in checks:
+        if a != b:
+            raise AssertionError(f"phase 21: rank {r}: {arch}: {name} {a}, "
+                                 f"predicted {b}")
+
+
+def phase_whole_leaves(dev, started: dict) -> dict:
+    """Phase 21 (see the module docstring); ``started``: the dry run's
+    traces (``start_step_traces``)."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.launch.serve import dense_generate
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.optim import adamw_init
+    card = smi()
+    pred = {arch: whl_predict(arch) for arch in WHL_CELLS}
+    log(f"phase 21 prediction (shapes, (1, 5)): {json.dumps(pred)}")
+    work = Path(tempfile.mkdtemp(prefix="whl21_"))
+    t0 = time.perf_counter()
+    ranks = [(_spawn(f"whl_rank({r}, {str(work)!r})",
+                     work / f"whl_{r}.log"), work / f"whl_{r}.log")
+             for r in range(WHL_RANKS)]
+    _wait_all(ranks, "phase 21: a rank", 600)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"whl_{r}.json").read_text())
+           for r in range(WHL_RANKS)]
+    got = [torch.load(work / f"whl_{r}.pt") for r in range(WHL_RANKS)]
+    trained = [a for a, c in WHL_CELLS.items() if c[3]]
+    sp_traces = {arch: step_traces_of(started, f"21 sp {arch}")
+                 for arch in trained}
+    for r, rr in enumerate(res):
+        log(f"phase 21 rank {r} (gloo through the host on one card, not a "
+            f"TP speed; {card}): {json.dumps(rr)}")
+        if rr["backend"] != "gloo":
+            raise AssertionError(f"phase 21: rank {r}: {rr['backend']}")
+        for arch in WHL_CELLS:
+            if not all(math.isfinite(x) for x in rr[arch].get("losses", [])):
+                raise AssertionError(f"phase 21: rank {r}: {arch}: "
+                                     f"{rr[arch]['losses']}")
+            writes = sum(x[arch]["runs"][i]["collectives"]["per_step"][
+                "model"]["writes"] for x in res
+                for i in range(len(WHL_CELLS[arch][2])))
+            _whl_checks(r, arch, rr[arch], pred[arch])
+            if writes != sum(x["writes"] for x in pred[arch]["runs"]):
+                raise AssertionError(f"phase 21: {arch}: {writes} rows "
+                                     f"written a decode step")
+    for r in range(1, WHL_RANKS):
+        for arch in WHL_CELLS:
+            ga, gb = got[r][arch], got[0][arch]
+            for a, b in zip(ga["runs"], gb["runs"]):
+                if a["tokens"] != b["tokens"] or \
+                        not torch.equal(a["logits"], b["logits"]):
+                    raise AssertionError(f"phase 21: {arch}: the ranks' "
+                                         f"served tokens or logits differ")
+            if "losses" in res[0][arch] and (
+                    res[r][arch]["losses"] != res[0][arch]["losses"]
+                    or res[r][arch]["grad_norms"]
+                    != res[0][arch]["grad_norms"]):
+                raise AssertionError(f"phase 21: {arch}: the ranks' losses "
+                                     f"or norms differ")
+    # the same weights, prompts and batches, whole, in this process
+    t1 = time.perf_counter()
+    out = {"card": card, "ranks_wall_s": ranks_s, "cells": {}}
+    median = lambda xs: sorted(xs)[len(xs) // 2]       # noqa: E731
+    for arch, (_, b, runs, trains) in WHL_CELLS.items():
+        cfg, ocfg = whl_cfg(arch), tpt_ocfg()
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(
+            WHL_SEED), dev)
+        dense_generate(cfg, params, whl_prompts(cfg, 6), 2)      # warm-up
+        cell = {"cell": f"{arch} full width, {cfg.n_layers} layers, (1, "
+                f"{WHL_SHAPE[1]}) over gloo on one card, serving {b} x "
+                + ", ".join(f"{s} + {g}" for s, g in runs),
+                "whole_leaves": pred[arch]["whole_leaves"], "runs": []}
+        for i, (s, gen) in enumerate(runs):
+            whole = dense_generate(cfg, params, whl_prompts(cfg, s), gen,
+                                   keep_logits=True)
+            mine = got[0][arch]["runs"][i]
+            par, worst = _served_parity(f"phase 21 {arch} run {i}",
+                                        mine["tokens"], mine["logits"],
+                                        whole, TP_ULPS, b)
+            rr = [x[arch]["runs"][i] for x in res]
+            cell["runs"].append({
+                "rows": s + gen, "cache_split": rr[0]["cache_split"],
+                "tokens_equal": par.compared,
+                "ties": [t.__dict__ for t in par.ties],
+                "worst_logit_gap_ulps": worst,
+                "cache_bytes_a_rank": rr[0]["cache_bytes"],
+                "collectives": {"prefill": rr[0]["collectives"]["prefill"],
+                                "decode": rr[0]["collectives"]["per_step"]},
+                "rank_ms": {"prefill": [x["prefill_ms"] for x in rr],
+                            "decode_median": [median(x["ms_a_step"])
+                                              for x in rr]},
+                "whole_ms": {"prefill": whole["prefill_s"] * 1e3,
+                             "decode_median": median(whole["decode_s"])
+                             * 1e3}})
+        cell["bytes_a_rank"] = {
+            "params": res[0][arch]["param_bytes"],
+            "serve_peak": [x[arch]["serve_peak_bytes"] for x in res]}
+        if trains:
+            batches = tpt_batches(cfg, dev, 1, *WHL_TRAIN)
+            wide = res[0][arch]["wide"]
+            start = [tpt_state(params, None, cfg.n_layers,
+                               {"data": 0, "model": r}, shape=WHL_SHAPE)
+                     for r in range(WHL_RANKS)]
+            for r in range(WHL_RANKS):
+                for k, t in start[r].items():
+                    if not torch.equal(t, got[r][arch]["start"][k]):
+                        raise AssertionError(f"phase 21: {arch}: rank {r}'s"
+                                             f" {k} is not its block of the "
+                                             f"whole model's")
+            with torch.no_grad():
+                params0 = _tree_clone(params)
+            state = adamw_init(params, ocfg)
+            step = make_train_step(model, ocfg)
+            params, state, met = step(params, state, batches[0])
+            cut = lambda p, st, r: tpt_state(                 # noqa: E731
+                p, st, cfg.n_layers, {"data": 0, "model": r},
+                shape=WHL_SHAPE, wide=wide)
+            want = [cut(params, state, r) for r in range(WHL_RANKS)]
+            del state
+            # Mamba's scan amplifies f32 reassociation (its dt through
+            # exp): what summing the whole model's
+            # products as the ranks sum them moves its step's state sets
+            # the bound, twice that, as phase 20 bounds its sp steps
+            with Reassociated(WHL_SHAPE[1]):
+                p1, st1, _ = step(params0, adamw_init(params0, ocfg),
+                                  batches[0])
+            moved = [_one_step_gap(cut(p1, st1, r), want[r], start[r])[
+                "worst"] for r in range(WHL_RANKS)]
+            del p1, st1, params0, step
+            w = {n: min(v[n][1] for v in moved) if n == "within_1_ulp"
+                 else max(v[n][1] for v in moved) for n in moved[0]}
+            bounds = {"within_1_ulp": min(TPT_ULP_SHARE,
+                                          1 - 2 * (1 - w["within_1_ulp"])),
+                      "max_gap_over_lr": SP_STATE_BOUNDS["max_gap_over_lr"],
+                      "moment_err": max(TPT_MOMENT_RTOL,
+                                        2 * max(w["m_err"], w["v_err"]))}
+            gaps = [_one_step_gap(got[r][arch]["sample"], want[r], start[r])
+                    for r in range(WHL_RANKS)]
+            ours = res[0][arch]["losses"][0]
+            if abs(ours - met["loss"]) > TPT_FIRST_RTOL * abs(met["loss"]):
+                raise AssertionError(f"phase 21: {arch}: loss {ours} against "
+                                     f"the whole model's {met['loss']}")
+            for r, g in enumerate(gaps):
+                w = {n: v for n, (_, v) in g["worst"].items()}
+                if (w["within_1_ulp"] < bounds["within_1_ulp"]
+                        or w["max_gap_over_lr"] > bounds["max_gap_over_lr"]
+                        or max(w["m_err"], w["v_err"])
+                        > bounds["moment_err"]):
+                    raise AssertionError(f"phase 21: {arch}: rank {r} after "
+                                         f"the step: {g['worst']}, bounds "
+                                         f"{bounds}")
+            for r, x in enumerate(res):
+                x = x[arch]
+                x["sp_checks"] = sp_checks(
+                    f"21 {arch}", r, x, x["sp"], sp_traces[arch][r],
+                    got[r][arch], {k: pred[arch]["tile_launches_a_step"] // 2
+                                   for k in ("bdi_compress",
+                                             "bdi_decompress")}, bounds)
+                log(f"phase 21 rank {r}: {arch}'s sequence-parallel step: "
+                    f"{json.dumps(x['sp_checks'])}")
+            rr = [x[arch] for x in res]
+            cell.update({
+                "train": f"1 step of {WHL_TRAIN[0]} x {WHL_TRAIN[1]} under "
+                         f"bdi8 without sequence parallelism, 1 with",
+                "loss": ours, "loss_whole": met["loss"],
+                "grad_norm": rr[0]["grad_norms"][0],
+                "grad_norm_whole": met["grad_norm"],
+                "after_step_worst_rank": min(
+                    (g["worst"] for g in gaps),
+                    key=lambda w: w["within_1_ulp"][1]),
+                "reassociated_state_gap": moved, "state_bounds": bounds,
+                "moment_bytes_a_rank": rr[0]["opt_state_bytes"],
+                "train_collectives": rr[0]["collectives"][0],
+                "fwd_bwd_ms": [x["fwd_bwd_ms"][0] for x in rr],
+                "whole_fwd_bwd_ms": met["fwd_bwd_s"] * 1e3,
+                "tiles_held_vs_plain": [x["tiles_held_vs_plain"]
+                                        for x in rr],
+                "sp_step": [x["sp_checks"] for x in rr]})
+        del params
+        release(dev)
+        out["cells"][arch] = cell
+    out["whole_wall_s"] = time.perf_counter() - t1
+    out["launches"] = {k: sum(x[arch].get("kernel_launches", {}).get(k, 0)
+                              + x[arch].get("sp", {}).get(
+                                  "kernel_launches", {}).get(k, 0)
+                              for x in res for arch in WHL_CELLS)
+                       for k in ("bdi_compress", "bdi_decompress")}
+    log(f"phase 21: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7351,11 +7923,15 @@ def main() -> int:
     phase_done("20 hymba-1.5b, xlstm-350m and seamless-m4t-large-v2 on a "
                "model axis of 4 (Mamba's channels, rings over the window, "
                "xLSTM's heads, whole vocabularies), four ranks on one card")
+    whl = phase_whole_leaves(dev, traces)
+    phase_done("21 hymba-1.5b and qwen2.5-14b on a model axis of 5 (whole "
+               "MLPs and vocabularies, a cache whole or over T), five ranks "
+               "on one card")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of
-    # phases 10, 13 (the compressed all-reduce), 16, 17, 18, 19 and 20
-    # (every rank), and
+    # phases 10, 13 (the compressed all-reduce), 16, 17, 18, 19, 20 and
+    # 21 (every rank), and
     # for the serving kernels phases 9 and 9b, each counted from 0 over
     # its own run
     path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
@@ -7372,7 +7948,8 @@ def main() -> int:
                               + dpt["launches"][name]
                               + rep["launches"][name]
                               + moe["launches"][name]
-                              + fam["launches"][name])
+                              + fam["launches"][name]
+                              + whl["launches"][name])
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

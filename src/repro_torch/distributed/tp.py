@@ -163,7 +163,7 @@ the embedding and the head whole (:class:`Whole`): the plain lookup,
 logits and cross-entropy on every rank.  A ring cache whose KV heads do
 not divide the axis is sharded over its window as over T.  Every
 family's entry points find the layout by shape (:func:`placed`) and make
-their caches as ``cache_specs`` cuts them (:func:`cache_blocks`).
+their caches as ``cache_specs`` cuts them (:func:`new_cache`).
 
 The pod axis of the multi-pod mesh (``(2, 16, 16)`` over ``("pod",
 "data", "model")``) is one more data axis, as JAX's ``DP = ("pod",
@@ -436,6 +436,32 @@ class _Gather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.rank * n, n), None, None
 
 
+class _Scatter(torch.autograd.Function):
+    """This rank's block along ``dim`` (a copy); backward: the gradient's
+    blocks gathered over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.group, ctx.dim = model_group(), dim
+        n = x.shape[dim] // model_size()
+        return x.narrow(dim, model_rank() * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, "model", ctx.group, backward=True), \
+            None
+
+
+def scatter_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x``, whole and the same on
+    every rank (a mixer every rank runs whole, read by a row-parallel
+    product): its gradient, a block on each rank, is gathered over
+    ``model``, so that the whole one is the same on every rank."""
+    if model_size() == 1:
+        return x
+    return _Scatter.apply(x, dim % x.dim())
+
+
 def gather_model(x: torch.Tensor, dim: int = -1,
                  summed: bool = True) -> torch.Tensor:
     """The whole over ``model`` of this rank's block ``x`` along ``dim``
@@ -535,30 +561,13 @@ def seq_whole(x: torch.Tensor) -> bool:
     return s is not None and x.dim() >= 2 and x.shape[1] == s
 
 
-class _SeqScatter(torch.autograd.Function):
-    """This rank's block along dim 1 (a copy); backward: the blocks of the
-    gradient gathered over ``model``."""
-
-    @staticmethod
-    def forward(ctx, x):
-        ctx.group, m = model_group(), model_size()
-        n = x.shape[1] // m
-        return x.narrow(1, model_rank() * n, n).clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        return all_gather(g, 1, "model", ctx.group, backward=True)
-
-
 def scatter_seq(x: torch.Tensor) -> torch.Tensor:
     """This rank's S block ``[B, S/m, ...]`` of ``x`` ``[B, S, ...]``,
     whole and the same on every rank (the embedding's output, a mixer
     whose output every rank computes whole: attention whose heads do not
     divide the axis, sLSTM): its gradient, a block on each rank, is
     gathered over ``model``."""
-    if model_size() == 1:
-        return x
-    return _SeqScatter.apply(x)
+    return scatter_model(x, 1)
 
 
 class _SeqGather(torch.autograd.Function):
@@ -690,12 +699,14 @@ class _HeadSum(torch.autograd.Function):
                            backward=True).to(g.dtype), None
 
 
-def heads_broadcast(x: torch.Tensor, h: int) -> torch.Tensor:
+def heads_broadcast(x: torch.Tensor, h: int, split: bool = True
+                    ) -> torch.Tensor:
     """x [..., d], shared by every head (MLA's rope key), broadcast over
-    this rank's ``h`` query heads -> [..., h, d].  Under a model axis the
-    gradient is summed over the rank's heads in f32, then over the axis,
-    and rounded once, as JAX's HLO sums it; with none, ``expand``."""
-    if model_size() == 1:
+    this rank's ``h`` query heads -> [..., h, d].  Under a model axis
+    that splits the heads (``split``) the gradient is summed over the
+    rank's heads in f32, then over the axis, and rounded once, as JAX's
+    HLO sums it; with none, or heads whole on every rank, ``expand``."""
+    if model_size() == 1 or not split:
         return x.unsqueeze(-2).expand(*x.shape[:-1], h, x.shape[-1])
     return _HeadSum.apply(x, h)
 
@@ -880,30 +891,55 @@ def model_axis() -> _Sizes:
     return _Sizes({"model": model_size()})
 
 
-def cache_blocks(name: str, whole, allowed: dict) -> list[tuple]:
-    """This rank's block shape of each leaf of a decode cache (a
-    NamedTuple) whose rows are this rank's already (``whole``: ``meta``
-    tensors of the whole cache over the model axis):
-    ``sharding.cache_specs`` on the model axis alone.  ``allowed``: by
-    field, the dims a leaf may be split at; a split anywhere else (a dim
-    that does not divide the axis pushes ``cache_specs`` on to the next)
-    raises, naming the ROADMAP item."""
+def cache_dims(whole) -> list:
+    """For each leaf of a decode cache (a NamedTuple of ``meta`` tensors
+    of the whole cache over the model axis, its rows this rank's already),
+    the dim ``sharding.cache_specs`` splits over the model axis alone, or
+    None where it keeps the leaf whole (every dim it tries does not divide
+    the axis)."""
     if model_size() == 1:
-        return [tuple(t.shape) for t in whole]
+        return [None] * len(whole)
+    out = []
+    for _, spec in SH.spec_leaves(SH.cache_specs(whole, model_axis())):
+        dims = [i for i, a in enumerate(spec) if a == "model"]
+        out.append(dims[0] if dims else None)
+    return out
+
+
+def new_cache(whole, device, fill: dict | None = None):
+    """This rank's blocks of a decode cache (a NamedTuple) whose rows are
+    this rank's already (``whole``: ``meta`` tensors of the whole cache
+    over the model axis), each leaf cut as ``sharding.cache_specs`` cuts
+    it on the model axis alone (:func:`cache_dims`), allocated on
+    ``device`` with its dtype and filled with ``fill[field]`` (0 by
+    default); each leaf remembers the dim it is split at
+    (:func:`split_dim`), which a decode step reads to pick its
+    attention."""
+    fill = fill or {}
     axis = model_axis()
     out = []
-    for field, t, (_, spec) in zip(whole._fields, whole, SH.spec_leaves(
-            SH.cache_specs(whole, axis))):
-        dims = [i for i, a in enumerate(spec) if a == "model"]
-        if t.numel() and dims and dims[0] not in allowed.get(field, ()):
-            raise NotImplementedError(
-                f"{name}: the cache's {field} {tuple(t.shape)} would be split "
-                f"at dim {dims[0]} over the model axis of {model_size()} "
-                f"(cache_specs gives {spec}), which is not laid out; its "
-                f"rows, heads or window must divide the axis "
-                f"({ROADMAP_ITEM})")
-        out.append(AX.local_shape(tuple(t.shape), spec, axis))
-    return out
+    for field, t, dim in zip(whole._fields, whole, cache_dims(whole)):
+        spec = [None] * t.dim()
+        if dim is not None:
+            spec[dim] = "model"
+        leaf = torch.full(AX.local_shape(tuple(t.shape), tuple(spec), axis),
+                          fill.get(field, 0), dtype=t.dtype, device=device)
+        leaf._model_dim = dim
+        out.append(leaf)
+    return type(whole)(*out)
+
+
+def split_dim(leaf: torch.Tensor) -> int | None:
+    """The dim a cache leaf made by :func:`new_cache` is split at over the
+    model axis (None: whole over it, or no model axis).  Under a model
+    axis a leaf made otherwise raises: its layout is not known."""
+    if model_size() == 1:
+        return None
+    if not hasattr(leaf, "_model_dim"):
+        raise ValueError(f"a decode cache leaf {tuple(leaf.shape)} not made "
+                         f"by tp.new_cache (the model's init_cache): its "
+                         f"split over the model axis is not known")
+    return leaf._model_dim
 
 
 def placement(whole: dict, params: dict) -> tuple:
@@ -1252,63 +1288,34 @@ def sharded_leaves(whole: dict, params: dict) -> list[bool]:
 
 
 def check_layout(cfg) -> None:
-    """Raise unless this slice lays ``cfg`` out over the active mesh, as
+    """Raise unless the port lays ``cfg`` out over the active mesh, as
     JAX's rule table does: every family (the dense GQA decoders, the MoE
     decoders with MLA, xLSTM's recurrent cells, hymba's attention beside
     Mamba, seamless's encoder-decoder) beside data axes of any size (a
-    pod axis is one more, :func:`data_size`).  Where a dim does not
-    divide the model axis the rule table keeps the leaf whole, and so
-    does the port: heads
-    or KV heads (K/V, and Q and wo where the heads do not divide,
-    replicated; the decode cache sharded over T, a ring over its window:
-    ``cache_specs``, a cache whose rows do not divide the axis either
-    refused where it is made), a vocab (the embedding and the head whole
-    on every rank), sLSTM's recurrent kernel, MoE shared experts.
-    Refused, each by name with the ROADMAP item: experts that
-    do not divide the model axis (JAX asserts); a dense d_ff (of a dense
-    MLP or arctic's residual FFN) that does not divide it; MLA heads,
-    latent or rope widths that do not divide it (``cache_specs`` would
-    split the latent cache over T); a Mamba width, an xLSTM width or head
-    width that does not divide it, or xLSTM heads that neither divide it
-    nor are divided by it (the recurrent states would be cut elsewhere
-    than the cells' channels or heads); an encoder-decoder whose KV heads
-    do not divide it (the cross-attention cache would be sharded over the
-    encoder's frames)."""
-    m, d = model_size(), data_size()
-    if m == 1 and d == 1:
-        return
+    pod axis is one more, :func:`data_size`).  The rule table decides
+    each leaf by its own dims: where a dim does not divide the model axis
+    it keeps the leaf whole, and so does the port (:class:`Whole`): heads
+    or KV heads (K/V, and Q and wo where the heads do not divide; MLA's
+    wq, wuk, wuv and wo), a dense d_ff (a dense MLP's gate, up and down,
+    hymba's and seamless's FFNs, arctic's residual FFN), Mamba's channel
+    leaves where d_inner does not divide (``in_proj`` split while 2
+    d_inner does), xLSTM's inner width, a vocab (the embedding and the
+    head), sLSTM's recurrent kernel, MoE shared experts; where a leaf's
+    split dim cuts through heads (xLSTM heads that neither divide the
+    axis nor are divided by it) every rank runs every head.  A decode
+    cache takes every split ``cache_specs`` gives (:func:`new_cache`):
+    its KV heads, else its rows of T, a ring's window or the encoder's
+    frames, else the head dim or a state's other dims, else whole on
+    every rank.  Refused by name with the ROADMAP item, as JAX refuses
+    them: experts that do not divide the model axis (JAX's ``moe_ffn``
+    asserts), and, in ``models/moe.py``, rows that do not divide the data
+    axes (JAX's stream constraint raises for them); not laid out yet:
+    FSDP over a stacked leaf's layer dim (:func:`placement`)."""
+    m = model_size()
     if cfg.is_moe and cfg.n_experts % m:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.n_experts} experts do not divide the model "
             f"axis of {m} (JAX's moe_ffn asserts it) ({ROADMAP_ITEM})")
-    if cfg.d_ff and cfg.d_ff % m and (not cfg.is_moe
-                                      or cfg.moe_dense_residual):
-        raise NotImplementedError(
-            f"{cfg.name}: a d_ff of {cfg.d_ff} does not divide the model "
-            f"axis of {m}; the rule table would replicate the dense MLP, "
-            f"which is not laid out ({ROADMAP_ITEM})")
-    odd = {}
-    if cfg.attn_kind == "mla":
-        odd = {k: v for k, v in (("heads", cfg.n_heads),
-                                 ("kv_lora_rank", cfg.kv_lora_rank),
-                                 ("qk_rope_dim", cfg.qk_rope_dim)) if v % m}
-    elif cfg.family == "hybrid":
-        odd = {k: v for k, v in (("d_inner", cfg.ssm_expand * cfg.d_model),)
-               if v % m}
-    elif cfg.family == "ssm":
-        h = cfg.n_heads
-        dh = cfg.ssm_expand * cfg.d_model // h
-        odd = {k: v for k, v in (("d_model", cfg.d_model),
-                                 ("mlstm_head_dim", dh)) if v % m}
-        if h % m and m % h:
-            odd["heads"] = h
-    elif cfg.is_encdec and cfg.n_kv_heads % m:
-        odd = {"kv_heads": cfg.n_kv_heads}
-    if odd:
-        raise NotImplementedError(
-            f"{cfg.name}: {odd} do not divide the model axis of {m} (or "
-            f"it them); its leaves or caches would be cut where the port "
-            f"does not lay them out ({ROADMAP_ITEM})")
 
 
 def check_moments(params, moment_dtype: str) -> list[bool]:

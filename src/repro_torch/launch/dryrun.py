@@ -33,7 +33,7 @@ rank's own tensors: its blocks of the params under the rule table
 (``sharding.local_params``, FSDP blocks unless ``--no-fsdp``, for train,
 prefill and decode alike, as JAX's ``lower_cell`` places them), its ZeRO-1
 optimizer state (``optim/adamw.plan``), its rows of the batch and its
-blocks of the caches (``tp.cache_blocks``).  Every collective of
+blocks of the caches (``tp.new_cache``).  Every collective of
 ``distributed/tp.py`` is counted there and sends nothing (a ``meta``
 tensor under an abstract mesh): ``collectives`` is the rank's, in JAX's
 ``collective_bytes`` schema, and ``traced_flops`` and

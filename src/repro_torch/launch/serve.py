@@ -110,23 +110,16 @@ def dense_generate(cfg, params: dict, prompts: torch.Tensor, gen: int, *,
     prefill and of one decode step, with the bytes of their inputs
     (zeros without a mesh), and ``writes``, the cache rows a step wrote
     into this rank's block of a cache sharded over T.  Where the KV heads
-    do not divide the model axis the cache is sharded over T (hymba's
-    full-attention layers too; its rings over their window), so its
-    ``s + gen`` rows must divide the axis too: else this raises, naming
-    the ROADMAP item, and picks no layout of its own."""
+    do not divide the model axis the cache of ``s + gen`` rows is laid
+    out as ``cache_specs`` lays it out: over T where the rows divide the
+    axis (hymba's full-attention layers too; its rings over their
+    window), else over the head dim where it divides, else whole on every
+    rank."""
     model = get_model(cfg)
     dev = params["embed"]["w"].device
     b, s = prompts.shape
-    d, m = tp.data_size(), tp.model_size()
+    d = tp.data_size()
     tp.check_layout(cfg)
-    if m > 1 and cfg.attn_kind == "gqa" and cfg.n_kv_heads % m and \
-            (s + gen) % m:
-        raise NotImplementedError(
-            f"{cfg.name}: a prompt of {s} plus {gen} new tokens make a cache "
-            f"of {s + gen} rows, which do not divide the model axis of {m}; "
-            f"its {cfg.n_kv_heads} KV heads do not either, so cache_specs "
-            f"would split the head dim, which is not laid out "
-            f"({tp.ROADMAP_ITEM})")
 
     def rows(t: torch.Tensor) -> torch.Tensor:
         if d == 1:

@@ -13,11 +13,11 @@ Every family exposes:
 Encoder-decoder configs go to ``encdec``, ssm to ``xlstm``, hybrid to
 ``hybrid`` and the rest to ``transformer``, which refuses an attention
 kind it does not take.  Under a mesh whose ``model`` or ``data`` axis
-is larger than one, every function refuses a config or mesh that tensor
-and data parallelism do not lay out (``distributed/tp.check_layout``:
-widths that the port would cut elsewhere than JAX's rule table does; a
-``pod`` axis is one more data axis); each family's ``init_cache`` gives this rank's blocks of
-the cache as ``sharding.cache_specs`` cuts it.
+is larger than one, every function refuses what JAX refuses
+(``distributed/tp.check_layout``: experts that do not divide the model
+axis; a ``pod`` axis is one more data axis); each family's
+``init_cache`` gives this rank's blocks of the cache as
+``sharding.cache_specs`` cuts it.
 """
 
 from __future__ import annotations

@@ -22,9 +22,13 @@ and wo, and of the caches): query head h reads KV head h // (H/K) within
 the rank's block, as in the whole model.  Where the KV heads do not
 divide m, wk and wv are whole (``tp.Whole``): the rank computes every KV
 head and its query heads read theirs (:func:`heads_kv`), and the decode
-cache holds the rank's rows of T, or of a ring's window, slot ``t % W``
-written on the rank that holds it (:func:`attend_rows`); where the heads
-do not divide m either, attention runs whole on every rank.  In the
+cache is laid out as ``cache_specs`` lays it out (:func:`cache_layout`):
+the rank's rows of T, or of a ring's window, slot ``t % W`` written on
+the rank that holds it (:func:`attend_rows`); else its block of the
+head dim, the rank writing its block of each new row (:func:`attend_dh`,
+the collectives of JAX's decode HLO); else whole on every rank
+(:func:`attend_whole`).  Where the heads do not divide m either,
+attention runs whole on every rank.  In the
 forward only the output projection communicates: :func:`_proj_out` is
 row-parallel (plain where wo is whole).  The
 full-sequence q/k/v projections are column-parallel
@@ -37,10 +41,13 @@ MLA under the model axis splits its heads: wq, wuk and wuv are
 column-parallel, wo row-parallel; wdkv, wkr and kv_norm are replicated
 (``tp.replicated``), so every rank computes the whole latent and rope
 key; the rope key's gradient, shared by every head, is summed over the
-rank's heads and then over the axis (``tp.heads_broadcast``).  The
-decode cache holds this rank's block of the latent's and the rope key's
-last dim (``sharding.cache_specs``), which the step writes at ``t`` and
-gathers over ``model`` in f32 at its use.
+rank's heads and then over the axis (``tp.heads_broadcast``); where the
+heads do not divide m, wq, wuk, wuv and wo are whole and MLA runs whole
+on every rank, no sum.  The decode cache holds, by leaf, this rank's
+block of the latent's or the rope key's last dim (written at ``t``,
+gathered over ``model`` in f32 at its use), else its rows of T (every
+head scores them, the ranks' softmax statistics combined), else all of
+it (``sharding.cache_specs``, :func:`latent_layout`).
 """
 
 from __future__ import annotations
@@ -195,16 +202,56 @@ def heads_kv(p: dict, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return k.index_select(-2, idx), v.index_select(-2, idx)
 
 
-def rows_split(p: dict) -> bool:
-    """Whether a GQA layer's decode cache holds this rank's rows of T (K/V
-    whole over the model axis: ``cache_specs`` shards the cache over T)."""
-    return isinstance(p["wk"]["w"], tp.Whole)
+def cache_layout(leaf: torch.Tensor) -> str | None:
+    """How a GQA decode cache leaf ``[L, B, T, K, Dh]`` (or a quantised
+    one's deltas) made by ``tp.new_cache`` is split over the model axis,
+    as ``sharding.cache_specs`` splits it: ``"rows"`` (its rows of T, or
+    of a ring's window), ``"dh"`` (the head dim), or None (its KV heads,
+    as the K/V shards are; or whole on every rank)."""
+    return {2: "rows", 4: "dh"}.get(tp.split_dim(leaf))
+
+
+def cache_block(x: torch.Tensor, split: str | None) -> torch.Tensor:
+    """This rank's block of K or V ``[B, T, K', Dh]`` computed whole
+    (every KV head, or this rank's where they are split) for a cache laid
+    out as ``split`` (:func:`cache_layout`): its rows of T, its block of
+    Dh, or all of it."""
+    if split is None:
+        return x
+    return tp.model_block(x, 1 if split == "rows" else -1)
 
 
 def rows_upto(tb: int, t: int) -> int:
     """How many of this rank's ``tb`` rows of a cache sharded over T lie
     at or before position ``t``."""
     return min(max(t + 1 - tp.model_rank() * tb, 0), tb)
+
+
+def _scores(q: torch.Tensor, kk: torch.Tensor,
+            valid: torch.Tensor | None) -> torch.Tensor:
+    """f32 scores [B, K, G, n] of q [B, 1, K G, Dh] (query head i reads KV
+    head i // G) against kk f32 [B, n, K, Dh], ``valid`` [n] masking."""
+    b, _, h, dh = q.shape
+    kh = kk.shape[2]
+    qg = q.reshape(b, kh, h // kh, dh)
+    scores = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32),
+                          kk) / math.sqrt(dh)
+    if valid is not None:
+        scores = torch.where(valid, scores, scores.new_tensor(NEG_INF))
+    return scores
+
+
+def attend_whole(p: dict, q: torch.Tensor, kk: torch.Tensor,
+                 vv: torch.Tensor, valid: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """Decode attention over whole cache rows: ``q`` [B, 1, h, Dh] this
+    rank's query heads, ``kk``/``vv`` f32 [B, n, K, Dh] every KV head
+    (their heads: :func:`heads_kv`) -> the context [B, 1, h, Dh] in q's
+    dtype, no collective."""
+    kk, vv = heads_kv(p, q, kk, vv)
+    w = torch.softmax(_scores(q, kk, valid), dim=-1)
+    ctx = torch.einsum("bkgt,btkd->bkgd", w, vv).to(q.dtype)
+    return ctx.reshape(q.shape)
 
 
 def attend_rows(p: dict, q: torch.Tensor, kk: torch.Tensor,
@@ -220,21 +267,46 @@ def attend_rows(p: dict, q: torch.Tensor, kk: torch.Tensor,
     split = p["wk"]["w"].partial
     qa = tp.all_gather(q, 2, "model") if split else q
     b, _, h, dh = qa.shape
-    kh = kk.shape[2]
-    qg = qa.reshape(b, kh, h // kh, dh)
-    scores = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32),
-                          kk) / math.sqrt(dh)
-    if valid is not None:
-        scores = torch.where(valid, scores, scores.new_tensor(NEG_INF))
-    ctx = tp.softmax_over_rows(scores, vv).to(q.dtype).reshape(b, 1, h, dh)
+    ctx = tp.softmax_over_rows(_scores(qa, kk, valid), vv).to(q.dtype)
+    ctx = ctx.reshape(b, 1, h, dh)
     if split:
         ctx = ctx.narrow(2, tp.model_rank() * q.shape[2], q.shape[2])
     return ctx
 
 
+def attend_dh(p: dict, q: torch.Tensor, kk: torch.Tensor, vv: torch.Tensor,
+              valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Decode attention over a cache sharded over the head dim (its rows
+    and KV heads do not divide the model axis, its Dh does): ``q`` [B, 1,
+    h, Dh] this rank's query heads (every head where Q is whole),
+    ``kk``/``vv`` f32 [B, n, K, Dh/m] this rank's block of every row ->
+    the context [B, 1, h, Dh] in q's dtype.  As JAX's decode HLO runs it:
+    the K blocks all-gathered (f32) for the whole ``q . k``; this rank's
+    heads' softmax weights all-gathered over ``model`` where Q is split;
+    every head's weighted values over this rank's Dh block; then an
+    all-to-all to this rank's heads over the whole Dh (an all-gather of
+    the Dh blocks where Q is whole)."""
+    kk = tp.all_gather(kk, -1, "model")
+    kq, _ = heads_kv(p, q, kk, kk)
+    b, _, h, dh = q.shape
+    w = torch.softmax(_scores(q, kq, valid), dim=-1).reshape(b, h, -1)
+    wk = p["wk"]["w"]
+    split = isinstance(wk, tp.Whole) and wk.partial
+    if split:
+        w = tp.all_gather(w, 1, "model")             # [B, H, n]
+    kh = vv.shape[2]
+    ctx = torch.einsum("bkgt,btkd->bkgd",
+                       w.reshape(b, kh, w.shape[1] // kh, -1), vv)
+    ctx = ctx.reshape(b, w.shape[1], -1)             # [B, H, Dh/m]
+    ctx = tp.all_to_all(ctx, 1, 2, "model") if split else \
+        tp.all_gather(ctx, -1, "model")
+    return ctx.to(q.dtype).reshape(b, 1, h, dh)
+
+
 def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
                v_cache: torch.Tensor, t: int, *, ring: bool,
-               theta: float = 1e4, window: int = 0
+               theta: float = 1e4, window: int = 0,
+               split: str | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step.  x [B, 1, D]; caches [B, Tc, K, Dh], written in
     place at the new token's slot; ``t`` its position.
@@ -243,18 +315,21 @@ def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     slot s holds the largest position p <= t with p % Tc == s, and
     positions below 0 (slots not yet written) are masked.  A full cache
     attends over its first t + 1 rows, within ``window`` if it is > 0.
-    Returns (y [B, 1, D], k_cache, v_cache).
+    ``split``: the cache's layout over the model axis
+    (:func:`cache_layout`): its KV heads or whole (None), this rank's
+    rows of T or of a ring's window of W = Tc m slots (``"rows"``), or
+    its block of Dh (``"dh"``, each rank writing its block of the new
+    row).  Returns (y [B, 1, D], k_cache, v_cache).
     """
-    b = x.shape[0]
     tc = k_cache.shape[1]
     q = L.column_linear(p["wq"], x)                  # [B, 1, H, Dh]
     k_new = L.column_linear(p["wk"], x)              # [B, 1, K, Dh]
     v_new = L.column_linear(p["wv"], x)
-    dh = q.shape[-1]
     if theta > 0:
         q = _rope_at(q, t, theta)
         k_new = _rope_at(k_new, t, theta)
-    if rows_split(p) and ring:
+    f32 = torch.float32
+    if split == "rows" and ring:
         # this rank's slots [r Tc, (r + 1) Tc) of a ring of W = Tc m slots
         # (cache_specs splits it over its window): the new row lands on
         # the rank that holds slot t % W; every slot is scored, masked by
@@ -265,11 +340,10 @@ def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
         sidx = tp.model_rank() * tc + torch.arange(tc, dtype=torch.int64,
                                                    device=x.device)
         slot_pos = t - torch.remainder(t - sidx, w)
-        ctx = attend_rows(p, q, k_cache.to(torch.float32),
-                          v_cache.to(torch.float32),
+        ctx = attend_rows(p, q, k_cache.to(f32), v_cache.to(f32),
                           (slot_pos >= 0) & (slot_pos <= t))
         return _proj_out(p, ctx), k_cache, v_cache
-    if rows_split(p):
+    if split == "rows":
         tp.write_row(k_cache, t, k_new[:, 0])
         tp.write_row(v_cache, t, v_new[:, 0])
         n = rows_upto(tc, t)
@@ -277,10 +351,12 @@ def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
         if window > 0:
             pos = tp.model_rank() * tc + torch.arange(n, device=x.device)
             valid = pos > t - window
-        ctx = attend_rows(p, q, k_cache[:, :n].to(torch.float32),
-                          v_cache[:, :n].to(torch.float32), valid)
+        ctx = attend_rows(p, q, k_cache[:, :n].to(f32),
+                          v_cache[:, :n].to(f32), valid)
         return _proj_out(p, ctx), k_cache, v_cache
     slot = _ring_slot(t, tc) if ring else t
+    if split == "dh":
+        k_new, v_new = tp.model_block(k_new), tp.model_block(v_new)
     k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
 
@@ -294,44 +370,41 @@ def gqa_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
         valid = None
         if window > 0:
             valid = torch.arange(t + 1, device=x.device) > t - window
-    h, kh = q.shape[2], k_cache.shape[2]
-    qg = q.reshape(b, kh, h // kh, dh)
-    scores = torch.einsum("bkgd,btkd->bkgt", qg.to(torch.float32),
-                          kk.to(torch.float32)) / math.sqrt(dh)
-    if valid is not None:
-        scores = torch.where(valid, scores, scores.new_tensor(NEG_INF))
-    wts = torch.softmax(scores, dim=-1)
-    ctx = torch.einsum("bkgt,btkd->bkgd", wts,
-                       vv.to(torch.float32)).to(x.dtype)
-    return _proj_out(p, ctx.reshape(b, 1, h, dh)), k_cache, v_cache
+    attend = attend_dh if split == "dh" else attend_whole
+    ctx = attend(p, q, kk.to(f32), vv.to(f32), valid)
+    return _proj_out(p, ctx), k_cache, v_cache
 
 
 def gqa_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
                       cache_len: int, *, ring: bool, theta: float = 1e4,
                       kv: tuple[torch.Tensor, torch.Tensor] | None = None,
-                      start: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+                      start: int = 0, split: str | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """A prompt's K/V laid out as a decode cache [B, cache_len, K, Dh].
 
     ``kv``: (k roped, v) from :func:`gqa_kv`, so that a caller that also
-    runs attention projects once.  A ring takes the last min(W, S)
+    runs attention projects once.  ``split``: the cache's layout over the
+    model axis (:func:`cache_layout`).  A ring takes the last min(W, S)
     positions at slot ``position % W``, W = cache_len, or cache_len m
-    where K/V are whole over the model axis (:func:`rows_split`: the ring
-    is sharded over its window, this rank's slots [r cache_len, (r + 1)
-    cache_len)); a full cache the cache_len rows from position ``start``
-    (a rank's block of a cache sharded over T), those past the prompt
-    zero.
+    where it is sharded over its window (``"rows"``: this rank's slots [r
+    cache_len, (r + 1) cache_len)); a full cache the cache_len rows from
+    position ``start`` (a rank's block of a cache sharded over T), those
+    past the prompt zero.  Under ``"dh"`` the rank keeps its block of the
+    head dim of the whole K/V it computed.
     """
     k, v = kv if kv is not None else gqa_kv(p, x, positions, theta=theta)
+    if split == "dh":
+        k, v = tp.model_block(k), tp.model_block(v)
     b, s, kh, dh = k.shape
     kc = k.new_zeros((b, cache_len, kh, dh))
     vc = torch.zeros_like(kc)
     if ring:
-        split = rows_split(p)
-        w = cache_len * (tp.model_size() if split else 1)
-        lo = tp.model_rank() * cache_len if split else 0
+        rows = split == "rows"
+        w = cache_len * (tp.model_size() if rows else 1)
+        lo = tp.model_rank() * cache_len if rows else 0
         take = min(w, s)
         idx = _ring_slot(positions[s - take:].long(), w) - lo
-        if split:
+        if rows:
             # other ranks' slots go to a spare row, dropped after: a
             # count that depends on no data (the dry run traces this on
             # meta, where a boolean index has no size)
@@ -341,7 +414,7 @@ def gqa_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
             vc = torch.zeros_like(kc)
         kc[:, idx] = k[:, s - take:]
         vc[:, idx] = v[:, s - take:]
-        if split:
+        if rows:
             kc = kc[:, :cache_len].contiguous()
             vc = vc[:, :cache_len].contiguous()
     else:
@@ -405,59 +478,124 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     v = L.column_linear(p["wuv"], c)                 # [B, S, H, dv]
     h = qn.shape[2]
     q = torch.cat([qn, qr], dim=-1)
-    k = torch.cat([kn, tp.heads_broadcast(kr, h)], dim=-1)
+    k = torch.cat([kn, tp.heads_broadcast(
+        kr, h, not isinstance(p["wq"]["w"], tp.Whole))], dim=-1)
     ctx = _chunked_attn(q.reshape(b, s, h, 1, dn + dr), k, v, positions,
                         positions, True, 0)
     return _proj_out(p, ctx.reshape(b, s, h, v.shape[-1]))
 
 
+def latent_layout(leaf: torch.Tensor) -> str | None:
+    """How an MLA cache leaf ``[L, B, T, w]`` (the latent, or the rope
+    key) made by ``tp.new_cache`` is split over the model axis, as
+    ``sharding.cache_specs`` splits it: ``"last"`` (its width), ``"rows"``
+    (its rows of T), or None (whole)."""
+    return {2: "rows", 3: "last"}.get(tp.split_dim(leaf))
+
+
+def _latent_write(cache: torch.Tensor, t: int, new: torch.Tensor,
+                  lay: str | None) -> None:
+    """Write the new token's row ``new`` [B, w] (whole on every rank) at
+    ``t`` into this rank's block of a latent cache [B, T', w']."""
+    if lay == "rows":
+        tp.write_row(cache, t, new)
+    else:
+        cache[:, t] = (tp.model_block(new) if lay == "last"
+                       else new).to(cache.dtype)
+
+
+def _latent_rows(cache: torch.Tensor, lay: str | None, t: int,
+                 lo: int = 0, n: int | None = None) -> torch.Tensor:
+    """A latent cache's rows up to position ``t`` over its whole width,
+    in f32 (this rank's block gathered over ``model`` where the width is
+    split; the same rows on every rank, so the same size), then rows [lo,
+    lo + n) of them where ``n`` is given (this rank's rows of T, ``lo``
+    0 for a leaf split over T)."""
+    if lay == "rows":
+        return cache[:, :n].to(torch.float32)
+    rows = cache[:, :t + 1].to(torch.float32)
+    if lay == "last":
+        rows = tp.all_gather(rows, -1, "model")
+    return rows if n is None else rows[:, lo:lo + n]
+
+
 def mla_decode(p: dict, x: torch.Tensor, c_cache: torch.Tensor,
                kr_cache: torch.Tensor, t: int, dn: int, dr: int,
-               theta: float = 1e4
+               theta: float = 1e4, lays: tuple = (None, None)
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Absorbed-matrix decode: attention runs in the r-wide latent space.
 
-    The cache is the latent itself (c [B, T, r], k_rope [B, T, dr]; this
-    rank's block of the last dim under a model axis), written in place at
-    ``t`` and read (gathered over the axis) in f32.  W_uk is absorbed
-    into q and W_uv applied to the latent context, both in f32 (bf16
-    operands are exact there; TF32 is off on the card, ``kernels/
-    _device.resolve_device``), for this rank's heads.
+    The cache is the latent itself (c [B, T, r], k_rope [B, T, dr]),
+    written in place at ``t`` and read in f32; under a model axis each
+    leaf is this rank's block as ``cache_specs`` cuts it (``lays``, by
+    leaf, :func:`latent_layout`): its width's block, gathered over the
+    axis at its use; its rows of T, which every head scores (the rank's
+    query heads gathered where they are split), the ranks' softmax
+    statistics then combined (``tp.softmax_over_rows``) as the GQA decode
+    over T blocks combines them; or whole.  W_uk is absorbed into q and
+    W_uv applied to the latent context, both in f32 (bf16 operands are
+    exact there; TF32 is off on the card, ``kernels/_device.
+    resolve_device``), for this rank's heads (every head where they do
+    not divide the axis).
     """
     pos = torch.tensor([t], dtype=torch.int32, device=x.device)
     qn, qr = _mla_qkr(p, x, pos, dn, dr, theta)
     c_new, kr_new = _mla_latent(p, x, pos, theta)
-    c_cache[:, t] = tp.model_block(c_new[:, 0]).to(c_cache.dtype)
-    kr_cache[:, t] = tp.model_block(kr_new[:, 0]).to(kr_cache.dtype)
+    _latent_write(c_cache, t, c_new[:, 0], lays[0])
+    _latent_write(kr_cache, t, kr_new[:, 0], lays[1])
 
     f32 = torch.float32
-    cc, krc = c_cache[:, :t + 1].to(f32), kr_cache[:, :t + 1].to(f32)
-    if tp.model_size() > 1:
-        cc = tp.all_gather(cc, -1, "model")           # [B, t+1, r]
-        krc = tp.all_gather(krc, -1, "model")
     q_eff = torch.einsum("bhd,rhd->bhr", qn[:, 0].to(f32),
                          tp.weight(p["wuk"]["w"]).to(f32))
-    scores = torch.einsum("bhr,btr->bht", q_eff, cc)
-    scores = scores + torch.einsum("bhd,btd->bht", qr[:, 0].to(f32), krc)
-    w = torch.softmax(scores / math.sqrt(dn + dr), dim=-1)
-    ctx_lat = torch.einsum("bht,btr->bhr", w, cc)
+    qr = qr[:, 0].to(f32)
+    scale = math.sqrt(dn + dr)
+    if "rows" in lays:
+        # this rank's rows of T: every head scores them
+        tb = (c_cache if lays[0] == "rows" else kr_cache).shape[1]
+        n = rows_upto(tb, t)
+        lo = tp.model_rank() * tb
+        cc, krc = (_latent_rows(c, lay, t, lo, n)
+                   for c, lay in ((c_cache, lays[0]), (kr_cache, lays[1])))
+        split = not isinstance(p["wq"]["w"], tp.Whole) \
+            and tp.model_size() > 1
+        qa, qra = (tp.all_gather(a, 1, "model") if split else a
+                   for a in (q_eff, qr))
+        scores = (torch.einsum("bhr,btr->bht", qa, cc)
+                  + torch.einsum("bhd,btd->bht", qra, krc)) / scale
+        b, hh = scores.shape[:2]
+        ctx_lat = tp.softmax_over_rows(scores[:, None], cc[:, :, None])[:, 0]
+        if split:
+            h = q_eff.shape[1]
+            ctx_lat = ctx_lat.narrow(1, tp.model_rank() * h, h)
+    else:
+        cc = _latent_rows(c_cache, lays[0], t)              # [B, t+1, r]
+        krc = _latent_rows(kr_cache, lays[1], t)
+        scores = torch.einsum("bhr,btr->bht", q_eff, cc)
+        scores = scores + torch.einsum("bhd,btd->bht", qr, krc)
+        w = torch.softmax(scores / scale, dim=-1)
+        ctx_lat = torch.einsum("bht,btr->bhr", w, cc)
     ctx = torch.einsum("bhr,rhd->bhd", ctx_lat,
                        tp.weight(p["wuv"]["w"]).to(f32)).to(x.dtype)
     return _proj_out(p, ctx[:, None]), c_cache, kr_cache
 
 
 def mla_prefill_cache(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                      cache_len: int, theta: float = 1e4
+                      cache_len: int, theta: float = 1e4,
+                      lays: tuple = (None, None)
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """A prompt's latent cache: c [B, cache_len, r] and k_rope [B,
-    cache_len, dr], the first cache_len positions (this rank's block of
-    the last dim under a model axis)."""
-    c, kr = _mla_latent(p, x, positions, theta)
-    c, kr = tp.model_block(c), tp.model_block(kr)
-    b, s, r = c.shape
-    cc = c.new_zeros((b, cache_len, r))
-    krc = kr.new_zeros((b, cache_len, kr.shape[-1]))
-    n = min(cache_len, s)
-    cc[:, :n] = c[:, :n]
-    krc[:, :n] = kr[:, :n]
-    return cc, krc
+    cache_len, dr], the first cache_len positions, each as its cache
+    leaf's block (``lays``, :func:`latent_layout`): its width's block,
+    or this rank's cache_len / m rows of T, or whole."""
+    out = []
+    for t, lay in zip(_mla_latent(p, x, positions, theta), lays):
+        if lay == "last":
+            t = tp.model_block(t)
+        rows = cache_len // tp.model_size() if lay == "rows" else cache_len
+        start = tp.model_rank() * rows if lay == "rows" else 0
+        b, s, w = t.shape
+        block = t.new_zeros((b, rows, w))
+        n = max(0, min(rows, s - start))
+        block[:, :n] = t[:, start:start + n]
+        out.append(block)
+    return out[0], out[1]

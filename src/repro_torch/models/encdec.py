@@ -14,15 +14,19 @@ under JAX's rule table (``distributed/sharding.local_params``) and its
 rows of the batch (the encoder's frames too): the encoder blocks and the
 decoder's self-attention run the GQA path on the rank's heads, and
 cross-attention follows the ``['cross']`` rules (wq, wk, wv split over
-the heads, wo row-parallel), its cache split over the KV heads as
-``cache_specs`` splits it; a vocab that does not divide m keeps the
-embedding and the head whole.
+the heads, wo row-parallel; wk and wv whole where the KV heads do not
+divide m, K and V then computed whole), its cache split as
+``cache_specs`` splits it: over the KV heads, else the encoder's frames
+(the softmax's blocks combined across the ranks, ``attention.
+attend_rows``), else the head dim (``attend_dh``), else whole; the self
+cache likewise over its KV heads, T, the head dim or whole.  A d_ff that
+does not divide m keeps the FFN whole, a vocab that does not the
+embedding and the head.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple
 
 import torch
@@ -186,11 +190,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                            device="meta")
     whole = EncDecCache(self_k=z(max_len), self_v=z(max_len),
                         cross_k=z(enc_len), cross_v=z(enc_len))
-    return EncDecCache(*(
-        torch.zeros(s, dtype=dtype, device=device)
-        for s in tp.cache_blocks(cfg.name, whole, {
-            "self_k": (3,), "self_v": (3,), "cross_k": (3,),
-            "cross_v": (3,)})))
+    return tp.new_cache(whole, device)
 
 
 @torch.no_grad()
@@ -206,24 +206,21 @@ def decode_step(cfg: ArchConfig, params: dict, cache: EncDecCache,
     f32 = torch.float32
     params, layers = placed(cfg, params)
     x = L.embed(params["embed"], token[:, None])
+    # the cross cache over the encoder's frames, its head dim, or whole
+    attend = {"rows": A.attend_rows, "dh": A.attend_dh}.get(
+        A.cache_layout(cache.cross_k), A.attend_whole)
     for i, bp in enumerate(layers["dec_blocks"]):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         y, _, _ = A.gqa_decode(bp["attn"], h, cache.self_k[i],
                                cache.self_v[i], t, ring=False,
-                               theta=cfg.rope_theta)
+                               theta=cfg.rope_theta,
+                               split=A.cache_layout(cache.self_k))
         x = x + y
         h = L.rmsnorm(bp["lnx"], x, cfg.norm_eps)
         q = L.column_linear(bp["cross"]["wq"], h)        # [B, 1, H, Dh]
-        b, _, hh, dh = q.shape
-        ck, cv = cache.cross_k[i], cache.cross_v[i]
-        kh = ck.shape[2]
-        qg = q.reshape(b, kh, hh // kh, dh)
-        scores = torch.einsum("bkgd,btkd->bkgt", qg.to(f32),
-                              ck.to(f32)) / math.sqrt(dh)
-        w = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bkgt,btkd->bkgd", w, cv.to(f32))
-        x = x + A._proj_out(bp["cross"],
-                            ctx.reshape(b, 1, hh, dh).to(x.dtype))
+        ctx = attend(bp["cross"], q, cache.cross_k[i].to(f32),
+                     cache.cross_v[i].to(f32))
+        x = x + A._proj_out(bp["cross"], ctx)
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + L.mlp(bp["ffn"], h)
     return L.last_logits(params, x, cfg.norm_eps), cache
@@ -249,16 +246,21 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     mem_pos = torch.arange(s_enc, dtype=torch.int32, device=x.device)
     cache = init_cache(cfg, b, max_len, enc_len=s_enc, device=x.device)
+    split, tb = A.cache_layout(cache.self_k), cache.self_k.shape[2]
+    start = tp.model_rank() * tb if split == "rows" else 0
+    cross = A.cache_layout(cache.cross_k)
     for i, bp in enumerate(layers["dec_blocks"]):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         kv = A.gqa_kv(bp["attn"], h, positions, theta=cfg.rope_theta)
         cache.self_k[i], cache.self_v[i] = A.gqa_prefill_cache(
-            bp["attn"], h, positions, max_len, ring=False, kv=kv)
+            bp["attn"], h, positions, tb, ring=False, kv=kv, start=start,
+            split=split)
         x = x + A.gqa_forward(bp["attn"], h, positions, theta=cfg.rope_theta,
                               kv=kv)
         h = L.rmsnorm(bp["lnx"], x, cfg.norm_eps)
         ck, cv = A.gqa_kv(bp["cross"], memory, mem_pos, theta=0.0)
-        cache.cross_k[i], cache.cross_v[i] = ck, cv
+        cache.cross_k[i], cache.cross_v[i] = (A.cache_block(c, cross)
+                                              for c in (ck, cv))
         x = x + A.gqa_forward(bp["cross"], h, positions, causal=False,
                               theta=0.0, kv=(ck, cv), kv_positions=mem_pos)
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)

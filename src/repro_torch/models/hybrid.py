@@ -24,7 +24,12 @@ rank's d_inner channels (``models/ssm.py``), its decode state kept as
 channels and back at each step (two all-gathers a layer); both branches
 are whole before the fusion's norms; the FFN is column- and
 row-parallel; a vocab that does not divide m keeps the embedding and the
-head whole.
+head whole.  Where the axis splits them otherwise (hymba at 5 ranks: its
+heads, KV heads and channels split, d_ff 5504 not) each leaf follows its
+own dims: the FFN whole on every rank where d_ff does not divide m;
+Mamba whole where d_inner does not (``ssm.channels_whole``, its state
+gathered from ``cache_specs``' blocks a step, :func:`_state_in`); the
+attention caches over T, the head dim or whole.
 """
 
 from __future__ import annotations
@@ -113,7 +118,9 @@ def _block_forward(cfg: ArchConfig, bp: dict, x: torch.Tensor,
                                             theta=cfg.rope_theta))
         ssm_y = tp.seq_block(S.mamba_forward(bp["mamba"], h, cfg.ssm_state))
         x = x + _fuse(bp, attn_y, ssm_y, cfg.norm_eps)
-        h = tp.gather_seq(L.rmsnorm(bp["ln2"], x, cfg.norm_eps))
+        h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+        if not L.whole_mlp(bp["ffn"]):
+            h = tp.gather_seq(h)           # a whole MLP runs on the block
         return x + tp.seq_block(L.mlp(bp["ffn"], h))
 
 
@@ -170,20 +177,15 @@ class HybridCache(NamedTuple):
     conv: torch.Tensor     # [L, B, cw-1, di]
 
 
-# the dims cache_specs may split over the model axis, by leaf: the KV
-# heads, else T or the window; the state dim n, else the channels
-_SPLITS = {"full_k": (3, 2), "full_v": (3, 2), "ring_k": (3, 2),
-           "ring_v": (3, 2), "ssm_h": (3, 2), "conv": (3,)}
-
-
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16,
                device: torch.device | str | None = None) -> HybridCache:
     """The decode cache of ``batch`` rows (this rank's under a data axis);
     under a model axis this rank's block of each leaf as ``cache_specs``
-    cuts it: a leaf that it would cut elsewhere than ``_SPLITS`` says (the
-    rows or the window not dividing the axis either) raises, naming the
-    ROADMAP item."""
+    cuts it (``tp.new_cache``: the attention caches over their KV heads,
+    T or the window, the head dim, or whole; the Mamba state over n, its
+    channels, or whole; the conv tail over its channels, its rows, or
+    whole)."""
     device = resolve_device(device)
     tp.check_layout(cfg)
     _, _, (n_g, n_l) = cache_slots(cfg)
@@ -199,28 +201,40 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         ring_k=z(n_l, batch, w, k, dh), ring_v=z(n_l, batch, w, k, dh),
         ssm_h=z(cfg.n_layers, batch, di, cfg.ssm_state, dt=torch.float32),
         conv=z(cfg.n_layers, batch, cfg.ssm_conv - 1, di))
-    return HybridCache(*(
-        torch.zeros(s, dtype=t.dtype, device=device)
-        for s, t in zip(tp.cache_blocks(cfg.name, whole, _SPLITS), whole)))
+    return tp.new_cache(whole, device)
 
 
-def _state_to_channels(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
-    """A layer's Mamba state as the cache keeps it (this rank's block of
-    the state dim n, ``[B, di, n/m]``) -> the rank's channels ``[B, di/m,
-    n]``: gathered over ``model``, then cut.  As it is where the cache
-    holds the channels already (m = 1, or n not dividing m)."""
-    if h.shape[-1] == cfg.ssm_state:
-        return h
-    return tp.model_block(tp.all_gather(h, -1, "model"), 1)
+def _state_in(cache: HybridCache, i: int, whole: bool
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``i``'s Mamba state and conv tail as the cache keeps them
+    (``cache_specs``' blocks: the state over n, else over the channels,
+    else whole; the tail over the channels, else its cw - 1 rows, else
+    whole) -> as the mixer reads them: this rank's channels, or every
+    channel where they are whole over the axis (``whole``,
+    ``ssm.channels_whole``).  A block of n is gathered over ``model`` (and
+    cut to the rank's channels unless ``whole``), a block of the tail's
+    rows gathered."""
+    h, conv = cache.ssm_h[i], cache.conv[i]
+    if tp.split_dim(cache.ssm_h) == 3:
+        h = tp.all_gather(h, -1, "model")
+        if not whole:
+            h = tp.model_block(h, 1)
+    if tp.split_dim(cache.conv) == 2:
+        conv = tp.all_gather(conv, 1, "model")
+    return h, conv
 
 
-def _state_to_cache(cfg: ArchConfig, h: torch.Tensor,
-                    like: torch.Tensor) -> torch.Tensor:
-    """The inverse of :func:`_state_to_channels` for the cache's block
-    ``like``."""
-    if like.shape[-1] == cfg.ssm_state:
-        return h
-    return tp.model_block(tp.all_gather(h, 1, "model"), -1)
+def _state_out(cache: HybridCache, i: int, h: torch.Tensor,
+               conv: torch.Tensor, whole: bool) -> None:
+    """The inverse of :func:`_state_in`: layer ``i``'s new state and tail
+    written into the cache's blocks."""
+    if tp.split_dim(cache.ssm_h) == 3:
+        if not whole:
+            h = tp.all_gather(h, 1, "model")
+        h = tp.model_block(h, -1)
+    if tp.split_dim(cache.conv) == 2:
+        conv = tp.model_block(conv, 1)
+    cache.ssm_h[i], cache.conv[i] = h, conv
 
 
 @torch.no_grad()
@@ -240,15 +254,18 @@ def decode_step(cfg: ArchConfig, params: dict, cache: HybridCache,
         if is_g[i]:
             attn_y, _, _ = A.gqa_decode(bp["attn"], h, cache.full_k[s],
                                         cache.full_v[s], t, ring=False,
-                                        theta=cfg.rope_theta)
+                                        theta=cfg.rope_theta,
+                                        split=A.cache_layout(cache.full_k))
         else:
             attn_y, _, _ = A.gqa_decode(bp["attn"], h, cache.ring_k[s],
                                         cache.ring_v[s], t, ring=True,
-                                        theta=cfg.rope_theta)
-        ssm_y, hs, cache.conv[i] = S.mamba_decode(
-            bp["mamba"], h, _state_to_channels(cfg, cache.ssm_h[i]),
-            cache.conv[i], cfg.ssm_state)
-        cache.ssm_h[i] = _state_to_cache(cfg, hs, cache.ssm_h[i])
+                                        theta=cfg.rope_theta,
+                                        split=A.cache_layout(cache.ring_k))
+        whole = S.channels_whole(bp["mamba"])
+        ssm_y, hs, conv = S.mamba_decode(bp["mamba"], h,
+                                         *_state_in(cache, i, whole),
+                                         cfg.ssm_state)
+        _state_out(cache, i, hs, conv, whole)
         x = x + _fuse(bp, attn_y, ssm_y, cfg.norm_eps)
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + L.mlp(bp["ffn"], h)
@@ -278,16 +295,17 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
         kv = A.gqa_kv(bp["attn"], h, positions, theta=cfg.rope_theta)
         k_pool, v_pool = ((cache.full_k, cache.full_v) if is_g[i]
                           else (cache.ring_k, cache.ring_v))
-        sl, tb = int(slots[i]), k_pool.shape[2]
-        start = tp.model_rank() * tb if A.rows_split(bp["attn"]) else 0
+        sl, tb, split = int(slots[i]), k_pool.shape[2], \
+            A.cache_layout(k_pool)
+        start = tp.model_rank() * tb if split == "rows" else 0
         k_pool[sl], v_pool[sl] = A.gqa_prefill_cache(
             bp["attn"], h, positions, tb, ring=not is_g[i], kv=kv,
-            start=start)
+            start=start, split=split)
         attn_y = A.gqa_forward(bp["attn"], h, positions, window=int(w),
                                theta=cfg.rope_theta, kv=kv)
-        ssm_y, hs, cache.conv[i] = S.mamba_forward(
-            bp["mamba"], h, cfg.ssm_state, return_state=True)
-        cache.ssm_h[i] = _state_to_cache(cfg, hs, cache.ssm_h[i])
+        ssm_y, hs, conv = S.mamba_forward(bp["mamba"], h, cfg.ssm_state,
+                                          return_state=True)
+        _state_out(cache, i, hs, conv, S.channels_whole(bp["mamba"]))
         x = x + _fuse(bp, attn_y, ssm_y, cfg.norm_eps)
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + L.mlp(bp["ffn"], h)

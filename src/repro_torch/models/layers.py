@@ -23,7 +23,8 @@ shards under the rule table and the layers issue GSPMD's collectives:
 ``mlp``'s gate and up are column-parallel (:func:`column_linear`: no
 collective forward, the input gradient's partial summed backward) and
 its down projection row-parallel (its f32 partial summed over the
-ranks, then rounded), ``embed`` looks up this rank's rows of the vocab
+ranks, then rounded), or all three whole where d_ff does not divide the
+axis (:func:`whole_mlp`: the plain MLP on every rank), ``embed`` looks up this rank's rows of the vocab
 and sums, ``lm_logits``/``last_logits`` gather the vocab columns, so
 every rank returns the whole ``[..., V]``, and ``chunked_cross_entropy``
 never gathers them: each chunk's loss is the vocab-parallel
@@ -149,13 +150,34 @@ def init_mlp(gen: torch.Generator, d: int, f: int, *, dtype=torch.bfloat16,
             "down": init_linear(gen, f, d, dtype=dtype, device=device)}
 
 
+def whole_mlp(p: dict) -> bool:
+    """Whether an MLP's leaves are whole over the model axis (a d_ff that
+    does not divide it: the rule table keeps gate, up and down whole)."""
+    return isinstance(p["down"]["w"], tp.Whole)
+
+
 def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    g = column_linear(p["gate"], x).to(torch.float32)
+    """SwiGLU.  Gate and up column-parallel, down row-parallel; where
+    d_ff does not divide the model axis (:func:`whole_mlp`) the plain MLP
+    on every rank, no sum forward or backward.  On this rank's S block of
+    the stream (sequence parallelism: the caller hands the block of a
+    whole MLP over ungathered) each weight's gradient, a partial of the
+    rank's positions, is summed over ``model`` in f32 and rounded once,
+    and the input's gradient is the block's own."""
+    if whole_mlp(p) and tp.on_block(x):
+        def lin(k: str, v: torch.Tensor) -> torch.Tensor:
+            return tp.replicated(v, tp.Whole(p[k]["w"].w, True))
+    else:
+        def lin(k: str, v: torch.Tensor) -> torch.Tensor:
+            if k == "down":
+                return tp.row_parallel(v, p[k]["w"])
+            return column_linear(p[k], v)
+    g = lin("gate", x).to(torch.float32)
     # x * sigmoid(x), the form jax.nn.silu computes: F.silu's
     # x / (1 + exp(-x)) differs from it in the last f32 bit far more often
     h = (g * torch.sigmoid(g)).to(x.dtype)
-    h = h * column_linear(p["up"], x)
-    return tp.row_parallel(h, p["down"]["w"])
+    h = h * lin("up", x)
+    return lin("down", h)
 
 
 def init_embed(gen: torch.Generator, vocab: int, d: int, *,

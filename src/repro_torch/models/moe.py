@@ -196,9 +196,12 @@ def _moe_sharded(p: dict, x2d: torch.Tensor, top_k: int, n_experts: int,
                          f"axis of {m}")
     if tp.data_size() > 1 and not tp.rows_split():
         raise NotImplementedError(
-            f"a batch whose rows do not divide the data axis of "
-            f"{tp.data_size()} stays whole on every rank, which JAX's "
-            f"shard_map cannot route ({tp.ROADMAP_ITEM})")
+            f"a batch whose rows do not divide the data axes of "
+            f"{tp.data_size()}: JAX refuses it in every family, at the "
+            f"residual stream's batch constraint (axes.shard_seq: the "
+            f"global size of its dimension 0 should be divisible), and "
+            f"the experts' routing is not laid out over whole rows "
+            f"({tp.ROADMAP_ITEM})")
     e_local = n_experts // m
     router = p["router"]["w"]
     if m > 1:                       # each rank's gates: a partial gradient

@@ -38,7 +38,11 @@ takes this rank's shards and every weight is read through ``tp.weight``
   over ``model``, ``tp.copy_to_model``); ``dt_proj``, the conv, ``a_log``
   and ``d_skip`` are the rank's channels; the time scan runs on them with
   no collective; ``out_proj`` is row-parallel.  The state ``h`` [B, di/m,
-  n] is the rank's channels.
+  n] is the rank's channels.  Where d_inner does not divide the axis
+  (:func:`channels_whole`) every leaf but ``in_proj`` is whole, and so is
+  the mixer on every rank: ``in_proj``'s block (split at 2 d_inner where
+  that divides the axis, straddling u and z) is gathered, and nothing
+  else is summed.
 * mLSTM: ``up`` and ``gate_z`` are column-parallel, u is gathered over
   ``model`` for ``wq``/``wk``/``wv`` (the rank's columns) and the f32
   ``w_if`` (whole, its gradient a partial summed over ``model``,
@@ -48,7 +52,11 @@ takes this rank's shards and every weight is read through ``tp.weight``
   rank computes its head's scores for its block of the value dims.  The
   decode step gathers q, k and v (every head) and updates its block of
   the key dim of C and n (``cache_specs`` splits them there), the
-  numerator and the normaliser summed over ``model``.
+  numerator and the normaliser summed over ``model``.  Where the heads
+  do not lie along the axis's blocks (di or the head width not dividing
+  it, or heads that neither divide it nor are divided by it) every rank
+  runs every head from q, k and v gathered whole (:func:`_mlstm_whole`),
+  its decode state whole, and keeps its columns of h for ``down``.
 * sLSTM: ``wx``'s gate-major columns are gathered over ``model`` and every
   rank runs the whole recurrence (``r`` whole, or gathered where it is
   split over heads), its gradient the same on every rank.
@@ -128,21 +136,36 @@ def _local_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def channels_whole(p: dict) -> bool:
+    """Whether Mamba's channel leaves are whole over the model axis (a
+    d_inner that does not divide it: the rule table keeps the conv,
+    x_proj, dt_proj, a_log, d_skip and out_proj whole), so that every
+    rank runs the whole mixer."""
+    return isinstance(p["conv_w"], tp.Whole)
+
+
 def _mamba_in(p: dict, x: torch.Tensor):
     """(u, z) [B, S, di] of ``in_proj``: this rank's channels of each
-    under a model axis."""
+    under a model axis, or every channel where they are whole
+    (:func:`channels_whole`: ``in_proj``'s block, split over its 2 d_inner
+    columns where they divide the axis, gathered whole; its gradient, the
+    same on every rank, cut back unsummed)."""
     ux = L.column_linear(p["in_proj"], x)
-    if tp.model_size() == 1:
+    if tp.model_size() == 1 or isinstance(p["in_proj"]["w"], tp.Whole):
         return ux.chunk(2, dim=-1)
-    u, z = tp.gather_model(ux).chunk(2, dim=-1)
+    whole = channels_whole(p)
+    u, z = tp.gather_model(ux, summed=not whole).chunk(2, dim=-1)
+    if whole:
+        return u, z
     return tp.model_block(u), tp.model_block(z)
 
 
 def _mamba_ssm_inputs(p: dict, u: torch.Tensor, state: int):
     """u [B, S, di] (post-conv, post-silu) -> (dA, dBu [B, S, di, n] f32,
     c [B, S, n] f32), discretised."""
-    xp = tp.copy_to_model(tp.row_parallel(u, p["x_proj"]["w"],
-                                          seq=False).to(f32))
+    xp = tp.row_parallel(u, p["x_proj"]["w"], seq=False).to(f32)
+    if not channels_whole(p):       # every rank's channels read it
+        xp = tp.copy_to_model(xp)
     dt_rank = xp.shape[-1] - 2 * state
     dt, bmat, cmat = torch.split(xp, [dt_rank, state, state], dim=-1)
     delta = softplus(_local_linear(p["dt_proj"], dt.to(u.dtype)).to(f32))
@@ -273,21 +296,24 @@ def init_mlstm(gen: torch.Generator, d: int, n_heads: int,
             "down": lin(di, d)}
 
 
+def _key_scale(u: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """sqrt(dh) of the whole inner width ``u`` [..., di] rounded to u's
+    dtype, as JAX's ``jnp.sqrt(f32(dh)).astype(u.dtype)`` (22.625, not
+    22.627, at 512); a tensor on u's device, so that the card divides (a
+    CPU scalar divisor becomes a product with its reciprocal there)."""
+    dh = u.shape[-1] // n_heads
+    return torch.full((), float(torch.tensor(math.sqrt(dh), dtype=f32)),
+                      dtype=u.dtype, device=u.device)
+
+
 def _mlstm_in(p: dict, x: torch.Tensor, n_heads: int):
     """(u whole [B, S, di], z, q, k, v [B, S, di/m]: this rank's columns,
     i_pre, f_pre [B, S, H] f32, every head)."""
     u = L.column_linear(p["up"], x)
     z = L.column_linear(p["gate_z"], x)
     uw = tp.gather_model(u)
-    dh = uw.shape[-1] // n_heads
-    # the key scale rounded to u's dtype, as JAX's
-    # ``jnp.sqrt(f32(dh)).astype(u.dtype)`` (22.625, not 22.627, at 512);
-    # a tensor on u's device, so that the card divides (a CPU scalar
-    # divisor becomes a product with its reciprocal there)
-    scale = torch.full((), float(torch.tensor(math.sqrt(dh), dtype=f32)),
-                       dtype=u.dtype, device=u.device)
     q = tp.replicated(uw, p["wq"]["w"])
-    k = tp.replicated(uw, p["wk"]["w"]) / scale
+    k = tp.replicated(uw, p["wk"]["w"]) / _key_scale(uw, n_heads)
     v = tp.replicated(uw, p["wv"]["w"])
     wif = p["w_if"]
     gif = torch.matmul(uw.to(f32), tp.summed_weight(wif["w"])) \
@@ -296,11 +322,66 @@ def _mlstm_in(p: dict, x: torch.Tensor, n_heads: int):
     return uw, z, q, k, v, i_pre, f_pre
 
 
+def mlstm_aligned(p: dict, n_heads: int) -> bool:
+    """Whether the mLSTM's heads lie along the model axis's blocks: its
+    inner width di and head width di/H divide the axis, and the heads
+    divide it or it them.  Then a rank runs its heads (or its share of
+    one); else every rank runs every head (:func:`_mlstm_whole`)."""
+    m = tp.model_size()
+    if m == 1:
+        return True
+    w = p["up"]["w"]
+    if isinstance(w, tp.Whole):
+        return False
+    di = (w.block if isinstance(w, tp.Fsdp) else w).shape[-1] * m
+    return (di // n_heads) % m == 0 and (n_heads % m == 0
+                                         or m % n_heads == 0)
+
+
+def _mlstm_whole(p: dict, x: torch.Tensor, n_heads: int):
+    """(q, k, v [B, S, H, dh], i_pre, f_pre [B, S, H], z) of every head on
+    every rank, where they do not lie along the axis's blocks
+    (:func:`mlstm_aligned`): u, and q, k and v from the rank's columns of
+    wq, wk and wv, gathered over ``model`` where those leaves are split
+    (di divides the axis; else they are whole), each gathered gradient the
+    same on every rank and cut back unsummed; the products' input
+    gradients summed over ``model`` (``tp.column_parallel``); the gates
+    from the whole ``w_if``.  z is the rank's columns (or whole)."""
+    b, s, _ = x.shape
+    split = not isinstance(p["up"]["w"], tp.Whole)
+    u = L.column_linear(p["up"], x)
+    z = L.column_linear(p["gate_z"], x)
+    uw = tp.gather_model(u, summed=False) if split else u
+    q, k, v = (tp.column_parallel(uw, p[n]["w"]) for n in ("wq", "wk", "wv"))
+    k = k / _key_scale(uw, n_heads)
+    if split:
+        q, k, v = (tp.gather_model(t, summed=False) for t in (q, k, v))
+    wif = p["w_if"]
+    gif = torch.matmul(uw.to(f32), tp.weight(wif["w"])) + tp.weight(wif["b"])
+    i_pre, f_pre = gif.chunk(2, dim=-1)
+    q, k, v = (t.reshape(b, s, n_heads, -1) for t in (q, k, v))
+    return q, k, v, i_pre, f_pre, z
+
+
+def _mlstm_out(p: dict, h: torch.Tensor, z: torch.Tensor,
+               dtype) -> torch.Tensor:
+    """The gated output through ``down`` (row-parallel): h [B, S, w] of
+    every head where every rank ran them all (wider than the rank's z) cut
+    to the rank's columns, its gradient gathered back whole
+    (``tp.scatter_model``)."""
+    if h.shape[-1] != z.shape[-1]:
+        h = tp.scatter_model(h)
+    return tp.row_parallel(_gate(h, z, dtype), p["down"]["w"])
+
+
 def _mlstm_qkvif(p: dict, x: torch.Tensor, n_heads: int):
     """(q, k, v [B, S, h, d], i_pre, f_pre [B, S, h], z): the rank's h
     heads and the value dims it computes (every head with no model axis;
     under one its H/m heads, or, where a head spans g = m/H ranks, its
-    head's whole q and k and its 1/g of the value dims)."""
+    head's whole q and k and its 1/g of the value dims; every head where
+    they do not lie along the axis's blocks, :func:`_mlstm_whole`)."""
+    if not mlstm_aligned(p, n_heads):
+        return _mlstm_whole(p, x, n_heads)
     b, s, _ = x.shape
     _, z, q, k, v, i_pre, f_pre = _mlstm_in(p, x, n_heads)
     m = tp.model_size()
@@ -342,7 +423,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, n_heads: int,
         outs.append(torch.einsum("bcth,bthd->bchd", sc, vf)
                     / norm[..., None])
     h = torch.cat(outs, dim=1).reshape(b, s, -1)
-    return tp.row_parallel(_gate(h, z, x.dtype), p["down"]["w"])
+    return _mlstm_out(p, h, z, x.dtype)
 
 
 def mlstm_init_state(b: int, n_heads: int, dh: int,
@@ -361,8 +442,10 @@ def mlstm_decode(p: dict, x: torch.Tensor, st: dict, n_heads: int
     so no -inf - -inf reaches the exponent's result).  Under a model axis
     ``st`` is this rank's blocks as ``cache_specs`` cuts them (C and n
     over their key dim; m over the heads where they divide the axis, else
-    whole): see :func:`_mlstm_decode_tp`."""
-    if tp.model_size() > 1:
+    whole): see :func:`_mlstm_decode_tp`; where the heads do not lie along
+    the axis's blocks (:func:`mlstm_aligned`) ``st`` is whole and every
+    rank updates all of it."""
+    if tp.model_size() > 1 and mlstm_aligned(p, n_heads):
         return _mlstm_decode_tp(p, x, st, n_heads)
     q, k, v, i_pre, f_pre, z = _mlstm_qkvif(p, x, n_heads)
     q, k, v = (a[:, 0].to(f32) for a in (q, k, v))
@@ -381,7 +464,7 @@ def mlstm_decode(p: dict, x: torch.Tensor, st: dict, n_heads: int
     den = torch.maximum(torch.einsum("bhk,bhk->bh", q, n_new).abs(),
                         torch.exp(-m_new))
     h = (num / den[..., None]).reshape(x.shape[0], 1, -1)
-    return (tp.row_parallel(_gate(h, z, x.dtype), p["down"]["w"]),
+    return (_mlstm_out(p, h, z, x.dtype),
             {"C": c_new, "n": n_new, "m": m_new})
 
 

@@ -30,7 +30,10 @@ of the params (``distributed/sharding.local_params``) and of the caches
 (``cache_specs``: the K/m KV heads, or, where the KV heads do not divide
 m and the rule table keeps K/V whole, its T/m rows of every KV head,
 which ``prefill`` keeps of the K/V it computed and decode attends over
-with the ranks' softmax statistics combined); ``prefill``,
+with the ranks' softmax statistics combined; where the rows do not
+divide m either, its block of the head dim, else the whole cache;
+``tp.new_cache`` records each leaf's split); a dense MLP whose d_ff does
+not divide m is whole on every rank (``layers.mlp``); ``prefill``,
 ``decode_step``, ``decode_step_quant`` and ``forward`` return the whole
 logits on every rank, and ``loss_fn`` the same loss on every rank, its
 gradients being this rank's shards (a replicated leaf's, the norms',
@@ -38,7 +41,7 @@ equal on every rank).  Each layer's recompute in the backward issues its
 attention's sum again (the MLP's is past the recompute's last saved
 tensor), in the same order on every rank, as JAX's remat does; it runs
 under the caller's mesh (``tp.under_mesh``).  Every entry point refuses
-a config or mesh this slice does not lay out (``tp.check_layout``).
+what JAX refuses (``tp.check_layout``).
 
 DP x TP (a ``(d, m)`` mesh, d > 1): the entry points take this rank's
 rows of the batch (``distributed/sharding.local_batch``; the prompt's
@@ -217,7 +220,9 @@ def _block_forward(cfg: ArchConfig, bp: dict, x: torch.Tensor,
     with tp.seq_parallel(x, positions.shape[0]) as x:
         h = tp.gather_seq(L.rmsnorm(bp["ln1"], x, cfg.norm_eps))
         x = x + tp.seq_block(_attn_forward(cfg, bp, h, positions, window))
-        h = tp.gather_seq(L.rmsnorm(bp["ln2"], x, cfg.norm_eps))
+        h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
+        if cfg.is_moe or not L.whole_mlp(bp["ffn"]):
+            h = tp.gather_seq(h)           # a whole MLP runs on the block
         return x + tp.seq_block(_ffn_apply(cfg, bp, h))
 
 
@@ -310,32 +315,6 @@ def cache_bytes(cache: NamedTuple) -> int:
     return sum(t.numel() * t.element_size() for t in cache)
 
 
-def _blocks(cfg: ArchConfig, whole: NamedTuple) -> list[tuple]:
-    """This rank's block shape of each leaf of a decode cache whose rows
-    are this rank's already (``whole``: ``meta`` tensors of the whole
-    cache over the model axis): ``sharding.cache_specs`` on the model axis
-    alone, which splits the KV heads, or T where they do not divide it.
-    Any other split (T does not divide the axis either: ``cache_specs``
-    would split ``Dh``) raises, naming the ROADMAP item."""
-    m = tp.model_size()
-    if m == 1:
-        return [tuple(t.shape) for t in whole]
-    axis = tp.model_axis()
-    out = []
-    for (path, t), (_, spec) in zip(leaf_paths(whole), SH.spec_leaves(
-            SH.cache_specs(whole, axis))):
-        if t.numel() and t.dim() >= 4 and \
-                [i for i, a in enumerate(spec) if a == "model"] not in (
-                    [2], [3]):
-            raise NotImplementedError(
-                f"{cfg.name}: the cache's {path} {tuple(t.shape)} splits "
-                f"neither its KV heads nor its T over the model axis of {m} "
-                f"(cache_specs gives {spec}); a prompt plus new tokens that "
-                f"divide the axis are laid out ({tp.ROADMAP_ITEM})")
-        out.append(AX.local_shape(tuple(t.shape), spec, axis))
-    return out
-
-
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16,
                device: torch.device | str | None = None) -> DecodeCache:
@@ -359,8 +338,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             full_v=z(n_g, batch, max_len, k, dh),
             ring_k=z(n_l, batch, w, k, dh), ring_v=z(n_l, batch, w, k, dh),
             mla_c=z(0), mla_kr=z(0))
-    return DecodeCache(*(torch.zeros(s, dtype=dtype, device=device)
-                         for s in _blocks(cfg, whole)))
+    return tp.new_cache(whole, device)
 
 
 def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -377,10 +355,7 @@ def init_quant_cache(cfg: ArchConfig, batch: int, max_len: int,
                          device="meta")
     stat = torch.empty(rows, device="meta")
     whole = QuantDecodeCache(deltas, stat, stat, deltas, stat, stat)
-    return QuantDecodeCache(*(
-        torch.full(s, fill, dtype=t.dtype, device=device)
-        for s, t, fill in zip(_blocks(cfg, whole), whole,
-                              (0, 0.0, 1.0, 0, 0.0, 1.0))))
+    return tp.new_cache(whole, device, fill={"ks": 1.0, "vs": 1.0})
 
 
 def _quant_vec(x: torch.Tensor):
@@ -405,36 +380,31 @@ def decode_step_quant(cfg: ArchConfig, params: dict, cache: QuantDecodeCache,
     params, layers = placed(cfg, params)
     x = L.embed(params["embed"], token[:, None])
     f32 = torch.float32
+    lay = A.cache_layout(cache.kd)
     for i, bp in enumerate(layers):
         h = L.rmsnorm(bp["ln1"], x, cfg.norm_eps)
         a = bp["attn"]
         q = A._rope_at(L.column_linear(a["wq"], h), t, cfg.rope_theta)
         k_new = A._rope_at(L.column_linear(a["wk"], h), t, cfg.rope_theta)
         v_new = L.column_linear(a["wv"], h)
-        b, _, hh, dh = q.shape
-        split = A.rows_split(a)
+        rows = lay == "rows"
         for (dd, bb, ss), new in (((cache.kd, cache.kb, cache.ks), k_new),
                                   ((cache.vd, cache.vb, cache.vs), v_new)):
             qd, qb, qs = _quant_vec(new[:, 0])            # [B, K, *]
-            if split:
+            if rows:
                 for c, row in zip((dd[i], bb[i], ss[i]), (qd, qb, qs)):
                     tp.write_row(c, t, row)
-            else:
-                dd[i, :, t], bb[i, :, t], ss[i, :, t] = qd, qb, qs
-        n = A.rows_upto(cache.kd.shape[2], t) if split else t + 1
+            else:                  # the deltas' Dh block, whole stats
+                dd[i, :, t] = tp.model_block(qd) if lay == "dh" else qd
+                bb[i, :, t], ss[i, :, t] = qb, qs
+        n = A.rows_upto(cache.kd.shape[2], t) if rows else t + 1
         kk = (cache.kd[i, :, :n].to(f32) * cache.ks[i, :, :n, :, None]
               + cache.kb[i, :, :n, :, None])               # [B, n, K, Dh]
         vv = (cache.vd[i, :, :n].to(f32) * cache.vs[i, :, :n, :, None]
               + cache.vb[i, :, :n, :, None])
-        if split:
-            x = x + A._proj_out(a, A.attend_rows(a, q, kk, vv))
-        else:
-            kh = kk.shape[2]
-            qg = q.reshape(b, kh, hh // kh, dh)
-            scores = torch.einsum("bkgd,btkd->bkgt", qg.to(f32), kk)
-            w = torch.softmax(scores / math.sqrt(dh), dim=-1)
-            ctx = torch.einsum("bkgt,btkd->bkgd", w, vv).to(x.dtype)
-            x = x + A._proj_out(a, ctx.reshape(b, 1, hh, dh))
+        attend = {"rows": A.attend_rows, "dh": A.attend_dh}.get(
+            lay, A.attend_whole)
+        x = x + A._proj_out(a, attend(a, q, kk, vv))
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_apply(cfg, bp, h)
     return L.last_logits(params, x, cfg.norm_eps), cache
@@ -457,15 +427,19 @@ def decode_step(cfg: ArchConfig, params: dict, cache: DecodeCache,
         if cfg.attn_kind == "mla":
             y, _, _ = A.mla_decode(bp["attn"], h, cache.mla_c[i],
                                    cache.mla_kr[i], t, cfg.qk_nope_dim,
-                                   cfg.qk_rope_dim, cfg.rope_theta)
+                                   cfg.qk_rope_dim, cfg.rope_theta,
+                                   (A.latent_layout(cache.mla_c),
+                                    A.latent_layout(cache.mla_kr)))
         elif is_g[i]:
             y, _, _ = A.gqa_decode(bp["attn"], h, cache.full_k[s],
                                    cache.full_v[s], t, ring=False,
-                                   theta=cfg.rope_theta)
+                                   theta=cfg.rope_theta,
+                                   split=A.cache_layout(cache.full_k))
         else:
             y, _, _ = A.gqa_decode(bp["attn"], h, cache.ring_k[s],
                                    cache.ring_v[s], t, ring=True,
-                                   theta=cfg.rope_theta)
+                                   theta=cfg.rope_theta,
+                                   split=A.cache_layout(cache.ring_k))
         x = x + y
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_apply(cfg, bp, h)
@@ -495,16 +469,18 @@ def prefill(cfg: ArchConfig, params: dict, batch: dict, max_len: int
         kv = None
         if cfg.attn_kind == "mla":
             cache.mla_c[i], cache.mla_kr[i] = A.mla_prefill_cache(
-                bp["attn"], h, positions, max_len, cfg.rope_theta)
+                bp["attn"], h, positions, max_len,
+                cfg.rope_theta, (A.latent_layout(cache.mla_c),
+                                 A.latent_layout(cache.mla_kr)))
         else:
             kv = A.gqa_kv(bp["attn"], h, positions, theta=cfg.rope_theta)
             k_pool, v_pool = ((cache.full_k, cache.full_v) if is_g[i]
                               else (cache.ring_k, cache.ring_v))
-            tb = k_pool.shape[2]
-            start = tp.model_rank() * tb if A.rows_split(bp["attn"]) else 0
+            tb, split = k_pool.shape[2], A.cache_layout(k_pool)
+            start = tp.model_rank() * tb if split == "rows" else 0
             k_pool[sl], v_pool[sl] = A.gqa_prefill_cache(
                 bp["attn"], h, positions, tb, ring=not is_g[i], kv=kv,
-                start=start)
+                start=start, split=split)
         x = x + _attn_forward(cfg, bp, h, positions, int(w), kv=kv)
         h = L.rmsnorm(bp["ln2"], x, cfg.norm_eps)
         x = x + _ffn_apply(cfg, bp, h)

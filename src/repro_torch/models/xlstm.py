@@ -13,11 +13,13 @@ Under a ``(d, m)`` mesh (``distributed/tp.py``) a rank holds its blocks
 under JAX's rule table (``distributed/sharding.local_params``) and its
 rows of the batch, and the cells run as ``models/ssm.py`` lays them out
 (mLSTM on the rank's heads, or its share of a head's value dims where a
-head spans several ranks; sLSTM's recurrence whole on every rank).  The
-decode state is kept as ``cache_specs`` cuts it: mLSTM's C and n over
-their key dim, its m over the heads where they divide the axis (whole
-otherwise), sLSTM's four states over d, gathered over ``model`` for the
-step and cut back after it.
+head spans several ranks, or every head on every rank where the heads do
+not lie along the axis's blocks; sLSTM's recurrence whole on every
+rank).  The decode state is kept as ``cache_specs`` cuts it: mLSTM's C
+and n over their key dim (else its heads, else whole), its m over the
+heads where they divide the axis (whole otherwise), sLSTM's four states
+over d where it divides the axis, gathered over ``model`` for the step
+and cut back after it.
 """
 
 from __future__ import annotations
@@ -137,11 +139,6 @@ class XLSTMCache(NamedTuple):
     sm: torch.Tensor
 
 
-# the dims cache_specs may split over the model axis, by leaf
-_SPLITS = {"mC": (3,), "mn": (3,), "mm": (2,), "sh": (2,), "sc": (2,),
-           "sn": (2,), "sm": (2,)}
-
-
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16,
                device: torch.device | str | None = None) -> XLSTMCache:
@@ -159,14 +156,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     whole = XLSTMCache(mC=z(lyr, b, h, dh, dh), mn=z(lyr, b, h, dh),
                        mm=z(lyr, b, h), sh=z(lyr, b, d), sc=z(lyr, b, d),
                        sn=z(lyr, b, d), sm=z(lyr, b, d))
-    fill = {"mm": -np.inf, "sn": 1.0}
-    return XLSTMCache(*(
-        torch.full(s, fill.get(f, 0.0), dtype=torch.float32, device=device)
-        for f, s in zip(whole._fields,
-                        tp.cache_blocks(cfg.name, whole, _SPLITS))))
+    return tp.new_cache(whole, device,
+                        fill={"mm": -np.inf, "sn": 1.0})
 
 
 _SLSTM = (("h", "sh"), ("c", "sc"), ("n", "sn"), ("m", "sm"))
+
+
+def _whole(leaf: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A layer's slice ``t`` of a cache ``leaf`` [L, ...], gathered over
+    ``model`` along the dim the leaf is split at (``tp.split_dim``)."""
+    d = tp.split_dim(leaf)
+    return t if d is None else tp.all_gather(t, d - 1, "model")
+
+
+def _block(leaf: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`_whole`: the rank's block of ``t``."""
+    d = tp.split_dim(leaf)
+    return t if d is None else tp.model_block(t, d - 1)
 
 
 def _step(cfg: ArchConfig, params: dict, layers: list[dict],
@@ -187,11 +194,14 @@ def _step(cfg: ArchConfig, params: dict, layers: list[dict],
                 getattr(cache, f)[i] = tp.model_block(st[key]) if split \
                     else st[key]
         else:
-            st = {"C": cache.mC[i], "n": cache.mn[i], "m": cache.mm[i]}
+            leaves = (("C", cache.mC), ("n", cache.mn), ("m", cache.mm))
+            # the whole state where every rank runs every head
+            whole = not S.mlstm_aligned(bp["mlstm"], cfg.n_heads)
+            st = {k: _whole(leaf, leaf[i]) if whole else leaf[i]
+                  for k, leaf in leaves}
             y, st = S.mlstm_decode(bp["mlstm"], h, st, cfg.n_heads)
-            for key, leaf in (("C", cache.mC), ("n", cache.mn),
-                              ("m", cache.mm)):
-                leaf[i] = st[key]
+            for key, leaf in leaves:
+                leaf[i] = _block(leaf, st[key]) if whole else st[key]
         x = x + y
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.lm_logits(params["lm_head"], x)[:, 0]

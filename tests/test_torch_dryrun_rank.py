@@ -16,7 +16,9 @@ Cells (reduced configs, B = 2, S = 64): on ``(1, 4)`` yi-6b train
 prefill and decode with its KV heads widened to 4 (K/V split like Q) and
 decode at its 2 (K/V whole, the cache over T), deepseek-v2-lite-16b train
 (experts and MLA), hymba-1.5b train, xlstm-350m prefill and seamless
-decode (KV heads 4, as ``tests/test_torch_tp_families.py`` widens them);
+decode (KV heads 4, as ``tests/test_torch_tp_families.py`` widens them),
+yi-6b decode with a d_ff of 90 and one KV head at 63 positions (the MLP
+whole, the cache over its head dim: ``yi6b-decode-dh``);
 yi-6b train on ``(2, 2)`` and on ``(2, 1, 2)`` (the pod axis) with the
 FSDP threshold lowered to 4 KiB in both packages.
 
@@ -37,7 +39,11 @@ What must match:
   ``bmm`` of size-1 contractions to PyTorch); ``hlo_cost`` counts
   xLSTM's idle sLSTM branch in every layer, and GSPMD contracts mLSTM's
   ``w_if`` over each rank's block of the inner width and sums, where the
-  port contracts the gathered whole;
+  port contracts the gathered whole; a dense MLP whose d_ff does not
+  divide m is whole on every rank, where GSPMD computes each rank's block
+  of d_ff padded to a multiple of m, and a decode cache split over its
+  head dim keeps the Dh block of a V projected whole, where GSPMD
+  projects the block alone (``yi6b-decode-dh``);
 * collective bytes, by kind, against ``collective_bytes`` of the same
   HLO (the sequence-parallel cell ``yi6b-train-sp``, JAX lowered with
   ``set_sp(True)``, has a test of its own): exactly for the cells whose
@@ -51,8 +57,9 @@ What must match:
   all-reduce; the bytes do not).  Elsewhere GSPMD picks its own
   resharding (the KV heads split over pairs of ranks with
   collective-permutes, Mamba's and mLSTM's channels moved by all-to-all,
-  FSDP blocks gathered in f32, MoE sums): there the rank's total, less
-  the named gaps, is at most GSPMD's;
+  FSDP blocks gathered in f32, MoE sums; in ``yi6b-decode-dh`` the sum of
+  the padded d_ff blocks' down partials of an MLP the port keeps whole):
+  there the rank's total, less the named gaps, is at most GSPMD's;
 * the production matrix: ``tp.check_layout`` and ``adamw.plan`` take
   every registry config at ``(16, 16)`` and ``(2, 16, 16)`` under the
   dry run's moment dtypes, arctic-480b's q8 included (its ``wo`` tiles
@@ -161,6 +168,25 @@ def _w_if_whole(cfg, mesh):
         * 2 * cfg.n_heads
 
 
+def _mlp_whole(cfg, mesh):
+    """A decode step's dense MLP whole on every rank (its d_ff does not
+    divide the model axis: gate, up and down whole), where GSPMD computes
+    each rank's block of d_ff padded to a multiple of m and all-reduces
+    down's partial."""
+    f, m = cfg.d_ff, _m(mesh)
+    return cfg.n_layers * 3 * 2 * _rows(mesh) * cfg.d_model \
+        * (f - -(-f // m))
+
+
+def _v_whole(cfg, mesh):
+    """A decode step's new V projected whole (wv is whole: one KV head),
+    of which the rank keeps its block of the head dim for its cache block,
+    where GSPMD projects that block alone."""
+    dh, m = cfg.d_model // cfg.n_heads, _m(mesh)
+    return cfg.n_layers * 2 * _rows(mesh) * cfg.d_model * cfg.n_kv_heads \
+        * (dh - dh // m)
+
+
 # -- collective gaps: port - JAX, by kind ------------------------------------
 
 def _logits_gather(cfg, mesh):
@@ -200,17 +226,28 @@ CELLS = {
                        (_down_recompute,), (), False),
     "yi6b-train-sp": ("yi-6b", GQA4, "train", (1, 4), REAL,
                       (_down_recompute,), (_ce_max,), False),
+    "yi6b-decode-dh": ("yi-6b", {"d_ff": 90, "n_kv_heads": 1}, "decode",
+                       (1, 4), REAL, (_mlp_whole, _v_whole), (_logits_gather,),
+                       False),
 }
+# cells whose sequence is not S: the decode cache of 63 rows and one KV
+# head, whose rows and heads do not divide the model axis of 4, split over
+# its head dim (16)
+SEQ = {"yi6b-decode-dh": 63}
 # cells traced and lowered with the sequence-parallel residual stream
 SP = ("yi6b-train-sp",)
 # the JAX compiles, a process each (about equal shares of the time)
 GROUPS = (("yi6b-train", "yi6b-prefill", "yi6b-decode",
-           "yi6b-decode-kv-whole", "seamless-decode"),
+           "yi6b-decode-kv-whole", "seamless-decode", "yi6b-decode-dh"),
           ("deepseek-train", "xlstm-prefill", "yi6b-train-sp"),
           ("hymba-train", "yi6b-train-dp", "yi6b-train-pod"))
 KINDS = ("all-reduce", "all-gather", "all-to-all", "reduce-scatter")
 IO = ("argument_size_in_bytes", "output_size_in_bytes",
       "alias_size_in_bytes")
+
+
+def seq(cell: str) -> int:
+    return SEQ.get(cell, S)
 
 
 def cell_cfg(cell: str, package_get_arch=get_arch):
@@ -268,7 +305,7 @@ def jax_cells(cells: list, out: str) -> None:
             named = lambda specs: jax.tree.map(                 # noqa: E731
                 lambda s: jax.sharding.NamedSharding(mesh, s), specs,
                 is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
-            sh = JShape("x", S, B, kind)
+            sh = JShape("x", seq(cell), B, kind)
             kw = {"enc_len": JF.enc_len_for(cfg, sh)} if cfg.is_encdec \
                 else {}
             with JAX_AX.use_mesh(mesh):
@@ -298,7 +335,7 @@ def jax_cells(cells: list, out: str) -> None:
                             cache, mesh)))).lower(params, batch)
                 else:
                     cache = jax.eval_shape(
-                        lambda: model.init_cache(B, S, **kw))
+                        lambda: model.init_cache(B, seq(cell), **kw))
                     csh = named(JSH.cache_specs(cache, mesh))
                     tok = jax.ShapeDtypeStruct((B,), jnp.int32)
                     low = jax.jit(
@@ -356,7 +393,7 @@ def jax_rows(tmp_path_factory):
 def port_row(cell: str, coord: dict | None = None) -> dict:
     _, _, kind, shape, _, _, _, _ = CELLS[cell]
     with threshold(cell):
-        return D.trace(cell_cfg(cell), ShapeConfig("x", S, B, kind),
+        return D.trace(cell_cfg(cell), ShapeConfig("x", seq(cell), B, kind),
                        EL.abstract_mesh(shape, _names(shape), coord),
                        AdamWConfig(), 1, torch.float32, sp=cell in SP)
 

@@ -530,33 +530,65 @@ def test_training_under_a_model_axis_is_refused(monkeypatch):
 
 @pytest.mark.parametrize("what", ["kv_heads", "family", "data_axis"])
 def test_layouts_this_slice_does_not_take_are_refused(what):
-    """KV heads that do not divide m where they are laid out no further
-    (K/V replicated with the cache over T is, ``tests/test_torch_tp_
-    replicated.py``, and so are gemma3's ring caches over their window,
-    each rank its slots): a cache whose T or window does not divide m
-    either (``cache_specs`` would split the head dim); an MoE config
-    whose experts do not divide m (the MoE and MLA decoders are laid out,
-    ``tests/test_torch_tp_moe.py``; so are the recurrent and
-    encoder-decoder families, ``tests/test_torch_tp_families.py``, whose
-    caches come out as each rank's blocks); on the data axes (a pod axis
-    beside the data and model axes is laid out, ``tests/test_torch_tp_
-    pod.py``), an MoE batch whose rows do not divide them: each entry
-    point raises and names the ROADMAP item."""
+    """Caches whose KV heads and rows (or a ring's window) do not divide m
+    are laid out as JAX's ``cache_specs`` lays them out (the ``kv_heads``
+    case, held on an abstract mesh of 2 and of 3 against the blocks JAX's
+    specs give, dense and quantised, gemma3's rings among them; computed
+    on against JAX's GSPMD program in ``tests/test_torch_tp_whole.py``):
+    over T or the window where they divide m, else over the head dim,
+    else whole.  Still refused, each entry point naming the ROADMAP item:
+    an MoE config whose experts do not divide m (JAX's ``moe_ffn``
+    asserts; the MoE and MLA decoders are laid out, ``tests/test_torch_
+    tp_moe.py``, and so are the recurrent and encoder-decoder families,
+    ``tests/test_torch_tp_families.py``, whose caches come out as each
+    rank's blocks); on the data axes (a pod axis beside the data and
+    model axes is laid out, ``tests/test_torch_tp_pod.py``), an MoE
+    batch whose rows do not divide them (JAX refuses such a batch in
+    every family, at the stream's batch constraint)."""
     cfg, axes = case_cfg("yi-6b"), ((1, 2), ("data", "model"))
     toks = torch.ones((2, 4), dtype=torch.int64)
     if what == "kv_heads":
-        gemma = get_arch("gemma3-27b").reduced(n_kv_heads=1)
-        with _abstract(2):
-            tp.check_layout(gemma)
-            ring = get_model(gemma).init_cache(2, 8, device="meta")
-            assert ring.ring_k.shape[2] == 4 and ring.full_k.shape[2] == 4
-            calls = [lambda: get_model(gemma).init_cache(2, 7, device="cpu"),
-                     lambda: T.init_quant_cache(get_arch("yi-6b").reduced(
-                         n_kv_heads=1), 2, 7, device="cpu")]
-            for call in calls:
-                with pytest.raises(NotImplementedError,
-                                   match="ROADMAP Queue 1 item 2"):
-                    call()
+        from repro.configs.registry import get_arch as jax_arch
+        from repro.distributed import sharding as JSH
+        from repro.models import transformer as JT
+        for arch, kw, m, rows in (
+                ("gemma3-27b", {"n_kv_heads": 1}, 2, (8, 7)),
+                ("yi-6b", {"n_kv_heads": 1}, 2, (8, 7)),
+                ("yi-6b", {"n_kv_heads": 1}, 3, (9, 7)),
+                ("yi-6b", {"n_kv_heads": 1, "d_model": 40}, 4, (8, 7))):
+            port_cfg, jcfg = get_arch(arch).reduced(**kw), \
+                jax_arch(arch).reduced(**kw)
+            sizes = {"data": 1, "model": m}
+            jmesh = type("Mesh", (), {"shape": sizes,
+                                      "axis_names": ("data", "model")})()
+            with _abstract(m):
+                tp.check_layout(port_cfg)
+                for n in rows:
+                    got = [get_model(port_cfg).init_cache(2, n,
+                                                          device="meta")]
+                    want = [jax.eval_shape(lambda: JT.init_cache(jcfg, 2,
+                                                                 n))]
+                    if not T.cache_slots(port_cfg)[2][1]:
+                        got.append(T.init_quant_cache(port_cfg, 2, n,
+                                                      device="meta"))
+                        want.append(jax.eval_shape(
+                            lambda: JT.init_quant_cache(jcfg, 2, n)))
+                    for port, jc in zip(got, want):
+                        specs = jax.tree.leaves(
+                            JSH.cache_specs(jc, jmesh),
+                            is_leaf=lambda x: isinstance(x, JP))
+                        blocks = [tuple(d // (m if a == "model" else 1)
+                                        for d, a in zip(leaf.shape,
+                                                        tuple(sp) + (None,)
+                                                        * leaf.ndim))
+                                  for leaf, sp in zip(jax.tree.leaves(jc),
+                                                      specs)]
+                        assert [tuple(t.shape) for t in port] == blocks, \
+                            (arch, m, n)
+                        assert [tp.split_dim(t) for t in port] == [
+                            next((i for i, a in enumerate(sp)
+                                  if a == "model"), None)
+                            for sp in specs], (arch, m, n)
         return
     if what == "family":
         cfg = get_arch("deepseek-v2-lite-16b").reduced(n_experts=3)

@@ -638,11 +638,12 @@ def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
     pod.py``), where a loss of CPU tensors under the dry run's abstract
     mesh raises at its first collective.  Each of these raises naming the
     ROADMAP item: ``launch/train.train()`` under a mesh, and the loss of
-    a config this slice
-    does not lay out (an MoE whose experts do not divide the model axis,
-    xLSTM heads that neither divide it nor are divided by it; the MoE and
-    MLA decoders are, ``tests/test_torch_tp_moe.py``, and the recurrent
-    and encoder-decoder families, ``tests/test_torch_tp_families.py``)."""
+    an MoE whose experts do not divide the model axis (JAX's ``moe_ffn``
+    asserts; the MoE and MLA decoders are laid out, ``tests/test_torch_
+    tp_moe.py``, and the recurrent and encoder-decoder families,
+    ``tests/test_torch_tp_families.py``).  xLSTM heads that neither divide
+    the axis nor are divided by it are laid out (``tests/test_torch_tp_
+    whole.py``): a rank's param blocks have the shapes of JAX's specs."""
     cfg = get_arch("yi-6b").reduced()
     batch = _torch_batch(case_batches(cfg)[0])
     axes = ((2, 2, 2), ("pod", "data", "model")) if what == "data_axis" \
@@ -681,15 +682,34 @@ def test_what_training_under_tp_still_refuses(records, what, monkeypatch):
                                      r"ROADMAP Queue 1 item 2"):
                 train("yi-6b", steps=1, device="cpu")
         else:
-            # experts that do not divide the model axis; xLSTM heads that
-            # neither divide it nor are divided by it (the recurrent
-            # family is laid out, tests/test_torch_tp_families.py)
-            tp.check_layout(get_arch("xlstm-350m").reduced())
-            for kw in ({"arch": "deepseek-v2-lite-16b", "n_experts": 3},
-                       {"arch": "xlstm-350m", "n_heads": 3,
-                        "d_model": 96}):
-                kw = dict(kw)
-                m = get_model(get_arch(kw.pop("arch")).reduced(**kw))
-                with pytest.raises(NotImplementedError,
-                                   match=r"ROADMAP Queue 1 item 2"):
-                    make_train_step(m, AdamWConfig())({}, {}, batch)
+            # experts that do not divide the model axis (JAX's moe_ffn
+            # asserts); xLSTM heads that neither divide it nor are
+            # divided by it are laid out as JAX's rule table lays them
+            # out (tests/test_torch_tp_whole.py runs them against JAX)
+            m = get_model(get_arch("deepseek-v2-lite-16b").reduced(
+                n_experts=3))
+            with pytest.raises(NotImplementedError,
+                               match=r"ROADMAP Queue 1 item 2"):
+                make_train_step(m, AdamWConfig())({}, {}, batch)
+            from jax.sharding import AbstractMesh
+            from repro.configs.registry import get_arch as jax_arch
+            from repro.distributed import sharding as JSH
+            from repro.models.api import get_model as jax_model
+            xl = get_arch("xlstm-350m").reduced(n_heads=3, d_model=96)
+            tp.check_layout(xl)
+            whole = get_model(xl).init(torch.Generator(), "meta")
+            local = SH.local_params(whole, mesh,
+                                    coord={"data": 0, "model": 1})
+            like = jax.eval_shape(jax_model(jax_arch("xlstm-350m").reduced(
+                n_heads=3, d_model=96)).init, jax.random.PRNGKey(0))
+            specs = JSH.param_specs(like, AbstractMesh((1, 2),
+                                                       ("data", "model")),
+                                    fsdp=False)
+            want = [tuple(n // (2 if a == "model" else 1)
+                          for n, a in zip(leaf.shape, tuple(sp)
+                                          + (None,) * leaf.ndim))
+                    for leaf, sp in zip(jax.tree.leaves(like), jax.tree.leaves(
+                        specs, is_leaf=lambda x: isinstance(
+                            x, jax.sharding.PartitionSpec)))]
+            assert [tuple(t.shape) for _, t in store.leaf_paths(local)] \
+                == want

@@ -266,7 +266,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      No kernel launches in phases 14-14b.
   15. tensor-parallel serving: internvl2-76b's language model at full
      width (d_model 8192, 64 heads, 8 KV heads, d_ff 28672, vocab
-     128256), 4 of its 80 layers (8 before phase 20), on a ``(1, 2)``
+     128256), 2 of its 80 layers (8 before phase 20, 4 before phase 22),
+     on a ``(1, 2)``
      mesh of two rank processes on the one card over gloo (NCCL refuses
      two ranks on one device: two more processes try it first and must
      fail).  Each rank
@@ -361,7 +362,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      the decode cache is sharded over T (``cache_specs``: 17 of 136 rows
      a rank).  Each rank draws the model a layer at a time and keeps its
      shards, serves 4 prompts of 128 tokens and ``REP_GEN`` = 8 greedy
-     tokens (16 until phase 21) at ``REP_LAYERS`` = 4 layers (8 until phase 19; decode: the query
+     tokens (16 until phase 21) at ``REP_LAYERS`` = 2 layers (4 until phase
+     22, 8 until phase 19; decode: the query
      heads gathered, the T blocks' softmax combined by a MAX and a SUM
      all-reduce, the new token's K/V written on the rank that holds its
      row), then 4 prompts of 13 tokens and 4 greedy tokens, whose 17 rows
@@ -369,7 +371,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      its head dim (16 of 128 a rank; decode: K's blocks gathered, the
      rank's heads' softmax weights gathered, the context all-to-all'd,
      ``attention.attend_dh``), then trains ``TPT_STEPS`` = 2 (3 until
-     phase 21) steps of 4 x 128 at ``REP_TRAIN_LAYERS`` = 4 under bdi8,
+     phase 21) steps of 4 x 128 at ``REP_TRAIN_LAYERS`` = 2 (4 until
+     phase 22) under bdi8,
      where
      gate, up (86 tiles) and lm_head (500) straddle the shards: every
      rank keeps their whole moments, updated from the gradient gathered
@@ -479,7 +482,8 @@ Drives the port's main path on one NVIDIA Hopper card and fails loudly:
      hymba-1.5b at 3 layers (its 25 heads, 5 KV heads and 3200 Mamba
      channels split; its d_ff of 5504 and vocab of 32001 whole: the MLP,
      the embedding and the head on every rank, no sum) and qwen2.5-14b at
-     4 layers (40 heads split; its 8 KV heads, d_ff 13824 and vocab
+     2 layers (4 until phase 22; 40 heads split; its 8 KV heads, d_ff
+     13824 and vocab
      152064 whole), at published widths, seed 0 (``WHL_CELLS``).  Each
      rank keeps its blocks and serves through ``dense_generate``: hymba 2
      x 1040 + 4; qwen 2 x 64 + 4 (68 rows: 5 divides neither them nor Dh
@@ -1005,6 +1009,114 @@ def phase_attention_long(dev, cfg, page: int) -> dict:
             "bound_ms": bms, "max_abs_err": err}
 
 
+# (name, B, KVH, G, D, page, PMAX, lengths, tail lengths): the shapes the
+# kernel took only since the split over 16-row slots, head groups, byte
+# rows and the chunked combine (phase 3e)
+PARITY_BIG_PAGE = 64                # phase 5's full-width run: a split a page
+
+SHAPE_CASES = (
+    ("yi-6b page 64", 8, 4, 8, 128, 64, 16, ATTN_LENGTHS,
+     [1, 64, 7, 33, 64, 1, 9, 12]),
+    ("yi-6b page 128", 8, 4, 8, 128, 128, 8, ATTN_LENGTHS,
+     [1, 128, 7, 100, 65, 1, 9, 12]),
+    ("yi-6b page 36", 8, 4, 8, 128, 36, 29, ATTN_LENGTHS,
+     [1, 36, 7, 3, 17, 1, 9, 35]),
+    ("G 16 at D 128", 4, 2, 16, 128, 16, 64, [1024, 0, 517, 33],
+     [1, 16, 7, 3]),
+    ("D 6", 4, 2, 4, 6, 16, 64, [1024, 0, 517, 33], [1, 16, 7, 3]),
+    ("D 320", 4, 2, 2, 320, 16, 64, [1024, 0, 517, 33], [1, 16, 7, 3]),
+    ("PMAX 32768 at page 8", 1, 4, 8, 128, 8, 32768, [200_000], [5]),
+)
+
+
+def shape_inputs(dev, b, kvh, g_, d, page, pmax, lengths, tail_len,
+                 seed: int):
+    """Random BDI pages for a case of ``SHAPE_CASES``: a pool of just the
+    pages the lengths reach plus one, a scrambled table."""
+    import torch
+    from repro_torch.kernels.ref import compress_kv_pages
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_pages = sum(-(-n // page) for n in lengths) + 2
+    k = torch.randn((n_pages, kvh, page, d), generator=gen, device=dev)
+    v = torch.randn((n_pages, kvh, page, d), generator=gen, device=dev)
+    pages = compress_kv_pages(k, v)
+    del k, v
+    q = torch.randn((b, kvh, g_, d), generator=gen, device=dev)
+    pt = torch.randint(0, n_pages, (b, pmax), generator=gen, device=dev,
+                       dtype=torch.int32)
+    row = 1
+    for i, n in enumerate(lengths):      # each sequence its own pages
+        np_ = -(-n // page)
+        pt[i, :np_] = torch.randperm(np_, generator=gen, device=dev).to(
+            torch.int32) + row
+        row += np_
+    tk = torch.randn((b, kvh, page, d), generator=gen, device=dev)
+    tv = torch.randn((b, kvh, page, d), generator=gen, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q, pages, pt.contiguous(), torch.tensor(lengths, **i32), tk, tv,
+            torch.tensor(tail_len, **i32))
+
+
+def phase_attention_shapes(dev) -> list[dict]:
+    """3e: both attention kernels against their plain versions at the
+    shapes of ``SHAPE_CASES`` (pages of 36, 64 and 128 rows, G*D 2048, D 6
+    and 320, 8,193 splits), within ATTN_ATOL + ATTN_RTOL*|ref|, NaN rows
+    where a sequence has no key, two launches bit-equal; each timed with
+    its byte bound."""
+    import torch
+    from repro_torch.kernels.paged_attention import (
+        n_split, paged_attention, paged_attention_ref, paged_attention_tail,
+        paged_attention_tail_ref)
+    out = []
+    for i, (name, b, kvh, g_, d, page, pmax, lengths, tail_len) in \
+            enumerate(SHAPE_CASES):
+        args = shape_inputs(dev, b, kvh, g_, d, page, pmax, lengths,
+                            tail_len, 40 + i)
+        q, pages, pt, lens, tk, tv, tlen = args
+        row = {"case": name, "B": b, "KVH": kvh, "G": g_, "D": d,
+               "page": page, "PMAX": pmax,
+               "splits": n_split(pmax, True, page)}
+        for kind, fn, ref, a in (
+                ("tail", paged_attention_tail, paged_attention_tail_ref,
+                 args),
+                ("pages", paged_attention, paged_attention_ref,
+                 args[:4])):
+            got, again = fn(*a), fn(*a)
+            want = ref(*a)
+            torch.cuda.synchronize()
+            if not torch.equal(bits(got), bits(again)):
+                raise AssertionError(f"3e {name} {kind}: two launches differ")
+            empty = (lens == 0) if kind == "pages" else \
+                (lens == 0) & (tlen == 0)
+            if not (torch.allclose(got, want, atol=ATTN_ATOL, rtol=ATTN_RTOL,
+                                   equal_nan=True)
+                    and not got[~empty].isnan().any()):
+                raise AssertionError(
+                    f"3e {name} {kind} differs from the plain version: max "
+                    f"abs err {(got - want)[~empty].abs().max()}")
+            err = float((got - want)[~empty].abs().max())
+            ms = cuda_time_ms(lambda: fn(*a))
+            plain_ms = cuda_time_ms(lambda: ref(*a), iters=5, warmup=1)
+            keys = int(lens.sum()) + (int(tlen.sum()) if kind == "tail"
+                                      else 0)
+            nbytes = (q.numel() * 4 * 2 + int(lens.sum()) * kvh * (2 * d + 16)
+                      + 4 * int(((lens + page - 1) // page).sum()) + 4 * b)
+            if kind == "tail":
+                nbytes += int(tlen.sum()) * kvh * 2 * d * 4 + 4 * b
+            bms, by = bound(nbytes, 4.0 * g_ * d * kvh * keys)
+            row[kind] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bms, "bound_by": by}
+            log(f"3e {name} ({kind}): B={b} KVH={kvh} G={g_} D={d} "
+                f"page={page} PMAX={pmax}, {row['splits']} splits; max abs "
+                f"err {err:.3e}, two launches bit-equal; kernel {ms:.5f} ms, "
+                f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}), "
+                f"kernel/bound {ms / bms:.2f}")
+        out.append(row)
+        del args, q, pages, pt, tk, tv, want, got, again
+        release(dev)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phases 2d, 2e: the tile codec
 # ---------------------------------------------------------------------------
@@ -1306,21 +1418,31 @@ def _assert_same_host_state(gpu, cpu) -> None:
 
 def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int,
                  codec: str = "bdi", init_on: str = "cpu",
-                 scheduler: bool = False) -> dict:
+                 scheduler: bool = False, also: tuple = ()):
     """Greedy parity of the engine on ``dev`` and on the CPU; the weights
     come from a seeded generator on ``init_on`` (the card for a model whose
     CPU init would take long).  ``scheduler=True`` drives both engines
     through ``ContinuousScheduler`` with a prefix cache instead
-    (:func:`parity_scheduler`)."""
+    (:func:`parity_scheduler`).  ``also``: more ``(page, steps, codec)``
+    runs on the same weights (a full-width CPU init takes seconds); a
+    list of :func:`parity_run`'s results."""
     import torch
-    from repro_torch.models.params import to_device
     from repro_torch.models.transformer import init_params
-    from repro_torch.serving.engine import PagedKVEngine
-    from repro_torch.serving.parity import GreedyParity, engine_logits
     params = init_params(cfg, torch.Generator(device=init_on).manual_seed(0),
                          init_on)
     if scheduler:
         return parity_scheduler(dev, cfg, params, page, lo, hi, steps, codec)
+    return [parity_run(dev, cfg, params, *run, lo, hi)
+            for run in ((page, steps, codec), *also)]
+
+
+def parity_run(dev, cfg, params, page: int, steps: int, codec: str,
+               lo: int, hi: int) -> dict:
+    """One run of :func:`phase_parity` on ``params``."""
+    import torch
+    from repro_torch.models.params import to_device
+    from repro_torch.serving.engine import PagedKVEngine
+    from repro_torch.serving.parity import GreedyParity, engine_logits
     prompts = ragged_prompts(8, lo, hi, cfg.vocab, seed=4)
     n_pool = pool_for(cfg, prompts, steps, page)
     gpu, cpu = (PagedKVEngine(cfg, to_device(params, torch.device(d)),
@@ -1337,7 +1459,7 @@ def phase_parity(dev, cfg, page: int, lo: int, hi: int, steps: int,
                      engine_logits(cpu))
     _assert_same_host_state(gpu, cpu)
     res = {"codec": codec, "config": cfg.name, "d_model": cfg.d_model,
-           "steps": steps, "tokens_equal": parity.compared,
+           "page": page, "steps": steps, "tokens_equal": parity.compared,
            "bytes_compressed": [gpu.stats["bytes_compressed"],
                                 cpu.stats["bytes_compressed"]],
            "ties": [vars(t) for t in parity.ties]}
@@ -4119,7 +4241,8 @@ def phase_dryrun_cli(procs: list) -> list:
 # ---------------------------------------------------------------------------
 
 TP_RANKS = 2
-TP_LAYERS = 4                   # of internvl2-76b's 80 (8 before phase 20)
+TP_LAYERS = 2                   # of internvl2-76b's 80 (8 before phase 20,
+                                # 4 before phase 22)
 TP_BATCH, TP_PROMPT, TP_GEN = 4, 128, 16
 TP_SEED = 15
 TP_ULPS = 2
@@ -4686,7 +4809,7 @@ def phase_tp_train(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 STEP_KEYS = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter",
-             "backward", "bytes")
+             "broadcast", "backward", "bytes")
 STEP_PEAK_SHARE = 0.9                # as phase 14 holds the predicted peak
 STRADDLE_SHAPE = (2, 1, 2)           # (pod, data, model)
 STRADDLE_KW = {"n_layers": 2, "d_model": 384, "n_heads": 3,
@@ -4754,6 +4877,8 @@ def write_step_traces(out: str) -> None:
             rows[f"21 sp {arch}"] = step_traces(
                 whl_cfg(arch), tpt_ocfg(), WHL_SHAPE, names, sp=True,
                 rows=WHL_TRAIN[0], seq=WHL_TRAIN[1])
+    rows["22"] = step_traces(lay_cfg(), tpt_ocfg(), LAY_SHAPE, names,
+                             rows=LAY_TRAIN[0], seq=LAY_TRAIN[1])
     rows["trace_s"] = time.perf_counter() - t0
     Path(out).write_text(json.dumps(rows))
 
@@ -5447,7 +5572,8 @@ def phase_dp_tp(dev, started: dict) -> dict:
 
 REP_SHAPE = (1, 8)                   # (data, model)
 REP_RANKS = REP_SHAPE[0] * REP_SHAPE[1]
-REP_LAYERS, REP_TRAIN_LAYERS = 4, 4  # serving (8 until phase 19), training
+REP_LAYERS, REP_TRAIN_LAYERS = 2, 2  # serving (8 until phase 19), training
+# (both 4 until phase 22)
 REP_GEN = 8                          # greedy tokens (16 until phase 21)
 REP_SEED = 0
 # a second serving run: 13 prompt tokens + 4, whose 17 rows do not divide
@@ -7249,14 +7375,15 @@ WHL_TRAIN = (2, 130)                 # a train batch: rows, positions (5 | S)
 # arch -> (depth, serving batch, (prompt, greedy tokens) runs, trains):
 # hymba-1.5b at phase 20's 3 of 32 layers (1 of them full attention), its
 # 25 heads and 5 KV heads split, d_ff 5504 whole, prompts past its window;
-# qwen2.5-14b at 4 of 48 layers, its 40 heads split, K/V (8 KV heads), the
+# qwen2.5-14b at 2 of 48 layers (4 until phase 22), its 40 heads split, K/V
+# (8 KV heads), the
 # MLP (d_ff 13824) and the vocabulary whole, served twice: 64 + 4 rows (5
 # divides neither them nor Dh 128: the cache whole on every rank), then 66
 # + 4 (the cache over T).  qwen does not train: whole MLPs and vocabulary
 # with bdi8 moments at its widths do not fit five ranks on one card
 WHL_CELLS = {"hymba-1.5b": ({"n_layers": 3, "n_full_attn": 1}, 2,
                             ((1040, 4),), True),
-             "qwen2.5-14b": ({"n_layers": 4}, 2, ((64, 4), (66, 4)), False)}
+             "qwen2.5-14b": ({"n_layers": 2}, 2, ((64, 4), (66, 4)), False)}
 
 
 def whl_cfg(arch: str):
@@ -7723,6 +7850,306 @@ def phase_whole_leaves(dev, started: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: FSDP over the layer dim of stacked leaves, three ranks
+# ---------------------------------------------------------------------------
+
+LAY_SHAPE = (3, 1)                   # (data, model)
+LAY_RANKS = LAY_SHAPE[0] * LAY_SHAPE[1]
+LAY_LAYERS = 6                       # of yi-9b's 48: two a rank
+LAY_SEED = 0
+LAY_TRAIN = (3, 128)                 # a train batch: rows (one a rank), S
+LAY_SPLIT = ("wq", "wo", "gate", "up", "down")
+
+
+def lay_cfg():
+    from repro_torch.configs.registry import get_arch
+    return at_depth(get_arch("yi-9b"), LAY_LAYERS)
+
+
+def _lay_coord(rank: int) -> dict:
+    return {"data": rank // LAY_SHAPE[1], "model": rank % LAY_SHAPE[1]}
+
+
+def lay_predict() -> dict:
+    """What a rank of phase 22 holds and issues, from the shapes alone
+    (meta tensors, the rule table at its real threshold on an abstract
+    ``(3, 1)`` mesh): the leaves split over ``data`` along their layer dim
+    (at yi-9b's widths 3 divides only the depth: wq, wo, gate, up and down,
+    two layers a rank; wk, wv, the norms, the embedding and the head are
+    under 64 MiB or have no dim 3 divides, and stay whole), the bytes of
+    params a rank and of its bdi8 moments, the collectives of a train
+    step over ``data`` (``tp.COUNTS``) and its tile launches.  The counts
+    follow ``distributed/tp.py``: a broadcast of each split leaf's layer
+    from its owner at its use, forward and in the layer's recompute (bf16,
+    the layer's bytes); a backward all-reduce of each leaf's f32 gradient
+    (9 a layer: the 5 split leaves' layers, wk, wv and the two norms read
+    whole; the embedding, the final norm, the head), the loss's sum and
+    the clip norm's sum; an all-gather a leaf whose moment alone is split
+    (ZeRO-1)."""
+    import torch
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.launch.elastic import abstract_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw as AW
+    cfg, ocfg = lay_cfg(), tpt_ocfg()
+    mesh = abstract_mesh(LAY_SHAPE, ("data", "model"), _lay_coord(0))
+    d, n = LAY_SHAPE[0], cfg.n_layers
+    with use_mesh(mesh):
+        whole = init_params(cfg, torch.Generator(), "meta")
+        local = SH.local_params(whole, mesh, coord=_lay_coord(0), fsdp=True)
+        dims = {path: dim for path, _, dim in tp.placement(whole, local)}
+        lay = AW.plan(local, whole, ocfg)
+    layered = sorted(p for p, dim in dims.items() if dim == 0)
+    shapes = dict(leaf_paths(whole))
+    layer_bytes = sum(shapes[p][0].numel() * shapes[p].element_size()
+                      for p in layered)
+    zero1 = sum(x.owner is not None and x.data is None for x in lay)
+    blocks = []
+    for (_, t), x in zip(leaf_paths(local), lay):
+        shape = list(t.shape)
+        if x.owner is not None and x.data is None:
+            shape[x.owner] //= d
+        blocks.append(torch.empty(shape, dtype=t.dtype, device="meta"))
+    stores = [AW._zero_store(b, ocfg.moment_dtype) for b in blocks]
+    groups = sum(len(AW._groups(b)) for b in blocks
+                 if AW._tiled(tuple(b.shape), ocfg.moment_dtype))
+    return {"layered": layered,
+            "other_fsdp": sorted(p for p, dim in dims.items()
+                                 if dim not in (None, 0)),
+            "layers_a_rank": n // d,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for _, t in leaf_paths(local)),
+            "param_bytes_whole": sum(t.numel() * t.element_size()
+                                     for _, t in leaf_paths(whole)),
+            "moment_bytes": 2 * sum(
+                x.numel() * x.element_size() for z in stores
+                for x in (z.values() if isinstance(z, dict) else [z])),
+            "zero1_leaves": zero1,
+            "train_collectives_a_step": {
+                "data": {"broadcast": 2 * n * len(layered),
+                         "broadcast_bytes": 2 * n * layer_bytes,
+                         "all_reduce": (9 * n + 3) + 2,
+                         "all_gather": zero1, "backward": 9 * n + 3},
+                "model": {"all_reduce": 0, "all_gather": 0, "broadcast": 0,
+                          "backward": 0}},
+            "tile_launches_a_step": 4 * groups}
+
+
+def lay_rank(rank: int, work: str) -> None:
+    """One rank of phase 22 on the ``(3, 1)`` mesh: its blocks of
+    ``lay_cfg()``'s model drawn a layer at a time (its two layers of each
+    split leaf, the rest whole), then one train step under bdi8 moments
+    (ZeRO-1 blocks), measured as the dry run predicts it; writes
+    ``lay_<rank>.json`` and ``.pt``."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint.store import leaf_paths
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed import tp
+    from repro_torch.distributed.axes import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._device import resolve_device
+    from repro_torch.launch.mesh import destroy_mesh, make_host_mesh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params, whole_shapes
+    from repro_torch.optim import adamw, adamw_init, opt_state_bytes
+    dev = resolve_device("cuda")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(work) / "rendezvous_lay"), LAY_RANKS), rank=rank,
+        world_size=LAY_RANKS)
+    res = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        mesh = make_host_mesh(*LAY_SHAPE)
+        with use_mesh(mesh):
+            cfg, ocfg = lay_cfg(), tpt_ocfg()
+            t0 = time.perf_counter()
+            params = init_params(
+                cfg, torch.Generator(device=dev).manual_seed(LAY_SEED), dev,
+                local=SH.Local(mesh, fsdp=True, layers=cfg.n_layers))
+            sync(dev)
+            whole = whole_shapes(cfg)
+            res.update(init_s=time.perf_counter() - t0, placement=[
+                [path, list(p.shape), dim] for (path, _, dim), (_, p) in zip(
+                    tp.placement(whole, params), leaf_paths(params))],
+                param_bytes=sum(t.numel() * t.element_size()
+                                for t in _leaves(params)))
+            state = adamw_init(params, ocfg, whole=whole)
+            owners = [-1 if x.owner is None else x.owner
+                      for x in adamw.plan(params, whole, ocfg)]
+            batch = tpt_batches(cfg, dev, 1, *LAY_TRAIN)[0]
+            step = make_train_step(get_model(cfg), ocfg)
+            half = cfg.n_layers // LAY_SHAPE[0]
+            start = tpt_state(params, None, half)
+            sync(dev)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launches()
+            params, state, met, meas = measured_step(step, params, state,
+                                                     batch, dev, flops=True)
+            peak = torch.cuda.max_memory_allocated(dev)
+            launches = dict(ops.LAUNCHES)
+            sample = tpt_state(params, state, half)
+            held = dpt_tiles_vs_plain(params, state, half, "22")
+            ops.LAUNCHES.update(launches)   # the sample's, plain's
+        res.update(
+            steps=[meas], opt_state_bytes=opt_state_bytes(state, ocfg),
+            owners=owners, losses=[met["loss"]],
+            grad_norms=[met["grad_norm"]],
+            fwd_bwd_ms=[met["fwd_bwd_s"] * 1e3], opt_ms=[met["opt_s"] * 1e3],
+            collectives=[met["collectives"]], train_peak_bytes=peak,
+            tiles_held_vs_plain=held,
+            kernel_launches={k: v for k, v in ops.LAUNCHES.items() if v})
+        torch.save({"start": start, "sample": sample},
+                   Path(work) / f"lay_{rank}.pt")
+        (Path(work) / f"lay_{rank}.json").write_text(json.dumps(res))
+    finally:
+        destroy_mesh()
+
+
+def phase_layers(dev, started: dict) -> dict:
+    """Phase 22: yi-9b at full width and 6 layers on a ``(3, 1)`` mesh of
+    gloo ranks on the one card, FSDP at the real threshold splitting wq,
+    wo, gate, up and down over the layer dim (``lay_predict``); one bdi8
+    train step a rank against the prediction, against the whole model's
+    step in this process (the first loss within ``TPT_FIRST_RTOL``, the
+    sampled state within phase 18's bounds) and against the dry run's
+    trace of the rank (``check_step_traces``)."""
+    import math
+    import tempfile
+
+    import torch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.api import get_model
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw_init
+    cfg, ocfg = lay_cfg(), tpt_ocfg()
+    pred = lay_predict()
+    log(f"phase 22 prediction (shapes, rule table at 64 MiB, (3, 1)): "
+        f"{json.dumps(pred)}")
+    traces = step_traces_of(started, "22")
+    log(f"phase 22: the dry run's trace of each rank's train step: "
+        f"{json.dumps(traces)}")
+    work = Path(tempfile.mkdtemp(prefix="lay22_"))
+    t0 = time.perf_counter()
+    ranks = [(_spawn(f"lay_rank({r}, {str(work)!r})", work / f"lay_{r}.log"),
+              work / f"lay_{r}.log") for r in range(LAY_RANKS)]
+    _wait_all(ranks, "phase 22: a rank", 600)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((work / f"lay_{r}.json").read_text())
+           for r in range(LAY_RANKS)]
+    got = [torch.load(work / f"lay_{r}.pt") for r in range(LAY_RANKS)]
+    want_c = pred["train_collectives_a_step"]
+    for r, rr in enumerate(res):
+        log(f"phase 22 rank {r} (gloo through the host on one card, not a "
+            f"DP speed): {json.dumps(rr)}")
+        ran = rr["kernel_launches"]
+        tiles = pred["tile_launches_a_step"] // 2
+        if rr["backend"] != "gloo" or ran != {"bdi_compress": tiles,
+                                              "bdi_decompress": tiles}:
+            raise AssertionError(f"phase 22: rank {r}: backend "
+                                 f"{rr['backend']}, launches {ran}, "
+                                 f"predicted {tiles} each")
+        if not all(math.isfinite(x) for x in rr["losses"]):
+            raise AssertionError(f"phase 22: rank {r}: {rr['losses']}")
+        layered = sorted(p for p, _, dim in rr["placement"] if dim == 0)
+        if layered != pred["layered"] or any(
+                shape[0] != pred["layers_a_rank"]
+                for p, shape, dim in rr["placement"] if dim == 0):
+            raise AssertionError(f"phase 22: rank {r}: layer-split leaves "
+                                 f"{rr['placement']}, predicted "
+                                 f"{pred['layered']}")
+        for c in rr["collectives"]:
+            for axis, counts in want_c.items():
+                if {k: c[axis][k] for k in counts} != counts:
+                    raise AssertionError(
+                        f"phase 22: rank {r}: collectives over {axis} "
+                        f"{c[axis]}, predicted {counts}")
+        for key, pkey in (("param_bytes", "param_bytes"),
+                          ("opt_state_bytes", "moment_bytes")):
+            if rr[key] != pred[pkey]:
+                raise AssertionError(f"phase 22: rank {r}: {key} {rr[key]}"
+                                     f", predicted {pred[pkey]}")
+        rr["against_trace"] = check_step_traces("22", r, rr, traces[r])
+        log(f"phase 22 rank {r} against its trace: "
+            f"{json.dumps(rr['against_trace'])}")
+    for r in range(1, LAY_RANKS):
+        if res[r]["losses"] != res[0]["losses"] or \
+                res[r]["grad_norms"] != res[0]["grad_norms"]:
+            raise AssertionError("phase 22: the ranks' losses or norms "
+                                 "differ")
+    # the same weights and batch, whole, in this process
+    t1 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LAY_SEED), dev)
+    state = adamw_init(params, ocfg)
+    step = make_train_step(get_model(cfg), ocfg)
+    owners = res[0]["owners"]
+    half = cfg.n_layers // LAY_SHAPE[0]
+    start = [tpt_state(params, None, half, _lay_coord(r), shape=LAY_SHAPE)
+             for r in range(LAY_RANKS)]
+    for r in range(LAY_RANKS):
+        for k, t in start[r].items():
+            if not torch.equal(t, got[r]["start"][k]):
+                raise AssertionError(f"phase 22: rank {r}'s {k} is not "
+                                     f"its block of the whole model's")
+    params, state, met = step(params, state, tpt_batches(
+        cfg, dev, 1, *LAY_TRAIN)[0])
+    want = [tpt_state(params, state, half, _lay_coord(r), owners, LAY_SHAPE)
+            for r in range(LAY_RANKS)]
+    whole_s = time.perf_counter() - t1
+    del params, state
+    release(dev)
+    gaps = [_one_step_gap(got[r]["sample"], want[r], start[r])
+            for r in range(LAY_RANKS)]
+    ours = res[0]["losses"][0]
+    if abs(ours - met["loss"]) > TPT_FIRST_RTOL * abs(met["loss"]):
+        raise AssertionError(f"phase 22: loss {ours} against the whole "
+                             f"model's {met['loss']}")
+    for r, g in enumerate(gaps):
+        log(f"phase 22: rank {r} after the step against the whole model: "
+            f"{json.dumps(g['worst'])}")
+        w = {n: v for n, (_, v) in g["worst"].items()}
+        if (w["within_1_ulp"] < TPT_ULP_SHARE
+                or w["max_gap_over_lr"] > 2.0
+                or max(w["m_err"], w["v_err"]) > TPT_MOMENT_RTOL):
+            raise AssertionError(f"phase 22: rank {r} after the step: "
+                                 f"{g['worst']}")
+    out = {"card": smi(), "cell": f"yi-9b full width, {cfg.n_layers} "
+           f"layers, {LAY_SHAPE} (data, model) over gloo on one card, FSDP "
+           f"at 64 MiB over the layer dim ({', '.join(LAY_SPLIT)}), one "
+           f"train step of {LAY_TRAIN[0]} x {LAY_TRAIN[1]} under "
+           f"{ocfg.moment_dtype} moments",
+           "ranks_wall_s": ranks_s, "whole_wall_s": whole_s,
+           "loss": ours, "loss_whole": met["loss"],
+           "grad_norm": res[0]["grad_norms"][0],
+           "grad_norm_whole": met["grad_norm"],
+           "after_step": [g["worst"] for g in gaps],
+           "ms_a_step": {f"rank{r}": {"init_s": rr["init_s"],
+                                      "fwd_bwd": rr["fwd_bwd_ms"][0],
+                                      "opt": rr["opt_ms"][0]}
+                         for r, rr in enumerate(res)},
+           "whole_ms_a_step": {"fwd_bwd": met["fwd_bwd_s"] * 1e3,
+                               "opt": met["opt_s"] * 1e3},
+           "collectives_a_step": res[0]["collectives"][0],
+           "param_gb_a_rank": res[0]["param_bytes"] / 1e9,
+           "param_gb_whole": pred["param_bytes_whole"] / 1e9,
+           "peak_gb_a_rank": [rr["train_peak_bytes"] / 1e9 for rr in res],
+           "tiles_held_vs_plain": [rr["tiles_held_vs_plain"] for rr in res],
+           "against_trace": [rr["against_trace"] for rr in res],
+           "launches": {k: sum(rr["kernel_launches"].get(k, 0)
+                               for rr in res)
+                        for k in ("bdi_compress", "bdi_decompress")}}
+    log(f"phase 22: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -7782,6 +8209,9 @@ def main() -> int:
         phase_attention(dev, get_arch("gemma3-27b"), gpage)
     phase_done("3d paged_attention_tail at gemma3-27b's D 168, pages 16 "
                "and 32")
+    phase_attention_shapes(dev)
+    phase_done("3e both attention kernels at pages of 36, 64 and 128, G 16 "
+               "at D 128, D 6 and 320, 8,193 splits")
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dev)
@@ -7833,12 +8263,15 @@ def main() -> int:
                        n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
                        vocab=cfg.vocab)
     phase_parity(dev, tiny, page, 20, 140, 24)
-    phase_parity(dev, wide, page, 20, 140, 24)
-    phase_done("5 parity bdi")
+    # full width: bdi at pages of 16 and PARITY_BIG_PAGE, then 5b's gbdi
+    # and adaptive runs, on one draw of the weights
+    phase_parity(dev, wide, page, 20, 140, 24, also=(
+        (PARITY_BIG_PAGE, 24, "bdi"),
+        *((page, WIDE_5B_STEPS, c) for c in ("gbdi", "adaptive"))))
+    phase_done(f"5 parity bdi (yi-6b at pages of 16 and {PARITY_BIG_PAGE}; "
+               f"5b's full-width gbdi and adaptive on the same weights)")
     for codec in ("zero", "raw", "fpc", "gbdi", "adaptive"):
         phase_parity(dev, tiny, page, 20, 140, 24, codec)
-    for codec in ("gbdi", "adaptive"):
-        phase_parity(dev, wide, page, 20, 140, WIDE_5B_STEPS, codec)
     phase_done("5b parity zero/raw/fpc/gbdi/adaptive")
     gemma = get_arch("gemma3-27b")
     gemma_wide = gemma.reduced(n_layers=2, d_model=5376, n_heads=32,
@@ -7904,14 +8337,14 @@ def main() -> int:
     phase_done("14b the dry run's CLI (started after phase 1, beside the "
                "others)")
     phase_tensor_parallel(dev)
-    phase_done("15 tensor-parallel serving of internvl2-76b at full width, "
-               "4 layers, two ranks on one card")
+    phase_done(f"15 tensor-parallel serving of internvl2-76b at full width, "
+               f"{TP_LAYERS} layers, two ranks on one card")
     tp_trained = phase_tp_train(dev)
-    phase_done("16 tensor-parallel training of internvl2-76b at full width, "
-               "4 layers, two ranks on one card, bdi8 moments")
+    phase_done(f"16 tensor-parallel training of internvl2-76b at full width, "
+               f"{TP_LAYERS} layers, two ranks on one card, bdi8 moments")
     dpt = phase_dp_tp(dev, traces)
-    phase_done("17 DP x TP serving and training (bdi8) of internvl2-76b at "
-               "full width, 4 layers, four ranks on one card")
+    phase_done(f"17 DP x TP serving and training (bdi8) of internvl2-76b at "
+               f"full width, {DPT_LAYERS} layers, four ranks on one card")
     rep = phase_replicated(dev, traces)
     phase_done("18 yi-6b on a model axis of 8 (K/V whole, the cache over "
                "T, bdi8 tiles across shards), eight ranks on one card")
@@ -7927,11 +8360,14 @@ def main() -> int:
     phase_done("21 hymba-1.5b and qwen2.5-14b on a model axis of 5 (whole "
                "MLPs and vocabularies, a cache whole or over T), five ranks "
                "on one card")
+    lay = phase_layers(dev, traces)
+    phase_done("22 yi-9b at full width, 6 layers, on a data axis of 3 "
+               "(FSDP over the layer dim), three ranks on one card")
 
     # launches of the paths that ran each kernel (3b set its own): the
     # serve run of phase 4 or 4b, the tile path and the training runs of
-    # phases 10, 13 (the compressed all-reduce), 16, 17, 18, 19, 20 and
-    # 21 (every rank), and
+    # phases 10, 13 (the compressed all-reduce), 16, 17, 18, 19, 20, 21
+    # and 22 (every rank), and
     # for the serving kernels phases 9 and 9b, each counted from 0 over
     # its own run
     path = {"bdi_compress_kv": bdi, "paged_attention_tail": bdi,
@@ -7949,7 +8385,8 @@ def main() -> int:
                               + rep["launches"][name]
                               + moe["launches"][name]
                               + fam["launches"][name]
-                              + whl["launches"][name])
+                              + whl["launches"][name]
+                              + lay["launches"][name])
         if name in ("bdi_compress_kv", "paged_attention_tail",
                     "gbdi_compress_kv", "gbdi_decompress_kv"):
             k["launches"] += (observed["launches"][name]

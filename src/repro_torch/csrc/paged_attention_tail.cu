@@ -24,45 +24,67 @@
 // the pages of one (b, h) in order; on the H100 that is B*KVH blocks
 // (32 at B = 8) for 132 SMs, each a chain of dependent loads.  So:
 //
-//   split pass, grid (B*KVH, n_split), 4 warps a block.  A warp takes a
-//     slot of up to 16 rows: a whole page of up to 16 rows, or half of a
-//     page of 20 to 32 (the first 16 rows, then the rest), so a split
-//     takes 4 page-table entries, or 2 when pages are over 16 rows, and
-//     the last split is the tail when there is one: n_split =
-//     ceil(PMAX / pages a split) + has_tail, from PMAX and never from
+//   split pass, grid (B*KVH, n_split, head groups), 4 warps a block.  A
+//     warp takes a slot of up to 16 rows in the sequence's row space,
+//     looked up page by page: a page of `page` rows is ceil(page / 16)
+//     slots rounded up to a power of two, so that a slot's page and row
+//     are shifts of its index; the last slots are partial or empty where
+//     16 does not divide the page (a page of 8 is one slot of 8, of 36
+//     four of 16, 16, 4 and 0, of 128 eight), and a split takes 4
+//     consecutive slots, whichever pages they lie in (4 pages up to 16
+//     rows, 2 up to 32, one at 64, half of one at 128).  The tail (the
+//     sequence's f32 block of `page` rows) is as many slots more, in
+//     ceil(slots / 4) splits after the pages': n_split = ceil(PMAX *
+//     slots / 4) + tail splits, from PMAX and never from
 //     `lengths` (reading those would sync with the host).  The tail
-//     split is scheduled first (its P.V reads V from L2).  A warp loads
-//     its slot's K and V rows before q is staged: at D 16, 32, 64 and
-//     128 in 16-byte loads (D/16 lanes a row, one load of base and scale
-//     a row), K dequantised in registers and each query head's columns
-//     read from shared memory once for all the lane's rows, the G x 16
-//     scores reduced over D with shuffles.  Any other D (a multiple of 4
-//     up to 256, e.g. 168; its int8 rows are only 4- or 8-byte aligned)
-//     runs the generic instance: lane L loads the 4-column groups L and
-//     L + 32 of every row in 4-byte loads, K's base and scale come from
-//     lane t for row t, and the 16 rows' partial dots are folded across
-//     the warp in 16 shuffles a head (after the fold, lanes 2t and 2t+1
-//     hold row t's score).  Then the slot's softmax (max, exp, sum; two
-//     heads a pass of the warp) and P.V from V staged in shared memory
-//     as it came (int8, dequantised as it is read, 4 consecutive columns
-//     a lane).  The 4 warps' states are merged in warp order and the
-//     split writes its unnormalised state to scratch
-//     [B*KVH, n_split, G, D+2] f32, each row (m, l, acc[D]).  A split
-//     past the last valid token writes m = -inf, l = 0, acc = 0 and
+//     splits are scheduled first (their P.V reads V from L2).  Rows past
+//     the page or past the valid tokens are masked: a slot's score and V
+//     rows are padded to a multiple of 4 (P.V takes 4 keys a step) with
+//     zero weights.  A warp loads its slot's K and V rows before q is
+//     staged: at D 16, 32, 64 and 128 in 16-byte loads (D/16 lanes a row,
+//     one load of base and scale a row), K dequantised in registers and
+//     each query head's columns read from shared memory once for all the
+//     lane's rows, the G x 16 scores reduced over D with shuffles.  Any
+//     other D that is a multiple of 4 up to 256 (e.g. 168; its int8 rows
+//     are only 4- or 8-byte aligned) runs the generic instance: lane L
+//     loads the 4-column groups L and L + 32 of every row in 4-byte
+//     loads, K's base and scale come from lane t for row t, and the 16
+//     rows' partial dots are folded across the warp in 16 shuffles a head
+//     (after the fold, lanes 2t and 2t+1 hold row t's score).  Then the
+//     slot's softmax (max, exp, sum; two heads a pass of the warp) and P.V
+//     from V staged in shared memory as it came (int8, dequantised as it
+//     is read, 4 consecutive columns a lane).  The 4 warps' states are
+//     merged in warp order and the split writes its unnormalised state to
+//     scratch [B*KVH, n_split, G, D+2] f32, each row (m, l, acc[D]).  A
+//     split past the last valid token writes m = -inf, l = 0, acc = 0 and
 //     stops.
-//   combine pass, grid (B*KVH, G), thread c on column c (128 threads,
-//     256 for the generic D): M = max m_s, then out = sum e^(m_s-M)
-//     acc_s / sum e^(m_s-M) l_s, the splits walked in index order; a
-//     split with m_s = -inf adds exactly 0.
+//   byte rows, any other D (not a multiple of 4, or over 256): the same
+//     slots, splits and scratch, a plain body.  q is read from global
+//     memory, K and V byte by byte (lane L on columns L, L + 32, ...),
+//     the 16 rows' partial dots folded as in the generic instance, and
+//     P.V accumulated in shared memory over column chunks of at most
+//     1024 / G' columns, each merged over the warps before the next.
+//   head groups: a lane keeps G*D / 128 x 4 accumulators up to G*D =
+//     1024, so the G query heads of a kv head are cut into groups of G'
+//     heads, G' = ceil(G / ceil(G / floor(1024 / D))) (at most 128; 64 on
+//     the byte path), one grid row each, each with its own rows of the
+//     scratch.  K/V are then read once a group (G 16 at D 128: two groups
+//     of 8 on the G = 8 instance).
+//   combine pass, grid (B*KVH, G, column blocks), thread c on column c
+//     (128 threads, 256 for the generic D and the byte rows): M = max
+//     m_s, then out = sum e^(m_s-M) acc_s / sum e^(m_s-M) l_s, the splits
+//     walked in index order in chunks of 4096, each chunk's weights and
+//     sums in shared memory, M the running max: num and den are rescaled
+//     by e^(M_old - M_new) where a chunk raises it (one chunk, no
+//     rescale, up to 4096 splits); a split with m_s = -inf adds exactly
+//     0.
 //
 // Every sum runs in a fixed order (shuffle trees, warps in order, splits
 // in index order) and nothing uses atomics, so two launches on the same
-// inputs give the same bits.  Shapes taken (`shape_ok`, mirrored by
-// repro_torch/kernels/paged_attention.py `takes`): D a multiple of 4 up
-// to 256, page a multiple of 4 from 4 to 32, G*D <= 1024, n_split <=
-// 6000; kd, vd and the tails 16-byte aligned.  A warp's slot stays at 16
-// rows, so pages of 32 rows cost the D 128 instance no registers.  Plain
-// f32 FMAs, no copy pipelining.
+// inputs give the same bits.  Shapes taken (`shape_ok`): any G, D and page
+// of at least 1 and PMAX of at least 0; kd, vd and the tails 16-byte
+// aligned.  A warp's slot stays at 16 rows, so large pages cost the D 128
+// instance no registers.  Plain f32 FMAs, no copy pipelining.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,23 +95,109 @@ namespace {
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWarpRows = 16;        // rows a warp takes (its slot)
-constexpr int kMaxPage = 2 * kWarpRows;
 constexpr int kMaxD = 256;           // generic D: lane groups L and L + 32
-constexpr int kMaxGD = 1024;         // G*D: a lane keeps 8 of q, 8 x 4 of acc
-constexpr int kMaxSplits = 6000;     // the combine keeps 8 bytes a split
+constexpr int kMaxGD = 1024;         // G'*D: a lane keeps 8 of q, 8 x 4 of acc
+constexpr int kMaxGroup = 128;       // query heads a group
+constexpr int kMaxGroupBytes = 64;   // on the byte path (scores in smem)
+constexpr int kChunk = 4096;         // splits a combine chunk
+constexpr int kMaxGridY = 65535;
 constexpr int kMinBlocks = 5;        // split blocks an SM: 96 registers
 constexpr int kMinBlocksAnyD = 4;    // the generic D keeps 64 loads in flight
 constexpr unsigned kFull = 0xffffffffu;
 
-bool shape_ok(int g, int d, int page) {
-  return d >= 4 && d <= kMaxD && d % 4 == 0 && page >= 4 &&
-         page <= kMaxPage && page % 4 == 0 && g >= 1 && g * d <= kMaxGD;
+bool shape_ok(int g, int d, int page) { return g >= 1 && d >= 1 && page >= 1; }
+
+// The fast instances' D: a multiple of 4 up to 256 (16-, 8- or 4-byte
+// loads of int8 rows); any other D takes the byte rows.
+bool word_rows(int d) { return d % 4 == 0 && d <= kMaxD; }
+
+// log2 of the 16-row slots a page: ceil(page / 16) rounded up to a power
+// of two, so that a slot's page and row are shifts of its index (a
+// division by a value known only at run time, or a branch around one,
+// costs the short split blocks of a decode step a few percent); the
+// last slots are partial or empty where 16 does not divide the page.
+int slot_shift(int page) {
+  int s = 0;
+  while ((kWarpRows << s) < page) ++s;
+  return s;
 }
 
-// Page-table entries a split takes: one a warp, or one a pair of warps
-// when a page is over kWarpRows rows.
-__host__ __device__ __forceinline__ int split_pages(int page) {
-  return page > kWarpRows ? kWarps / 2 : kWarps;
+int slots_per_page(int page) { return 1 << slot_shift(page); }
+
+// Splits over the pages (4 slots each) and over the tail.
+int main_splits(int pmax, int page) {
+  return static_cast<int>((static_cast<long long>(pmax) *
+                               slots_per_page(page) + kWarps - 1) / kWarps);
+}
+int tail_splits(int page) { return (slots_per_page(page) + kWarps - 1) / kWarps; }
+
+// Query heads a group: as many as keep G'*D within kMaxGD (at least one,
+// at most `cap`), then the groups evened out.
+int group_heads(int g, int d, int cap) {
+  int per = kMaxGD / d;
+  per = per < 1 ? 1 : (per > cap ? cap : per);
+  const int groups = (g + per - 1) / per;
+  return (g + groups - 1) / groups;
+}
+
+// A padded slot: rows rounded up to a multiple of 4 (P.V takes 4 keys a
+// step; the padding has zero weight).
+__host__ __device__ __forceinline__ int padded_rows(int page) {
+  const int rw = page < kWarpRows ? page : kWarpRows;
+  return (rw + 3) & ~3;
+}
+
+// Where a warp's slot lies: split index (the tail splits, the last
+// n_split - n_main, are scheduled first), its rows and how many are valid.
+struct Slot {
+  int split;
+  bool is_tail;
+  bool empty;        // the whole split is past the valid tokens
+  int nvalid;        // valid rows of this warp's slot
+  int r0;            // first row of the slot in its page or the tail
+  long long row0;    // first row of the slot in kd/kb/... (pages)
+};
+
+// First element of a tail slot in tail_k/tail_v.
+__device__ __forceinline__ long long tail_offset(int bh, int page, int d,
+                                                 int r0) {
+  return (static_cast<long long>(bh) * page + r0) * d;
+}
+
+__device__ __forceinline__ Slot slot_of(
+    int bh, int y, int warp, int kvh, int page, int shift, int pmax,
+    int n_split, int n_main, const int* __restrict__ lengths,
+    const int* __restrict__ tail_len, const int* __restrict__ page_table) {
+  Slot s;
+  const int nt = n_split - n_main;
+  s.split = y < nt ? n_main + y : y - nt;
+  const bool is_tail = s.split >= n_main;
+  s.is_tail = is_tail;
+  const int b = bh / kvh;
+  const int h = bh - b * kvh;
+  const int rw = page < kWarpRows ? page : kWarpRows;
+  // the split's first slot among the pages' or the tail's, this warp's
+  // slot, its page-table entry and its first row
+  const int first = (is_tail ? s.split - n_main : s.split) * kWarps;
+  const int j = first + warp;
+  const int p = j >> shift;
+  const int r0 = (is_tail ? j : j & ((1 << shift) - 1)) * kWarpRows;
+  // the lengths and this warp's table entry in one round of loads
+  const int len = lengths[b];
+  const int tlen = is_tail ? min(tail_len[b], page) : 0;
+  const int pid = (!is_tail && p < pmax) ? page_table[b * pmax + p] : 0;
+  const int npages = len <= 0 ? 0 : min((len + page - 1) / page, pmax);
+  s.empty = is_tail ? tlen <= first * kWarpRows : (first >> shift) >= npages;
+  int nvalid = 0;
+  if (is_tail) {
+    if (r0 < page) nvalid = max(0, min(rw, tlen - r0));
+  } else if (p < npages && r0 < page) {
+    nvalid = max(0, min(min(rw, page - r0), len - p * page - r0));
+  }
+  s.nvalid = nvalid;
+  s.r0 = r0;
+  s.row0 = (static_cast<long long>(pid) * kvh + h) * page + r0;
+  return s;
 }
 
 // d*s + b for the 4 int8 of `w`.  Each byte goes to a float without the
@@ -469,7 +577,8 @@ __device__ __forceinline__ void page_softmax(int nvalid, int lane, int g,
 
 // Shared memory of a split block, in floats: q, the warps' V slots
 // (int8, then base and scale) and scores, which the warps' acc overlay
-// for the merge once every warp is done with them; then m and l.
+// for the merge once every warp is done with them; then m and l.  rw: a
+// slot's rows padded to a multiple of 4.
 __host__ __device__ __forceinline__ int split_smem_floats(int g, int d,
                                                           int rw) {
   const int work = g * d + kWarps * (rw * d / 4 + 2 * rw + g * rw);
@@ -477,9 +586,43 @@ __host__ __device__ __forceinline__ int split_smem_floats(int g, int d,
   return (work > merge ? work : merge) + 2 * kWarps * g;
 }
 
+// Merge the 4 warps' softmax states of a group's G' heads in warp order:
+// each head's max and sum go to dst, and m_all turns into the warps'
+// factors e^(m_w - m).
+__device__ __forceinline__ void merge_states(int g, int d, int tid,
+                                             float* m_all,
+                                             const float* l_all,
+                                             float* dst) {
+  for (int gi = tid; gi < g; gi += kThreads) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, m_all[w * g + gi]);
+    float l = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float mw = m_all[w * g + gi];
+      const float sc = (mw == -INFINITY) ? 0.0f : expf(mw - m);
+      l = fmaf(sc, l_all[w * g + gi], l);
+      m_all[w * g + gi] = sc;
+    }
+    dst[static_cast<long long>(gi) * (d + 2)] = m;
+    dst[static_cast<long long>(gi) * (d + 2) + 1] = l;
+  }
+}
+
+// A split past the last valid token: m = -inf, l = 0, acc = 0.
+__device__ __forceinline__ void write_empty(float* dst, int g, int d,
+                                            int tid) {
+  const int n = g * (d + 2);
+  for (int i = tid; i < n; i += kThreads)
+    dst[i] = (i % (d + 2) == 0) ? -INFINITY : 0.0f;
+}
+
 // D > 0: the head width, known at compile time (16, 32, 64 or 128); 0:
-// d_rt, any multiple of 4 up to 256.  G > 0: the query heads a kv head,
-// known at compile time; 0: g_rt.
+// d_rt, any multiple of 4 up to 256.  G > 0: the query heads of a group,
+// known at compile time (every group full); 0: at most g_grp, the rest of
+// g_all.  blockIdx.y + y0: the split (the tail's first), blockIdx.z the
+// head group.
 template <int D, int G>
 __global__ void __launch_bounds__(kThreads,
                                   D > 0 ? kMinBlocks : kMinBlocksAnyD)
@@ -492,17 +635,17 @@ __global__ void __launch_bounds__(kThreads,
                  const float* __restrict__ tail_k,
                  const float* __restrict__ tail_v,
                  const int* __restrict__ tail_len,
-                 float* __restrict__ scratch, int kvh, int g_rt, int d_rt,
-                 int page, int pmax, int n_split) {
+                 float* __restrict__ scratch, int kvh, int g_all, int g_grp,
+                 int d_rt, int page, int shift, int pmax, int n_split,
+                 int n_main, int y0) {
   extern __shared__ __align__(16) float smem[];
-  const int g = G > 0 ? G : g_rt;
+  const int g0 = blockIdx.z * g_grp;
+  const int g = G > 0 ? G : min(g_grp, g_all - g0);
   const int d = D > 0 ? D : d_rt;
   constexpr int GR = G == 0 ? 1 : (G < 2 ? G : 2);  // heads a score group
   constexpr int SG = G == 0 ? 4 : (G < 8 ? G : 8);  // heads a softmax group
   const int gd = g * d;
-  // a warp's slot: rw rows of a page; a page over 16 rows takes two warps
-  const int two = page > kWarpRows;
-  const int rw = two ? kWarpRows : page;
+  const int rw = padded_rows(page);    // a slot's rows, padded
   float* q_s = smem;                   // [g][d], by q_index when D > 0
   float* vsb_f = q_s + gd + kWarps * rw * d / 4;
   int8_t* vr_all = reinterpret_cast<int8_t*>(q_s + gd);  // [kWarps][rw][d]
@@ -514,19 +657,12 @@ __global__ void __launch_bounds__(kThreads,
   float* l_all = m_all + kWarps * g;                // [kWarps][g]
 
   const int bh = blockIdx.x;
-  // the tail (the last split) runs first: its P.V reads V from L2, and a
-  // block scheduled last would end the launch late
-  const bool has_tail = tail_len != nullptr;
-  const int split = has_tail ? (blockIdx.y == 0 ? n_split - 1 : blockIdx.y - 1)
-                             : blockIdx.y;
-  const int b = bh / kvh;
-  const int h = bh - b * kvh;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
 
   // q, the lengths and this warp's table entry in one round of loads
-  const float* qb = q + static_cast<long long>(bh) * gd;
+  const float* qb = q + (static_cast<long long>(bh) * g_all + g0) * d;
   constexpr int kQ = kMaxGD / kThreads;
   float qv[kQ];
 #pragma unroll
@@ -534,40 +670,26 @@ __global__ void __launch_bounds__(kThreads,
     const int i = tid + k * kThreads;
     qv[k] = i < gd ? __ldg(qb + i) : 0.0f;
   }
-  const bool is_tail = has_tail && split == n_split - 1;
-  const int spp = kWarps >> two;                 // table entries a split
-  const int p = split * spp + (warp >> two);
-  const int r0 = two ? (warp & 1) * kWarpRows : 0;  // first row of the slot
-  const int slot = min(rw, page - r0);              // rows of the slot
-  const int len = lengths[b];
-  const int tlen = is_tail ? min(tail_len[b], page) : 0;
-  const int pid = (!is_tail && p < pmax) ? page_table[b * pmax + p] : 0;
-  const int npages = len <= 0 ? 0 : min((len + page - 1) / page, pmax);
-  float* dst = scratch + (static_cast<long long>(bh) * n_split + split) *
-                             g * (d + 2);
-  if (is_tail ? tlen <= 0 : split * spp >= npages) {
-    for (int i = tid; i < g * (d + 2); i += kThreads)
-      dst[i] = (i % (d + 2) == 0) ? -INFINITY : 0.0f;
+  const Slot sl = slot_of(bh, blockIdx.y + y0, warp, kvh, page, shift,
+                          pmax, n_split, n_main, lengths, tail_len,
+                          page_table);
+  const bool is_tail = sl.is_tail;
+  const int nvalid = sl.nvalid;
+  float* dst = scratch + ((static_cast<long long>(bh) * n_split + sl.split) *
+                              g_all + g0) * (d + 2);
+  if (sl.empty) {
+    write_empty(dst, g, d, tid);
     return;
   }
-  int nvalid = 0;
-  if (is_tail) {
-    // the tail's rows go to warp 0, and to warp 1 past 16
-    const int tr0 = warp * kWarpRows;
-    if (tr0 < page) nvalid = max(0, min(rw, tlen - tr0));
-  } else if (p < npages) {
-    nvalid = max(0, min(slot, len - p * page - r0));
-  }
-  const long long row0 = (static_cast<long long>(pid) * kvh + h) * page + r0;
   int8_t* vr_w = vr_all + warp * rw * d;
   using Regs = PageRegs<D == 0 ? 16 : D>;
   Regs regs;
   PageRegsAny regs_any;
   if (!is_tail) {
     if constexpr (D > 0)
-      regs.load(kd, kb, ks, vd, vb, vs, row0, nvalid, lane);
+      regs.load(kd, kb, ks, vd, vb, vs, sl.row0, nvalid, lane);
     else
-      regs_any.load(kd, kb, ks, vd, vb, vs, row0, nvalid, lane, d);
+      regs_any.load(kd, kb, ks, vd, vb, vs, sl.row0, nvalid, lane, d);
   }
 
   const float qscale = 1.0f / sqrtf(static_cast<float>(d));
@@ -587,9 +709,7 @@ __global__ void __launch_bounds__(kThreads,
   float* s_w = s_all + warp * g * rw;
   float* m_w = m_all + warp * g;
   float* l_w = l_all + warp * g;
-  // the tail rows of this warp: rows warp*16 .. of the tail block
-  const long long toff =
-      static_cast<long long>(bh) * page * d + warp * kWarpRows * d;
+  const long long toff = tail_offset(bh, page, d, sl.r0);
   // Every warp runs the same code (the shuffles must not sit under a
   // branch that depends on the warp); one with no valid key (nvalid 0)
   // ends with m = -inf, l = 0 and acc = 0.
@@ -710,21 +830,7 @@ __global__ void __launch_bounds__(kThreads,
 
   // merge the warps' states in warp order: first each query head's max,
   // sum and per-warp factors (m_all turns into the factors), then acc
-  if (tid < g) {
-    float m = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m = fmaxf(m, m_all[w * g + tid]);
-    float l = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float mw = m_all[w * g + tid];
-      const float sc = (mw == -INFINITY) ? 0.0f : expf(mw - m);
-      l = fmaf(sc, l_all[w * g + tid], l);
-      m_all[w * g + tid] = sc;
-    }
-    dst[tid * (d + 2)] = m;
-    dst[tid * (d + 2) + 1] = l;
-  }
+  merge_states(g, d, tid, m_all, l_all, dst);
   __syncthreads();
   for (int e = tid; e < gd; e += kThreads) {
     const int gi = e / d;
@@ -736,66 +842,227 @@ __global__ void __launch_bounds__(kThreads,
   }
 }
 
-// One block a (b*KVH + h, query head): the splits' weights e^(m_s - M)
-// and l_s go to shared memory, then thread c walks the splits in index
-// order for column c, kBatch loads at a time; the first batch is loaded
-// with the m_s, before M is known.  D 0: d_rt columns, 256 threads.
+// Shared memory of a byte-rows block, in floats: the warps' scores, their
+// P.V accumulators for one column chunk of cw columns, then m and l.
+__host__ __device__ __forceinline__ int bytes_smem_floats(int g, int rw,
+                                                          int cw) {
+  return kWarps * g * rw + kWarps * g * cw + 2 * kWarps * g;
+}
+
+// K or V element (t, c) of a slot: the int8 page row dequantised, or the
+// f32 tail row.
+__device__ __forceinline__ float kv_at(bool is_tail,
+                                       const int8_t* __restrict__ xd,
+                                       const float* __restrict__ xs,
+                                       const float* __restrict__ xb,
+                                       const float* __restrict__ tx,
+                                       long long row0, long long toff, int t,
+                                       int c, int d) {
+  if (is_tail) return __ldg(tx + toff + static_cast<long long>(t) * d + c);
+  const long long row = row0 + t;
+  return fmaf(static_cast<float>(__ldg(xd + row * d + c)), __ldg(xs + row),
+              __ldg(xb + row));
+}
+
+// Any D (not a multiple of 4, or over 256): the slots, splits and scratch
+// of split_kernel, a plain body over rows that are only byte-aligned.
+__global__ void __launch_bounds__(kThreads) split_kernel_bytes(
+    const float* __restrict__ q, const int8_t* __restrict__ kd,
+    const float* __restrict__ kb, const float* __restrict__ ks,
+    const int8_t* __restrict__ vd, const float* __restrict__ vb,
+    const float* __restrict__ vs, const int* __restrict__ page_table,
+    const int* __restrict__ lengths, const float* __restrict__ tail_k,
+    const float* __restrict__ tail_v, const int* __restrict__ tail_len,
+    float* __restrict__ scratch, int kvh, int g_all, int g_grp, int d,
+    int page, int shift, int pmax, int n_split, int n_main, int y0,
+    int cw) {
+  extern __shared__ __align__(16) float smem[];
+  const int g0 = blockIdx.z * g_grp;
+  const int g = min(g_grp, g_all - g0);
+  const int rw = padded_rows(page);
+  float* s_all = smem;                          // [kWarps][g][rw]
+  float* acc_all = s_all + kWarps * g * rw;     // [kWarps][g*cw]
+  float* m_all = acc_all + kWarps * g * cw;     // [kWarps][g]
+  float* l_all = m_all + kWarps * g;            // [kWarps][g]
+  const int bh = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const Slot sl = slot_of(bh, blockIdx.y + y0, warp, kvh, page, shift,
+                          pmax, n_split, n_main, lengths, tail_len,
+                          page_table);
+  float* dst = scratch + ((static_cast<long long>(bh) * n_split + sl.split) *
+                              g_all + g0) * (d + 2);
+  if (sl.empty) {
+    write_empty(dst, g, d, tid);
+    return;
+  }
+  const bool is_tail = sl.is_tail;
+  const int nvalid = sl.nvalid;
+  const long long toff = tail_offset(bh, page, d, sl.r0);
+  const float qscale = 1.0f / sqrtf(static_cast<float>(d));
+  const float* qb = q + (static_cast<long long>(bh) * g_all + g0) * d;
+  float* s_w = s_all + warp * g * rw;
+  for (int gi = 0; gi < g; ++gi) {
+    float part[kWarpRows];
+#pragma unroll
+    for (int t = 0; t < kWarpRows; ++t) part[t] = 0.0f;
+    for (int c0 = 0; c0 < d; c0 += 32) {
+      const int c = c0 + lane;
+      const float qq = c < d ? __ldg(qb + gi * d + c) * qscale : 0.0f;
+#pragma unroll
+      for (int t = 0; t < kWarpRows; ++t)
+        if (t < nvalid && c < d)
+          part[t] = fmaf(qq, kv_at(is_tail, kd, ks, kb, tail_k, sl.row0,
+                                   toff, t, c, d),
+                         part[t]);
+    }
+    fold<16>(part, lane);
+    fold<8>(part, lane);
+    fold<4>(part, lane);
+    fold<2>(part, lane);
+    part[0] += __shfl_xor_sync(kFull, part[0], 1);
+    const int t = lane >> 1;
+    if (!(lane & 1) && t < nvalid) s_w[gi * rw + t] = part[0];
+  }
+  __syncwarp();
+  page_softmax<4>(nvalid, lane, g, rw, s_w, m_all + warp * g,
+                  l_all + warp * g);
+  __syncthreads();
+  merge_states(g, d, tid, m_all, l_all, dst);
+  __syncthreads();
+  float* acc_w = acc_all + warp * g * cw;
+  for (int cc0 = 0; cc0 < d; cc0 += cw) {
+    const int cn = min(cw, d - cc0);
+    const int ne = g * cn;
+    for (int e = lane; e < ne; e += 32) {
+      const int gi = e / cn;
+      const int c = cc0 + (e - gi * cn);
+      float a = 0.0f;
+      for (int t = 0; t < nvalid; ++t)
+        a = fmaf(s_w[gi * rw + t],
+                 kv_at(is_tail, vd, vs, vb, tail_v, sl.row0, toff, t, c,
+                       d),
+                 a);
+      acc_w[e] = a;
+    }
+    __syncthreads();
+    for (int e = tid; e < ne; e += kThreads) {
+      const int gi = e / cn;
+      const int c = cc0 + (e - gi * cn);
+      float a = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        a = fmaf(m_all[w * g + gi], acc_all[w * g * cw + e], a);
+      dst[static_cast<long long>(gi) * (d + 2) + 2 + c] = a;
+    }
+    __syncthreads();
+  }
+}
+
+// One block a (b*KVH + h, query head, block of kNT columns): thread c
+// walks the splits in index order for column c, in chunks of kChunk whose
+// weights e^(m_s - M) and sums l_s go to shared memory, M the running
+// max (num and den rescaled where a chunk raises it; one chunk up to
+// kChunk splits), kBatch loads at a time; a chunk's first batch is loaded
+// with its m_s, before M is known.  D 0: d_rt columns, 256 threads a
+// block.
 template <int D>
 __global__ void __launch_bounds__(D > 0 ? kThreads : kMaxD) combine_kernel(
     const float* __restrict__ scratch, float* __restrict__ out, int d_rt,
     int n_split) {
   constexpr int kNT = D > 0 ? kThreads : kMaxD;
   constexpr int kBatch = 72;  // one round of loads up to PMAX 284
-  extern __shared__ float w_s[];       // [n_split] weights
-  float* l_s = w_s + n_split;          // [n_split] sums
+  extern __shared__ float w_s[];       // [chunk] weights
+  const int chunk = n_split < kChunk ? n_split : kChunk;
+  float* l_s = w_s + chunk;            // [chunk] sums
   __shared__ float red[kNT / 32];
   const int d = D > 0 ? D : d_rt;
   const int bh = blockIdx.x;
   const int gi = blockIdx.y;
   const int g = gridDim.y;
   const int tid = threadIdx.x;
+  const int col = blockIdx.z * kNT + tid;
+  const bool live = col < d;
   const long long stride = static_cast<long long>(g) * (d + 2);
   const float* base =
       scratch + (static_cast<long long>(bh) * n_split * g + gi) * (d + 2);
   float a[kBatch];
-#pragma unroll
-  for (int u = 0; u < kBatch; ++u)
-    a[u] = (tid < d && u < n_split) ? base[u * stride + 2 + tid] : 0.0f;
-  float m = -INFINITY;
-  for (int s = tid; s < n_split; s += kNT) {
-    const float ms = base[s * stride];
-    w_s[s] = ms;
-    l_s[s] = base[s * stride + 1];
-    m = fmaxf(m, ms);
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
-  if ((tid & 31) == 0) red[tid >> 5] = m;
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kNT / 32; ++w) m = fmaxf(m, red[w]);
-  for (int s = tid; s < n_split; s += kNT) {
-    const float ms = w_s[s];
-    w_s[s] = (ms == -INFINITY) ? 0.0f : expf(ms - m);  // adds exactly 0
-  }
-  __syncthreads();
-  if (tid >= d) return;
-  float num = 0.0f, den = 0.0f;
-  for (int s0 = 0; s0 < n_split; s0 += kBatch) {  // index order
-    if (s0 > 0) {
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        a[u] = s0 + u < n_split ? base[(s0 + u) * stride + 2 + tid] : 0.0f;
-    }
+  float big = -INFINITY, num = 0.0f, den = 0.0f;
+  for (int c0 = 0; c0 < n_split; c0 += kChunk) {
+    const int cn = min(kChunk, n_split - c0);
+    const float* cb = base + c0 * stride;
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
-      if (s0 + u < n_split) {
-        num = fmaf(w_s[s0 + u], a[u], num);
-        den = fmaf(w_s[s0 + u], l_s[s0 + u], den);
+      a[u] = (live && u < cn) ? cb[u * stride + 2 + col] : 0.0f;
+    float m = -INFINITY;
+    for (int s = tid; s < cn; s += kNT) {
+      const float ms = cb[s * stride];
+      w_s[s] = ms;
+      l_s[s] = cb[s * stride + 1];
+      m = fmaxf(m, ms);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(kFull, m, o));
+    if ((tid & 31) == 0) red[tid >> 5] = m;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kNT / 32; ++w) m = fmaxf(m, red[w]);
+    m = fmaxf(m, big);
+    // the chunks before, rescaled to the new max (0 while all were empty)
+    const float f = (big == -INFINITY) ? 0.0f : expf(big - m);
+    num *= f;
+    den *= f;
+    big = m;
+    for (int s = tid; s < cn; s += kNT) {
+      const float ms = w_s[s];
+      w_s[s] = (ms == -INFINITY) ? 0.0f : expf(ms - m);  // adds exactly 0
+    }
+    __syncthreads();
+    if (live) {
+      for (int s0 = 0; s0 < cn; s0 += kBatch) {  // index order
+        if (s0 > 0) {
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u)
+            a[u] = s0 + u < cn ? cb[(s0 + u) * stride + 2 + col] : 0.0f;
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (s0 + u < cn) {
+            num = fmaf(w_s[s0 + u], a[u], num);
+            den = fmaf(w_s[s0 + u], l_s[s0 + u], den);
+          }
       }
+    }
+    __syncthreads();           // before the next chunk reuses w_s and red
   }
-  out[(static_cast<long long>(bh) * g + gi) * d + tid] = num / den;
+  if (live) out[(static_cast<long long>(bh) * g + gi) * d + col] = num / den;
+}
+
+// The split pass over grid rows of at most kMaxGridY splits, then the
+// combine.
+template <class Launch>
+int split_rows(int n_split, Launch&& one) {
+  for (int y0 = 0; y0 < n_split; y0 += kMaxGridY) {
+    one(y0, min(kMaxGridY, n_split - y0));
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}
+
+template <int D>
+int combine(const void* scratch, void* out, int bkvh, int g, int d,
+            int n_split, cudaStream_t stream) {
+  constexpr int kNT = D > 0 ? kThreads : kMaxD;
+  const dim3 grid(bkvh, g, (d + kNT - 1) / kNT);
+  const float* in = static_cast<const float*>(scratch);
+  float* o = static_cast<float*>(out);
+  const int chunk = n_split < kChunk ? n_split : kChunk;
+  combine_kernel<D><<<grid, kNT, 2 * sizeof(float) * chunk, stream>>>(
+      in, o, d, n_split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -804,46 +1071,72 @@ int launch(const void* q, const void* kd, const void* kb, const void* ks,
            const void* page_table, const void* lengths, const void* tail_k,
            const void* tail_v, const void* tail_len, void* out,
            void* scratch, int bkvh, int kvh, int g, int d, int page,
-           int pmax, int n_split, cudaStream_t stream) {
-  const int rw = page > kWarpRows ? kWarpRows : page;
-  const size_t smem = sizeof(float) * split_smem_floats(g, d, rw);
-  if (n_split > 0) {
-    const dim3 grid(bkvh, n_split);
-    auto split = split_kernel<D, 0>;
-    switch (g) {
+           int pmax, int n_split, int n_main, cudaStream_t stream) {
+  const int gg = group_heads(g, d, kMaxGroup);
+  const int groups = (g + gg - 1) / gg;
+  const size_t smem =
+      sizeof(float) * split_smem_floats(gg, d, padded_rows(page));
+  auto split = split_kernel<D, 0>;
+  if (g % gg == 0) {
+    switch (gg) {
       case 1: split = split_kernel<D, 1>; break;
       case 2: split = split_kernel<D, 2>; break;
       case 4: split = split_kernel<D, 4>; break;
       case 8: split = split_kernel<D, 8>; break;
       default: break;
     }
-    split<<<grid, kThreads, smem, stream>>>(
+  }
+  const int err = split_rows(n_split, [&](int y0, int ny) {
+    split<<<dim3(bkvh, ny, groups), kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const int8_t*>(kd),
         static_cast<const float*>(kb), static_cast<const float*>(ks),
         static_cast<const int8_t*>(vd), static_cast<const float*>(vb),
         static_cast<const float*>(vs), static_cast<const int*>(page_table),
         static_cast<const int*>(lengths), static_cast<const float*>(tail_k),
         static_cast<const float*>(tail_v), static_cast<const int*>(tail_len),
-        static_cast<float*>(scratch), kvh, g, d, page, pmax, n_split);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int combine_threads = D > 0 ? kThreads : kMaxD;
-  combine_kernel<D><<<dim3(bkvh, g), combine_threads,
-                      2 * sizeof(float) * n_split, stream>>>(
-      static_cast<const float*>(scratch), static_cast<float*>(out), d,
-      n_split);
-  return static_cast<int>(cudaGetLastError());
+        static_cast<float*>(scratch), kvh, g, gg, d, page, slot_shift(page),
+        pmax, n_split, n_main, y0);
+  });
+  if (err) return err;
+  return combine<D>(scratch, out, bkvh, g, d, n_split, stream);
+}
+
+int launch_bytes(const void* q, const void* kd, const void* kb,
+                 const void* ks, const void* vd, const void* vb,
+                 const void* vs, const void* page_table, const void* lengths,
+                 const void* tail_k, const void* tail_v,
+                 const void* tail_len, void* out, void* scratch, int bkvh,
+                 int kvh, int g, int d, int page, int pmax, int n_split,
+                 int n_main, cudaStream_t stream) {
+  const int gg = group_heads(g, d, kMaxGroupBytes);
+  const int groups = (g + gg - 1) / gg;
+  const int cw = min(d, kMaxGD / gg);
+  const size_t smem =
+      sizeof(float) * bytes_smem_floats(gg, padded_rows(page), cw);
+  const int err = split_rows(n_split, [&](int y0, int ny) {
+    split_kernel_bytes<<<dim3(bkvh, ny, groups), kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const int8_t*>(kd),
+        static_cast<const float*>(kb), static_cast<const float*>(ks),
+        static_cast<const int8_t*>(vd), static_cast<const float*>(vb),
+        static_cast<const float*>(vs), static_cast<const int*>(page_table),
+        static_cast<const int*>(lengths), static_cast<const float*>(tail_k),
+        static_cast<const float*>(tail_v), static_cast<const int*>(tail_len),
+        static_cast<float*>(scratch), kvh, g, gg, d, page, slot_shift(page),
+        pmax, n_split, n_main, y0, cw);
+  });
+  if (err) return err;
+  return combine<0>(scratch, out, bkvh, g, d, n_split, stream);
 }
 
 }  // namespace
 
 // All pointers are contiguous device buffers of the shapes above; the
 // int arrays are int32; scratch is f32 [B*KVH, n_split, G, D+2] with
-// n_split = ceil(pmax / (page <= 16 ? 4 : 2)) + (tail_len != null).  Two
-// launches on `stream`; returns cudaGetLastError() after them
-// (cudaErrorInvalidValue for a shape this kernel does not take or a
-// wrong n_split).
+// n_split = ceil(pmax * slots / 4) + (tail_len != null ? ceil(slots / 4)
+// : 0), slots = ceil(page / 16) rounded up to a power of two.  The launches go on `stream`; returns
+// cudaGetLastError() after them (cudaErrorInvalidValue for a shape no
+// kernel can take, G, D or page below 1 or PMAX below 0, or a wrong
+// n_split).
 extern "C" int paged_attention_tail(
     const void* q, const void* kd, const void* kb, const void* ks,
     const void* vd, const void* vb, const void* vs, const void* page_table,
@@ -852,28 +1145,27 @@ extern "C" int paged_attention_tail(
     int g, int d, int page, int pmax, int n_split, void* stream) {
   if (!shape_ok(g, d, page) || pmax < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int spp = split_pages(page);
-  const int want = (pmax + spp - 1) / spp + (tail_len != nullptr ? 1 : 0);
-  if (n_split != want || n_split > kMaxSplits)
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_main = main_splits(pmax, page);
+  const int want = n_main + (tail_len != nullptr ? tail_splits(page) : 0);
+  if (n_split != want) return static_cast<int>(cudaErrorInvalidValue);
   const int bkvh = batch * kvh;
   if (bkvh == 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_LAUNCH(DD)                                                    \
-  launch<DD>(q, kd, kb, ks, vd, vb, vs, page_table, lengths, tail_k, tail_v, \
-             tail_len, out, scratch, bkvh, kvh, g, d, page, pmax, n_split,   \
-             st)
+#define REPRO_ARGS                                                          \
+  q, kd, kb, ks, vd, vb, vs, page_table, lengths, tail_k, tail_v, tail_len, \
+      out, scratch, bkvh, kvh, g, d, page, pmax, n_split, n_main, st
+  if (!word_rows(d)) return launch_bytes(REPRO_ARGS);
   switch (d) {
-    case 16: return REPRO_LAUNCH(16);
-    case 32: return REPRO_LAUNCH(32);
-    case 64: return REPRO_LAUNCH(64);
-    case 128: return REPRO_LAUNCH(128);
-    default: return REPRO_LAUNCH(0);
+    case 16: return launch<16>(REPRO_ARGS);
+    case 32: return launch<32>(REPRO_ARGS);
+    case 64: return launch<64>(REPRO_ARGS);
+    case 128: return launch<128>(REPRO_ARGS);
+    default: return launch<0>(REPRO_ARGS);
   }
-#undef REPRO_LAUNCH
+#undef REPRO_ARGS
 }
 
-// The same without a tail (n_split = ceil(pmax / pages a split)).
+// The same without a tail (n_split = ceil(pmax * slots / 4)).
 extern "C" int paged_attention(const void* q, const void* kd, const void* kb,
                                const void* ks, const void* vd, const void* vb,
                                const void* vs, const void* page_table,

@@ -185,43 +185,76 @@ def local_shards(tree, specs, mesh, coord: dict | None = None):
     leaves, spec_list = leaf_paths(tree), spec_leaves(specs)
     if len(leaves) != len(spec_list):
         raise ValueError("local_shards: the tree and its specs differ")
-    out = []
-    for (path, leaf), (_, spec) in zip(leaves, spec_list):
-        x = leaf
-        for d, c in enumerate(_cuts(path, tuple(leaf.shape), spec, sizes,
-                                    coord)):
-            if c.stop - c.start < leaf.shape[d]:
-                x = x.narrow(d, c.start, c.stop - c.start)
-        out.append(x if x is leaf else x.clone())
-    return _rebuild(tree, iter(out))
+    return _rebuild(tree, iter(
+        _keep(leaf, _cuts(path, tuple(leaf.shape), spec, sizes, coord))
+        for (path, leaf), (_, spec) in zip(leaves, spec_list)))
 
 
-def _layer_spec(path: str, shape: tuple, mesh, itemsize: int, fsdp: bool,
-                layers: int | None):
-    """The spec of the leaf at ``path`` (keyed as in the whole tree) of
-    ``shape``; under ``['blocks']`` with ``layers``, ``shape`` is one
-    layer's of a stack of that many, whose bytes FSDP reads, and a spec
-    that splits the layers themselves raises."""
-    if layers is None or not path.startswith("['blocks']"):
-        return _spec_for(path, shape, mesh, itemsize, fsdp)
-    spec = _spec_for(path, (layers, *shape), mesh, itemsize, fsdp)
-    if spec[0] is not None:
-        raise NotImplementedError(f"{path}: {spec} splits the layers; "
-                                  "a layer is not cut on its own")
-    return P(*spec[1:])
+def _keep(leaf: torch.Tensor, cuts: list[slice]) -> torch.Tensor:
+    """The block of ``leaf`` that ``cuts`` (a slice a dim) keep: a compact
+    copy where it is cut anywhere, else the leaf itself."""
+    x = leaf
+    for d, c in enumerate(cuts):
+        if c.stop - c.start < leaf.shape[d]:
+            x = x.narrow(d, c.start, c.stop - c.start)
+    return x if x is leaf else x.clone()
+
+
+# the stacked layers' subtrees: the decoder's, the encoder's
+STACKS = re.compile(r"^\['(enc_|dec_)?blocks'\]")
+
+
+def _layer_cuts(path: str, shape: tuple, mesh, itemsize: int, fsdp: bool,
+                layers: int | None, coord: dict
+                ) -> tuple[slice | None, list[slice]]:
+    """``(rows, cuts)`` of the leaf at ``path`` (keyed as in the whole
+    tree) of ``shape`` for the rank at ``coord``: the slices of each dim
+    it keeps (:func:`_cuts`), and, under a stack with ``layers`` (``shape``
+    one layer's of a stack of that many, whose bytes FSDP reads), the
+    stack's rows the rank keeps where the rule table splits the layers
+    themselves over the data axes (else None)."""
+    sizes = mesh_axes(mesh)
+    if layers is None or not STACKS.match(path):
+        return None, _cuts(path, shape, _spec_for(path, shape, mesh,
+                                                  itemsize, fsdp),
+                           sizes, coord)
+    stack = (layers, *shape)
+    cuts = _cuts(path, stack, _spec_for(path, stack, mesh, itemsize, fsdp),
+                 sizes, coord)
+    rows = cuts[0] if cuts[0].stop - cuts[0].start < layers else None
+    return rows, cuts[1:]
 
 
 def local_params(tree, mesh, coord: dict | None = None, *,
-                 fsdp: bool = False, layers: int | None = None):
+                 fsdp: bool = False, layers: int | None = None,
+                 layer: int | None = None):
     """:func:`local_shards` of a params tree (or a subtree keyed as in the
     whole tree) under ``param_specs(fsdp=fsdp)``: the serving layout by
     default, the training layout of JAX's dry run (FSDP blocks over the
-    data axes) with ``fsdp=True``.  ``layers``: the leaves under
-    ``['blocks']`` are one layer of a stack of that many (an init that
-    cuts each layer as it is drawn, :class:`Local`)."""
-    specs = [_layer_spec(path, tuple(leaf.shape), mesh, leaf.element_size(),
-                         fsdp, layers) for path, leaf in leaf_paths(tree)]
-    return local_shards(tree, _rebuild(tree, iter(specs)), mesh, coord)
+    data axes) with ``fsdp=True``.  ``layers``: the leaves under a stack
+    (``['blocks']``, ``['enc_blocks']``, ``['dec_blocks']``) are layer
+    ``layer`` of a stack of that many (an init that cuts each layer as it
+    is drawn, :class:`Local`); a leaf whose layers the rule table splits
+    over the data axes comes back as ``models/params.Rows`` (its row in
+    the rank's block of L/d layers) where the rank keeps that layer, and
+    None where it does not."""
+    from repro_torch.models.params import Rows
+    if coord is None:
+        coord = {a: mesh.get_local_rank(a) for a in mesh_axes(mesh)}
+    out = []
+    for path, leaf in leaf_paths(tree):
+        rows, cuts = _layer_cuts(path, tuple(leaf.shape), mesh,
+                                 leaf.element_size(), fsdp, layers, coord)
+        x = _keep(leaf, cuts)
+        if rows is not None:
+            if layer is None:
+                raise ValueError(f"{path}: the rule table splits the stack's "
+                                 f"layers over the data axes; which layer "
+                                 f"this is must be given (layer=)")
+            x = Rows(x, layer - rows.start, rows.stop - rows.start) \
+                if rows.start <= layer < rows.stop else None
+        out.append(x)
+    return _rebuild(tree, iter(out))
 
 
 def _cuts(path: str, shape: tuple, spec, sizes: dict, coord: dict
@@ -246,11 +279,12 @@ def _cuts(path: str, shape: tuple, spec, sizes: dict, coord: dict
 
 
 class Local:
-    """``local_params(tree, mesh, coord, fsdp=fsdp, layers=layers)`` as a
-    function of a subtree (``models/transformer.init_params(local=)``),
-    which also gives one leaf's block before the leaf exists
-    (:meth:`block`), so that an init can draw the parts a rank does not
-    keep without holding them (the MoE experts, ``models/moe.init_moe``)."""
+    """``local_params(tree, mesh, coord, fsdp=fsdp, layers=layers,
+    layer=layer)`` as a function of a subtree and a layer index
+    (``models/transformer.init_params(local=)``), which also gives one
+    leaf's block before the leaf exists (:meth:`block`), so that an init
+    can draw the parts a rank does not keep without holding them (the
+    MoE experts, ``models/moe.init_moe``)."""
 
     def __init__(self, mesh, coord: dict | None = None, *,
                  fsdp: bool = False, layers: int | None = None):
@@ -258,19 +292,19 @@ class Local:
         self.coord = coord if coord is not None else {
             a: mesh.get_local_rank(a) for a in mesh_axes(mesh)}
 
-    def __call__(self, tree):
+    def __call__(self, tree, layer: int | None = None):
         return local_params(tree, self.mesh, self.coord, fsdp=self.fsdp,
-                            layers=self.layers)
+                            layers=self.layers, layer=layer)
 
     def block(self, path: str, shape: tuple, itemsize: int = 2
-              ) -> list[slice]:
-        """The slices of each dim of the leaf at ``path`` (keyed as in the
-        whole tree) of whole ``shape`` (one layer's, under ``['blocks']``
-        with ``layers``) that this rank keeps."""
-        spec = _layer_spec(path, tuple(shape), self.mesh, itemsize,
-                           self.fsdp, self.layers)
-        return _cuts(path, tuple(shape), spec, mesh_axes(self.mesh),
-                     self.coord)
+              ) -> tuple[slice | None, list[slice]]:
+        """``(rows, cuts)`` of the leaf at ``path`` (keyed as in the whole
+        tree) of whole ``shape`` (one layer's, under a stack with
+        ``layers``): the slices of each dim this rank keeps, and the
+        stack's rows it keeps where the rule table splits the layers
+        over the data axes (else None)."""
+        return _layer_cuts(path, tuple(shape), self.mesh, itemsize,
+                           self.fsdp, self.layers, self.coord)
 
 
 def param_shardings(shape_tree, mesh, *, fsdp: bool = True):

@@ -103,6 +103,19 @@ batches by ``batch_specs``).  The HLO of a dense GQA train step under a
     the whole batch's (JAX's ``out_shardings=None``), :func:`gather_vocab`
     gathering the rows over ``data`` after the columns over ``model``.
 
+Where the data axes divide a stacked leaf's depth and none of its wider
+dims, the rule table splits its layers over ``data`` (qwen2.5-14b's 48
+layers on a data axis of 6, yi-9b's on 3): each rank holds L/d whole
+layers, layer l on data rank ``l // (L/d)``.  GSPMD's HLO all-gathers the
+whole stack (in f32) before the layer loop and again for the backward,
+and all-reduces each layer's f32 gradient.  The port moves one layer at
+a time instead: :func:`layer_gather` broadcasts layer l from its owner
+to the data group just before its product (again in the layer's
+recompute), and its f32 gradient is all-reduced over ``data`` and
+rounded once into the owner's row (:class:`_LayerLeaf`); a model's
+entry points see such a leaf's layer as a :class:`Layer`
+(:func:`placed`).
+
 The weight products therefore take f32 weights (a gathered or widened
 leaf) as well as bf16 ones: the product runs on the bf16 values as
 before, and the weight gradient leaves it in f32, for the data axis's
@@ -214,8 +227,9 @@ group.
 :data:`COUNTS` counts the collectives issued here, by axis (``data``
 holds the pod axis's too), and the bytes of their inputs (a
 reduce-scatter's whole input, as XLA counts its operand), in all and by
-kind (``<op>_bytes``; ``backward``: those of them issued by a backward
-pass; ``writes``: decode-cache rows written into this rank's T block),
+kind (``<op>_bytes``, ``broadcast`` among the kinds: a layer moved from
+its owner; ``backward``: those of them issued by a backward pass;
+``writes``: decode-cache rows written into this rank's T block),
 for the serving loop's and the train step's reports (``launch/
 serve.dense_generate``, ``launch/train.make_train_step``);
 ``optim/adamw.py`` adds the ZeRO-1 gathers of updated blocks, the
@@ -246,7 +260,8 @@ from .sharding import rule_template
 
 ROADMAP_ITEM = "ROADMAP Queue 1 item 2"
 AXES = ("model", "data")
-OPS = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter")
+OPS = ("all_reduce", "all_gather", "all_to_all", "reduce_scatter",
+       "broadcast")
 COUNTS = {a: {**{op: 0 for op in OPS}, "bytes": 0, "backward": 0,
               "writes": 0, **{f"{op}_bytes": 0 for op in OPS}}
           for a in AXES}
@@ -745,6 +760,21 @@ class Fsdp(NamedTuple):
     dim: int
 
 
+class Layer(NamedTuple):
+    """Layer ``index`` of a stacked leaf that the rule table splits over
+    ``data`` along its layer dim (FSDP where the data axes divide the
+    depth and no wider dim): ``block`` is this rank's L/d whole layers
+    (over ``data``; its other dims as the rule table cuts them over
+    ``model``), layer l owned by data rank ``l // (L/d)``.  ``row``: on
+    the owner, this layer's view from one ``unbind`` of the block (whose
+    backward stacks the layers' gradients into the block's once); None
+    on the other ranks.  Read through :func:`weight`, which moves that
+    one layer to the data group."""
+    block: torch.Tensor
+    index: int
+    row: torch.Tensor | None = None
+
+
 class _DataLeaf(torch.autograd.Function):
     """A leaf whole over ``data`` (its blocks gathered along ``dim``, or
     itself with ``dim`` None) widened to f32.  Backward: the f32
@@ -789,6 +819,62 @@ def fsdp_gather(block: torch.Tensor, dim: int) -> torch.Tensor:
     return all_gather(block, dim, "data")
 
 
+def _broadcast_layer(w: Layer, group, backward: bool = False
+                     ) -> torch.Tensor:
+    """Layer ``w.index`` of a layer-split leaf on every rank of the data
+    group: the owner's row, broadcast from it (one ``broadcast`` over
+    ``data`` of one layer, counted with its bytes)."""
+    owner, row = divmod(w.index, w.block.shape[0])    # L/d layers a rank
+    if data_rank() == owner:
+        t = (w.block[row] if w.row is None else w.row).contiguous()
+    else:
+        t = torch.empty(w.block.shape[1:], dtype=w.block.dtype,
+                        device=w.block.device)
+    if _sent(t, group):
+        dist.broadcast(t, src=dist.get_global_rank(group, owner),
+                       group=group)
+    _count("data", "broadcast", t, backward)
+    return t
+
+
+class _LayerLeaf(torch.autograd.Function):
+    """One layer of a layer-split leaf, broadcast from its owner and
+    widened to f32.  ``src``: the owner's row (``Layer.row``), else the
+    rank's block, which gets nothing from it.  Backward: the layer's f32
+    gradient, this rank's rows' partial, summed over ``data`` (an
+    all-reduce, as JAX's HLO sums each layer's), rounded once to the
+    leaf's dtype as the owner's row's gradient."""
+
+    @staticmethod
+    def forward(ctx, src, w):
+        ctx.dtype, ctx.owns = src.dtype, w.row is not None
+        ctx.group, ctx.summed = data_group(), rows_split()
+        return _broadcast_layer(w, ctx.group).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = g
+        if g.dtype != torch.float32 or not g.is_contiguous():
+            s = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+            s.copy_(g)
+        if ctx.summed:
+            _all_reduce(s, group=ctx.group, backward=True, axis="data")
+        return (s.to(ctx.dtype) if ctx.owns else None), None
+
+
+def layer_gather(w: Layer) -> torch.Tensor:
+    """Layer ``w.index`` of a leaf split over ``data`` along its layer dim
+    (:class:`Layer`), moved from its owner to the data group just before
+    the product that reads it (again in the layer's recompute, in the
+    same order on every rank); never the whole stack.  Where the block
+    needs a gradient the result is in f32 and its gradient is summed over
+    ``data`` onto the owner's row (:class:`_LayerLeaf`); otherwise it
+    keeps the block's dtype."""
+    if torch.is_grad_enabled() and w.block.requires_grad:
+        return _LayerLeaf.apply(w.block if w.row is None else w.row, w)
+    return _broadcast_layer(w, data_group())
+
+
 class Whole(NamedTuple):
     """A leaf the rule table would split over ``model`` but keeps whole,
     since the dim does not divide the axis (wk and wv where the KV heads
@@ -826,7 +912,8 @@ class _ModelSum(torch.autograd.Function):
 
 def weight(w) -> torch.Tensor:
     """A weight at its use: an :class:`Fsdp` block gathered
-    (:func:`fsdp_gather`); under split rows, a leaf replicated over
+    (:func:`fsdp_gather`); a :class:`Layer` moved from its owner
+    (:func:`layer_gather`); under split rows, a leaf replicated over
     ``data`` that needs a gradient widened to f32, its gradient's partial
     summed over ``data`` and rounded once; a :class:`Whole` leaf read by
     this rank's heads only, its gradient's partial summed over ``model``
@@ -838,6 +925,8 @@ def weight(w) -> torch.Tensor:
         return t
     if isinstance(w, Fsdp):
         return fsdp_gather(w.block, w.dim)
+    if isinstance(w, Layer):
+        return layer_gather(w)
     if rows_split() and torch.is_grad_enabled() and w.requires_grad:
         return _DataLeaf.apply(w, None)
     return w
@@ -851,9 +940,6 @@ def summed_weight(w) -> torch.Tensor:
     return weight(Whole(w, True) if model_size() > 1 else w)
 
 
-_STACKS = re.compile(r"^\['(enc_|dec_)?blocks'\]")
-
-
 @functools.lru_cache(maxsize=64)
 def _placement(key: tuple, sizes: tuple, threshold: int) -> tuple:
     mesh = _Sizes(dict(sizes))
@@ -865,12 +951,7 @@ def _placement(key: tuple, sizes: tuple, threshold: int) -> tuple:
         if local == AX.local_shape(whole, base, mesh):
             out.append((path, model, None))
         elif local == AX.local_shape(whole, full, mesh):
-            dim = SH.data_dim(full)
-            if _STACKS.match(path) and dim == 0:
-                raise NotImplementedError(
-                    f"{path}: the rule table splits the layers over data; "
-                    f"a layer's block is not gathered ({ROADMAP_ITEM})")
-            out.append((path, model, dim))
+            out.append((path, model, SH.data_dim(full)))
         else:
             raise ValueError(f"{path}: {local} is no rank's block of {whole} "
                              f"under the rule table ({base} or {full})")
@@ -985,21 +1066,41 @@ def placed(whole, params: dict, stacks: tuple) -> tuple[dict, dict]:
     """``(top, layers)``: this rank's ``params`` outside the stacked
     ``stacks`` and, by stack, the views of each layer
     (``models/params.unstack``), with every leaf split over ``data`` an
-    :class:`Fsdp` block and every leaf kept whole over ``model`` a
-    :class:`Whole` (:func:`placement` against the whole model's shapes,
-    which ``whole()`` returns, :func:`model_whole`, :func:`layout_view`).
-    With no mesh, the params and their layers as they are."""
+    :class:`Fsdp` block, every stacked leaf split over ``data`` along its
+    layer dim a :class:`Layer` of its block, and every leaf kept whole
+    over ``model`` a :class:`Whole` (:func:`placement` against the whole
+    model's shapes, which ``whole()`` returns, :func:`model_whole`,
+    :func:`layout_view`).  With no mesh, the params and their layers as
+    they are."""
     from repro_torch.models import params as P
     if model_size() == 1 and data_size() == 1:
         return ({k: v for k, v in params.items() if k not in stacks},
                 {k: P.unstack(params[k]) for k in stacks})
-    lay = placement(whole(), params)
-    dims = {path: d for path, _, d in lay if d is not None}
+    full = whole()
+    lay = placement(full, params)
+    layered = {path for path, _, d in lay if d == 0 and SH.STACKS.match(path)}
+    dims = {path: d for path, _, d in lay
+            if d is not None and path not in layered}
     kept = model_whole(lay)
     top = layout_view({k: v for k, v in params.items() if k not in stacks},
                       dims, kept)
-    return top, {k: [layout_view(bp, dims, kept, f"['{k}']", lead=1)
-                     for bp in P.unstack(params[k])] for k in stacks}
+    out = {}
+    for k in stacks:
+        n = P.leaves(full[k])[0].shape[0]
+        views = P.unstack(params[k], n, lambda path, t, k=k: _layers(t, n)
+                          if f"['{k}']{path}" in layered else None)
+        out[k] = [layout_view(bp, dims, kept, f"['{k}']", lead=1)
+                  for bp in views]
+    return top, out
+
+
+def _layers(block: torch.Tensor, n: int) -> list[Layer]:
+    """The n :class:`Layer` views of a layer-split leaf's ``block``, the
+    rank's own rows split with one ``unbind``."""
+    rows = block.unbind(0)
+    lo = data_rank() * len(rows)
+    return [Layer(block, li, rows[li - lo] if 0 <= li - lo < len(rows)
+                  else None) for li in range(n)]
 
 
 def layout_view(tree: dict, dims: dict, whole: dict | None = None,
@@ -1309,8 +1410,8 @@ def check_layout(cfg) -> None:
     every rank.  Refused by name with the ROADMAP item, as JAX refuses
     them: experts that do not divide the model axis (JAX's ``moe_ffn``
     asserts), and, in ``models/moe.py``, rows that do not divide the data
-    axes (JAX's stream constraint raises for them); not laid out yet:
-    FSDP over a stacked leaf's layer dim (:func:`placement`)."""
+    axes (JAX's stream constraint raises for them).  FSDP over a stacked
+    leaf's layer dim is laid out (:class:`Layer`)."""
     m = model_size()
     if cfg.is_moe and cfg.n_experts % m:
         raise NotImplementedError(

@@ -5,19 +5,21 @@ One kernel body (``csrc/paged_attention_tail.cu``) replaces the Pallas
 kernels ``repro/kernels/paged_attention.py:211``
 ``_paged_attention_tail`` (entry point :func:`paged_attention_tail`)
 and ``:153`` ``_paged_attention`` (:func:`paged_attention`, no tail).
-It splits the pages (flash-decoding): one block per (sequence, kv head)
-and split of :func:`split_pages` page-table entries (a warp takes 16
-rows: a page, or half of one over 16 rows), the tail a split of its
-own, each writing its unnormalised softmax state to a scratch buffer
+It splits the rows (flash-decoding): a warp takes a slot of up to 16
+rows, a page being :func:`slots_per_page` slots, a split
+4 slots, the tail's slots splits of their own after the pages', and a
+grid row a group of query heads (G*D over 1024 takes several); each
+split writes its unnormalised softmax state to a scratch buffer
 ``[B*KVH, n_split, G, D+2]`` that this module allocates; a combine pass
-in the same C call merges the splits in index order, so the result is
-the same bits at every launch.  The split count comes from PMAX, not
-from ``lengths`` (that would sync with the host).  The launch is bound
-by the bytes it reads, ``B*KVH*(len + tail)*(2D + 16)``.  It takes the
-shapes :func:`takes` names (D a multiple of 4 up to 256, with its own
-instances at 16, 32, 64 and 128; pages of 4 to 32 rows in steps of 4;
-G*D up to ``MAX_GD``); ``_check`` raises ``ValueError`` for any other,
-and ``PagedKVEngine`` refuses such a shape at construction.  Their
+in the same C call merges the splits in index order, in chunks with a
+running max, so the result is the same bits at every launch.  The split
+count comes from PMAX, not from ``lengths`` (that would sync with the
+host).  The launch is bound by the bytes it reads, ``B*KVH*(len +
+tail)*(2D + 16)``.  It takes every shape the JAX kernels take: any G, D
+and page (D 16, 32, 64 and 128 with instances of their own, any other
+multiple of 4 up to 256 the generic one, any other D a plain body over
+byte rows) and any PMAX; ``_check`` raises ``ValueError`` only for a
+shape no kernel can take (G, D or page below 1).  Their
 plain PyTorch versions are :func:`paged_attention_tail_ref` and
 :func:`paged_attention_ref`; they agree within an f32 tolerance (sums
 in another order, q scaled before rather than after the dot).  Callers
@@ -32,37 +34,32 @@ from . import _build
 from .ref import CompressedKVPages
 from .ref import paged_attention_ref, paged_attention_tail_ref  # noqa: F401
 
-WARP_ROWS = 16           # rows a warp takes: a page, or half of one
-MAX_D = 256              # and a multiple of 4 (4-byte loads of int8 rows)
-MAX_PAGE = 2 * WARP_ROWS  # and a multiple of 4 (P.V takes 4 keys a step)
-MAX_SPLITS = 6000        # the combine keeps 8 bytes a split in shared memory
-MAX_GD = 1024            # a lane keeps G*D / 128 x 4 accumulators
+WARP_ROWS = 16           # rows a warp takes: a slot
+SPLIT_SLOTS = 4          # slots a split (4 warps)
 
 
-def takes(g: int, d: int, page: int) -> bool:
-    """Whether the kernel takes G query heads a kv head, head width D and
-    pages of ``page`` rows (``shape_ok`` in the CUDA source)."""
-    return (d % 4 == 0 and 4 <= d <= MAX_D and page % 4 == 0
-            and 4 <= page <= MAX_PAGE and g >= 1 and g * d <= MAX_GD)
+def shape_ok(g: int, d: int, page: int, pmax: int) -> bool:
+    """Whether any kernel can take the shape: G, D and page of at least
+    one row and PMAX of at least 0 (``shape_ok`` in the CUDA source)."""
+    return g >= 1 and d >= 1 and page >= 1 and pmax >= 0
 
 
-def refusal(name: str, g: int, d: int, page: int) -> str:
-    """The message for a shape :func:`takes` refuses."""
-    return (f"{name} takes D a multiple of 4 up to {MAX_D}, page a "
-            f"multiple of 4 from 4 to {MAX_PAGE} and G*D up to {MAX_GD}; "
-            f"got G={g} D={d} page={page}")
-
-
-def split_pages(page: int) -> int:
-    """Page-table entries a split takes: 4 (a warp each), or 2 when a
-    page is over ``WARP_ROWS`` rows (two warps each)."""
-    return 4 if page <= WARP_ROWS else 2
+def slots_per_page(page: int) -> int:
+    """16-row slots of a page: ceil(page / 16) rounded up to a power of
+    two (a slot's page and row are shifts of its index), the last ones
+    partial or empty where 16 does not divide the page."""
+    n = 1
+    while WARP_ROWS * n < page:
+        n *= 2
+    return n
 
 
 def n_split(pmax: int, tail: bool, page: int) -> int:
-    """Splits of one (sequence, kv head): ceil(PMAX / split_pages), plus
-    the tail."""
-    return -(-pmax // split_pages(page)) + int(tail)
+    """Splits of one (sequence, kv head): ceil(PMAX * slots a page / 4),
+    plus ceil(slots a page / 4) for the tail."""
+    sps = slots_per_page(page)
+    return -(-pmax * sps // SPLIT_SLOTS) + (-(-sps // SPLIT_SLOTS)
+                                            if tail else 0)
 
 
 def _check(q: torch.Tensor, pages: CompressedKVPages,
@@ -76,11 +73,9 @@ def _check(q: torch.Tensor, pages: CompressedKVPages,
     b, kvh, g, d = q.shape
     n_pages, _, page, _ = pages.kd.shape
     pmax = page_table.shape[-1]
-    if not takes(g, d, page):
-        raise ValueError(refusal(name, g, d, page))
-    if n_split(pmax, True, page) > MAX_SPLITS:
-        raise ValueError(f"PMAX = {pmax} gives more than {MAX_SPLITS} "
-                         f"splits")
+    if not shape_ok(g, d, page, pmax):
+        raise ValueError(f"{name}: no kernel takes G={g} D={d} "
+                         f"page={page} PMAX={pmax}")
     f32, i32 = torch.float32, torch.int32
     want = _build.check_tensor
     want(q, "q", f32, (b, kvh, g, d), dev)

@@ -584,8 +584,11 @@ def collectives(counts: dict) -> dict:
     return out
 
 
-def _differs(cfg: ArchConfig, shape: ShapeConfig, mesh, cache) -> list:
-    """How other ranks' programs differ from the traced one's."""
+def _differs(cfg: ArchConfig, shape: ShapeConfig, mesh, cache,
+             layered: list) -> list:
+    """How other ranks' programs differ from the traced one's
+    (``layered``: the leaves split over the data axes along their layer
+    dim)."""
     out = []
     d, sizes = _dp(mesh), mesh_axes(mesh)
     if d > 1 and shape.global_batch % d:
@@ -601,6 +604,11 @@ def _differs(cfg: ArchConfig, shape: ShapeConfig, mesh, cache) -> list:
         out.append(f"the cache is split over T: row t = {t} is written "
                    f"(tp.write_row) by the rank whose T block holds it, "
                    f"model coordinate {t * m // shape.seq_len}")
+    if layered:
+        out.append(f"{len(layered)} leaves are split over the data axes "
+                   f"along their layer dim: layer l of each is broadcast "
+                   f"from the data rank that holds it (tp.layer_gather); "
+                   f"every rank counts the same bytes")
     return out
 
 
@@ -658,7 +666,9 @@ def trace(cfg: ArchConfig, shape: ShapeConfig, mesh, ocfg: AdamWConfig,
         coll = collectives(tp.counts_since(c0))
         held = {"params": _nbytes(params), "opt_state": _nbytes(opt),
                 "inputs": _nbytes(batch) + _nbytes(cache)}
-        differs = _differs(cfg, shape, mesh, cache)
+        differs = _differs(cfg, shape, mesh, cache, [
+            path for path, _, dim in tp.placement(whole, params) if dim == 0
+            and SH.STACKS.match(path)] if d > 1 else [])
     sizes = mesh_axes(mesh)
     row = {
         "arch": cfg.name, "shape": shape.name,

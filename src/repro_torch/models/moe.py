@@ -61,20 +61,23 @@ def init_moe(gen: torch.Generator, d: int, f_expert: int, n_experts: int,
     Experts are drawn one at a time into the stack, so the f32 draw of
     one expert is the largest temporary.  ``block``: a function of a
     stack's name and whole shape giving the slices of each dim a rank
-    keeps (``sharding.Local.block``): every expert is drawn, and the
-    stack holds only the kept experts' kept blocks."""
+    keeps (``sharding.Local.block``; None: none of this layer): every
+    expert is drawn, and the stack holds only the kept experts' kept
+    blocks."""
     p = {"router": L.init_linear(gen, d, n_experts, dtype=torch.float32,
                                  device=device)}
     whole = {"gate": (n_experts, d, f_expert), "up": (n_experts, d, f_expert),
              "down": (n_experts, f_expert, d)}
     cut = {k: block(k, sh) if block else [slice(0, n) for n in sh]
            for k, sh in whole.items()}
-    experts = {k: {"w": torch.empty(tuple(s.stop - s.start for s in c),
-                                    dtype=dtype, device=device)}
-               for k, c in cut.items()}
+    experts = {k: {"w": None if c is None else torch.empty(
+        tuple(s.stop - s.start for s in c), dtype=dtype, device=device)}
+        for k, c in cut.items()}
     for e in range(n_experts):
         one = L.init_mlp(gen, d, f_expert, dtype=dtype, device=device)
         for k, v in one.items():
+            if cut[k] is None:         # a layer this rank keeps none of
+                continue
             lo = cut[k][0]
             if lo.start <= e < lo.stop:
                 experts[k]["w"][e - lo.start] = v["w"][cut[k][1], cut[k][2]]

@@ -12,7 +12,7 @@ through a 16-bit integer view; :func:`to_numpy` goes back.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -83,25 +83,53 @@ def layer(blocks: dict, li: int) -> dict:
     return tree_map(lambda t: t[li], blocks)
 
 
-def unstack(blocks: dict) -> list[dict]:
+def unstack(blocks: dict, n: int | None = None, views=None) -> list[dict]:
     """The stacked [L, ...] blocks as L per-layer trees of views, split
     with one ``unbind`` a leaf (its backward stacks the layers' gradients
-    into the leaf's gradient once)."""
-    split = tree_map(lambda t: t.unbind(0), blocks)
-    n = len(leaves(split)[0])
-    return [tree_map(lambda ts, i=i: ts[i], split) for i in range(n)]
+    into the leaf's gradient once).  ``views(path, leaf)``, where given,
+    may give a leaf's n per-layer views itself (or None for the
+    ``unbind``): a leaf that holds only some of the n layers."""
+    def split(tree: dict, prefix: str) -> dict:
+        out = {}
+        for k, v in tree.items():
+            path = f"{prefix}['{k}']"
+            if isinstance(v, dict):
+                out[k] = split(v, path)
+            else:
+                got = views(path, v) if views else None
+                out[k] = v.unbind(0) if got is None else got
+        return out
+    parts = split(blocks, "")
+    if n is None:
+        n = len(leaves(parts)[0])
+    return [tree_map(lambda ts, i=i: ts[i], parts) for i in range(n)]
+
+
+class Rows(NamedTuple):
+    """One layer of a stack that a rank keeps some layers of
+    (``distributed/sharding.local_params``): ``t`` goes to row ``row`` of
+    a stack of ``n`` rows."""
+    t: torch.Tensor
+    row: int
+    n: int
 
 
 def _stack_into(dst: dict | None, src: dict, li: int, n: int) -> dict:
     """Copy one layer's params into stacked [n, ...] buffers (made on the
     first layer), so the peak is the stack plus one layer; a one-layer
     stack is a view of the layer (arctic's experts at one layer are 27
-    GB)."""
+    GB).  A :class:`Rows` leaf goes to its own row of its own count; a
+    None leaf (a layer this rank does not keep) adds nothing."""
     if dst is None:
         dst = {}
     for k, v in src.items():
         if isinstance(v, dict):
             dst[k] = _stack_into(dst.get(k), v, li, n)
+        elif v is None:
+            continue
+        elif isinstance(v, Rows):
+            dst[k] = _stack_into({k: dst[k]} if k in dst else None,
+                                 {k: v.t}, v.row, v.n)[k]
         elif n == 1:
             dst[k] = v.unsqueeze(0)
         else:

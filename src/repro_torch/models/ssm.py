@@ -333,7 +333,7 @@ def mlstm_aligned(p: dict, n_heads: int) -> bool:
     w = p["up"]["w"]
     if isinstance(w, tp.Whole):
         return False
-    di = (w.block if isinstance(w, tp.Fsdp) else w).shape[-1] * m
+    di = (w.block if isinstance(w, (tp.Fsdp, tp.Layer)) else w).shape[-1] * m
     return (di // n_heads) % m == 0 and (n_heads % m == 0
                                          or m % n_heads == 0)
 

@@ -67,6 +67,7 @@ the final norm runs on the block, which is gathered before the head.
 from __future__ import annotations
 
 import functools
+import itertools
 import math
 from typing import NamedTuple
 
@@ -162,15 +163,32 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
     (arctic-480b's is 26.8 GB).  The draws are the same either way."""
     check_family(cfg)
     device = torch.device(device)
-    keep = local or (lambda t: t)
-    block = local.block if local else None
+    keep = local or (lambda t, layer=None: t)
+    layers = itertools.count()
 
     def one_layer() -> dict:
-        bp = _init_block(cfg, gen, device, block)
-        if block is None or not cfg.is_moe:
-            return keep({"blocks": bp})["blocks"]
+        li = next(layers)
+
+        def block(path: str, shape: tuple) -> list[slice] | None:
+            # the slices this rank keeps of layer li; None: none of it
+            rows, cuts = local.block(path, shape)
+            return cuts if rows is None or rows.start <= li < rows.stop \
+                else None
+        bp = _init_block(cfg, gen, device, block if local else None)
+        if local is None or not cfg.is_moe:
+            return keep({"blocks": bp}, li)["blocks"]
         experts = bp["ffn"].pop("experts")            # cut already
-        bp = keep({"blocks": bp})["blocks"]
+        bp = keep({"blocks": bp}, li)["blocks"]
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+        whole = {"gate": (e, d, f), "up": (e, d, f), "down": (e, f, d)}
+        for k, v in experts.items():
+            # as the layer's stacking takes it: itself, or where the rule
+            # table splits the layers over the data axes its row of this
+            # rank's block (None where the rank keeps none of the layer)
+            rows, _ = local.block(_EXPERTS.format(k), whole[k])
+            if rows is not None and v["w"] is not None:
+                v["w"] = P.Rows(v["w"], li - rows.start,
+                                rows.stop - rows.start)
         bp["ffn"]["experts"] = experts
         return bp
 

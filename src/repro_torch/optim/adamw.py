@@ -267,7 +267,9 @@ def plan(params: dict, whole: dict | None, cfg: AdamWConfig
 
     ZeRO-1 on whole tiles: a rank owns one block of each parameter and
     keeps the moments of exactly that block: an FSDP leaf's data block
-    (``sharding.param_specs(fsdp=True)``); for a leaf whole over ``data``
+    (``sharding.param_specs(fsdp=True)``; for a stacked leaf split along
+    its layer dim, the rank's L/d layers, whose tiles lie inside a
+    layer); for a leaf whole over ``data``
     whose rule-table spec or whose moment's (f32 and bf16 moments have
     the leaf's shape) splits it over ``data``, that dim's block, which it
     updates and then all-gathers over ``data``.  A ``bdi8``/``q8`` leaf

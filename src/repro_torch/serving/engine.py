@@ -81,7 +81,6 @@ import torch
 from repro_torch import codecs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.camp import _pow2_bucket
-from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels._device import resolve_device
 from repro_torch.kernels.ref import softmax_attend
 from repro_torch.models import attention as A
@@ -378,14 +377,6 @@ class PagedKVEngine:
             raise ValueError("prefix cache shape disagrees with the engine")
         self.device = resolve_device(device)
         self.codec = codecs.resolve(codec)
-        # on the card a fused codec decodes through the attention kernel:
-        # refuse here a shape it does not take, not at the first step
-        g = cfg.n_heads // cfg.n_kv_heads
-        if (self.device.type == "cuda" and self.codec.has_fused_kernels
-                and not PA.takes(g, cfg.head_dim, page_size)):
-            raise ValueError(f"{cfg.name} under {self.codec.name}: " +
-                             PA.refusal("paged_attention_tail", g,
-                                        cfg.head_dim, page_size))
         self.cfg = cfg
         self.params = to_device(params, self.device)
         self._layers = [layer(self.params["blocks"], li)

@@ -205,6 +205,27 @@ ATTN_CASES = [
          lengths=[40, 3, 0], tail_len=[8, 2, 0]),
     dict(seed=15, bsz=2, kvh=2, g=3, d=20, page=12, pmax=5, pool=16,
          lengths=[60, 25], tail_len=[12, 7]),
+    # the shapes of the split over 16-row slots: pages of 64 and 128 (a
+    # split a page, half a page), 36 (slots of 16, 16 and 4) and 6 (no
+    # multiple of 4: P.V's padding masked), G 16 at D 128 (two head
+    # groups), D 6 and D 260 (byte rows), and 5,001 splits (the combine
+    # in chunks)
+    dict(seed=16, bsz=3, kvh=2, g=8, d=128, page=64, pmax=5, pool=16,
+         lengths=[320, 0, 65], tail_len=[64, 3, 0]),
+    dict(seed=17, bsz=2, kvh=2, g=8, d=128, page=128, pmax=3, pool=8,
+         lengths=[384, 129], tail_len=[100, 17]),
+    dict(seed=18, bsz=3, kvh=2, g=2, d=168, page=36, pmax=4, pool=14,
+         lengths=[144, 37, 0], tail_len=[36, 0, 20]),
+    dict(seed=19, bsz=2, kvh=2, g=4, d=16, page=6, pmax=6, pool=14,
+         lengths=[35, 6], tail_len=[5, 6]),
+    dict(seed=20, bsz=2, kvh=2, g=16, d=128, page=16, pmax=6, pool=14,
+         lengths=[96, 17], tail_len=[16, 3]),
+    dict(seed=21, bsz=2, kvh=2, g=4, d=6, page=16, pmax=5, pool=12,
+         lengths=[80, 9], tail_len=[3, 16]),
+    dict(seed=22, bsz=2, kvh=2, g=2, d=260, page=16, pmax=5, pool=12,
+         lengths=[80, 9], tail_len=[3, 16]),
+    dict(seed=23, bsz=1, kvh=1, g=2, d=16, page=4, pmax=20000, pool=20001,
+         lengths=[79999], tail_len=[3]),
 ]
 
 
@@ -242,30 +263,48 @@ def test_paged_attention_matches_plain(dev, case):
                                                            lengths))
 
 
-def test_paged_attention_refuses_shapes_it_does_not_take(dev):
+def test_paged_attention_takes_every_shape(dev):
     """D 6 (no multiple of 4), D 260 (over 256), G*D 1056, pages of 36
-    and of 6 rows raise before any launch."""
+    and of 6 rows: each launches and matches the plain version."""
     args = _attn_args(dev, **ATTN_CASES[0])           # G 2, D 16, page 8
     q, pages = args[0], args[1]
     for bad_q in (q[..., :6].contiguous(),            # D 6
                   q.repeat(1, 1, 1, 17)[..., :260].contiguous(),  # D 260
                   q.repeat(1, 1, 33, 1)):             # G 66, D 16: G*D 1056
-        with pytest.raises(ValueError):
-            paged_attention.paged_attention(bad_q, pages, *args[2:4])
+        d = bad_q.shape[-1]
+        pg = ref.compress_kv_pages(
+            *(torch.randn(pages.kd.shape[:3] + (d,), device=dev,
+                          generator=torch.Generator(dev).manual_seed(d))
+              for _ in range(2)))
+        torch.testing.assert_close(
+            paged_attention.paged_attention(bad_q, pg, *args[2:4]),
+            ref.paged_attention_ref(bad_q, pg, *args[2:4]), rtol=1e-4,
+            atol=1e-4, equal_nan=True)
     for rows in (36, 6):
-        bad = ref.CompressedKVPages(*(
+        pg = ref.CompressedKVPages(*(
             t.repeat_interleave(5, dim=2)[:, :, :rows].contiguous()
             for t in pages))
-        with pytest.raises(ValueError):
-            paged_attention.paged_attention(q, bad, *args[2:4])
+        torch.testing.assert_close(
+            paged_attention.paged_attention(q, pg, *args[2:4]),
+            ref.paged_attention_ref(q, pg, *args[2:4]), rtol=1e-4,
+            atol=1e-4, equal_nan=True)
 
 
-def test_engine_refuses_untaken_shape_on_card(dev):
+def test_engine_serves_any_page_on_card(dev):
+    """The engine builds at a page of 36 rows under bdi, whose decode
+    goes through the kernel, and its steps match the CPU's."""
     cfg = get_arch("yi-6b").reduced(n_layers=1)       # D 16, G 2
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(ValueError, match="page=36"):
-        PagedKVEngine(cfg, params, page_size=36, codec="bdi", device=dev)
-    PagedKVEngine(cfg, params, page_size=36, codec="gbdi", device=dev)
+    engines = [PagedKVEngine(cfg, params, page_size=36, codec="bdi",
+                             device=d) for d in (dev, "cpu")]
+    for e in engines:
+        e.add_requests({0: list(range(1, 80)), 1: list(range(3, 40))})
+    before = dict(ops.LAUNCHES)
+    for _ in range(4):
+        got, want = (e.decode_batch() for e in engines)
+        assert got == want
+    assert ops.LAUNCHES["paged_attention_tail"] > \
+        before["paged_attention_tail"]
 
 
 @pytest.mark.parametrize("codec", ["bdi", "gbdi", "adaptive"])

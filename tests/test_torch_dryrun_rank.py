@@ -20,7 +20,14 @@ decode (KV heads 4, as ``tests/test_torch_tp_families.py`` widens them),
 yi-6b decode with a d_ff of 90 and one KV head at 63 positions (the MLP
 whole, the cache over its head dim: ``yi6b-decode-dh``);
 yi-6b train on ``(2, 2)`` and on ``(2, 1, 2)`` (the pod axis) with the
-FSDP threshold lowered to 4 KiB in both packages.
+FSDP threshold lowered to 4 KiB in both packages; yi-6b train at 4
+layers and widths the data axis does not divide (d_model 90, d_ff 150,
+vocab 250) on ``(4, 1)`` at 4 KiB, B = 4, where FSDP splits every matrix
+over its layer dim (``yi6b-train-layers``: the port broadcasts one layer
+at a time from its owner, in bf16, forward and in the recompute, where
+GSPMD all-gathers the whole stack in f32 forward and in the backward;
+each layer's f32 gradient all-reduced in both, the same bytes; FLOPs up
+to the down projection's and the cross-entropy chunk's recompute).
 
 What must match:
 
@@ -72,6 +79,7 @@ What must match:
 """
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -84,6 +92,7 @@ import torch
 
 import _workers  # noqa: F401  (shares the cores among xdist workers)
 
+from repro_torch.checkpoint import store
 from repro_torch.configs.base import SHAPES, ShapeConfig, applicable_shapes
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.distributed import axes as AX
@@ -100,6 +109,10 @@ REPO = Path(__file__).resolve().parents[1]
 B, S = 2, 64
 REAL = 64 << 20
 GQA4 = {"n_kv_heads": 4}
+# 4 layers on a data axis of 4 whose widths it does not divide: FSDP
+# splits every matrix over its layer dim
+LAYERS = {"n_layers": 4, "d_model": 90, "n_heads": 3, "n_kv_heads": 1,
+          "d_ff": 150, "vocab": 250}
 
 
 @pytest.fixture(autouse=True)
@@ -119,25 +132,25 @@ def _m(mesh: tuple) -> int:
     return mesh[-1]
 
 
-def _rows(mesh: tuple) -> int:
+def _rows(mesh: tuple, b: int = B) -> int:
     d = int(np.prod(mesh[:-1]))
-    return B // d if B % d == 0 else B
+    return b // d if b % d == 0 else b
 
 
 # -- FLOP gaps: port - JAX, each from the shapes -----------------------------
 
-def _ce_recompute(cfg, mesh):
+def _ce_recompute(cfg, mesh, b: int = B):
     """The cross-entropy chunk's logits (this rank's vocab block) once
     more, in the backward."""
-    return 2 * _rows(mesh) * S * cfg.d_model * (cfg.vocab // _m(mesh))
+    return 2 * _rows(mesh, b) * S * cfg.d_model * (cfg.vocab // _m(mesh))
 
 
-def _down_recompute(cfg, mesh):
+def _down_recompute(cfg, mesh, b: int = B):
     """Each layer's last product, the row-parallel down projection of its
     dense MLP (of an MoE layer's shared experts), rerun by the recompute."""
     width = cfg.n_shared_experts * cfg.d_ff_expert if cfg.is_moe \
         else cfg.d_ff
-    return cfg.n_layers * 2 * _rows(mesh) * S * cfg.d_model \
+    return cfg.n_layers * 2 * _rows(mesh, b) * S * cfg.d_model \
         * (width // _m(mesh))
 
 
@@ -200,6 +213,23 @@ def _ce_max(cfg, mesh):
     return {"all-reduce": _rows(mesh) * S * 4}
 
 
+def _layer_broadcast(cfg, mesh):
+    """Each layer of each leaf split over ``data`` along its layer dim,
+    broadcast in bf16 from its owner (``tp.layer_gather``), forward and in
+    the layer's recompute, where GSPMD all-gathers the whole stack in f32
+    (the operand: the rank's L/d layers), forward and in the backward."""
+    d = int(np.prod(mesh[:-1]))
+    with threshold("yi6b-train-layers"):
+        one = sum(int(np.prod(w.shape[1:])) for path, w in
+                  store.leaf_paths(get_model(cfg).init(torch.Generator(),
+                                                       "meta"))
+                  if path.startswith("['blocks']") and SH._spec_for(
+                      path, tuple(w.shape), EL.abstract_mesh(
+                          mesh, _names(mesh)), 2, True)[0] == "data")
+    return {"broadcast": 2 * cfg.n_layers * one * 2,
+            "all-gather": -2 * (cfg.n_layers // d) * one * 4}
+
+
 # cell -> (arch, overrides, kind, mesh, FSDP threshold, FLOP gaps,
 #          collective gaps, collectives exact)
 CELLS = {
@@ -229,25 +259,37 @@ CELLS = {
     "yi6b-decode-dh": ("yi-6b", {"d_ff": 90, "n_kv_heads": 1}, "decode",
                        (1, 4), REAL, (_mlp_whole, _v_whole), (_logits_gather,),
                        False),
+    "yi6b-train-layers": ("yi-6b", LAYERS, "train", (4, 1), 4 << 10,
+                          (functools.partial(_ce_recompute, b=4),
+                           functools.partial(_down_recompute, b=4)),
+                          (_layer_broadcast,), True),
 }
 # cells whose sequence is not S: the decode cache of 63 rows and one KV
 # head, whose rows and heads do not divide the model axis of 4, split over
 # its head dim (16)
 SEQ = {"yi6b-decode-dh": 63}
+# cells whose batch is not B: rows that the data axis of 4 divides
+BATCH = {"yi6b-train-layers": 4}
 # cells traced and lowered with the sequence-parallel residual stream
 SP = ("yi6b-train-sp",)
 # the JAX compiles, a process each (about equal shares of the time)
 GROUPS = (("yi6b-train", "yi6b-prefill", "yi6b-decode",
            "yi6b-decode-kv-whole", "seamless-decode", "yi6b-decode-dh"),
-          ("deepseek-train", "xlstm-prefill", "yi6b-train-sp"),
+          ("deepseek-train", "xlstm-prefill", "yi6b-train-sp",
+           "yi6b-train-layers"),
           ("hymba-train", "yi6b-train-dp", "yi6b-train-pod"))
-KINDS = ("all-reduce", "all-gather", "all-to-all", "reduce-scatter")
+KINDS = ("all-reduce", "all-gather", "all-to-all", "reduce-scatter",
+         "broadcast")
 IO = ("argument_size_in_bytes", "output_size_in_bytes",
       "alias_size_in_bytes")
 
 
 def seq(cell: str) -> int:
     return SEQ.get(cell, S)
+
+
+def n_rows(cell: str) -> int:
+    return BATCH.get(cell, B)
 
 
 def cell_cfg(cell: str, package_get_arch=get_arch):
@@ -305,7 +347,7 @@ def jax_cells(cells: list, out: str) -> None:
             named = lambda specs: jax.tree.map(                 # noqa: E731
                 lambda s: jax.sharding.NamedSharding(mesh, s), specs,
                 is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
-            sh = JShape("x", seq(cell), B, kind)
+            sh = JShape("x", seq(cell), n_rows(cell), kind)
             kw = {"enc_len": JF.enc_len_for(cfg, sh)} if cfg.is_encdec \
                 else {}
             with JAX_AX.use_mesh(mesh):
@@ -393,7 +435,8 @@ def jax_rows(tmp_path_factory):
 def port_row(cell: str, coord: dict | None = None) -> dict:
     _, _, kind, shape, _, _, _, _ = CELLS[cell]
     with threshold(cell):
-        return D.trace(cell_cfg(cell), ShapeConfig("x", seq(cell), B, kind),
+        return D.trace(cell_cfg(cell), ShapeConfig("x", seq(cell),
+                                                    n_rows(cell), kind),
                        EL.abstract_mesh(shape, _names(shape), coord),
                        AdamWConfig(), 1, torch.float32, sp=cell in SP)
 

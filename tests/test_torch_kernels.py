@@ -257,6 +257,7 @@ PAGED_CASES = {
 # (cases share shapes where they can: each new shape costs an interpret
 # compile of the Pallas kernel)
 _jax_paged_attention_ref = jax.jit(jax_ref.paged_attention_ref)
+_jax_paged_attention_tail_ref = jax.jit(jax_ref.paged_attention_tail_ref)
 
 
 @pytest.mark.parametrize("case", list(PAGED_CASES))
@@ -305,46 +306,92 @@ def test_cuda_launchers_refuse_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
-# the attention kernel's shapes (the kernel itself runs on the card only)
+# the attention kernel's shapes: every shape the JAX kernels take (the
+# kernel itself runs on the card only; its plain version here is held
+# against JAX's reference at each)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("g,d,page,taken", [
-    (2, 168, 16, True), (2, 168, 32, True), (8, 128, 32, True),
-    (4, 8, 8, True), (3, 20, 12, True), (8, 128, 16, True),
-    (1, 256, 4, True), (4, 256, 32, True), (1, 4, 20, True),
-    (2, 6, 16, False), (2, 260, 16, False), (2, 168, 36, False),
-    (2, 168, 6, False), (66, 16, 8, False), (4, 264, 16, False),
-    (0, 16, 16, False), (2, 16, 0, False)])
-def test_attention_shape_predicate(g, d, page, taken):
-    assert PA.takes(g, d, page) is taken
+def _shape_case(g, d, page, seed):
+    """Two sequences over one or two kv heads at (G, D, page): one past
+    two pages, one empty with a full tail."""
+    return _attn_case(seed=seed, bsz=2, kvh=1 + (g * d <= 512), g=g, d=d,
+                      page=page, pmax=3, pool=8,
+                      lengths=[2 * page + 1, 0], tail_len=[1, page],
+                      scrambled=True)
+
+
+@pytest.mark.parametrize("g,d,page", [
+    (2, 168, 16), (2, 168, 32), (8, 128, 32), (4, 8, 8), (3, 20, 12),
+    (8, 128, 16), (1, 256, 4), (4, 256, 32), (1, 4, 20), (2, 6, 16),
+    (2, 260, 16), (2, 168, 36), (2, 168, 6), (66, 16, 8), (4, 264, 16),
+    (0, 16, 16), (2, 16, 0)])
+def test_plain_attention_matches_jax_at_every_shape(g, d, page):
+    """Pages of 4 to 36 rows, multiples of 4 or not, D from 4 to 264,
+    multiples of 4 or not, G*D up to 1056: the plain version (the spec
+    the kernel is held to on the card) equals JAX's reference.  G or
+    page 0 is no shape at all (``shape_ok``)."""
+    if not g or not page:
+        assert not PA.shape_ok(g, d, page, 3)
+        return
+    assert PA.shape_ok(g, d, page, 3)
+    q, pages, pt, lengths, tk, tv, tlen = _shape_case(g, d, page, g + d)
+    targs = (_t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
+             _t(lengths), _t(tk), _t(tv), _t(tlen))
+    got = ops.paged_attention_tail(*targs).numpy()
+    assert got.shape == q.shape and np.isfinite(got).all()
+    want = _jax_paged_attention_tail_ref(
+        jnp.asarray(q), pages, jnp.asarray(pt), jnp.asarray(lengths),
+        jnp.asarray(tk), jnp.asarray(tv), jnp.asarray(tlen))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=2e-5)
 
 
 def test_attention_split_count_follows_the_page():
-    # 4 table entries a split up to 16 rows a page, 2 above
-    assert [PA.n_split(9, False, p) for p in (4, 16, 20, 32)] == [3, 3, 5, 5]
+    # 4 slots of 16 rows a split: 4 pages up to 16 rows, 2 up to 32, one
+    # at 64; a page of 36 is four slots (the last empty), of 128 eight
+    # (two tail splits)
+    assert [PA.n_split(9, False, p) for p in (4, 16, 20, 32, 36, 64,
+                                              128)] == [3, 3, 5, 5, 9, 9, 18]
     assert PA.n_split(9, True, 32) == 6 and PA.n_split(0, True, 8) == 1
+    assert PA.n_split(2, True, 128) == 6
+    assert PA.n_split(32768, True, 8) == 8193     # Yi-6B-200K at page 8
 
 
 @pytest.mark.parametrize("page", [16, 32])
 def test_every_dense_gqa_config_is_taken(page):
+    """Each dense GQA config's G and D: the plain version equals JAX's
+    reference."""
     served = [c for c in ARCHS.values()
               if c.attn_kind == "gqa" and not c.is_encdec]
     assert {"gemma3-27b", "yi-6b", "qwen2.5-14b"} <= {c.name for c in served}
-    for cfg in served:
-        assert PA.takes(cfg.n_heads // cfg.n_kv_heads, cfg.head_dim,
-                        page), cfg.name
+    for cfg in sorted({(c.n_heads // c.n_kv_heads, c.head_dim)
+                       for c in served}):
+        g, d = cfg
+        assert PA.shape_ok(g, d, page, 3)
+        q, pages, pt, lengths, tk, tv, tlen = _shape_case(g, d, page, page)
+        got = ops.paged_attention_tail(
+            _t(q), ref.CompressedKVPages(*[_t(a) for a in pages]), _t(pt),
+            _t(lengths), _t(tk), _t(tv), _t(tlen)).numpy()
+        want = _jax_paged_attention_tail_ref(
+            jnp.asarray(q), pages, jnp.asarray(pt), jnp.asarray(lengths),
+            jnp.asarray(tk), jnp.asarray(tv), jnp.asarray(tlen))
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                   atol=2e-5, err_msg=str(cfg))
 
 
-def test_engine_refuses_untaken_shape_at_construction(monkeypatch):
-    """On the card, bdi decodes through the attention kernel, so the engine
-    refuses a page it does not take when it is built.  The device is
-    faked: the refusal comes before anything touches it."""
+@pytest.mark.parametrize("page", [36, 64])
+def test_engine_builds_at_any_page(monkeypatch, page):
+    """On the card, bdi decodes through the attention kernel, which takes
+    every page, so the engine refuses none: with the device faked, its
+    construction at pages of 36 and 64 rows gets past every shape check
+    to its first allocation on the card (which fails here, with no CUDA);
+    on the CPU it builds."""
     cfg = get_arch("yi-6b").reduced(n_layers=1)
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = engine_mod.PagedKVEngine(cfg, params, page_size=page, codec="bdi",
+                                   device="cpu")
+    assert eng.page == page and eng.tail_k.shape[3] == page
     monkeypatch.setattr(engine_mod, "resolve_device",
                         lambda device: torch.device("cuda"))
-    g, d = cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    with pytest.raises(ValueError) as err:
-        engine_mod.PagedKVEngine(cfg, params, page_size=36, codec="bdi",
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        engine_mod.PagedKVEngine(cfg, params, page_size=page, codec="bdi",
                                  device="cuda")
-    assert PA.refusal("paged_attention_tail", g, d, 36) in str(err.value)
